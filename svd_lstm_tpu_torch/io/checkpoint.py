@@ -1,0 +1,138 @@
+"""Parameter checkpointing in the JAX package's ``.npz`` format.
+
+Counterpart of ``svd_lstm_tpu/io/checkpoint.py``: a compressed ``.npz`` of
+leaf arrays plus a JSON ``__spec__`` holding the tree (NamedTuple node
+names and tuples; model checkpoints hold nothing else), read with
+``allow_pickle=False``. A checkpoint written by either package loads in the
+other.
+
+The interchange between the two packages is the *numpy tree*: NamedTuples
+whose type names and fields are the JAX package's parameter types, with
+numpy leaves. :func:`to_numpy_tree` turns a port module into one;
+:func:`from_numpy_tree` turns one (or the JAX package's own parameter
+NamedTuples) into port modules, with row-major tensors.
+"""
+
+from __future__ import annotations
+
+import collections
+import json
+import os
+from typing import Any
+
+import numpy as np
+import torch
+
+from svd_lstm_tpu_torch.models.lstm import DenseHead, LSTMLayer, StackedLSTM
+from svd_lstm_tpu_torch.models.reduced import ReducedLayer, ReducedLSTM
+from svd_lstm_tpu_torch.models.singular import SingularLayer, SingularLSTM
+
+_FIELDS = {
+    "DenseParams": ("w", "b"),
+    "LSTMLayerParams": ("W", "U", "b"),
+    "StackedLSTMParams": ("layers", "head"),
+    "SingularLayerParams": ("wl", "ws", "wr", "ul", "us", "ur", "b"),
+    "SingularModelParams": ("layers", "head"),
+    "ReducedLayerParams": ("wB", "wC", "uB", "uC", "b"),
+    "ReducedModelParams": ("layers", "head"),
+}
+# numpy-tree node types, named as the JAX package names its parameter types
+NODE_TYPES = {name: collections.namedtuple(name, fields) for name, fields in _FIELDS.items()}
+
+_MODULE_OF_NODE = {
+    "DenseParams": DenseHead,
+    "LSTMLayerParams": LSTMLayer,
+    "StackedLSTMParams": StackedLSTM,
+    "SingularLayerParams": SingularLayer,
+    "SingularModelParams": SingularLSTM,
+    "ReducedLayerParams": ReducedLayer,
+    "ReducedModelParams": ReducedLSTM,
+}
+_NODE_OF_MODULE = {cls: name for name, cls in _MODULE_OF_NODE.items()}
+
+
+def _unsupported(name: str) -> TypeError:
+    return TypeError(
+        f"checkpoint node type {name!r} is not supported by svd_lstm_tpu_torch "
+        f"yet; supported: {sorted(_FIELDS)}"
+    )
+
+
+def from_numpy_tree(tree: Any, device: str | torch.device = "cpu") -> Any:
+    """NamedTuple parameter tree with array leaves (the JAX package's own
+    types, or :data:`NODE_TYPES`) -> port modules on ``device``. Leaves are
+    copied into float tensors of their own dtype."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        name = type(tree).__name__
+        if name not in _MODULE_OF_NODE:
+            raise _unsupported(name)
+        kids = {k: from_numpy_tree(getattr(tree, k), device) for k in _FIELDS[name]}
+        if "layers" in kids:
+            return _MODULE_OF_NODE[name](kids["layers"], kids["head"])
+        return _MODULE_OF_NODE[name](**kids)
+    if isinstance(tree, tuple):
+        return tuple(from_numpy_tree(v, device) for v in tree)
+    # row-major whatever the source's order (a saved leaf may be Fortran-ordered)
+    return torch.tensor(np.ascontiguousarray(tree), device=device)
+
+
+def to_numpy_tree(module: Any) -> Any:
+    """Port module -> numpy tree (:data:`NODE_TYPES` with numpy leaves)."""
+    if isinstance(module, torch.Tensor):
+        return module.detach().cpu().numpy()
+    if isinstance(module, (torch.nn.ModuleList, torch.nn.ParameterList)):
+        return tuple(to_numpy_tree(m) for m in module)
+    name = _NODE_OF_MODULE.get(type(module))
+    if name is None:
+        raise TypeError(f"cannot convert {type(module).__name__!r} to a numpy tree")
+    return NODE_TYPES[name](**{k: to_numpy_tree(getattr(module, k)) for k in _FIELDS[name]})
+
+
+def _spec_of(obj: Any, leaves: list) -> Any:
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        if type(obj).__name__ not in _FIELDS:
+            raise _unsupported(type(obj).__name__)
+        return {
+            "__node__": type(obj).__name__,
+            "fields": {k: _spec_of(v, leaves) for k, v in obj._asdict().items()},
+        }
+    if isinstance(obj, tuple):
+        return {"__tuple__": [_spec_of(v, leaves) for v in obj]}
+    idx = len(leaves)
+    leaves.append(np.asarray(obj))
+    return {"__leaf__": idx}
+
+
+def _build(spec: Any, leaves) -> Any:
+    if "__leaf__" in spec:
+        return leaves[spec["__leaf__"]]
+    if "__node__" in spec:
+        name = spec["__node__"]
+        if name not in NODE_TYPES:
+            raise _unsupported(name)
+        return NODE_TYPES[name](**{k: _build(v, leaves) for k, v in spec["fields"].items()})
+    if "__tuple__" in spec:
+        return tuple(_build(v, leaves) for v in spec["__tuple__"])
+    raise ValueError(f"bad checkpoint spec node: {spec}")
+
+
+def save_params(path: str, module: Any) -> None:
+    """Save a dense/singular/reduced model to ``path`` (``.npz``; parent
+    dirs are created) in the format ``svd_lstm_tpu.io.checkpoint`` reads."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    leaves: list = []
+    spec = _spec_of(to_numpy_tree(module), leaves)
+    arrays = {f"leaf_{i}": a for i, a in enumerate(leaves)}
+    np.savez_compressed(path, __spec__=json.dumps(spec), **arrays)
+
+
+def load_params(path: str, device: str | torch.device = "cpu") -> Any:
+    """Load a model saved by either package's ``save_params`` onto
+    ``device``. A suffix-less ``path`` falls back to ``path + '.npz'``."""
+    if not os.path.exists(path) and os.path.exists(path + ".npz"):
+        path = path + ".npz"
+    with np.load(path, allow_pickle=False) as z:
+        spec = json.loads(str(z["__spec__"]))
+        n_leaves = sum(1 for k in z.files if k.startswith("leaf_"))
+        leaves = [z[f"leaf_{i}"] for i in range(n_leaves)]
+    return from_numpy_tree(_build(spec, leaves), device)
