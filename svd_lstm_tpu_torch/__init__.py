@@ -1,11 +1,12 @@
 """svd_lstm_tpu_torch — the PyTorch + CUDA port of ``svd_lstm_tpu``.
 
-Batch-1 compress-and-predict on an NVIDIA H100: load a checkpoint, predict
-with the dense model, factorize (U·Σ·Vᵀ), truncate to the exact two-step
-form ``(x·B)·[I|C]``, predict with the reduced model. The batch-1
-recurrences run in hand-written CUDA kernels (``ops/csrc``); everything
-else is plain PyTorch. Weights keep the JAX package's Keras layout and its
-``.npz`` checkpoint format.
+On an NVIDIA H100: train a stacked-LSTM regressor (``fit``), factorize it
+(U·Σ·Vᵀ), fine-tune σ under the Hoyer penalty (``finetune``), truncate to
+the exact two-step form ``(x·B)·[I|C]``, and predict with the dense or the
+reduced model at batch 1. The batch-1 recurrences and the training
+recurrences (forward and backward) run in hand-written CUDA kernels
+(``ops/csrc``); everything else is plain PyTorch. Weights keep the JAX
+package's Keras layout and its ``.npz`` checkpoint format.
 
 Importing the package has no side effects: it imports neither JAX nor the
 JAX package, builds no kernel and changes no global setting.
@@ -13,7 +14,8 @@ JAX package, builds no kernel and changes no global setting.
 
 __version__ = "0.1.0"
 
-from svd_lstm_tpu_torch.api import model_input_dim, predict, valid_impls
+from svd_lstm_tpu_torch.api import exact_matmul, model_input_dim, predict, valid_impls
+from svd_lstm_tpu_torch.config import DataConfig, FactorConfig, ModelConfig, TrainConfig
 from svd_lstm_tpu_torch.factor.svd import (
     factorize_lstm_params,
     make_reduced_model,
@@ -31,6 +33,7 @@ from svd_lstm_tpu_torch.models.lstm import (
     DenseHead,
     LSTMLayer,
     StackedLSTM,
+    init_stacked_lstm,
     stacked_lstm_apply,
 )
 from svd_lstm_tpu_torch.models.reduced import ReducedLayer, ReducedLSTM, reduced_lstm_apply
@@ -40,4 +43,6 @@ from svd_lstm_tpu_torch.models.singular import (
     singular_lstm_apply,
 )
 from svd_lstm_tpu_torch.ops.layouts import reconstruct_dense_model
+from svd_lstm_tpu_torch.train.finetune import finetune
+from svd_lstm_tpu_torch.train.loop import TrainResult, fit
 from svd_lstm_tpu_torch.train.metrics import nrmse, rmse, signaltonoise

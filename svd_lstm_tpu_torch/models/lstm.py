@@ -23,6 +23,7 @@ kernels in ``ops/cuda_lstm.py``.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Sequence, Tuple
 
 import torch
@@ -79,6 +80,34 @@ def gate_update(z: torch.Tensor, c: torch.Tensor) -> Tuple[torch.Tensor, torch.T
     return h_new, c_new
 
 
+def gate_update_bwd(
+    z: torch.Tensor, c_prev: torch.Tensor, c_t: torch.Tensor, dh: torch.Tensor, dc: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Reverse of :func:`gate_update` at one step, from the recomputed
+    pre-activations ``z`` and the saved cell states. ``dh`` must already
+    hold every contribution into h_t (output cotangent, recurrent carry,
+    the layer above). Returns ``(dz, dc_prev)``. The CUDA backward kernels
+    compute the same formula in ``ops/csrc/lstm_train.cu:gate_bwd``."""
+    n = c_prev.shape[-1]
+    zi, zf, zg, zo = torch.split(z, n, dim=-1)
+    i = torch.sigmoid(zi)
+    f = torch.sigmoid(zf)
+    g = torch.tanh(zg)
+    o = torch.sigmoid(zo)
+    tc = torch.tanh(c_t)
+    dc_tot = dc + dh * o * (1.0 - tc * tc)
+    dz = torch.cat(
+        [
+            dc_tot * g * i * (1.0 - i),
+            dc_tot * c_prev * f * (1.0 - f),
+            dc_tot * i * (1.0 - g * g),
+            dh * tc * o * (1.0 - o),
+        ],
+        dim=-1,
+    )
+    return dz, dc_tot * f
+
+
 def scan_recurrence(
     xp: torch.Tensor,
     recurrent_product: Callable[[torch.Tensor], torch.Tensor],
@@ -125,3 +154,58 @@ def stacked_lstm_apply(
     if not return_sequences:
         h = h[:, -1]
     return model.head(h)
+
+
+# ---------------------------------------------------------------------------
+# initialisation (Keras defaults, as the JAX package draws them)
+# ---------------------------------------------------------------------------
+
+def _glorot_uniform(gen: torch.Generator, shape, dtype) -> torch.Tensor:
+    limit = math.sqrt(6.0 / (shape[0] + shape[1]))
+    return torch.empty(shape, dtype=dtype).uniform_(-limit, limit, generator=gen)
+
+
+def _orthogonal(gen: torch.Generator, rows: int, cols: int, dtype) -> torch.Tensor:
+    """The orthogonal initializer of ``jax.nn.initializers.orthogonal``:
+    QR of a standard normal matrix, Q's columns signed by diag(R)."""
+    tall = (max(rows, cols), min(rows, cols))
+    A = torch.randn(tall, dtype=torch.float64, generator=gen)
+    Q, R = torch.linalg.qr(A)
+    Q = Q * torch.sign(torch.diagonal(R))
+    if rows < cols:
+        Q = Q.t()
+    return Q.to(dtype).contiguous()
+
+
+def init_lstm_layer(
+    gen: torch.Generator, input_dim: int, units: int, dtype=torch.float32
+) -> LSTMLayer:
+    """Glorot-uniform W, one orthogonal (n, n) block per gate for U (Keras
+    ``recurrent_initializer='orthogonal'``), forget-gate bias 1 (Keras
+    ``unit_forget_bias``), other biases 0."""
+    W = _glorot_uniform(gen, (input_dim, 4 * units), dtype)
+    U = torch.cat([_orthogonal(gen, units, units, dtype) for _ in range(4)], dim=1)
+    b = torch.zeros(4 * units, dtype=dtype)
+    b[units : 2 * units] = 1.0
+    return LSTMLayer(W, U, b)
+
+
+def init_stacked_lstm(
+    gen: torch.Generator,
+    input_dim: int = 16,
+    units: Sequence[int] = (40, 40, 40, 40),
+    head_dim: int = 1,
+    dtype=torch.float32,
+    device: str | torch.device = "cpu",
+) -> StackedLSTM:
+    """A freshly initialised stack with a Glorot-uniform head and zero head
+    bias. The weights are drawn on the CPU from ``gen`` and then moved to
+    ``device``, so a seed gives the same model on every device. The numbers
+    differ from the JAX package's for the same seed (another generator);
+    the distributions are the same."""
+    layers, d = [], input_dim
+    for n in units:
+        layers.append(init_lstm_layer(gen, d, n, dtype))
+        d = n
+    head = DenseHead(_glorot_uniform(gen, (d, head_dim), dtype), torch.zeros(head_dim, dtype=dtype))
+    return StackedLSTM(layers, head).to(device)

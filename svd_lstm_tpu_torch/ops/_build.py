@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels in ``ops/csrc``.
 
-The sources are compiled at first use with ``nvcc`` into one shared library
-with a plain C interface, which is loaded with ``ctypes`` (no PyTorch
-headers, so the build takes seconds). The library goes into
+The sources are compiled at first use with ``nvcc``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, which is loaded with ``ctypes`` (no PyTorch headers, so
+the build takes seconds). The library goes into
 ``build/kernels/`` at the repository root, under a name keyed by a hash of
 the sources and flags, so an edited source is rebuilt and an unchanged one
 is reused. A missing ``nvcc`` or a failed build raises; nothing degrades to
@@ -27,9 +28,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills of each kernel
 )
+LINK_FLAGS = ("-shared",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,6 +43,16 @@ _SIGNATURES = {
     "reduced_recurrence_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
     # xp, U, h0, c0, out, T, n, stream
     "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # meta, L, x, T, B, d, stream
+    "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _P],
+    # meta, L, x, dh_last, dx, T, B, d, stream
+    "fused_narrow_train_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # A, shift, dz, out, partial, M, p, G, splits, stream
+    "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, W, U, b, h, c, T, B, din, n, stream
+    "wide_layer_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, W, U, b, h, c, dh, dx, dz, dhc, dcc, T, B, din, n, stream
+    "wide_layer_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -67,35 +79,53 @@ def _sources():
 
 
 def _library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsvdlstm_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _failed(cmd: list, code: int, output: str) -> RuntimeError:
+    return RuntimeError(f"nvcc failed (exit {code}):\n{' '.join(cmd)}\n{output}")
+
+
 @functools.cache
 def build() -> dict:
-    """Compile the sources unless a library of the same hash exists.
-    Returns ``{"path", "seconds", "log"}``: the library, the time the build
-    took (0 when it was reused) and the compiler's output."""
+    """Compile the sources unless a library of the same hash exists: one
+    ``nvcc -c`` per source, all at once, then one link. Returns ``{"path",
+    "seconds", "log"}``: the library, the time the build took (0 when it was
+    reused) and the compilers' output."""
     lib = _library_path()
     if lib.exists():
         return {"path": str(lib), "seconds": 0.0, "log": ""}
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
+    try:
+        jobs = []
+        for src, obj in zip(_sources(), objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        done = [(cmd, proc, "".join(proc.communicate())) for cmd, proc in jobs]
+        for cmd, proc, output in done:
+            if proc.returncode != 0:
+                raise _failed(cmd, proc.returncode, output)
+        cmd = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise _failed(cmd, proc.returncode, proc.stdout + proc.stderr)
+        log = "".join(output for _, _, output in done) + proc.stdout + proc.stderr
+        os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
-    return {"path": str(lib), "seconds": seconds, "log": proc.stdout + proc.stderr}
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return {"path": str(lib), "seconds": time.perf_counter() - t0, "log": log}
 
 
 @functools.cache

@@ -1,0 +1,821 @@
+// LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores.
+//
+// Two forward/backward pairs, one per TPU train kernel pair on the training
+// path of svd_lstm_tpu/ops/pallas_train.py, plus one reduction that both
+// backward passes share:
+//
+//   K7  narrow_fwd / narrow_bwd — replace svd_lstm_tpu/ops/pallas_train_fused.py:
+//       _fused_fwd / _fused_bwd (every layer n <= 128, the input <= 128).
+//   K9  wide_fwd_step / wide_bwd_gates + matmul_nt — replace
+//       svd_lstm_tpu/ops/pallas_train_wide.py: _wide_fwd / _wide_bwd (one
+//       layer, n % 128 == 0).
+//   weight_grad (+ sum_splits) — the dW/dU/db accumulation that both TPU
+//       backward kernels carried in VMEM scratch.
+//
+// What differs from the TPU, and what the design does about it:
+//  * The TPU grid walks T in order and carries dW/dU in VMEM across steps.
+//    Here blocks run in parallel in no order, so the backward kernels store
+//    dz = dL/dz (T, B, 4n) per layer in device memory and weight_grad
+//    reduces it afterwards: dW = Σ_t,b inpᵀ·dz, dU = Σ_t,b h_prevᵀ·dz,
+//    db = Σ_t,b dz, in a fixed order (split over M = T·B into at most a few
+//    partial sums that sum_splits adds in order). No atomics, so the
+//    gradients are deterministic. Storing dz is HBM traffic the TPU kernels
+//    avoided: 16 MB per step at 4x40/B=32/T=200, 210 MB per layer at
+//    3x512/B=128/T=200. A later PR keeps the sums on chip.
+//  * K7: batch rows are independent in the forward and in the backward's
+//    carries, so a CTA owns NARROW_ROWS rows and runs the time loop and the
+//    layer loop inside the block (one launch per direction). The 4x40
+//    weights (192 KB, and their transposes in the backward) do not fit in
+//    shared memory beside the state, so they are read through __ldg from
+//    L1/L2 every step; each weight read feeds NARROW_ROWS FMAs. Bound: the
+//    latency of the 56-160-long dots (one weight load each step of the
+//    dot) and of the barriers, per layer-step: ~2.4 us a layer-step forward
+//    at 4x40 on the H100. Only B / NARROW_ROWS CTAs run (8 at B = 32): the
+//    card is mostly idle. Weights resident in shared memory, and more CTAs
+//    per batch, are later work.
+//  * K9: at n = 512, W and U are 8 MB, against 227 KB of shared memory per
+//    block, and every unit's z at step t needs all of h_{t-1}: each step is
+//    a grid-wide dependency. So one launch per time step (the host loop
+//    runs in the C launcher; a CUDA graph is later work) of a tiled kernel:
+//    a CTA owns WIDE_BR rows x WIDE_UJ units and computes the four gate
+//    columns of its units, so the gate update stays in registers. Each
+//    K chunk of the tiles is read into registers before it is stored to
+//    shared memory, and the next chunk's reads are started before this one
+//    is multiplied, so the loads overlap (3.6x faster forward than loading
+//    straight into shared memory). Bound: ~52 us a step forward at n = 512,
+//    B = 128, against 0.5 GFLOP (~10 TFLOP/s): one CTA of 4 warps per SM,
+//    and ~3 launches per step in the backward.
+//  * The cell gradient is one __device__ function, gate_bwd, that both
+//    backward kernels call (the counterpart of models/lstm.py:
+//    gate_update_bwd). expf/tanhf as written, no fast math.
+//
+// Every launcher runs on the stream it is given, allocates nothing, and
+// returns cudaGetLastError() for the Python wrapper to check.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MAX_LAYERS 8
+#define NARROW_ROWS 4
+#define NARROW_MAX_THREADS 512
+#define WIDE_BR 16   // batch rows per CTA
+#define WIDE_UJ 32   // units per CTA (4 gate columns each)
+#define WIDE_KC 32   // reduction chunk
+#define WIDE_THREADS 128
+#define MM_COLS 64   // output columns per CTA of matmul_nt
+#define WG_TP 64     // rows of a weight-gradient tile
+#define WG_TG 64     // columns of a weight-gradient tile
+#define WG_KM 32     // M chunk of a weight-gradient tile
+#define WG_THREADS 256
+
+namespace {
+
+__device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// Forward cell of one (row, unit) from its four gate pre-activations.
+__device__ __forceinline__ void gate_fwd(float zi, float zf, float zg, float zo, float c_prev,
+                                         float& h, float& c) {
+  const float i = sigm(zi);
+  const float f = sigm(zf);
+  const float g = tanhf(zg);
+  const float o = sigm(zo);
+  c = f * c_prev + i * g;
+  h = o * tanhf(c);
+}
+
+// Reverse of gate_fwd at one step (models/lstm.py: gate_update_bwd): from
+// the recomputed pre-activations and the saved cell states, with dh holding
+// every contribution into h_t, writes dz[4] and returns dc_prev.
+__device__ __forceinline__ float gate_bwd(float zi, float zf, float zg, float zo, float c_prev,
+                                          float c_t, float dh, float dc, float* dz) {
+  const float i = sigm(zi);
+  const float f = sigm(zf);
+  const float g = tanhf(zg);
+  const float o = sigm(zo);
+  const float tc = tanhf(c_t);
+  const float dct = dc + dh * o * (1.0f - tc * tc);
+  dz[0] = dct * g * i * (1.0f - i);
+  dz[1] = dct * c_prev * f * (1.0f - f);
+  dz[2] = dct * i * (1.0f - g * g);
+  dz[3] = dh * tc * o * (1.0f - o);
+  return dct * f;
+}
+
+// acc[r] += sum_{j<len} v[r*vs + j] * M[j*ld + col] for the CTA's rows.
+// v lies in shared memory (every thread reads the same address: a
+// broadcast); M is a read-only global matrix read along one column. (An
+// explicit unroll by 8 made K7 slower on the H100: 7.8 -> 9.9 ms forward.)
+__device__ __forceinline__ void dot_rows(const float* v, int vs, const float* __restrict__ M,
+                                         int ld, int col, int len, float* acc) {
+  for (int j = 0; j < len; ++j) {
+    const float w = __ldg(M + (size_t)j * ld + col);
+#pragma unroll
+    for (int r = 0; r < NARROW_ROWS; ++r) acc[r] = fmaf(v[r * vs + j], w, acc[r]);
+  }
+}
+
+struct NarrowLayer {
+  int din, n;
+  const float* W;   // (din, 4n)
+  const float* U;   // (n, 4n)
+  const float* b;   // (4n)
+  const float* Wt;  // (4n, din), backward only
+  const float* Ut;  // (4n, n), backward only
+  float* h;         // (T, B, n): written by the forward, read by the backward
+  float* c;         // (T, B, n)
+  float* dz;        // (T, B, 4n): written by the backward
+};
+
+struct NarrowArgs {
+  int L;
+  NarrowLayer l[MAX_LAYERS];
+};
+
+// ---------------------------------------------------------------------------
+// K7 forward — replaces pallas_train_fused.py:_fused_fwd. The whole stack,
+// per step and per layer: z = inp·W + h·U + b and the gate update, layer i's
+// new h feeding layer i+1 within the step; every layer's h and c go out.
+// Shared memory per row: h and c of every layer, one z (4 nmax), x_t (d).
+// x_{t+1} is staged during the last layer's gate phase of step t, after the
+// barrier that ends layer 0's reads of x_t, so staging adds no barrier.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NARROW_MAX_THREADS)
+narrow_fwd_kernel(NarrowArgs a, const float* __restrict__ x, int T, int B, int d, int zmax) {
+  extern __shared__ float smem[];
+  constexpr int R = NARROW_ROWS;
+  const int row0 = blockIdx.x * R;
+  float* hs[MAX_LAYERS];
+  float* cs[MAX_LAYERS];
+  int off = 0;
+  for (int i = 0; i < a.L; ++i) {
+    hs[i] = smem + off;
+    off += R * a.l[i].n;
+    cs[i] = smem + off;
+    off += R * a.l[i].n;
+  }
+  for (int k = threadIdx.x; k < off; k += blockDim.x) smem[k] = 0.f;
+  float* z = smem + off;  // (R, zmax)
+  float* xs = z + R * zmax;  // (R, d)
+  for (int e = threadIdx.x; e < R * d; e += blockDim.x) {
+    const int r = e / d, j = e % d;
+    xs[e] = row0 + r < B ? x[(size_t)(row0 + r) * d + j] : 0.f;
+  }
+  __syncthreads();
+
+  for (int t = 0; t < T; ++t) {
+    const float* inp = xs;
+    int is = d;
+    for (int i = 0; i < a.L; ++i) {
+      const NarrowLayer& l = a.l[i];
+      const int n = l.n, G = 4 * n;
+      for (int k = threadIdx.x; k < G; k += blockDim.x) {
+        float acc[R];
+        const float bk = __ldg(l.b + k);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = bk;
+        dot_rows(inp, is, l.W, G, k, l.din, acc);
+        dot_rows(hs[i], n, l.U, G, k, n, acc);
+#pragma unroll
+        for (int r = 0; r < R; ++r) z[r * zmax + k] = acc[r];
+      }
+      __syncthreads();
+      for (int e = threadIdx.x; e < R * n; e += blockDim.x) {
+        const int r = e / n, j = e % n;
+        const float* zr = z + r * zmax;
+        float hn, cn;
+        gate_fwd(zr[j], zr[n + j], zr[2 * n + j], zr[3 * n + j], cs[i][e], hn, cn);
+        hs[i][e] = hn;
+        cs[i][e] = cn;
+        if (row0 + r < B) {
+          const size_t o = ((size_t)t * B + row0 + r) * n + j;
+          l.h[o] = hn;
+          l.c[o] = cn;
+        }
+      }
+      if (i == a.L - 1 && t + 1 < T) {
+        for (int e = threadIdx.x; e < R * d; e += blockDim.x) {
+          const int r = e / d, j = e % d;
+          xs[e] = row0 + r < B ? x[((size_t)(t + 1) * B + row0 + r) * d + j] : 0.f;
+        }
+      }
+      __syncthreads();
+      inp = hs[i];
+      is = n;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K7 backward — replaces pallas_train_fused.py:_fused_bwd. Reverse time;
+// per step, top-down through the stack, per layer:
+//   A  stage inp_t (x_t or the layer below's h_t) and h_{t-1};
+//   B  recompute z (remat) and total dh = carry + output cotangent (top
+//      layer) + dz_above·W_aboveᵀ;
+//   C  gate_bwd -> dz (to shared memory and to the layer's dz store), dc;
+//   D  dh carry = dz·Uᵀ;
+// then dx_t = dz_0·W_0ᵀ. The transposes Wᵀ, Uᵀ come from the wrapper, so a
+// thread that owns one output unit reads a contiguous row. dW/dU/db are
+// reduced from the dz stores by weight_grad afterwards.
+// Shared memory per row: dh and dc carries of every layer, z, dz, dz_above
+// (4 nmax each), total dh and h_{t-1} (nmax each), inp_t (imax).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(NARROW_MAX_THREADS)
+narrow_bwd_kernel(NarrowArgs a, const float* __restrict__ x, const float* __restrict__ dhl,
+                  float* __restrict__ dx, int T, int B, int d, int zmax, int nmax, int imax) {
+  extern __shared__ float smem[];
+  constexpr int R = NARROW_ROWS;
+  const int row0 = blockIdx.x * R;
+  float* dhc[MAX_LAYERS];
+  float* dcc[MAX_LAYERS];
+  int off = 0;
+  for (int i = 0; i < a.L; ++i) {
+    dhc[i] = smem + off;
+    off += R * a.l[i].n;
+    dcc[i] = smem + off;
+    off += R * a.l[i].n;
+  }
+  for (int k = threadIdx.x; k < off; k += blockDim.x) smem[k] = 0.f;
+  float* z = smem + off;           // (R, zmax)
+  float* dz = z + R * zmax;        // (R, zmax)
+  float* dzA = dz + R * zmax;      // (R, zmax): dz of the layer above / of layer 0
+  float* dht = dzA + R * zmax;     // (R, nmax)
+  float* hp = dht + R * nmax;      // (R, nmax)
+  float* inp = hp + R * nmax;      // (R, imax)
+  const int nlast = a.l[a.L - 1].n;
+  __syncthreads();
+
+  for (int t = T - 1; t >= 0; --t) {
+    for (int i = a.L - 1; i >= 0; --i) {
+      const NarrowLayer& l = a.l[i];
+      const int n = l.n, G = 4 * n, din = l.din;
+      // A
+      for (int e = threadIdx.x; e < R * din; e += blockDim.x) {
+        const int r = e / din, j = e % din;
+        const int row = row0 + r;
+        float v = 0.f;
+        if (row < B) {
+          const size_t o = ((size_t)t * B + row) * din + j;
+          v = i == 0 ? x[o] : a.l[i - 1].h[o];
+        }
+        inp[r * imax + j] = v;
+      }
+      for (int e = threadIdx.x; e < R * n; e += blockDim.x) {
+        const int r = e / n, j = e % n;
+        const int row = row0 + r;
+        hp[r * nmax + j] = (t > 0 && row < B) ? l.h[((size_t)(t - 1) * B + row) * n + j] : 0.f;
+      }
+      __syncthreads();
+      // B
+      for (int k = threadIdx.x; k < G; k += blockDim.x) {
+        float acc[R];
+        const float bk = __ldg(l.b + k);
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = bk;
+        dot_rows(inp, imax, l.W, G, k, din, acc);
+        dot_rows(hp, nmax, l.U, G, k, n, acc);
+#pragma unroll
+        for (int r = 0; r < R; ++r) z[r * zmax + k] = acc[r];
+      }
+      for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        float acc[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const int row = row0 + r;
+          float v = dhc[i][r * n + j];
+          if (i == a.L - 1 && row < B) v += dhl[((size_t)t * B + row) * nlast + j];
+          acc[r] = v;
+        }
+        if (i < a.L - 1) {
+          const NarrowLayer& up = a.l[i + 1];
+          dot_rows(dzA, zmax, up.Wt, up.din, j, 4 * up.n, acc);
+        }
+#pragma unroll
+        for (int r = 0; r < R; ++r) dht[r * nmax + j] = acc[r];
+      }
+      __syncthreads();
+      // C
+      for (int e = threadIdx.x; e < R * n; e += blockDim.x) {
+        const int r = e / n, j = e % n;
+        const int row = row0 + r;
+        float cp = 0.f, ct = 0.f;
+        if (row < B) {
+          ct = l.c[((size_t)t * B + row) * n + j];
+          if (t > 0) cp = l.c[((size_t)(t - 1) * B + row) * n + j];
+        }
+        const float* zr = z + r * zmax;
+        float g[4];
+        dcc[i][e] = gate_bwd(zr[j], zr[n + j], zr[2 * n + j], zr[3 * n + j], cp, ct,
+                             dht[r * nmax + j], dcc[i][e], g);
+        float* dzr = dz + r * zmax;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) dzr[q * n + j] = g[q];
+        if (row < B) {
+          float* out = l.dz + ((size_t)t * B + row) * G;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) out[q * n + j] = g[q];
+        }
+      }
+      __syncthreads();
+      // D
+      for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        float acc[R];
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[r] = 0.f;
+        dot_rows(dz, zmax, l.Ut, n, j, G, acc);
+#pragma unroll
+        for (int r = 0; r < R; ++r) dhc[i][r * n + j] = acc[r];
+      }
+      float* tmp = dz;
+      dz = dzA;
+      dzA = tmp;
+      __syncthreads();
+    }
+    // dx_t = dz_0·W_0ᵀ (dzA holds layer 0's dz). The next writer of that
+    // buffer comes after at least one more barrier.
+    const NarrowLayer& l0 = a.l[0];
+    for (int j = threadIdx.x; j < d; j += blockDim.x) {
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.f;
+      dot_rows(dzA, zmax, l0.Wt, d, j, 4 * l0.n, acc);
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (row0 + r < B) dx[((size_t)t * B + row0 + r) * d + j] = acc[r];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9, shared by the forward and backward step kernels: for the CTA's tile
+// (WIDE_BR rows from r0, WIDE_UJ units from j0) and this thread's 4 rows
+// (r0 + ty*4 + r) and unit j0 + tx, acc[r][g] += Σ_k in[row][k] · M[k][g*n + j]
+// for k < K. in has row stride ld; M is (K, 4n). Every thread of the CTA
+// must call it (it synchronises).
+// ---------------------------------------------------------------------------
+struct WideSmem {
+  float in[WIDE_KC][WIDE_BR + 1];   // +1: the transposed store is conflict-free
+  float w[WIDE_KC][4][WIDE_UJ];
+};
+
+// One K chunk of the CTA's operand tiles, read into registers: every load of
+// the chunk is started before any is used, and the next chunk's loads are in
+// flight while this one is multiplied (the loop of gates_tile).
+constexpr int WIDE_IN_PER = WIDE_KC * WIDE_BR / WIDE_THREADS;     // 4
+constexpr int WIDE_W_PER = WIDE_KC * 4 * WIDE_UJ / WIDE_THREADS;  // 32
+
+__device__ __forceinline__ void gates_load(const float* __restrict__ in, int ld, int K,
+                                           const float* __restrict__ M, int n, int B, int r0,
+                                           int j0, int k0, float* vin, float* vw) {
+#pragma unroll
+  for (int q = 0; q < WIDE_IN_PER; ++q) {
+    const int e = threadIdx.x + q * WIDE_THREADS;
+    const int row = r0 + e / WIDE_KC, k = k0 + e % WIDE_KC;
+    vin[q] = (row < B && k < K) ? in[(size_t)row * ld + k] : 0.f;
+  }
+#pragma unroll
+  for (int q = 0; q < WIDE_W_PER; ++q) {
+    const int e = threadIdx.x + q * WIDE_THREADS;
+    const int u = e % WIDE_UJ, g = (e / WIDE_UJ) % 4, k = k0 + e / (4 * WIDE_UJ);
+    vw[q] = k < K ? __ldg(M + (size_t)k * 4 * n + g * n + j0 + u) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void gates_store(WideSmem& s, const float* vin, const float* vw) {
+#pragma unroll
+  for (int q = 0; q < WIDE_IN_PER; ++q) {
+    const int e = threadIdx.x + q * WIDE_THREADS;
+    s.in[e % WIDE_KC][e / WIDE_KC] = vin[q];
+  }
+#pragma unroll
+  for (int q = 0; q < WIDE_W_PER; ++q) {
+    const int e = threadIdx.x + q * WIDE_THREADS;
+    s.w[e / (4 * WIDE_UJ)][(e / WIDE_UJ) % 4][e % WIDE_UJ] = vw[q];
+  }
+}
+
+__device__ __forceinline__ void gates_tile(const float* __restrict__ in, int ld, int K,
+                                           const float* __restrict__ M, int n, int B, int r0,
+                                           int j0, WideSmem& s, float acc[4][4]) {
+  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
+  float vin[WIDE_IN_PER], vw[WIDE_W_PER];
+  gates_load(in, ld, K, M, n, B, r0, j0, 0, vin, vw);
+  for (int k0 = 0; k0 < K; k0 += WIDE_KC) {
+    gates_store(s, vin, vw);
+    __syncthreads();
+    if (k0 + WIDE_KC < K) gates_load(in, ld, K, M, n, B, r0, j0, k0 + WIDE_KC, vin, vw);
+#pragma unroll 8
+    for (int kk = 0; kk < WIDE_KC; ++kk) {
+      float v[4], w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[r] = s.in[kk][ty * 4 + r];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) w[g] = s.w[kk][g][tx];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[r][g] = fmaf(v[r], w[g], acc[r][g]);
+    }
+    __syncthreads();
+  }
+}
+
+// acc = x_t·W + h_{t-1}·U for the thread's 4 rows and unit (no bias).
+__device__ __forceinline__ void wide_z(const float* __restrict__ x, const float* __restrict__ W,
+                                       const float* __restrict__ U, const float* __restrict__ h,
+                                       int t, int B, int din, int n, int r0, int j0, WideSmem& s,
+                                       float acc[4][4]) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
+  gates_tile(x + (size_t)t * B * din, din, din, W, n, B, r0, j0, s, acc);
+  if (t > 0) gates_tile(h + (size_t)(t - 1) * B * n, n, n, U, n, B, r0, j0, s, acc);
+}
+
+// ---------------------------------------------------------------------------
+// K9 forward step — replaces pallas_train_wide.py:_wide_fwd at one t:
+// z = x_t·W + h_{t-1}·U + b, gate update, h_t and c_t out.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(WIDE_THREADS)
+wide_fwd_step(const float* __restrict__ x, const float* __restrict__ W, const float* __restrict__ U,
+              const float* __restrict__ b, float* __restrict__ h, float* __restrict__ c, int t,
+              int B, int din, int n) {
+  __shared__ WideSmem s;
+  const int j0 = blockIdx.x * WIDE_UJ, r0 = blockIdx.y * WIDE_BR;
+  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
+  float acc[4][4];
+  wide_z(x, W, U, h, t, B, din, n, r0, j0, s, acc);
+  const int j = j0 + tx;
+  float bg[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) bg[g] = __ldg(b + g * n + j);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + ty * 4 + r;
+    if (row >= B) continue;
+    const float cp = t > 0 ? c[((size_t)(t - 1) * B + row) * n + j] : 0.f;
+    float hn, cn;
+    gate_fwd(acc[r][0] + bg[0], acc[r][1] + bg[1], acc[r][2] + bg[2], acc[r][3] + bg[3], cp, hn,
+             cn);
+    const size_t o = ((size_t)t * B + row) * n + j;
+    h[o] = hn;
+    c[o] = cn;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9 backward, gate phase of one reverse step — part of the replacement of
+// pallas_train_wide.py:_wide_bwd: recompute z for the tile (remat), then
+// gate_bwd with dh = dh_seq[t] + the dh carry, the dc carry updated in place
+// (each element has one owner), dz_t out to the dz store.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(WIDE_THREADS)
+wide_bwd_gates(const float* __restrict__ x, const float* __restrict__ W,
+               const float* __restrict__ U, const float* __restrict__ b,
+               const float* __restrict__ h, const float* __restrict__ c,
+               const float* __restrict__ dh_seq, const float* __restrict__ dhc,
+               float* __restrict__ dcc, float* __restrict__ dz, int t, int B, int din, int n) {
+  __shared__ WideSmem s;
+  const int j0 = blockIdx.x * WIDE_UJ, r0 = blockIdx.y * WIDE_BR;
+  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
+  float acc[4][4];
+  wide_z(x, W, U, h, t, B, din, n, r0, j0, s, acc);
+  const int j = j0 + tx;
+  const int G = 4 * n;
+  float bg[4];
+#pragma unroll
+  for (int g = 0; g < 4; ++g) bg[g] = __ldg(b + g * n + j);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + ty * 4 + r;
+    if (row >= B) continue;
+    const size_t o = ((size_t)t * B + row) * n + j;
+    const float cp = t > 0 ? c[o - (size_t)B * n] : 0.f;
+    const float dh = dh_seq[o] + dhc[(size_t)row * n + j];
+    float g4[4];
+    dcc[(size_t)row * n + j] = gate_bwd(acc[r][0] + bg[0], acc[r][1] + bg[1], acc[r][2] + bg[2],
+                                        acc[r][3] + bg[3], cp, c[o], dh,
+                                        dcc[(size_t)row * n + j], g4);
+    float* out = dz + ((size_t)t * B + row) * G;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) out[q * n + j] = g4[q];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K9 backward, product phase: C (rows, cols) = A (rows, K) · Mᵀ with M
+// (cols, K) row-major — dh carry = dz_t·Uᵀ and dx_t = dz_t·Wᵀ. A CTA owns
+// WIDE_BR rows x MM_COLS columns; a thread owns 4 rows x 2 columns.
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(WIDE_THREADS)
+matmul_nt(const float* __restrict__ A, const float* __restrict__ M, float* __restrict__ C,
+          int rows, int cols, int K) {
+  __shared__ float sa[WIDE_KC][WIDE_BR + 1];
+  __shared__ float sm[WIDE_KC][MM_COLS + 1];
+  const int c0 = blockIdx.x * MM_COLS, r0 = blockIdx.y * WIDE_BR;
+  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
+  constexpr int A_PER = WIDE_KC * WIDE_BR / WIDE_THREADS;   // 4
+  constexpr int M_PER = WIDE_KC * MM_COLS / WIDE_THREADS;   // 16
+  float acc[4][2];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.f;
+  float va[A_PER], vm[M_PER];  // the next chunk, in flight (as in gates_tile)
+  auto load = [&](int k0) {
+#pragma unroll
+    for (int q = 0; q < A_PER; ++q) {
+      const int e = threadIdx.x + q * WIDE_THREADS;
+      const int row = r0 + e / WIDE_KC, k = k0 + e % WIDE_KC;
+      va[q] = (row < rows && k < K) ? A[(size_t)row * K + k] : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < M_PER; ++q) {
+      const int e = threadIdx.x + q * WIDE_THREADS;
+      const int col = c0 + e / WIDE_KC, k = k0 + e % WIDE_KC;
+      vm[q] = (col < cols && k < K) ? __ldg(M + (size_t)col * K + k) : 0.f;
+    }
+  };
+  load(0);
+  for (int k0 = 0; k0 < K; k0 += WIDE_KC) {
+#pragma unroll
+    for (int q = 0; q < A_PER; ++q) {
+      const int e = threadIdx.x + q * WIDE_THREADS;
+      sa[e % WIDE_KC][e / WIDE_KC] = va[q];
+    }
+#pragma unroll
+    for (int q = 0; q < M_PER; ++q) {
+      const int e = threadIdx.x + q * WIDE_THREADS;
+      sm[e % WIDE_KC][e / WIDE_KC] = vm[q];
+    }
+    __syncthreads();
+    if (k0 + WIDE_KC < K) load(k0 + WIDE_KC);
+#pragma unroll 8
+    for (int kk = 0; kk < WIDE_KC; ++kk) {
+      const float m0 = sm[kk][tx], m1 = sm[kk][tx + 32];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float v = sa[kk][ty * 4 + r];
+        acc[r][0] = fmaf(v, m0, acc[r][0]);
+        acc[r][1] = fmaf(v, m1, acc[r][1]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + ty * 4 + r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = c0 + tx + 32 * q;
+      if (col < cols) C[(size_t)row * cols + col] = acc[r][q];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradients, shared by K7 and K9: out (p, G) = Σ_{m<M} a_m ⊗ dz_m,
+// where a_m = A[m - shift] (zero for m < shift: h_prev is h shifted by one
+// step of B rows) or, when A is null, the constant 1 with p = 1 (db). Split
+// over M into gridDim.z contiguous ranges; each split sums its range in
+// order, and sum_splits adds the splits in order. A CTA owns a 64 x 64 tile
+// of out; a thread owns 4 x 4 entries (rows ty + 16p, columns tx + 16q).
+// ---------------------------------------------------------------------------
+__global__ void __launch_bounds__(WG_THREADS)
+weight_grad(const float* __restrict__ A, int shift, const float* __restrict__ dz,
+            float* __restrict__ out, int M, int p, int G, int chunk) {
+  __shared__ float sa[WG_KM][WG_TP];
+  __shared__ float sd[WG_KM][WG_TG];
+  const int g0 = blockIdx.x * WG_TG, a0 = blockIdx.y * WG_TP;
+  const int m_begin = blockIdx.z * chunk;
+  const int m_end = min(M, m_begin + chunk);
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
+  constexpr int A_PER = WG_KM * WG_TP / WG_THREADS;  // 8
+  constexpr int D_PER = WG_KM * WG_TG / WG_THREADS;  // 8
+  float va[A_PER], vd[D_PER];  // the next chunk, in flight (as in gates_tile)
+  auto load = [&](int m0) {
+#pragma unroll
+    for (int q = 0; q < A_PER; ++q) {
+      const int e = threadIdx.x + q * WG_THREADS;
+      const int m = m0 + e / WG_TP, a = a0 + e % WG_TP;
+      float v = 0.f;
+      if (m < m_end && a < p) {
+        if (A == nullptr) {
+          v = 1.f;
+        } else if (m >= shift) {
+          v = A[(size_t)(m - shift) * p + a];
+        }
+      }
+      va[q] = v;
+    }
+#pragma unroll
+    for (int q = 0; q < D_PER; ++q) {
+      const int e = threadIdx.x + q * WG_THREADS;
+      const int m = m0 + e / WG_TG, g = g0 + e % WG_TG;
+      vd[q] = (m < m_end && g < G) ? dz[(size_t)m * G + g] : 0.f;
+    }
+  };
+  load(m_begin);
+  for (int m0 = m_begin; m0 < m_end; m0 += WG_KM) {
+#pragma unroll
+    for (int q = 0; q < A_PER; ++q) {
+      const int e = threadIdx.x + q * WG_THREADS;
+      sa[e / WG_TP][e % WG_TP] = va[q];
+    }
+#pragma unroll
+    for (int q = 0; q < D_PER; ++q) {
+      const int e = threadIdx.x + q * WG_THREADS;
+      sd[e / WG_TG][e % WG_TG] = vd[q];
+    }
+    __syncthreads();
+    if (m0 + WG_KM < m_end) load(m0 + WG_KM);
+#pragma unroll 4
+    for (int mm = 0; mm < WG_KM; ++mm) {
+      float av[4], dv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = sa[mm][ty + 16 * i];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) dv[q] = sd[mm][tx + 16 * q];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = fmaf(av[i], dv[q], acc[i][q]);
+    }
+    __syncthreads();
+  }
+  float* o = out + (size_t)blockIdx.z * p * G;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int a = a0 + ty + 16 * i;
+    if (a >= p) continue;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int g = g0 + tx + 16 * q;
+      if (g < G) o[(size_t)a * G + g] = acc[i][q];
+    }
+  }
+}
+
+// out[i] = Σ_{s<splits} partial[s][i], in order of s.
+__global__ void sum_splits(const float* __restrict__ partial, float* __restrict__ out, int size,
+                           int splits) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < size; i += gridDim.x * blockDim.x) {
+    float v = 0.f;
+    for (int s = 0; s < splits; ++s) v += partial[(size_t)s * size + i];
+    out[i] = v;
+  }
+}
+
+int narrow_threads(int zmax) {
+  int t = ((zmax + 31) / 32) * 32;
+  return t > NARROW_MAX_THREADS ? NARROW_MAX_THREADS : t;
+}
+
+template <typename K>
+cudaError_t prepare_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// meta: L rows of `cols` int64 — din, n, W, U, b, then (cols 7) h, c or
+// (cols 10) Wt, Ut, h, c, dz. Fills a, returns max units or -1.
+int read_layers(const int64_t* meta, int L, int cols, NarrowArgs& a) {
+  if (L < 1 || L > MAX_LAYERS) return -1;
+  a.L = L;
+  int nmax = 0;
+  for (int i = 0; i < L; ++i) {
+    const int64_t* m = meta + (size_t)cols * i;
+    NarrowLayer& l = a.l[i];
+    l.din = (int)m[0];
+    l.n = (int)m[1];
+    l.W = reinterpret_cast<const float*>(m[2]);
+    l.U = reinterpret_cast<const float*>(m[3]);
+    l.b = reinterpret_cast<const float*>(m[4]);
+    if (cols == 7) {
+      l.Wt = nullptr;
+      l.Ut = nullptr;
+      l.h = reinterpret_cast<float*>(m[5]);
+      l.c = reinterpret_cast<float*>(m[6]);
+      l.dz = nullptr;
+    } else {
+      l.Wt = reinterpret_cast<const float*>(m[5]);
+      l.Ut = reinterpret_cast<const float*>(m[6]);
+      l.h = reinterpret_cast<float*>(m[7]);
+      l.c = reinterpret_cast<float*>(m[8]);
+      l.dz = reinterpret_cast<float*>(m[9]);
+    }
+    if (l.n > nmax) nmax = l.n;
+  }
+  return nmax;
+}
+
+}  // namespace
+
+extern "C" {
+
+// meta: L rows of 7 int64 — din, n, W, U, b, h_out, c_out (device pointers).
+int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
+                                  void* stream) {
+  NarrowArgs a;
+  const int nmax = read_layers(meta, L, 7, a);
+  if (nmax < 1) return (int)cudaErrorInvalidValue;
+  int nsum = 0;
+  for (int i = 0; i < L; ++i) nsum += a.l[i].n;
+  const int zmax = 4 * nmax;
+  const size_t smem = (size_t)NARROW_ROWS * (2 * nsum + zmax + d) * sizeof(float);
+  cudaError_t err = prepare_smem(narrow_fwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
+  narrow_fwd_kernel<<<grid, narrow_threads(zmax), smem, (cudaStream_t)stream>>>(
+      a, (const float*)x, T, B, d, zmax);
+  return (int)cudaGetLastError();
+}
+
+// meta: L rows of 10 int64 — din, n, W, U, b, Wt, Ut, h, c, dz_out.
+int fused_narrow_train_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl,
+                                  void* dx, int T, int B, int d, void* stream) {
+  NarrowArgs a;
+  const int nmax = read_layers(meta, L, 10, a);
+  if (nmax < 1) return (int)cudaErrorInvalidValue;
+  int nsum = 0;
+  for (int i = 0; i < L; ++i) nsum += a.l[i].n;
+  const int zmax = 4 * nmax;
+  const int imax = d > nmax ? d : nmax;
+  const size_t smem =
+      (size_t)NARROW_ROWS * (2 * nsum + 3 * zmax + 2 * nmax + imax) * sizeof(float);
+  cudaError_t err = prepare_smem(narrow_bwd_kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
+  narrow_bwd_kernel<<<grid, narrow_threads(zmax), smem, (cudaStream_t)stream>>>(
+      a, (const float*)x, (const float*)dhl, (float*)dx, T, B, d, zmax, nmax, imax);
+  return (int)cudaGetLastError();
+}
+
+// out (p, G) = Σ_m a_m ⊗ dz_m (see weight_grad); partial holds
+// splits·p·G floats when splits > 1 and may be null otherwise.
+int weight_grad_launch(const void* A, int shift, const void* dz, void* out, void* partial, int M,
+                       int p, int G, int splits, void* stream) {
+  if (splits < 1 || (splits > 1 && partial == nullptr)) return (int)cudaErrorInvalidValue;
+  const int chunk = ((M + splits - 1) / splits + WG_KM - 1) / WG_KM * WG_KM;
+  const dim3 grid((G + WG_TG - 1) / WG_TG, (p + WG_TP - 1) / WG_TP, splits);
+  float* dst = splits > 1 ? (float*)partial : (float*)out;
+  weight_grad<<<grid, WG_THREADS, 0, (cudaStream_t)stream>>>((const float*)A, shift,
+                                                             (const float*)dz, dst, M, p, G, chunk);
+  if (splits > 1) {
+    const int size = p * G;
+    const int blocks = (size + 255) / 256 < 1024 ? (size + 255) / 256 : 1024;
+    sum_splits<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)partial, (float*)out, size,
+                                                         splits);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One wide layer forward: T launches of wide_fwd_step in stream order.
+int wide_layer_fwd_launch(const void* x, const void* W, const void* U, const void* b, void* h,
+                          void* c, int T, int B, int din, int n, void* stream) {
+  if (n % WIDE_UJ != 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(n / WIDE_UJ, (B + WIDE_BR - 1) / WIDE_BR);
+  for (int t = 0; t < T; ++t) {
+    wide_fwd_step<<<grid, WIDE_THREADS, 0, (cudaStream_t)stream>>>(
+        (const float*)x, (const float*)W, (const float*)U, (const float*)b, (float*)h, (float*)c,
+        t, B, din, n);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// One wide layer backward, reverse time: per step the gate phase, then the
+// dh carry (skipped at t = 0) and dx_t. dhc and dcc (B, n) must hold zeros
+// on entry; dz (T, B, 4n) receives every step's dz for the weight
+// gradients.
+int wide_layer_bwd_launch(const void* x, const void* W, const void* U, const void* b,
+                          const void* h, const void* c, const void* dh, void* dx, void* dz,
+                          void* dhc, void* dcc, int T, int B, int din, int n, void* stream) {
+  if (n % WIDE_UJ != 0) return (int)cudaErrorInvalidValue;
+  const int G = 4 * n;
+  const dim3 grid_g(n / WIDE_UJ, (B + WIDE_BR - 1) / WIDE_BR);
+  const dim3 grid_h((n + MM_COLS - 1) / MM_COLS, (B + WIDE_BR - 1) / WIDE_BR);
+  const dim3 grid_x((din + MM_COLS - 1) / MM_COLS, (B + WIDE_BR - 1) / WIDE_BR);
+  cudaStream_t s = (cudaStream_t)stream;
+  for (int t = T - 1; t >= 0; --t) {
+    wide_bwd_gates<<<grid_g, WIDE_THREADS, 0, s>>>(
+        (const float*)x, (const float*)W, (const float*)U, (const float*)b, (const float*)h,
+        (const float*)c, (const float*)dh, (const float*)dhc, (float*)dcc, (float*)dz, t, B, din,
+        n);
+    const float* dzt = (const float*)dz + (size_t)t * B * G;
+    if (t > 0)
+      matmul_nt<<<grid_h, WIDE_THREADS, 0, s>>>(dzt, (const float*)U, (float*)dhc, B, n, G);
+    matmul_nt<<<grid_x, WIDE_THREADS, 0, s>>>(dzt, (const float*)W,
+                                              (float*)dx + (size_t)t * B * din, B, din, G);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+}  // extern "C"

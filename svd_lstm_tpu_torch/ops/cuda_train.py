@@ -1,0 +1,461 @@
+"""LSTM training kernels: CUDA wrappers, plain versions, autograd Functions
+and the training dispatch.
+
+Counterpart of ``svd_lstm_tpu/ops/pallas_train_fused.py`` (K7),
+``svd_lstm_tpu/ops/pallas_train_wide.py`` (K9) and the dispatch of
+``svd_lstm_tpu/ops/pallas_train.py``. The kernels are hand-written CUDA in
+``csrc/lstm_train.cu`` (design notes there):
+
+====================== ================================ =================================
+wrapper                plain version                    replaces
+====================== ================================ =================================
+fused_narrow_train_fwd fused_narrow_train_fwd_plain     pallas_train_fused.py:_fused_fwd
+fused_narrow_train_bwd fused_narrow_train_bwd_plain     pallas_train_fused.py:_fused_bwd
+wide_layer_fwd         wide_layer_fwd_plain             pallas_train_wide.py:_wide_fwd
+wide_layer_bwd         wide_layer_bwd_plain             pallas_train_wide.py:_wide_bwd
+====================== ================================ =================================
+
+Layouts are time-major, as the TPU kernels take them: x (T, B, d), every
+layer's h and c (T, B, n). The weights keep the Keras layout, unpadded: the
+128-lane gate padding of the TPU kernels is not carried over, and K9 takes
+the first layer's input width d as a parameter instead of zero-padding it
+to n.
+
+A wrapper checks shapes, contiguity and the kernel's limits, then routes on
+the device of its tensors: CPU tensors take the plain version (float32 or
+float64), CUDA tensors launch the kernel (float32 only) and raise if it
+fails; there is no fallback from the card to the plain version. Each
+wrapper counts its launches in ``<wrapper>.launches``. The kernels compute
+in float32 on the CUDA cores, as the JAX package's kernels do on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, NamedTuple, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from svd_lstm_tpu_torch.models.lstm import gate_update, gate_update_bwd, stacked_lstm_apply
+from svd_lstm_tpu_torch.ops.cuda_lstm import _check_smem, _check_T, _launch, _on_card
+
+SOURCE = "svd_lstm_tpu_torch/ops/csrc/lstm_train.cu"
+# the TPU kernel each wrapper replaces, as file:line of its definition
+REPLACES = {
+    "fused_narrow_train_fwd": "svd_lstm_tpu/ops/pallas_train_fused.py:67",
+    "fused_narrow_train_bwd": "svd_lstm_tpu/ops/pallas_train_fused.py:122",
+    "wide_layer_fwd": "svd_lstm_tpu/ops/pallas_train_wide.py:82",
+    "wide_layer_bwd": "svd_lstm_tpu/ops/pallas_train_wide.py:130",
+}
+NARROW_MAX = 128      # largest layer width and input width of K7
+MAX_LAYERS = 8        # csrc MAX_LAYERS
+NARROW_ROWS = 4       # csrc NARROW_ROWS: batch rows per CTA of K7
+WIDE_ALIGN = 128      # K9 takes n % 128 == 0, as the TPU kernel did
+_SM_COUNT = 132       # H100 SXM: the weight-gradient split fills about two waves
+
+Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (W, U, b)
+
+
+# ---------------------------------------------------------------------------
+# checks
+# ---------------------------------------------------------------------------
+
+def _check(name: str, t: torch.Tensor, shape) -> None:
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+
+
+def _card(tensors: Sequence[torch.Tensor]) -> bool:
+    """True when the tensors lie on the card (then all must be float32),
+    False when they lie on the CPU."""
+    if not _on_card(*tensors):
+        return False
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"the CUDA train kernels take float32, got {t.dtype}")
+    return True
+
+
+def _check_layers(layers: Sequence[Layer], d: int) -> List[int]:
+    if not 1 <= len(layers) <= MAX_LAYERS:
+        raise ValueError(f"fused narrow train: 1 to {MAX_LAYERS} layers, got {len(layers)}")
+    units, din = [], d
+    for i, (W, U, b) in enumerate(layers):
+        n = U.shape[0]
+        _check(f"layers[{i}].W", W, (din, 4 * n))
+        _check(f"layers[{i}].U", U, (n, 4 * n))
+        _check(f"layers[{i}].b", b, (4 * n,))
+        units.append(n)
+        din = n
+    if max(units) > NARROW_MAX or d > NARROW_MAX:
+        raise ValueError(
+            f"fused narrow train: every layer and the input at most {NARROW_MAX} wide, "
+            f"got units {units}, input {d}"
+        )
+    return units
+
+
+def _check_wide(x, W, U, b) -> Tuple[int, int, int, int]:
+    T, B, din = x.shape
+    n = U.shape[0]
+    _check_T("wide layer train", T)
+    _check("x", x, (T, B, din))
+    _check("W", W, (din, 4 * n))
+    _check("U", U, (n, 4 * n))
+    _check("b", b, (4 * n,))
+    if n % WIDE_ALIGN:
+        raise ValueError(f"wide layer train: n % {WIDE_ALIGN} == 0 required, got n = {n}")
+    return T, B, din, n
+
+
+def _ptr(t: torch.Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+# ---------------------------------------------------------------------------
+# plain versions (also the CPU path of every wrapper)
+# ---------------------------------------------------------------------------
+
+def _layer_fwd_plain(x, W, U, b):
+    """One layer over time: h, c (T, B, n) from x (T, B, d)."""
+    T, B, _ = x.shape
+    n = U.shape[0]
+    xp = torch.matmul(x, W) + b
+    h = torch.zeros((B, n), dtype=x.dtype, device=x.device)
+    c = torch.zeros_like(h)
+    hs, cs = [], []
+    for t in range(T):
+        h, c = gate_update(xp[t] + torch.matmul(h, U), c)
+        hs.append(h)
+        cs.append(c)
+    return torch.stack(hs), torch.stack(cs)
+
+
+def _layer_bwd_plain(x, W, U, b, h, c, dh_seq):
+    """Reverse-time backward of one layer through gate_update_bwd (the
+    port of pallas_train.py:_trainable_bwd). Returns (dx, dW, dU, db)."""
+    T, B, _ = x.shape
+    n = U.shape[0]
+    xp = torch.matmul(x, W) + b
+    zeros = torch.zeros((B, n), dtype=x.dtype, device=x.device)
+    h_prev = torch.cat([zeros[None], h[:-1]])
+    c_prev = torch.cat([zeros[None], c[:-1]])
+    Ut = U.t()
+    dh_c, dc = zeros, zeros
+    dzs = [None] * T
+    for t in range(T - 1, -1, -1):
+        z = xp[t] + torch.matmul(h_prev[t], U)  # gate recompute (remat)
+        dz, dc = gate_update_bwd(z, c_prev[t], c[t], dh_seq[t] + dh_c, dc)
+        dh_c = torch.matmul(dz, Ut)
+        dzs[t] = dz
+    dz = torch.stack(dzs)
+    dW = torch.einsum("tbd,tbg->dg", x, dz)
+    dU = torch.einsum("tbn,tbg->ng", h_prev, dz)
+    return torch.matmul(dz, W.t()), dW, dU, dz.sum(dim=(0, 1))
+
+
+def fused_narrow_train_fwd_plain(layers: Sequence[Layer], x: torch.Tensor):
+    """x (T, B, d) -> (hs, cs): every layer's h and c, (T, B, n_l) each."""
+    hs, cs, inp = [], [], x
+    for W, U, b in layers:
+        h, c = _layer_fwd_plain(inp, W, U, b)
+        hs.append(h)
+        cs.append(c)
+        inp = h
+    return hs, cs
+
+
+def fused_narrow_train_bwd_plain(layers: Sequence[Layer], x, hs, cs, dh_last):
+    """Top-down, layer by layer, each layer in reverse time. dh_last (T, B,
+    n_last) is the cotangent on the last layer's h. Returns
+    (dWs, dUs, dbs, dx), the lists in layer order."""
+    L = len(layers)
+    dWs, dUs, dbs = [None] * L, [None] * L, [None] * L
+    dh = dh_last
+    for i in range(L - 1, -1, -1):
+        W, U, b = layers[i]
+        inp = x if i == 0 else hs[i - 1]
+        dh, dWs[i], dUs[i], dbs[i] = _layer_bwd_plain(inp, W, U, b, hs[i], cs[i], dh)
+    return dWs, dUs, dbs, dh
+
+
+def wide_layer_fwd_plain(x, W, U, b):
+    """x (T, B, d) -> h, c (T, B, n)."""
+    return _layer_fwd_plain(x, W, U, b)
+
+
+def wide_layer_bwd_plain(x, W, U, b, h, c, dh_seq):
+    """Returns (dx, dW, dU, db)."""
+    return _layer_bwd_plain(x, W, U, b, h, c, dh_seq)
+
+
+# ---------------------------------------------------------------------------
+# weight gradients on the card (shared by both backward kernels)
+# ---------------------------------------------------------------------------
+
+def _splits(M: int, p: int, G: int) -> int:
+    """How many contiguous ranges of M the weight-gradient sum is split
+    into: enough CTAs for about two waves, each range ≥ 256 rows."""
+    tiles = math.ceil(G / 64) * math.ceil(p / 64)
+    return max(1, min(math.ceil(M / 256), math.ceil(2 * _SM_COUNT / tiles)))
+
+
+def _weight_grad(A: torch.Tensor | None, shift: int, dz: torch.Tensor) -> torch.Tensor:
+    """Σ_m a_m ⊗ dz_m over the rows of dz (M, G): a_m = A[m - shift] (zero
+    for m < shift), or 1 when A is None (then the result is (G,))."""
+    M, G = dz.shape
+    p = 1 if A is None else A.shape[1]
+    S = _splits(M, p, G)
+    out = torch.empty((p, G), dtype=torch.float32, device=dz.device)
+    partial = torch.empty((S, p, G), dtype=torch.float32, device=dz.device) if S > 1 else None
+    _launch("weight_grad", dz.device, _ptr(A), shift, dz.data_ptr(), out.data_ptr(),
+            _ptr(partial), M, p, G, S)
+    return out[0] if A is None else out
+
+
+def _layer_weight_grads(inp, h, dz):
+    """dW = Σ inpᵀ·dz, dU = Σ h_prevᵀ·dz, db = Σ dz for one layer."""
+    T, B, G = dz.shape
+    dz2 = dz.view(T * B, G)
+    return (
+        _weight_grad(inp.view(T * B, -1), 0, dz2),
+        _weight_grad(h.view(T * B, -1), B, dz2),
+        _weight_grad(None, 0, dz2),
+    )
+
+
+# ---------------------------------------------------------------------------
+# K7: narrow whole-stack train pair
+# ---------------------------------------------------------------------------
+
+def fused_narrow_train_fwd(layers: Sequence[Layer], x: torch.Tensor):
+    """Whole-stack forward for narrow stacks (every layer n ≤ 128, d ≤ 128,
+    at most 8 layers). x (T, B, d) -> (hs, cs), (T, B, n_l) per layer."""
+    T, B, d = x.shape
+    _check_T("fused_narrow_train_fwd", T)
+    _check("x", x, (T, B, d))
+    units = _check_layers(layers, d)
+    if not _card([x, *(w for l in layers for w in l)]):
+        return fused_narrow_train_fwd_plain(layers, x)
+    _check_smem("fused_narrow_train_fwd", NARROW_ROWS * (2 * sum(units) + 4 * max(units) + d))
+    hs = [torch.empty((T, B, n), dtype=torch.float32, device=x.device) for n in units]
+    cs = [torch.empty_like(h) for h in hs]
+    meta = np.array(
+        [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), h.data_ptr(),
+          c.data_ptr()] for (W, U, b), h, c in zip(layers, hs, cs)],
+        dtype=np.int64,
+    )
+    _launch("fused_narrow_train_fwd", x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d)
+    fused_narrow_train_fwd.launches += 1
+    return hs, cs
+
+
+fused_narrow_train_fwd.launches = 0
+
+
+def fused_narrow_train_bwd(layers: Sequence[Layer], x, hs, cs, dh_last):
+    """Whole-stack reverse-time backward. dh_last (T, B, n_last) is the
+    cotangent on the last layer's h. Returns (dWs, dUs, dbs, dx)."""
+    T, B, d = x.shape
+    _check_T("fused_narrow_train_bwd", T)
+    _check("x", x, (T, B, d))
+    units = _check_layers(layers, d)
+    if len(hs) != len(layers) or len(cs) != len(layers):
+        raise ValueError("fused_narrow_train_bwd: one h and one c per layer")
+    for i, n in enumerate(units):
+        _check(f"hs[{i}]", hs[i], (T, B, n))
+        _check(f"cs[{i}]", cs[i], (T, B, n))
+    _check("dh_last", dh_last, (T, B, units[-1]))
+    if not _card([x, dh_last, *hs, *cs, *(w for l in layers for w in l)]):
+        return fused_narrow_train_bwd_plain(layers, x, hs, cs, dh_last)
+    nmax = max(units)
+    _check_smem("fused_narrow_train_bwd",
+                NARROW_ROWS * (2 * sum(units) + 14 * nmax + max(d, nmax)))
+    dev = x.device
+    dx = torch.empty((T, B, d), dtype=torch.float32, device=dev)
+    dzs = [torch.empty((T, B, 4 * n), dtype=torch.float32, device=dev) for n in units]
+    Wts = [W.t().contiguous() for W, _, _ in layers]
+    Uts = [U.t().contiguous() for _, U, _ in layers]
+    meta = np.array(
+        [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), Wt.data_ptr(),
+          Ut.data_ptr(), h.data_ptr(), c.data_ptr(), dz.data_ptr()]
+         for (W, U, b), Wt, Ut, h, c, dz in zip(layers, Wts, Uts, hs, cs, dzs)],
+        dtype=np.int64,
+    )
+    _launch("fused_narrow_train_bwd", dev, meta.ctypes.data, len(layers), x.data_ptr(),
+            dh_last.data_ptr(), dx.data_ptr(), T, B, d)
+    grads = [_layer_weight_grads(x if i == 0 else hs[i - 1], hs[i], dzs[i])
+             for i in range(len(layers))]
+    fused_narrow_train_bwd.launches += 1
+    dWs, dUs, dbs = (list(g) for g in zip(*grads))
+    return dWs, dUs, dbs, dx
+
+
+fused_narrow_train_bwd.launches = 0
+
+
+class FusedNarrowTrain(torch.autograd.Function):
+    """Differentiable whole-stack recurrence: (x (T, B, d), W0, U0, b0, W1,
+    ...) -> the last layer's h (T, B, n_last). The forward saves every
+    layer's h and c; the backward is the reverse-time kernel."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        layers = [tuple(weights[i : i + 3]) for i in range(0, len(weights), 3)]
+        hs, cs = fused_narrow_train_fwd(layers, x)
+        ctx.save_for_backward(x, *weights, *hs, *cs)
+        ctx.num_layers = len(layers)
+        return hs[-1]
+
+    @staticmethod
+    def backward(ctx, dh_last):
+        L = ctx.num_layers
+        saved = ctx.saved_tensors
+        x, weights = saved[0], saved[1 : 1 + 3 * L]
+        hs, cs = list(saved[1 + 3 * L : 1 + 4 * L]), list(saved[1 + 4 * L :])
+        layers = [tuple(weights[i : i + 3]) for i in range(0, 3 * L, 3)]
+        dWs, dUs, dbs, dx = fused_narrow_train_bwd(layers, x, hs, cs, dh_last.contiguous())
+        return (dx, *(g for tri in zip(dWs, dUs, dbs) for g in tri))
+
+
+def fused_narrow_train_apply(model, x_seq: torch.Tensor, return_sequences: bool = True):
+    """Whole-stack trainable forward for narrow models. ``model`` has
+    ``layers`` (each with W, U, b) and a ``head``. x_seq (B, T, d) ->
+    (B, T, out), or (B, out) for the last step."""
+    x = x_seq.transpose(0, 1).contiguous()  # (T, B, d)
+    weights = [w.contiguous() for l in model.layers for w in (l.W, l.U, l.b)]
+    h = FusedNarrowTrain.apply(x, *weights)  # (T, B, n)
+    if not return_sequences:
+        return model.head(h[-1])
+    return model.head(h).transpose(0, 1)
+
+
+# ---------------------------------------------------------------------------
+# K9: one wide layer, train pair
+# ---------------------------------------------------------------------------
+
+def wide_layer_fwd(x, W, U, b):
+    """One wide layer (n % 128 == 0): x (T, B, d) -> h, c (T, B, n)."""
+    T, B, din, n = _check_wide(x, W, U, b)
+    if not _card([x, W, U, b]):
+        return wide_layer_fwd_plain(x, W, U, b)
+    h = torch.empty((T, B, n), dtype=torch.float32, device=x.device)
+    c = torch.empty_like(h)
+    _launch("wide_layer_fwd", x.device, x.data_ptr(), W.data_ptr(), U.data_ptr(), b.data_ptr(),
+            h.data_ptr(), c.data_ptr(), T, B, din, n)
+    wide_layer_fwd.launches += 1
+    return h, c
+
+
+wide_layer_fwd.launches = 0
+
+
+def wide_layer_bwd(x, W, U, b, h, c, dh_seq):
+    """Reverse-time backward of one wide layer. Returns (dx, dW, dU, db)."""
+    T, B, din, n = _check_wide(x, W, U, b)
+    for name, t in (("h", h), ("c", c), ("dh_seq", dh_seq)):
+        _check(name, t, (T, B, n))
+    if not _card([x, W, U, b, h, c, dh_seq]):
+        return wide_layer_bwd_plain(x, W, U, b, h, c, dh_seq)
+    dev = x.device
+    dx = torch.empty((T, B, din), dtype=torch.float32, device=dev)
+    dz = torch.empty((T, B, 4 * n), dtype=torch.float32, device=dev)
+    dhc = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    dcc = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    _launch("wide_layer_bwd", dev, x.data_ptr(), W.data_ptr(), U.data_ptr(), b.data_ptr(),
+            h.data_ptr(), c.data_ptr(), dh_seq.data_ptr(), dx.data_ptr(), dz.data_ptr(),
+            dhc.data_ptr(), dcc.data_ptr(), T, B, din, n)
+    dW, dU, db = _layer_weight_grads(x, h, dz)
+    wide_layer_bwd.launches += 1
+    return dx, dW, dU, db
+
+
+wide_layer_bwd.launches = 0
+
+KERNELS = (fused_narrow_train_fwd, fused_narrow_train_bwd, wide_layer_fwd, wide_layer_bwd)
+
+
+class WideLayerTrain(torch.autograd.Function):
+    """Differentiable wide layer: (x (T, B, d), W, U, b) -> h (T, B, n)."""
+
+    @staticmethod
+    def forward(ctx, x, W, U, b):
+        h, c = wide_layer_fwd(x, W, U, b)
+        ctx.save_for_backward(x, W, U, b, h, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        return wide_layer_bwd(*ctx.saved_tensors, dh.contiguous())
+
+
+def wide_layer_trainable(x, W, U, b):
+    """Differentiable fused LSTM layer, n % 128 == 0: x (T, B, d) time-major
+    -> h_seq (T, B, n); gradients flow to all four inputs."""
+    return WideLayerTrain.apply(x.contiguous(), W.contiguous(), U.contiguous(), b.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# the training dispatch
+# ---------------------------------------------------------------------------
+
+class LayerView(NamedTuple):
+    """A layer's (W, U, b) as plain tensors, which may be the output of a
+    differentiable reconstruction (the singular fine-tune)."""
+
+    W: torch.Tensor
+    U: torch.Tensor
+    b: torch.Tensor
+
+    @property
+    def units(self) -> int:
+        return self.U.shape[0]
+
+
+class DenseView(NamedTuple):
+    layers: Tuple[LayerView, ...]
+    head: torch.nn.Module
+
+
+def is_narrow(model, d_in: int) -> bool:
+    """Eligibility for the whole-stack narrow kernels: every layer and the
+    input at most 128 wide."""
+    return all(l.units <= NARROW_MAX for l in model.layers) and d_in <= NARROW_MAX
+
+
+def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: bool = True):
+    """Drop-in training apply for ``fit`` that runs the recurrences through
+    the train kernels. ``model`` is a ``StackedLSTM`` or a ``DenseView``.
+
+    * **narrow stack** (every layer n ≤ 128, input ≤ 128): one whole-stack
+      kernel per direction (K7, :func:`fused_narrow_train_apply`).
+    * **uniform wide stack** (≥ 2 layers, all the same n, n % 128 == 0,
+      input ≤ n): the fused layer kernel (K9) layer by layer; the first
+      layer takes its input width as it is.
+    * otherwise, including the JAX package's "exactly one aligned layer"
+      branch, which ran the recurrence-only kernel K6 on the TPU: the plain
+      autograd scan, until K6 is ported (ROADMAP queue 2).
+
+    The TPU workarounds of the JAX dispatch (batch chunking past B = 512,
+    the B % 8 condition, ``wide_fused``) are not carried over.
+    x_seq (B, T, d) -> (B, T, out), or (B, out) for the last step.
+    """
+    units = [l.units for l in model.layers]
+    d_in = x_seq.shape[-1]
+    if is_narrow(model, d_in):
+        return fused_narrow_train_apply(model, x_seq, return_sequences)
+    n0 = units[0]
+    uniform = len(units) >= 2 and all(u == n0 for u in units) and n0 % WIDE_ALIGN == 0 and d_in <= n0
+    if not uniform:
+        return stacked_lstm_apply(model, x_seq, return_sequences)
+    h = x_seq.transpose(0, 1)  # (T, B, d)
+    for l in model.layers:
+        h = wide_layer_trainable(h, l.W, l.U, l.b)
+    if not return_sequences:
+        return model.head(h[-1])
+    return model.head(h).transpose(0, 1)

@@ -175,6 +175,8 @@ def test_import_loads_no_jax():
         "import sys, torch\n"
         "prec = torch.get_float32_matmul_precision()\n"
         "import svd_lstm_tpu_torch\n"
+        "import svd_lstm_tpu_torch.data, svd_lstm_tpu_torch.train.loop, svd_lstm_tpu_torch.train.finetune\n"
+        "import svd_lstm_tpu_torch.ops.cuda_train, svd_lstm_tpu_torch.ops.singular_train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'svd_lstm_tpu')]\n"
         "assert not bad, bad\n"
         "assert torch.get_float32_matmul_precision() == prec\n"
