@@ -11,11 +11,17 @@ Phases, each of which raises on failure (no phase is caught):
 1. the card's name and power limit (``nvidia-smi``);
 2. build the CUDA kernels from ``svd_lstm_tpu_torch/ops/csrc`` and print the
    build time and the compiler's resource report;
-3. check each kernel against its plain PyTorch version on the card at the
-   main path's shapes (T = 6656, d = 16, TF32 off): max abs difference at
-   most 5e-4 (the layout-exactness bound of ``bench.py``: the sum order
-   differs from the plain version and the error grows over 6656 steps), and
-   time both;
+3. check each batch-1 kernel against its plain PyTorch version on the card
+   at the main path's shapes (T = 6656, d = 16, TF32 off): max abs
+   difference at most 5e-4 (the layout-exactness bound of ``bench.py``: the
+   sum order differs from the plain version and the error grows over 6656
+   steps), and time both;
+3b. check K5 (the batched fast-mode recurrence) against its plain version on
+   every layer of the 3×512 and the 4×30 checkpoints at B = 256, T = 128:
+   within 2 bf16 ulps of max |h| (the rounding of the bf16 output) or twice
+   the plain version's distance from the same recurrence with float64 state,
+   whichever is larger (a float32 sum order that flips the rounding of one
+   bf16 h carries on to the next steps, as in ``check_state``); time both;
 4. drive the main path through the public entry points — ``load_params`` →
    ``predict(dense)`` → ``make_singular_model`` → ``make_reduced_model`` →
    ``predict(reduced)`` — on the 3×512 checkpoint (merged, r=24) and the 4×30
@@ -24,6 +30,14 @@ Phases, each of which raises on failure (no phase is caught):
    float32 error of the float64 plain scan), that
    every kernel's launch count rose during this run, and time dense and
    reduced ``predict``;
+4b. drive batched inference through ``predict(model, x (B, T, d),
+   precision=...)`` at B = 256, T = 128: ``"fast"`` on the 3×512 checkpoint,
+   on ``wide_r24_progressive`` (reconstructed to dense) and on the 4×30
+   checkpoint, ``"high"`` on the 3×512 one; check that K5 was launched, and
+   each output against ``precision="exact"`` on the card: relative Frobenius
+   error within the fast band of the JAX tests (2e-2 for the wide models,
+   3e-2 for the narrow one; "high" is held to 2e-2 as well); time fast, high
+   and exact;
 5. check the train kernels against their plain versions on the card at the
    training path's shapes (K7 at 4×40, B = 32; K9 on a 512-unit layer and on
    the first layer, d = 16, B = 128; T = 200): h and c within 1e-4 or twice
@@ -31,23 +45,35 @@ Phases, each of which raises on failure (no phase is caught):
    larger (the cell state is unbounded and drifts by its ulps), every
    gradient within 1e-3 × its largest plain value (a weight gradient sums
    T·B products in another order), and time forward and backward;
+5b. the same for K6 (the recurrence-only train pair) at run D's shapes
+   (n = 512, B = 128, T = 200);
 6. drive the training path through the public entry points, on windows of
    the package's deterministic DROPBEAR surrogate: run A ``fit`` of a fresh
    4×40 stack (K7), run B ``finetune`` of σ under the Hoyer penalty on the
    factorized 4×30 checkpoint (K7 through the differentiable
    reconstruction), then ``make_reduced_model(cutoff=0.05)`` → ``predict``
-   (K1), run C ``fit`` of the 3×512 checkpoint (K9 per layer); check that
-   each run launched its kernels, that every loss is finite, that the
-   fine-tune froze the factors and moved σ, and the reduced output;
+   (K1), run C ``fit`` of the 3×512 checkpoint (K9 per layer), run D ``fit``
+   of a fresh one-layer 512-unit stack (K6: one 128-aligned layer, not a
+   uniform stack); check that each run launched its kernels, that every
+   loss is finite, that the fine-tune froze the factors and moved σ, and the
+   reduced output;
 7. hold each run against the same run with ``recurrence_kernel=False`` (the
    plain autograd scan): the first step's loss and gradients under the
    tolerances of 5, the loss histories within rtol 1e-3; time one train
    step of each.
 
+Beside each kernel the script times one PyTorch library call that computes
+the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
+the port never calls it) as the kernel's yardstick, ``library_ms``, and
+computes the kernel's bound: the larger of its operations over the H100's
+peak (67 TFLOP/s float32 on the CUDA cores, 989 TFLOP/s bf16) and its bytes
+(each input read once, each output written once) over 3.35 TB/s.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -66,6 +92,7 @@ from svd_lstm_tpu_torch.bench.timing import time_full_vs_reduced
 from svd_lstm_tpu_torch.data import preprocess_raw, split_train_random, synthetic_dropbear_raw
 from svd_lstm_tpu_torch.models.reduced import reduced_projection
 from svd_lstm_tpu_torch.ops import _build
+from svd_lstm_tpu_torch.ops import cuda_batched as cb
 from svd_lstm_tpu_torch.ops import cuda_lstm as ck
 from svd_lstm_tpu_torch.ops import cuda_train as ct
 from svd_lstm_tpu_torch.train.finetune import make_finetune_optimizer, regularization_loss
@@ -80,6 +107,10 @@ TRAIN_T = 200       # window length of the training path
 FWD_TOL = 1e-4      # train kernels vs plain: h and c, max abs diff (floor; see check_state)
 GRAD_RTOL = 1e-3    # every gradient: max abs diff <= GRAD_RTOL * max |plain gradient|
 HIST_RTOL = 1e-3    # loss histories, kernel runs vs plain runs
+BATCH_B, BATCH_T = 256, 128  # batched inference: the JAX package's throughput point
+FAST_BAND = {"wide": 2e-2, "narrow": 3e-2}  # rel. Frobenius error vs exact (tests/test_pallas_batched.py)
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
+HBM_BYTES_PER_S = 3.35e12
 SAVES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "model_saves")
 DENSE_30 = os.path.join(SAVES, "pretrained_30units_v4_n1.5.npz")
 DENSE_512 = os.path.join(SAVES, "pretrained_3x512_n1.5.npz")
@@ -129,6 +160,96 @@ def build_kernels():
             log(f"[build] {line.strip()}")
 
 
+# ---------------------------------------------------------------------------
+# bounds and library yardsticks
+# ---------------------------------------------------------------------------
+
+def nbytes(*tensors) -> int:
+    """Bytes of the tensors (nested lists and tuples allowed)."""
+    total = 0
+    for t in tensors:
+        total += nbytes(*t) if isinstance(t, (list, tuple)) else t.numel() * t.element_size()
+    return total
+
+
+def bound(flops: float, moved: int, dtype=torch.float32) -> dict:
+    """The least time the card could take: the larger of the operations over
+    the peak rate of their type and the bytes (each input read once, each
+    output written once) over the memory rate. The gate nonlinearities are
+    left out of the operations: a few per output element against the
+    hundreds to thousands of multiply-adds of each step's products."""
+    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
+    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def lstm_flops(T: int, B: int, layers) -> int:
+    """Multiply-adds ×2 of a forward over T steps of B rows through layers
+    given as (input width, units): z = x·W + h·U. A backward does three
+    times as much (the recomputed z, the products into dh and dx, and the
+    weight-gradient sums)."""
+    return sum(2 * T * B * (din + n) * 4 * n for din, n in layers)
+
+
+def stack_shape(model, d: int):
+    out, din = [], d
+    for l in model.layers:
+        out.append((din, l.units))
+        din = l.units
+    return out
+
+
+def cudnn_lstm(layers, dev, dtype=torch.float32) -> torch.nn.LSTM:
+    """cuDNN's LSTM holding the layers' (W, U, b): weight_ih = Wᵀ, weight_hh =
+    Uᵀ, bias_ih = b, bias_hh = 0 (its gate order i, f, g, o is the Keras
+    order of the port). Every layer must have the same width."""
+    d, n = layers[0][0].shape[0], layers[0][1].shape[0]
+    lstm = torch.nn.LSTM(d, n, num_layers=len(layers)).to(dev, dtype)
+    with torch.no_grad():
+        for i, (W, U, b) in enumerate(layers):
+            getattr(lstm, f"weight_ih_l{i}").copy_(W.t())
+            getattr(lstm, f"weight_hh_l{i}").copy_(U.t())
+            getattr(lstm, f"bias_ih_l{i}").copy_(b)
+            getattr(lstm, f"bias_hh_l{i}").zero_()
+    lstm.flatten_parameters()
+    return lstm
+
+
+@contextlib.contextmanager
+def cudnn_exact():
+    """cuDNN's float32 RNNs default to TF32 (not exact mode): off inside."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def library_forward(name: str, layers, x: torch.Tensor, want: torch.Tensor, head=None) -> float:
+    """Time of one cuDNN LSTM forward (x time-major) with the layers'
+    weights; logs its distance from the port's h (or, with ``head``, from
+    its read-out), a check of the weight mapping, for information."""
+    lstm = cudnn_lstm(layers, x.device, x.dtype)
+    with cudnn_exact(), torch.no_grad():
+        out = lstm(x)[0]
+        out = out if head is None else head(out)
+        log(f"[info] {name}: cuDNN LSTM vs the port, max abs diff {max_err(out.float(), want.float()):.3e}")
+        return device_time_ms(lambda: lstm(x))
+
+
+def library_train(layers, x: torch.Tensor, dh: torch.Tensor) -> tuple:
+    """Times of one cuDNN LSTM forward with autograd on, and of its backward
+    from dh (every gradient: weights and input), float32 with TF32 off."""
+    lstm = cudnn_lstm(layers, x.device)
+    x = x.detach().requires_grad_(True)
+    with cudnn_exact(), torch.enable_grad():
+        fwd_ms = device_time_ms(lambda: lstm(x))
+        out = lstm(x)[0]
+        bwd_ms = device_time_ms(lambda: torch.autograd.backward(out, dh, retain_graph=True))
+    return fwd_ms, bwd_ms
+
+
 def recurrence_args(l):
     """What a layer's recurrence kernel takes after xp."""
     if isinstance(l, P.LSTMLayer):
@@ -149,8 +270,10 @@ def layer_runs(model, x, proj, plain):
 
 
 def kernel_checks(dev, x):
-    """Phase 3: every kernel against its plain version at main-path shapes."""
+    """Phase 3: every batch-1 kernel against its plain version at main-path
+    shapes, timed beside its bound and its library yardstick."""
     results = {}
+    Tx, d = x.shape
 
     # K1: 4x30 dense, and its split r=15 truncation reconstructed to dense
     m30 = P.load_params(DENSE_30, device=dev)
@@ -163,6 +286,11 @@ def kernel_checks(dev, x):
         "max_abs_err": err,
         "ms": device_time_ms(ck.fused_dense_stack, m30, x),
         "plain_ms": device_time_ms(ck.fused_dense_stack_plain, m30, x),
+        # cuDNN runs the stack without the head (one (T, 30)·(30, 1) product)
+        "library_ms": library_forward("K1 4x30", [(l.W, l.U, l.b) for l in m30.layers], x[:, None],
+                                      ck.fused_dense_stack(m30, x)[:, None], m30.head),
+        **bound(lstm_flops(Tx, 1, stack_shape(m30, d)) + 2 * Tx * 30,
+                nbytes(x, [p for p in m30.parameters()]) + 4 * Tx),
         "shape": "4x30, T=6656, d=16",
     }
 
@@ -171,11 +299,17 @@ def kernel_checks(dev, x):
     runs = layer_runs(m512, x, lambda l, h: torch.matmul(h, l.W), ck.lstm_recurrence_plain)
     err = max(check_close(f"K3 lstm_recurrence 3x512 layer {i}", ck.lstm_recurrence(xp, l.U), h, TOL)
               for i, (l, xp, h) in enumerate(runs))
-    l0, xp0, _ = runs[0]
+    l0, xp0, h0 = runs[0]
+    n = l0.units
+    with_x = device_time_ms(lambda: ck.lstm_recurrence((torch.matmul(x, l0.W) + l0.b).contiguous(), l0.U))
+    log(f"[time] K3 with its x-side product (what cuDNN computes): {with_x:.3f} ms")
     results["lstm_recurrence"] = {
         "max_abs_err": err,
         "ms": device_time_ms(ck.lstm_recurrence, xp0, l0.U),
         "plain_ms": device_time_ms(ck.lstm_recurrence_plain, xp0, l0.U),
+        # cuDNN also computes the x-side product x·W + b (d = 16)
+        "library_ms": library_forward("K3 512", [(l0.W, l0.U, l0.b)], x[:, None], h0[:, None]),
+        **bound(lstm_flops(Tx, 1, [(0, n)]), nbytes(xp0, l0.U, h0)),
         "shape": "one 512-unit layer, T=6656",
     }
 
@@ -190,16 +324,83 @@ def kernel_checks(dev, x):
             args = (xp, *recurrence_args(l))
             err = max(err, check_close(f"K2 reduced_recurrence {name} layer {i}",
                                        ck.reduced_recurrence(*args), h, TOL))
-            timed = timed or args
+            timed = timed or (args, h)
+    args, h = timed
+    r = args[1].shape[1]
     results["reduced_recurrence"] = {
         "max_abs_err": err,
-        "ms": device_time_ms(ck.reduced_recurrence, *timed),
-        "plain_ms": device_time_ms(ck.reduced_recurrence_plain, *timed),
+        "ms": device_time_ms(ck.reduced_recurrence, *args),
+        "plain_ms": device_time_ms(ck.reduced_recurrence_plain, *args),
+        "library_ms": None,  # no single PyTorch call runs the two-step recurrence (h·B)·[I|C]
+        **bound(2 * Tx * (n * r + r * (4 * n - r)), nbytes(*args, h)),
         "shape": "one 512-unit layer, merged r=24, T=6656",
     }
     for name, r in results.items():
-        log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+        log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return results
+
+
+def batched_layer_inputs(model, x):
+    """Per layer of a batched fast forward: (layer, xp (T, B, 4n) bf16, the
+    plain K5 h). Each layer's xp comes from the plain h of the layer below,
+    as ops/cuda_batched.batched_forward_fast computes it."""
+    out, h = [], x.transpose(0, 1).to(torch.bfloat16)
+    for l in model.layers:
+        xp = (torch.matmul(h, l.W.to(torch.bfloat16)) + l.b.to(torch.bfloat16)).contiguous()
+        h = cb.batched_lstm_recurrence_plain(xp, l.U)
+        out.append((l, xp, h))
+    return out
+
+
+def bf16_ulp(v: float) -> float:
+    """One bf16 ulp at |v| (8 significant bits)."""
+    return 2.0 ** (np.floor(np.log2(v)) - 7)
+
+
+def check_k5(name: str, got, xp, U, plain) -> float:
+    """K5's h against the plain version: within 2 bf16 ulps of max |h| (the
+    output's own rounding) or twice the plain version's distance from the
+    same recurrence run with float64 state, whichever is larger — a float32
+    sum order that flips one bf16 rounding of h carries on through the
+    later steps, as the float32 drift does in check_state."""
+    drift = max_err(plain.double(), cb.batched_lstm_recurrence_plain(xp.double(), U.double()))
+    ulps = 2 * bf16_ulp(float(plain.float().abs().max()))
+    log(f"[info] {name}: 2 bf16 ulps of max |h| {ulps:.3e}, plain vs float64 state {drift:.3e}")
+    return check_close(name, got.float(), plain.float(), max(ulps, 2 * drift))
+
+
+def batched_kernel_checks(dev) -> dict:
+    """Phase 3b: K5 against its plain version on every layer of the 3x512 and
+    the 4x30 checkpoints at B = 256, T = 128, timed on a 512-wide layer."""
+    xb = torch.tensor(np.random.default_rng(2).normal(size=(BATCH_B, BATCH_T, D)),
+                      dtype=torch.float32, device=dev)
+    err, timed = 0.0, None
+    for name, path in (("3x512", DENSE_512), ("4x30", DENSE_30)):
+        for i, (l, xp, h) in enumerate(batched_layer_inputs(P.load_params(path, device=dev), xb)):
+            err = max(err, check_k5(f"K5 batched_lstm_recurrence {name} layer {i}",
+                                    cb.batched_lstm_recurrence(xp, l.U), xp, l.U, h))
+            if name == "3x512" and i == 1:
+                timed = (l, xp, h)
+    l, xp, h = timed  # layer 1 of 3x512: a 512-wide input, as layers 1 and 2 have
+    h_in = batched_layer_inputs(P.load_params(DENSE_512, device=dev), xb)[0][2]  # layer 0's h
+    n, W16, b16 = l.units, l.W.to(torch.bfloat16), l.b.to(torch.bfloat16)
+    with_x = device_time_ms(lambda: cb.batched_lstm_recurrence(torch.matmul(h_in, W16) + b16, l.U))
+    log(f"[time] K5 with its x-side product (what cuDNN computes): {with_x:.3f} ms")
+    r = {
+        "max_abs_err": err,
+        "ms": device_time_ms(cb.batched_lstm_recurrence, xp, l.U),
+        "plain_ms": device_time_ms(cb.batched_lstm_recurrence_plain, xp, l.U),
+        # cuDNN's bf16 LSTM also computes the x-side product h_in·W + b
+        "library_ms": library_forward("K5 512 bf16", [(l.W, l.U, l.b)], h_in, h),
+        **bound(lstm_flops(BATCH_T, BATCH_B, [(0, n)]), nbytes(xp, l.U, h), torch.bfloat16),
+        "shape": f"one 512-unit layer, B={BATCH_B}, T={BATCH_T}, bf16 xp",
+    }
+    log(f"[time] batched_lstm_recurrence ({r['shape']}): kernel {r['ms']:.3f} ms, plain "
+        f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+    return {"batched_lstm_recurrence": r}
 
 
 def check_vs_cpu_reference(name: str, y: torch.Tensor, m_cpu, x_cpu: torch.Tensor) -> None:
@@ -254,7 +455,7 @@ def main_path(dev, x):
         # scan; the tolerance is twice the float32 error of the same impl on
         # the CPU (plain versions), floored at REF_TOL: a reduced model with
         # large C factors is ill-conditioned in float32 whatever the device.
-        dense_cpu = P.load_params(path)
+        dense_cpu = P.load_params(path, device="cpu")
         red_cpu = P.make_reduced_model(P.make_singular_model(dense_cpu, merged_kernel=merged), rank=rank)
         for label, y, m in (("dense", y_full, dense_cpu), ("reduced", y_red, red_cpu)):
             check_vs_cpu_reference(f"{name} {label}", y, m, x_cpu)
@@ -266,6 +467,50 @@ def main_path(dev, x):
         if merged:
             scan_ms = device_time_ms(lambda: P.predict(dense, x, impl="scan"))
             log(f"[main] {name}: dense impl='scan' {scan_ms:.3f} ms")
+    return launches
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Relative Frobenius error, in float64."""
+    return float(torch.linalg.norm((got - want).double()) / torch.linalg.norm(want.double()))
+
+
+def batched_path(dev) -> dict:
+    """Phase 4b: batched inference through predict(precision=...) at B = 256,
+    T = 128, counted, checked against exact mode on the card, and timed."""
+    xb = torch.tensor(np.random.default_rng(3).normal(size=(BATCH_B, BATCH_T, D)),
+                      dtype=torch.float32, device=dev)
+    configs = (  # name, checkpoint, precision, band
+        ("3x512 dense", DENSE_512, "fast", "wide"),
+        ("wide_r24_progressive (reduced, to dense)", WIDE_R24, "fast", "wide"),
+        ("4x30 dense", DENSE_30, "fast", "narrow"),
+        ("3x512 dense", DENSE_512, "high", "wide"),
+    )
+    models = {path: P.load_params(path, device=dev) for path in (DENSE_512, WIDE_R24, DENSE_30)}
+    for k in cb.KERNELS:
+        k.launches = 0
+    outs = [P.predict(models[path], xb, precision=prec) for _, path, prec, _ in configs]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in cb.KERNELS}
+    log(f"[batched] kernel launches during the batched path: {launches}")
+    for k, v in launches.items():
+        if v < 1:
+            fail(f"kernel {k} was not launched on the batched path")
+
+    for (name, path, prec, band), y in zip(configs, outs):
+        m = models[path]
+        exact = P.predict(m, xb)
+        if tuple(y.shape) != (BATCH_B, BATCH_T, 1) or not bool(torch.isfinite(y).all()):
+            fail(f"batched {prec} {name}: bad output {tuple(y.shape)}")
+        rel = rel_err(y, exact)
+        log(f"[check] batched {prec} {name} vs exact: rel Frobenius {rel:.3e}, max abs "
+            f"{max_err(y, exact):.3e} (band {FAST_BAND[band]:g})")
+        if not rel <= FAST_BAND[band]:
+            fail(f"batched {prec} {name}: rel error {rel:.3e} above {FAST_BAND[band]:g}")
+        times = {p: device_time_ms(lambda p=p: P.predict(m, xb, precision=p))
+                 for p in dict.fromkeys((prec, "exact"))}
+        log(f"[batched] {name} B={BATCH_B} T={BATCH_T}: "
+            + ", ".join(f"{p} {t:.3f} ms" for p, t in times.items()))
     return launches
 
 
@@ -300,6 +545,12 @@ TRAIN_RUNS = (
              P.TrainConfig(batch_size=128, window_len=TRAIN_T, recurrence_kernel=True,
                            num_windows=256, epochs=1),
              (ct.wide_layer_fwd, ct.wide_layer_bwd)),
+    TrainRun("D 1x512 fit",
+             lambda dev: P.init_stacked_lstm(torch.Generator().manual_seed(0), input_dim=D,
+                                             units=(512,), device=dev),
+             P.TrainConfig(batch_size=128, window_len=TRAIN_T, recurrence_kernel=True,
+                           num_windows=256, epochs=1),
+             (ct.lstm_recurrence_train_fwd, ct.lstm_recurrence_train_bwd)),
 )
 
 
@@ -345,16 +596,23 @@ def double(tensors):
     return [tuple(t.double() for t in l) if isinstance(l, tuple) else l.double() for l in tensors]
 
 
-def time_pair(name: str, shape: str, kernel, plain, *args) -> dict:
-    r = {"ms": device_time_ms(kernel, *args), "plain_ms": device_time_ms(plain, *args), "shape": shape}
-    log(f"[time] {name} ({shape}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms")
+def time_pair(name: str, shape: str, kernel, plain, *args, library_ms=None, **bounds) -> dict:
+    r = {"ms": device_time_ms(kernel, *args), "plain_ms": device_time_ms(plain, *args),
+         "library_ms": library_ms, **bounds, "shape": shape}
+    extra = ""
+    if bounds:
+        lib = "none" if library_ms is None else f"{library_ms:.3f} ms"
+        extra = f", library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})"
+    log(f"[time] {name} ({shape}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms{extra}")
     return r
 
 
 @torch.no_grad()
 def train_kernel_checks(dev, data) -> dict:
-    """Phase 5: K7 and K9 against their plain versions at the training
-    path's shapes, timed."""
+    """Phases 5 and 5b: K7, K9 and K6 against their plain versions at the
+    training path's shapes, timed beside their bounds and cuDNN's LSTM
+    forward and backward (which also compute the x-side products where the
+    kernel does not: K6)."""
     rng = np.random.default_rng(1)
     results = {}
 
@@ -370,9 +628,13 @@ def train_kernel_checks(dev, data) -> dict:
               for k, got, want, want64 in (("h", hs, hs_p, hs64), ("c", cs, cs_p, cs64))
               for i, (a, r, r64) in enumerate(zip(got, want, want64)))
     shape = "4x40, B=32, T=200, d=16"
+    T7, B7, d7 = x.shape
+    flops = lstm_flops(T7, B7, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
+    lib_fwd, lib_bwd = library_train(layers, x, dh)
     results["fused_narrow_train_fwd"] = {
         "max_abs_err": err,
-        **time_pair("K7 fwd", shape, ct.fused_narrow_train_fwd, ct.fused_narrow_train_fwd_plain, layers, x),
+        **time_pair("K7 fwd", shape, ct.fused_narrow_train_fwd, ct.fused_narrow_train_fwd_plain, layers, x,
+                    library_ms=lib_fwd, **bound(flops, nbytes(layers, x, hs, cs))),
     }
     args = (layers, x, hs_p, cs_p, dh)
     got, want = ct.fused_narrow_train_bwd(*args), ct.fused_narrow_train_bwd_plain(*args)
@@ -382,7 +644,8 @@ def train_kernel_checks(dev, data) -> dict:
     err = max(err, check_grad("K7 bwd 4x40 dx", got[3], want[3]))
     results["fused_narrow_train_bwd"] = {
         "max_abs_err": err,
-        **time_pair("K7 bwd", shape, ct.fused_narrow_train_bwd, ct.fused_narrow_train_bwd_plain, *args),
+        **time_pair("K7 bwd", shape, ct.fused_narrow_train_bwd, ct.fused_narrow_train_bwd_plain, *args,
+                    library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
     }
     time_pair("K7 fwd+bwd", shape,
               lambda: ct.fused_narrow_train_bwd(layers, x, *ct.fused_narrow_train_fwd(layers, x), dh),
@@ -408,17 +671,71 @@ def train_kernel_checks(dev, data) -> dict:
                                  for k, a, r in zip(("dx", "dW", "dU", "db"), got, want)))
         x = h_p
     shape = "one 512-unit layer, d=512, B=128, T=200"
+    T9, B9, d9 = args[0].shape
+    flops = lstm_flops(T9, B9, [(d9, args[2].shape[0])])
+    lib_fwd, lib_bwd = library_train([args[1:4]], args[0], dh)
     results["wide_layer_fwd"] = {
         "max_abs_err": fwd_err,
-        **time_pair("K9 fwd", shape, ct.wide_layer_fwd, ct.wide_layer_fwd_plain, *args[:4]),
+        **time_pair("K9 fwd", shape, ct.wide_layer_fwd, ct.wide_layer_fwd_plain, *args[:4],
+                    library_ms=lib_fwd, **bound(flops, nbytes(args[:6]))),
     }
     results["wide_layer_bwd"] = {
         "max_abs_err": bwd_err,
-        **time_pair("K9 bwd", shape, ct.wide_layer_bwd, ct.wide_layer_bwd_plain, *args),
+        **time_pair("K9 bwd", shape, ct.wide_layer_bwd, ct.wide_layer_bwd_plain, *args,
+                    library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
     }
     time_pair("K9 fwd+bwd", shape,
               lambda: ct.wide_layer_bwd(*args[:4], *ct.wide_layer_fwd(*args[:4]), dh),
               lambda: ct.wide_layer_bwd_plain(*args[:4], *ct.wide_layer_fwd_plain(*args[:4]), dh))
+    results.update(recurrence_train_checks(dev, data, rng))
+    return results
+
+
+def recurrence_train_checks(dev, data, rng) -> dict:
+    """Phase 5b: K6 at run D's shapes (one 512-unit layer, d = 16, B = 128,
+    T = 200), from the xp its fresh model gives its first batch."""
+    run = TRAIN_RUNS[3]
+    l = run.make(dev).layers[0]
+    W, U, b = (p.detach() for p in (l.W, l.U, l.b))
+    x = first_batch(run, data, dev)[0].transpose(0, 1).contiguous()  # (T, B, d)
+    xp = (torch.matmul(x, W) + b).contiguous()
+    h_p, c_p = ct.lstm_recurrence_train_fwd_plain(xp, U)
+    h64, c64 = ct.lstm_recurrence_train_fwd_plain(xp.double(), U.double())
+    h, c = ct.lstm_recurrence_train_fwd(xp, U)
+    fwd_err = max(check_state("K6 fwd h", h, h_p, h64), check_state("K6 fwd c", c, c_p, c64))
+    dh = torch.tensor(rng.normal(size=h_p.shape), dtype=torch.float32, device=dev)
+    args = (xp, U, h_p, c_p, dh)
+    got, want = ct.lstm_recurrence_train_bwd(*args), ct.lstm_recurrence_train_bwd_plain(*args)
+    bwd_err = max(check_grad(f"K6 bwd {k}", a, r) for k, a, r in zip(("dxp", "dU"), got, want))
+    shape = "one 512-unit layer, B=128, T=200, xp from d=16"
+    T6, B6, _ = xp.shape
+    flops = lstm_flops(T6, B6, [(0, U.shape[0])])
+    lib_fwd, lib_bwd = library_train([(W, U, b)], x, dh)
+    results = {
+        "lstm_recurrence_train_fwd": {
+            "max_abs_err": fwd_err,
+            **time_pair("K6 fwd", shape, ct.lstm_recurrence_train_fwd, ct.lstm_recurrence_train_fwd_plain,
+                        xp, U, library_ms=lib_fwd, **bound(flops, nbytes(xp, U, h, c))),
+        },
+        "lstm_recurrence_train_bwd": {
+            "max_abs_err": bwd_err,
+            **time_pair("K6 bwd", shape, ct.lstm_recurrence_train_bwd, ct.lstm_recurrence_train_bwd_plain,
+                        *args, library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
+        },
+    }
+    time_pair("K6 fwd+bwd", shape,
+              lambda: ct.lstm_recurrence_train_bwd(xp, U, *ct.lstm_recurrence_train_fwd(xp, U), dh),
+              lambda: ct.lstm_recurrence_train_bwd_plain(xp, U, *ct.lstm_recurrence_train_fwd_plain(xp, U), dh))
+
+    def fwd_with_x():
+        return ct.lstm_recurrence_train_fwd((torch.matmul(x, W) + b).contiguous(), U)
+
+    def bwd_with_x():
+        dxp, dU = ct.lstm_recurrence_train_bwd(*args)
+        return torch.matmul(dxp, W.t()), torch.einsum("tbd,tbg->dg", x, dxp), dxp.sum(dim=(0, 1)), dU
+
+    log(f"[time] K6 with its x-side products (what cuDNN computes): forward "
+        f"{device_time_ms(fwd_with_x):.3f} ms, backward {device_time_ms(bwd_with_x):.3f} ms")
     return results
 
 
@@ -449,7 +766,7 @@ def check_finetune(init, tuned, data, dev) -> None:
 
 
 def train_path(dev, data) -> tuple:
-    """Phase 6: runs A, B and C through the public entry points, counted.
+    """Phase 6: runs A to D through the public entry points, counted.
     Returns (launches, {run name: loss history})."""
     for k in (*ck.KERNELS, *ct.KERNELS):
         k.launches = 0
@@ -551,7 +868,9 @@ def main() -> int:
     x = torch.tensor(np.random.default_rng(0).normal(size=(T, D)), dtype=torch.float32, device=dev)
     with exact_matmul(), torch.no_grad():
         checks = kernel_checks(dev, x)
+        checks.update(batched_kernel_checks(dev))
         launches = main_path(dev, x)
+        launches.update(batched_path(dev))
 
     data = train_data()
     with exact_matmul():
@@ -560,21 +879,7 @@ def main() -> int:
     launches.update(train_launches)
     train_comparisons(dev, data, histories)
 
-    kernels = [
-        {
-            "name": name,
-            "route": "cuda",
-            "source": module.SOURCE,
-            "replaces": module.REPLACES[name],
-            "launches": launches[name],
-            "max_abs_err": checks[name]["max_abs_err"],
-            "ms": checks[name]["ms"],
-            "plain_ms": checks[name]["plain_ms"],
-        }
-        for module in (ck, ct)
-        for name in module.REPLACES
-    ]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernel_entries(checks, launches)}))
     print(json.dumps({
         "ok": True,
         "device": {
@@ -584,6 +889,27 @@ def main() -> int:
         },
     }))
     return 0
+
+
+def kernel_entries(checks: dict, launches: dict) -> list:
+    """One entry of the ``kernels`` line per kernel wrapper."""
+    return [
+        {
+            "name": name,
+            "route": "cuda",
+            "source": module.SOURCE,
+            "replaces": module.REPLACES[name],
+            "launches": launches[name],
+            "max_abs_err": checks[name]["max_abs_err"],
+            "ms": checks[name]["ms"],
+            "plain_ms": checks[name]["plain_ms"],
+            "bound_ms": checks[name]["bound_ms"],
+            "bound_by": checks[name]["bound_by"],
+            "library_ms": checks[name]["library_ms"],
+        }
+        for module in (ck, cb, ct)
+        for name in module.REPLACES
+    ]
 
 
 if __name__ == "__main__":

@@ -3,10 +3,18 @@
 On an NVIDIA H100: train a stacked-LSTM regressor (``fit``), factorize it
 (U·Σ·Vᵀ), fine-tune σ under the Hoyer penalty (``finetune``), truncate to
 the exact two-step form ``(x·B)·[I|C]``, and predict with the dense or the
-reduced model at batch 1. The batch-1 recurrences and the training
-recurrences (forward and backward) run in hand-written CUDA kernels
-(``ops/csrc``); everything else is plain PyTorch. Weights keep the JAX
-package's Keras layout and its ``.npz`` checkpoint format.
+reduced model at batch 1 (exact mode) or batched (``precision="exact"``,
+``"high"`` or ``"fast"``). The batch-1 recurrences, the batched fast-mode
+recurrence and the training recurrences (forward and backward) run in
+hand-written CUDA kernels (``ops/csrc``); everything else is plain PyTorch.
+Weights keep the JAX package's Keras layout and its ``.npz`` checkpoint
+format.
+
+The entry points run on the card unless asked for the CPU:
+``load_params``, ``from_numpy_tree`` and ``init_stacked_lstm`` put the
+model on ``device="cuda"`` by default (``device="cpu"`` for the CPU), and
+``predict``, ``fit`` and ``finetune`` follow the device of their model and
+input.
 
 Importing the package has no side effects: it imports neither JAX nor the
 JAX package, builds no kernel and changes no global setting.
@@ -42,7 +50,9 @@ from svd_lstm_tpu_torch.models.singular import (
     SingularLSTM,
     singular_lstm_apply,
 )
+from svd_lstm_tpu_torch.ops.cuda_batched import batched_forward_fast
 from svd_lstm_tpu_torch.ops.layouts import reconstruct_dense_model
 from svd_lstm_tpu_torch.train.finetune import finetune
 from svd_lstm_tpu_torch.train.loop import TrainResult, fit
 from svd_lstm_tpu_torch.train.metrics import nrmse, rmse, signaltonoise
+from svd_lstm_tpu_torch.utils.precision import PRECISION_MODES, cast_params, matmul_scope

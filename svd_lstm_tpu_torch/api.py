@@ -1,11 +1,11 @@
 """High-level inference API: ``predict(model, x)``.
 
-Counterpart of ``svd_lstm_tpu/api.py`` for exact mode.
+Counterpart of ``svd_lstm_tpu/api.py``.
 
 Routing (``impl="auto"``):
 
 * CPU tensors take the plain versions: the ``scan`` time loops of
-  ``models/*``.
+  ``models/*``, and K5's plain version in batched fast mode.
 * Batch-1 ``(T, d)`` CUDA input takes the kernels in ``ops/cuda_lstm.py``:
   every layer n ≤ 128 → ``fused`` (the whole stack in one kernel; singular
   and reduced models after their exact dense reconstruction), anything
@@ -15,19 +15,26 @@ Routing (``impl="auto"``):
   XLA scan, because the f32-forced 3-pass MXU emulation made its kernel
   slower there. That reason does not hold on the H100, whose CUDA cores run
   f32 natively, so the wide dense model takes its kernel here as well.
-* Batched ``(B, T, d)`` input runs the plain scan, as the JAX package ran
-  its XLA scan there.
+* Batched ``(B, T, d)`` input runs the plain scan in ``"exact"`` and
+  ``"high"``; in ``"fast"`` it runs ``ops/cuda_batched.batched_forward_fast``
+  (bf16 x-side products, the K5 recurrence per layer) on the exact dense
+  reconstruction of the model.
 
-``impl="scan"`` keeps the plain loop reachable for any input.
+``impl="scan"`` keeps the exact float32 plain loop reachable for any input
+and any precision.
 
-Exact mode is set per call: inside :func:`predict`, TF32 is off and the
-float32 matmul precision is "highest"; both settings are restored on exit.
-Nothing is set at import.
+Precision modes (``utils/precision.py``), set per call and restored on exit;
+nothing is set at import:
+
+* ``"exact"``: TF32 off, float32 matmul precision "highest";
+* ``"high"``: batched input runs the scan with TF32 on; batch-1 input runs
+  the exact path, as in the JAX package;
+* ``"fast"``: batched input only. Its bf16 products are explicit, the rest
+  (the dense reconstruction, the head) runs in exact float32. Batch-1
+  ``"fast"`` needs bf16-operand variants of K1–K3 and raises until then.
 """
 
 from __future__ import annotations
-
-import contextlib
 
 import torch
 
@@ -35,10 +42,14 @@ from svd_lstm_tpu_torch.factor.svd import singular_to_dense
 from svd_lstm_tpu_torch.models.lstm import StackedLSTM, stacked_lstm_apply
 from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
 from svd_lstm_tpu_torch.models.singular import SingularLSTM, singular_lstm_apply
-from svd_lstm_tpu_torch.ops import cuda_lstm, layouts
+from svd_lstm_tpu_torch.ops import cuda_batched, cuda_lstm, layouts
+from svd_lstm_tpu_torch.utils.precision import (  # exact_matmul: exported here
+    PRECISION_MODES,
+    exact_matmul,
+    matmul_scope,
+)
 
 IMPLS = ("auto", "scan", "fused", "hybrid")
-PRECISION_MODES = ("exact", "high", "fast")
 _FUSED_MAX_UNITS = 128
 
 
@@ -51,11 +62,14 @@ def _max_units(model) -> int:
     return max(l.units for l in model.layers)
 
 
-def valid_impls(model, x) -> list:
+def valid_impls(model, x, precision: str = "exact") -> list:
     """Implementations with distinct execution paths for this (model,
-    input): batched input has only the scan; batch-1 input has the scan,
-    the hybrid and, where every layer n ≤ 128, the fused kernel."""
+    input, precision): batched input has the scan and, in fast mode on the
+    card, 'auto' (the K5 path); batch-1 input has the scan, the hybrid and,
+    where every layer n ≤ 128, the fused kernel."""
     if x.ndim == 3:
+        if precision == "fast" and x.device.type == "cuda":
+            return ["auto", "scan"]
         return ["scan"]
     cands = ["scan", "hybrid"]
     if _max_units(model) <= _FUSED_MAX_UNITS:
@@ -63,32 +77,27 @@ def valid_impls(model, x) -> list:
     return cands
 
 
-@contextlib.contextmanager
-def exact_matmul():
-    """float32 matmuls in full float32 (TF32 off, precision "highest") for
-    the duration of the block; the previous settings are restored after."""
-    allow_tf32 = torch.backends.cuda.matmul.allow_tf32
-    prec = torch.get_float32_matmul_precision()
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    try:
-        yield
-    finally:
-        torch.set_float32_matmul_precision(prec)
-        torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+def _dense(model) -> StackedLSTM:
+    """The exact dense form of a model (float32), for the batched fast path."""
+    if isinstance(model, ReducedLSTM):
+        return layouts.reconstruct_dense_model(model)
+    if isinstance(model, SingularLSTM):
+        return singular_to_dense(model)
+    return model
 
 
 def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"):
-    """Whole-run inference. x: (T, d) for batch-1 or (B, T, d) batched.
-    Returns (T, out) / (B, T, out). impl: 'auto' | 'scan' | 'fused' |
-    'hybrid' (see the module docstring for the routing)."""
+    """Whole-run inference on the device of ``model`` and ``x``. x: (T, d)
+    for batch-1 or (B, T, d) batched. Returns (T, out) / (B, T, out).
+    impl: 'auto' | 'scan' | 'fused' | 'hybrid'; precision: 'exact' |
+    'high' | 'fast' (see the module docstring for the routing).
+
+    Batched 'fast' with impl='auto' runs K5 on a CUDA input and K5's plain
+    version on a CPU input: one mode has one meaning on both devices (the
+    JAX package's off-TPU fallback to an all-bf16 scan is not carried
+    over). impl='scan' is the exact float32 loop in every mode."""
     if precision not in PRECISION_MODES:
         raise ValueError(f"unknown precision: {precision!r}")
-    if precision != "exact":
-        raise NotImplementedError(
-            f"precision={precision!r} is not ported yet (ROADMAP queue 1, item 5: "
-            "batched inference and precision modes); use precision='exact'"
-        )
     if impl not in IMPLS:
         # a typo'd impl must not silently route to the slow exact scan
         raise ValueError(
@@ -109,7 +118,18 @@ def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"
             f"{_max_units(model)}); use impl='hybrid' (wide-model kernel) "
             "or impl='auto'"
         )
-    with exact_matmul(), torch.no_grad():
+    if precision == "fast" and not batched:
+        raise NotImplementedError(
+            "batch-1 precision='fast' needs bf16-operand variants of the batch-1 "
+            "kernels, not ported yet (ROADMAP queue 1, item 5); use precision='exact' "
+            "or batched (B, T, d) input"
+        )
+    # only batched 'high' runs with TF32: batch-1 'high' is the exact path, as
+    # in JAX, and fast mode's bf16 products are explicit (the rest is exact)
+    scope = "high" if batched and precision == "high" else "exact"
+    with matmul_scope(scope), torch.no_grad():
+        if precision == "fast" and impl == "auto":
+            return cuda_batched.batched_forward_fast(_dense(model), x)
         return _dispatch(model, x, impl, batched)
 
 

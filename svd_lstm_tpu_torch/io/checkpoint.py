@@ -58,10 +58,12 @@ def _unsupported(name: str) -> TypeError:
     )
 
 
-def from_numpy_tree(tree: Any, device: str | torch.device = "cpu") -> Any:
+def from_numpy_tree(tree: Any, device: str | torch.device = "cuda") -> Any:
     """NamedTuple parameter tree with array leaves (the JAX package's own
-    types, or :data:`NODE_TYPES`) -> port modules on ``device``. Leaves are
-    copied into float tensors of their own dtype."""
+    types, or :data:`NODE_TYPES`) -> port modules on ``device``: the card
+    unless ``device="cpu"`` is asked for (with no card, the default
+    raises, as torch does). Leaves are copied into float tensors of their
+    own dtype."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         name = type(tree).__name__
         if name not in _MODULE_OF_NODE:
@@ -126,9 +128,10 @@ def save_params(path: str, module: Any) -> None:
     np.savez_compressed(path, __spec__=json.dumps(spec), **arrays)
 
 
-def load_params(path: str, device: str | torch.device = "cpu") -> Any:
+def load_params(path: str, device: str | torch.device = "cuda") -> Any:
     """Load a model saved by either package's ``save_params`` onto
-    ``device``. A suffix-less ``path`` falls back to ``path + '.npz'``."""
+    ``device``: the card unless ``device="cpu"`` is asked for. A
+    suffix-less ``path`` falls back to ``path + '.npz'``."""
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path = path + ".npz"
     with np.load(path, allow_pickle=False) as z:

@@ -196,11 +196,12 @@ def init_stacked_lstm(
     units: Sequence[int] = (40, 40, 40, 40),
     head_dim: int = 1,
     dtype=torch.float32,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> StackedLSTM:
     """A freshly initialised stack with a Glorot-uniform head and zero head
     bias. The weights are drawn on the CPU from ``gen`` and then moved to
-    ``device``, so a seed gives the same model on every device. The numbers
+    ``device`` (the card unless ``device="cpu"`` is asked for), so a seed
+    gives the same model on every device. The numbers
     differ from the JAX package's for the same seed (another generator);
     the distributions are the same."""
     layers, d = [], input_dim

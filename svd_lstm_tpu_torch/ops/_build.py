@@ -53,6 +53,8 @@ _SIGNATURES = {
     "wide_layer_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, W, U, b, h, c, dh, dx, dz, dhc, dcc, T, B, din, n, stream
     "wide_layer_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp, U, h, c, T, B, n, bf16, stream
+    "batched_lstm_recurrence_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

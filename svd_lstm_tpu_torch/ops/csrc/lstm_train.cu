@@ -1,16 +1,23 @@
-// LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores.
+// LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores, and
+// the batched fast-mode recurrence that shares their tiles.
 //
-// Two forward/backward pairs, one per TPU train kernel pair on the training
-// path of svd_lstm_tpu/ops/pallas_train.py, plus one reduction that both
-// backward passes share:
+// Three forward/backward pairs, one per TPU train kernel pair on the
+// training path of svd_lstm_tpu/ops/pallas_train.py, one reduction that the
+// backward passes share, and one inference kernel:
 //
 //   K7  narrow_fwd / narrow_bwd — replace svd_lstm_tpu/ops/pallas_train_fused.py:
 //       _fused_fwd / _fused_bwd (every layer n <= 128, the input <= 128).
 //   K9  wide_fwd_step / wide_bwd_gates + matmul_nt — replace
 //       svd_lstm_tpu/ops/pallas_train_wide.py: _wide_fwd / _wide_bwd (one
 //       layer, n % 128 == 0).
-//   weight_grad (+ sum_splits) — the dW/dU/db accumulation that both TPU
+//   K6  the same step kernels with the x·W part compiled out (kXW = false,
+//       chosen by the launchers when W is null: z = xp_t + h_{t-1}·U, and
+//       dxp = dz) — replace
+//       svd_lstm_tpu/ops/pallas_train.py: _pallas_fwd_hc / _pallas_bwd.
+//   weight_grad (+ sum_splits) — the dW/dU/db accumulation that the TPU
 //       backward kernels carried in VMEM scratch.
+//   K5  batched_step — replaces svd_lstm_tpu/ops/pallas_batched.py:
+//       batched_lstm_recurrence_pallas (see its own note below).
 //
 // What differs from the TPU, and what the design does about it:
 //  * The TPU grid walks T in order and carries dW/dU in VMEM across steps.
@@ -52,6 +59,7 @@
 // Every launcher runs on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() for the Python wrapper to check.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -71,6 +79,19 @@
 namespace {
 
 __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
+
+// Element conversions, by the cuda_bf16.h intrinsics only (round to nearest
+// even, as torch's .bfloat16()).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+template <typename T> __device__ __forceinline__ T from_f32(float v);
+template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 // Forward cell of one (row, unit) from its four gate pre-activations.
 __device__ __forceinline__ void gate_fwd(float zi, float zf, float zg, float zo, float c_prev,
@@ -346,11 +367,14 @@ narrow_bwd_kernel(NarrowArgs a, const float* __restrict__ x, const float* __rest
 }
 
 // ---------------------------------------------------------------------------
-// K9, shared by the forward and backward step kernels: for the CTA's tile
-// (WIDE_BR rows from r0, WIDE_UJ units from j0) and this thread's 4 rows
+// K9, K6 and K5, shared by their step kernels: for the CTA's tile (WIDE_BR
+// rows from r0, WIDE_UJ units from j0) and this thread's 4 rows
 // (r0 + ty*4 + r) and unit j0 + tx, acc[r][g] += Σ_k in[row][k] · M[k][g*n + j]
-// for k < K. in has row stride ld; M is (K, 4n). Every thread of the CTA
-// must call it (it synchronises).
+// for k < K. in has row stride ld; M is (K, 4n). With kBf16 the operands
+// are rounded to bf16 before the float32 multiply-add (K5; the products are
+// then exact, as the MXU's single-pass bf16 products are). Every thread of
+// the CTA must call it (it synchronises). With kBf16, units j ≥ n read
+// zeros, so K5's n need not be a multiple of WIDE_UJ.
 // ---------------------------------------------------------------------------
 struct WideSmem {
   float in[WIDE_KC][WIDE_BR + 1];   // +1: the transposed store is conflict-free
@@ -363,20 +387,32 @@ struct WideSmem {
 constexpr int WIDE_IN_PER = WIDE_KC * WIDE_BR / WIDE_THREADS;     // 4
 constexpr int WIDE_W_PER = WIDE_KC * 4 * WIDE_UJ / WIDE_THREADS;  // 32
 
-__device__ __forceinline__ void gates_load(const float* __restrict__ in, int ld, int K,
-                                           const float* __restrict__ M, int n, int B, int r0,
+template <typename TI, typename TM, bool kBf16>
+__device__ __forceinline__ void gates_load(const TI* __restrict__ in, int ld, int K,
+                                           const TM* __restrict__ M, int n, int B, int r0,
                                            int j0, int k0, float* vin, float* vw) {
 #pragma unroll
   for (int q = 0; q < WIDE_IN_PER; ++q) {
     const int e = threadIdx.x + q * WIDE_THREADS;
     const int row = r0 + e / WIDE_KC, k = k0 + e % WIDE_KC;
-    vin[q] = (row < B && k < K) ? in[(size_t)row * ld + k] : 0.f;
+    float v = 0.f;
+    if (row < B && k < K) {
+      v = to_f32(in[(size_t)row * ld + k]);
+      if (kBf16) v = bf16_round(v);
+    }
+    vin[q] = v;
   }
 #pragma unroll
   for (int q = 0; q < WIDE_W_PER; ++q) {
     const int e = threadIdx.x + q * WIDE_THREADS;
     const int u = e % WIDE_UJ, g = (e / WIDE_UJ) % 4, k = k0 + e / (4 * WIDE_UJ);
-    vw[q] = k < K ? __ldg(M + (size_t)k * 4 * n + g * n + j0 + u) : 0.f;
+    float v = 0.f;
+    // only K5 (kBf16) takes n % WIDE_UJ != 0; K9 and K6 skip the unit mask
+    if (k < K && (!kBf16 || j0 + u < n)) {
+      v = to_f32(__ldg(M + (size_t)k * 4 * n + g * n + j0 + u));
+      if (kBf16) v = bf16_round(v);
+    }
+    vw[q] = v;
   }
 }
 
@@ -393,16 +429,18 @@ __device__ __forceinline__ void gates_store(WideSmem& s, const float* vin, const
   }
 }
 
-__device__ __forceinline__ void gates_tile(const float* __restrict__ in, int ld, int K,
-                                           const float* __restrict__ M, int n, int B, int r0,
+template <typename TI, typename TM, bool kBf16>
+__device__ __forceinline__ void gates_tile(const TI* __restrict__ in, int ld, int K,
+                                           const TM* __restrict__ M, int n, int B, int r0,
                                            int j0, WideSmem& s, float acc[4][4]) {
   const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
   float vin[WIDE_IN_PER], vw[WIDE_W_PER];
-  gates_load(in, ld, K, M, n, B, r0, j0, 0, vin, vw);
+  gates_load<TI, TM, kBf16>(in, ld, K, M, n, B, r0, j0, 0, vin, vw);
   for (int k0 = 0; k0 < K; k0 += WIDE_KC) {
     gates_store(s, vin, vw);
     __syncthreads();
-    if (k0 + WIDE_KC < K) gates_load(in, ld, K, M, n, B, r0, j0, k0 + WIDE_KC, vin, vw);
+    if (k0 + WIDE_KC < K)
+      gates_load<TI, TM, kBf16>(in, ld, K, M, n, B, r0, j0, k0 + WIDE_KC, vin, vw);
 #pragma unroll 8
     for (int kk = 0; kk < WIDE_KC; ++kk) {
       float v[4], w[4];
@@ -419,23 +457,34 @@ __device__ __forceinline__ void gates_tile(const float* __restrict__ in, int ld,
   }
 }
 
-// acc = x_t·W + h_{t-1}·U for the thread's 4 rows and unit (no bias).
+// z without the bias for the thread's 4 rows and unit: with kXW (K9) x_t·W +
+// h_{t-1}·U; without (K6) x is the hoisted projection xp (T, B, 4n), z =
+// xp_t + h_{t-1}·U, and W and b are unused: no x-side tile (of K = 0) runs.
+template <bool kXW>
 __device__ __forceinline__ void wide_z(const float* __restrict__ x, const float* __restrict__ W,
                                        const float* __restrict__ U, const float* __restrict__ h,
                                        int t, int B, int din, int n, int r0, int j0, WideSmem& s,
                                        float acc[4][4]) {
+  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + ty * 4 + r;
+    const float* xr = x + ((size_t)t * B + row) * 4 * n + j0 + tx;
 #pragma unroll
-    for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
-  gates_tile(x + (size_t)t * B * din, din, din, W, n, B, r0, j0, s, acc);
-  if (t > 0) gates_tile(h + (size_t)(t - 1) * B * n, n, n, U, n, B, r0, j0, s, acc);
+    for (int g = 0; g < 4; ++g) acc[r][g] = (!kXW && row < B) ? xr[g * n] : 0.f;
+  }
+  if (kXW)
+    gates_tile<float, float, false>(x + (size_t)t * B * din, din, din, W, n, B, r0, j0, s, acc);
+  if (t > 0)
+    gates_tile<float, float, false>(h + (size_t)(t - 1) * B * n, n, n, U, n, B, r0, j0, s, acc);
 }
 
 // ---------------------------------------------------------------------------
 // K9 forward step — replaces pallas_train_wide.py:_wide_fwd at one t:
-// z = x_t·W + h_{t-1}·U + b, gate update, h_t and c_t out.
+// z = x_t·W + h_{t-1}·U + b, gate update, h_t and c_t out. Without kXW,
+// K6's forward step (pallas_train.py:_pallas_fwd_hc): z = xp_t + h_{t-1}·U.
 // ---------------------------------------------------------------------------
+template <bool kXW>
 __global__ void __launch_bounds__(WIDE_THREADS)
 wide_fwd_step(const float* __restrict__ x, const float* __restrict__ W, const float* __restrict__ U,
               const float* __restrict__ b, float* __restrict__ h, float* __restrict__ c, int t,
@@ -444,11 +493,11 @@ wide_fwd_step(const float* __restrict__ x, const float* __restrict__ W, const fl
   const int j0 = blockIdx.x * WIDE_UJ, r0 = blockIdx.y * WIDE_BR;
   const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
   float acc[4][4];
-  wide_z(x, W, U, h, t, B, din, n, r0, j0, s, acc);
+  wide_z<kXW>(x, W, U, h, t, B, din, n, r0, j0, s, acc);
   const int j = j0 + tx;
   float bg[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bg[g] = __ldg(b + g * n + j);
+  for (int g = 0; g < 4; ++g) bg[g] = kXW ? __ldg(b + g * n + j) : 0.f;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = r0 + ty * 4 + r;
@@ -467,8 +516,11 @@ wide_fwd_step(const float* __restrict__ x, const float* __restrict__ W, const fl
 // K9 backward, gate phase of one reverse step — part of the replacement of
 // pallas_train_wide.py:_wide_bwd: recompute z for the tile (remat), then
 // gate_bwd with dh = dh_seq[t] + the dh carry, the dc carry updated in place
-// (each element has one owner), dz_t out to the dz store.
+// (each element has one owner), dz_t out to the dz store. Without kXW, the
+// gate phase of K6's backward (pallas_train.py:_pallas_bwd), whose dz store
+// is dxp itself.
 // ---------------------------------------------------------------------------
+template <bool kXW>
 __global__ void __launch_bounds__(WIDE_THREADS)
 wide_bwd_gates(const float* __restrict__ x, const float* __restrict__ W,
                const float* __restrict__ U, const float* __restrict__ b,
@@ -479,12 +531,12 @@ wide_bwd_gates(const float* __restrict__ x, const float* __restrict__ W,
   const int j0 = blockIdx.x * WIDE_UJ, r0 = blockIdx.y * WIDE_BR;
   const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
   float acc[4][4];
-  wide_z(x, W, U, h, t, B, din, n, r0, j0, s, acc);
+  wide_z<kXW>(x, W, U, h, t, B, din, n, r0, j0, s, acc);
   const int j = j0 + tx;
   const int G = 4 * n;
   float bg[4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bg[g] = __ldg(b + g * n + j);
+  for (int g = 0; g < 4; ++g) bg[g] = kXW ? __ldg(b + g * n + j) : 0.f;
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     const int row = r0 + ty * 4 + r;
@@ -573,7 +625,62 @@ matmul_nt(const float* __restrict__ A, const float* __restrict__ M, float* __res
 }
 
 // ---------------------------------------------------------------------------
-// Weight gradients, shared by K7 and K9: out (p, G) = Σ_{m<M} a_m ⊗ dz_m,
+// K5 step — replaces pallas_batched.py:batched_lstm_recurrence_pallas at one
+// t, for the batched fast mode of predict:
+//   z = bf16(h_{t-1}) · bf16(U) + xp_t, accumulated in float32;
+//   gate update in float32; c (B, n) kept in float32, updated in place
+//   (each element has one owner); h_t written in xp's dtype T.
+// h_{t-1} is read back from the output: rounded to bf16 it is the dot's
+// operand whether T is bf16 (exact already) or float32. U is bf16 (the
+// wrapper rounds it once).
+//
+// What bounds it, and what the design does about it: the TPU kernel kept U
+// resident in VMEM for the whole sequence. On the H100, U is 2 MB in bf16 at
+// n = 512, against 227 KB of shared memory a block, and every unit of h_t
+// needs all of h_{t-1}: each step is a grid-wide dependency. So, as K9, one
+// launch per step of a tiled kernel — a CTA owns WIDE_BR rows x WIDE_UJ units
+// and all four gate columns of them, U's tile comes from L2 each step, the
+// gate update stays in registers. At 3x512, B = 256, T = 128 the work is
+// 69 GFLOP a layer (0.07 ms at the 989 TFLOP/s bf16 tensor-core peak) and
+// 134 MB of bf16 xp (0.04 ms at 3.35 TB/s): operation-bound. This first
+// version multiplies on the CUDA cores in float32 (the products of bf16
+// operands are exact there too), so it runs far from that bound; mma/wgmma
+// tiles are the next step.
+// ---------------------------------------------------------------------------
+template <typename T>
+__global__ void __launch_bounds__(WIDE_THREADS)
+batched_step(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ U, T* __restrict__ h,
+             float* __restrict__ c, int t, int B, int n) {
+  __shared__ WideSmem s;
+  const int j0 = blockIdx.x * WIDE_UJ, r0 = blockIdx.y * WIDE_BR;
+  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
+  if (t > 0)
+    gates_tile<T, __nv_bfloat16, true>(h + (size_t)(t - 1) * B * n, n, n, U, n, B, r0, j0, s,
+                                       acc);
+  const int j = j0 + tx;
+  if (j >= n) return;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int row = r0 + ty * 4 + r;
+    if (row >= B) continue;
+    const T* zx = xp + ((size_t)t * B + row) * 4 * n + j;
+    const size_t o = (size_t)row * n + j;
+    const float cp = t > 0 ? c[o] : 0.f;
+    float hn, cn;
+    gate_fwd(acc[r][0] + to_f32(zx[0]), acc[r][1] + to_f32(zx[n]), acc[r][2] + to_f32(zx[2 * n]),
+             acc[r][3] + to_f32(zx[3 * n]), cp, hn, cn);
+    c[o] = cn;
+    h[(size_t)t * B * n + o] = from_f32<T>(hn);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradients, shared by K7, K9 and K6: out (p, G) = Σ_{m<M} a_m ⊗ dz_m,
 // where a_m = A[m - shift] (zero for m < shift: h_prev is h shifted by one
 // step of B rows) or, when A is null, the constant 1 with p = 1 (db). Split
 // over M into gridDim.z contiguous ranges; each split sums its range in
@@ -774,13 +881,16 @@ int weight_grad_launch(const void* A, int shift, const void* dz, void* out, void
   return (int)cudaGetLastError();
 }
 
-// One wide layer forward: T launches of wide_fwd_step in stream order.
+// One wide layer forward: T launches of wide_fwd_step in stream order. K6
+// calls it with W and b null, xp (T, B, 4n) in x's place and din = 0, which
+// selects the step kernels without the x·W part.
 int wide_layer_fwd_launch(const void* x, const void* W, const void* U, const void* b, void* h,
                           void* c, int T, int B, int din, int n, void* stream) {
   if (n % WIDE_UJ != 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(n / WIDE_UJ, (B + WIDE_BR - 1) / WIDE_BR);
+  const auto step = W != nullptr ? &wide_fwd_step<true> : &wide_fwd_step<false>;
   for (int t = 0; t < T; ++t) {
-    wide_fwd_step<<<grid, WIDE_THREADS, 0, (cudaStream_t)stream>>>(
+    step<<<grid, WIDE_THREADS, 0, (cudaStream_t)stream>>>(
         (const float*)x, (const float*)W, (const float*)U, (const float*)b, (float*)h, (float*)c,
         t, B, din, n);
     cudaError_t err = cudaGetLastError();
@@ -790,9 +900,9 @@ int wide_layer_fwd_launch(const void* x, const void* W, const void* U, const voi
 }
 
 // One wide layer backward, reverse time: per step the gate phase, then the
-// dh carry (skipped at t = 0) and dx_t. dhc and dcc (B, n) must hold zeros
-// on entry; dz (T, B, 4n) receives every step's dz for the weight
-// gradients.
+// dh carry (skipped at t = 0) and dx_t (skipped when W is null: K6, whose dz
+// is dxp). dhc and dcc (B, n) must hold zeros on entry; dz (T, B, 4n)
+// receives every step's dz for the weight gradients.
 int wide_layer_bwd_launch(const void* x, const void* W, const void* U, const void* b,
                           const void* h, const void* c, const void* dh, void* dx, void* dz,
                           void* dhc, void* dcc, int T, int B, int din, int n, void* stream) {
@@ -802,16 +912,40 @@ int wide_layer_bwd_launch(const void* x, const void* W, const void* U, const voi
   const dim3 grid_h((n + MM_COLS - 1) / MM_COLS, (B + WIDE_BR - 1) / WIDE_BR);
   const dim3 grid_x((din + MM_COLS - 1) / MM_COLS, (B + WIDE_BR - 1) / WIDE_BR);
   cudaStream_t s = (cudaStream_t)stream;
+  const auto gates = W != nullptr ? &wide_bwd_gates<true> : &wide_bwd_gates<false>;
   for (int t = T - 1; t >= 0; --t) {
-    wide_bwd_gates<<<grid_g, WIDE_THREADS, 0, s>>>(
+    gates<<<grid_g, WIDE_THREADS, 0, s>>>(
         (const float*)x, (const float*)W, (const float*)U, (const float*)b, (const float*)h,
         (const float*)c, (const float*)dh, (const float*)dhc, (float*)dcc, (float*)dz, t, B, din,
         n);
     const float* dzt = (const float*)dz + (size_t)t * B * G;
     if (t > 0)
       matmul_nt<<<grid_h, WIDE_THREADS, 0, s>>>(dzt, (const float*)U, (float*)dhc, B, n, G);
-    matmul_nt<<<grid_x, WIDE_THREADS, 0, s>>>(dzt, (const float*)W,
-                                              (float*)dx + (size_t)t * B * din, B, din, G);
+    if (W != nullptr)
+      matmul_nt<<<grid_x, WIDE_THREADS, 0, s>>>(dzt, (const float*)W,
+                                                (float*)dx + (size_t)t * B * din, B, din, G);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+// K5: T launches of batched_step in stream order. xp (T, B, 4n) and h
+// (T, B, n) are bf16 when bf16 != 0, else float32; U (n, 4n) bf16; c (B, n)
+// float32 scratch, needing no initial value.
+int batched_lstm_recurrence_launch(const void* xp, const void* U, void* h, void* c, int T, int B,
+                                   int n, int bf16, void* stream) {
+  if (T < 1 || B < 1 || n < 1) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + WIDE_UJ - 1) / WIDE_UJ, (B + WIDE_BR - 1) / WIDE_BR);
+  cudaStream_t s = (cudaStream_t)stream;
+  const __nv_bfloat16* u = (const __nv_bfloat16*)U;
+  for (int t = 0; t < T; ++t) {
+    if (bf16)
+      batched_step<__nv_bfloat16><<<grid, WIDE_THREADS, 0, s>>>(
+          (const __nv_bfloat16*)xp, u, (__nv_bfloat16*)h, (float*)c, t, B, n);
+    else
+      batched_step<float><<<grid, WIDE_THREADS, 0, s>>>((const float*)xp, u, (float*)h, (float*)c,
+                                                        t, B, n);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

@@ -2,18 +2,24 @@
 and the training dispatch.
 
 Counterpart of ``svd_lstm_tpu/ops/pallas_train_fused.py`` (K7),
-``svd_lstm_tpu/ops/pallas_train_wide.py`` (K9) and the dispatch of
-``svd_lstm_tpu/ops/pallas_train.py``. The kernels are hand-written CUDA in
-``csrc/lstm_train.cu`` (design notes there):
+``svd_lstm_tpu/ops/pallas_train_wide.py`` (K9), the recurrence-only pair
+of ``svd_lstm_tpu/ops/pallas_train.py`` (K6) and its dispatch. The kernels
+are hand-written CUDA in ``csrc/lstm_train.cu`` (design notes there):
 
-====================== ================================ =================================
-wrapper                plain version                    replaces
-====================== ================================ =================================
-fused_narrow_train_fwd fused_narrow_train_fwd_plain     pallas_train_fused.py:_fused_fwd
-fused_narrow_train_bwd fused_narrow_train_bwd_plain     pallas_train_fused.py:_fused_bwd
-wide_layer_fwd         wide_layer_fwd_plain             pallas_train_wide.py:_wide_fwd
-wide_layer_bwd         wide_layer_bwd_plain             pallas_train_wide.py:_wide_bwd
-====================== ================================ =================================
+========================= ================================ =================================
+wrapper                   plain version                    replaces
+========================= ================================ =================================
+fused_narrow_train_fwd    fused_narrow_train_fwd_plain     pallas_train_fused.py:_fused_fwd
+fused_narrow_train_bwd    fused_narrow_train_bwd_plain     pallas_train_fused.py:_fused_bwd
+wide_layer_fwd            wide_layer_fwd_plain             pallas_train_wide.py:_wide_fwd
+wide_layer_bwd            wide_layer_bwd_plain             pallas_train_wide.py:_wide_bwd
+lstm_recurrence_train_fwd lstm_recurrence_train_fwd_plain  pallas_train.py:_pallas_fwd_hc
+lstm_recurrence_train_bwd lstm_recurrence_train_bwd_plain  pallas_train.py:_pallas_bwd
+========================= ================================ =================================
+
+K6 runs K9's step kernels with the x·W part taken out; like K7 and K9 it
+computes in float32 (exact mode). The JAX kernel's ``precision=DEFAULT``
+dots are exact float32 on the CPU, where the tests compare.
 
 Layouts are time-major, as the TPU kernels take them: x (T, B, d), every
 layer's h and c (T, B, n). The weights keep the Keras layout, unpadded: the
@@ -47,6 +53,8 @@ REPLACES = {
     "fused_narrow_train_bwd": "svd_lstm_tpu/ops/pallas_train_fused.py:122",
     "wide_layer_fwd": "svd_lstm_tpu/ops/pallas_train_wide.py:82",
     "wide_layer_bwd": "svd_lstm_tpu/ops/pallas_train_wide.py:130",
+    "lstm_recurrence_train_fwd": "svd_lstm_tpu/ops/pallas_train.py:105",
+    "lstm_recurrence_train_bwd": "svd_lstm_tpu/ops/pallas_train.py:165",
 }
 NARROW_MAX = 128      # largest layer width and input width of K7
 MAX_LAYERS = 8        # csrc MAX_LAYERS
@@ -121,12 +129,12 @@ def _ptr(t: torch.Tensor | None) -> int | None:
 # plain versions (also the CPU path of every wrapper)
 # ---------------------------------------------------------------------------
 
-def _layer_fwd_plain(x, W, U, b):
-    """One layer over time: h, c (T, B, n) from x (T, B, d)."""
-    T, B, _ = x.shape
+def lstm_recurrence_train_fwd_plain(xp, U):
+    """The recurrence over time (the port of pallas_train.py:_fwd_scan_hc):
+    h, c (T, B, n) from the hoisted projection xp (T, B, 4n)."""
+    T, B, _ = xp.shape
     n = U.shape[0]
-    xp = torch.matmul(x, W) + b
-    h = torch.zeros((B, n), dtype=x.dtype, device=x.device)
+    h = torch.zeros((B, n), dtype=xp.dtype, device=xp.device)
     c = torch.zeros_like(h)
     hs, cs = [], []
     for t in range(T):
@@ -136,13 +144,12 @@ def _layer_fwd_plain(x, W, U, b):
     return torch.stack(hs), torch.stack(cs)
 
 
-def _layer_bwd_plain(x, W, U, b, h, c, dh_seq):
-    """Reverse-time backward of one layer through gate_update_bwd (the
-    port of pallas_train.py:_trainable_bwd). Returns (dx, dW, dU, db)."""
-    T, B, _ = x.shape
+def lstm_recurrence_train_bwd_plain(xp, U, h, c, dh_seq):
+    """Reverse-time backward of the recurrence through gate_update_bwd (the
+    port of pallas_train.py:_trainable_bwd). Returns (dxp, dU)."""
+    T, B, _ = xp.shape
     n = U.shape[0]
-    xp = torch.matmul(x, W) + b
-    zeros = torch.zeros((B, n), dtype=x.dtype, device=x.device)
+    zeros = torch.zeros((B, n), dtype=xp.dtype, device=xp.device)
     h_prev = torch.cat([zeros[None], h[:-1]])
     c_prev = torch.cat([zeros[None], c[:-1]])
     Ut = U.t()
@@ -154,8 +161,18 @@ def _layer_bwd_plain(x, W, U, b, h, c, dh_seq):
         dh_c = torch.matmul(dz, Ut)
         dzs[t] = dz
     dz = torch.stack(dzs)
+    return dz, torch.einsum("tbn,tbg->ng", h_prev, dz)
+
+
+def _layer_fwd_plain(x, W, U, b):
+    """One layer over time: h, c (T, B, n) from x (T, B, d)."""
+    return lstm_recurrence_train_fwd_plain(torch.matmul(x, W) + b, U)
+
+
+def _layer_bwd_plain(x, W, U, b, h, c, dh_seq):
+    """Reverse-time backward of one layer. Returns (dx, dW, dU, db)."""
+    dz, dU = lstm_recurrence_train_bwd_plain(torch.matmul(x, W) + b, U, h, c, dh_seq)
     dW = torch.einsum("tbd,tbg->dg", x, dz)
-    dU = torch.einsum("tbn,tbg->ng", h_prev, dz)
     return torch.matmul(dz, W.t()), dW, dU, dz.sum(dim=(0, 1))
 
 
@@ -377,8 +394,6 @@ def wide_layer_bwd(x, W, U, b, h, c, dh_seq):
 
 wide_layer_bwd.launches = 0
 
-KERNELS = (fused_narrow_train_fwd, fused_narrow_train_bwd, wide_layer_fwd, wide_layer_bwd)
-
 
 class WideLayerTrain(torch.autograd.Function):
     """Differentiable wide layer: (x (T, B, d), W, U, b) -> h (T, B, n)."""
@@ -398,6 +413,86 @@ def wide_layer_trainable(x, W, U, b):
     """Differentiable fused LSTM layer, n % 128 == 0: x (T, B, d) time-major
     -> h_seq (T, B, n); gradients flow to all four inputs."""
     return WideLayerTrain.apply(x.contiguous(), W.contiguous(), U.contiguous(), b.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# K6: the recurrence-only train pair (K9's kernels without the x·W part)
+# ---------------------------------------------------------------------------
+
+def _check_recurrence(xp, U) -> Tuple[int, int, int]:
+    T, B, _ = xp.shape
+    n = U.shape[0]
+    _check_T("recurrence train", T)
+    _check("xp", xp, (T, B, 4 * n))
+    _check("U", U, (n, 4 * n))
+    if n % WIDE_ALIGN:
+        raise ValueError(f"recurrence train: n % {WIDE_ALIGN} == 0 required, got n = {n}")
+    return T, B, n
+
+
+def lstm_recurrence_train_fwd(xp, U):
+    """Recurrence from the hoisted projection (bias included), n % 128 ==
+    0: xp (T, B, 4n), U (n, 4n) -> h, c (T, B, n)."""
+    T, B, n = _check_recurrence(xp, U)
+    if not _card([xp, U]):
+        return lstm_recurrence_train_fwd_plain(xp, U)
+    h = torch.empty((T, B, n), dtype=torch.float32, device=xp.device)
+    c = torch.empty_like(h)
+    # K9's launcher with no W and no b: xp in x's place, din = 0
+    _launch("wide_layer_fwd", xp.device, xp.data_ptr(), None, U.data_ptr(), None, h.data_ptr(),
+            c.data_ptr(), T, B, 0, n)
+    lstm_recurrence_train_fwd.launches += 1
+    return h, c
+
+
+lstm_recurrence_train_fwd.launches = 0
+
+
+def lstm_recurrence_train_bwd(xp, U, h, c, dh_seq):
+    """Reverse-time backward of the recurrence. Returns (dxp, dU)."""
+    T, B, n = _check_recurrence(xp, U)
+    for name, t in (("h", h), ("c", c), ("dh_seq", dh_seq)):
+        _check(name, t, (T, B, n))
+    if not _card([xp, U, h, c, dh_seq]):
+        return lstm_recurrence_train_bwd_plain(xp, U, h, c, dh_seq)
+    dev = xp.device
+    dxp = torch.empty((T, B, 4 * n), dtype=torch.float32, device=dev)
+    dhc = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    dcc = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    # K9's launcher with no W, no b and no dx: its dz store is dxp
+    _launch("wide_layer_bwd", dev, xp.data_ptr(), None, U.data_ptr(), None, h.data_ptr(),
+            c.data_ptr(), dh_seq.data_ptr(), None, dxp.data_ptr(), dhc.data_ptr(), dcc.data_ptr(),
+            T, B, 0, n)
+    dU = _weight_grad(h.view(T * B, n), B, dxp.view(T * B, 4 * n))
+    lstm_recurrence_train_bwd.launches += 1
+    return dxp, dU
+
+
+lstm_recurrence_train_bwd.launches = 0
+
+KERNELS = (fused_narrow_train_fwd, fused_narrow_train_bwd, wide_layer_fwd, wide_layer_bwd,
+           lstm_recurrence_train_fwd, lstm_recurrence_train_bwd)
+
+
+class RecurrenceTrain(torch.autograd.Function):
+    """Differentiable recurrence: (xp (T, B, 4n), U) -> h (T, B, n). The
+    forward saves h and c; the backward is the reverse-time kernel."""
+
+    @staticmethod
+    def forward(ctx, xp, U):
+        h, c = lstm_recurrence_train_fwd(xp, U)
+        ctx.save_for_backward(xp, U, h, c)
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        return lstm_recurrence_train_bwd(*ctx.saved_tensors, dh.contiguous())
+
+
+def lstm_recurrence_trainable(xp, U):
+    """Differentiable batched recurrence, n % 128 == 0: xp (T, B, 4n)
+    time-major, bias included -> h_seq (T, B, n); gradients flow to xp and U."""
+    return RecurrenceTrain.apply(xp.contiguous(), U.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -437,9 +532,12 @@ def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: 
     * **uniform wide stack** (≥ 2 layers, all the same n, n % 128 == 0,
       input ≤ n): the fused layer kernel (K9) layer by layer; the first
       layer takes its input width as it is.
-    * otherwise, including the JAX package's "exactly one aligned layer"
-      branch, which ran the recurrence-only kernel K6 on the TPU: the plain
-      autograd scan, until K6 is ported (ROADMAP queue 2).
+    * **exactly one aligned layer** (n % 128 == 0) otherwise: layer by
+      layer, ``xp = h·W + b`` as a differentiable ``torch.matmul``, the
+      recurrence-only pair (K6) on the aligned layer and the plain autograd
+      scan on the others — the JAX package's rule (``n_aligned == 1``), kept
+      as it is.
+    * otherwise: the plain autograd scan.
 
     The TPU workarounds of the JAX dispatch (batch chunking past B = 512,
     the B % 8 condition, ``wide_fused``) are not carried over.
@@ -451,11 +549,17 @@ def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: 
         return fused_narrow_train_apply(model, x_seq, return_sequences)
     n0 = units[0]
     uniform = len(units) >= 2 and all(u == n0 for u in units) and n0 % WIDE_ALIGN == 0 and d_in <= n0
-    if not uniform:
+    n_aligned = sum(1 for u in units if u % WIDE_ALIGN == 0)
+    if not uniform and n_aligned != 1:
         return stacked_lstm_apply(model, x_seq, return_sequences)
     h = x_seq.transpose(0, 1)  # (T, B, d)
     for l in model.layers:
-        h = wide_layer_trainable(h, l.W, l.U, l.b)
+        if uniform:
+            h = wide_layer_trainable(h, l.W, l.U, l.b)
+        elif l.units % WIDE_ALIGN == 0:
+            h = lstm_recurrence_trainable(torch.matmul(h, l.W) + l.b, l.U)
+        else:
+            h = lstm_recurrence_train_fwd_plain(torch.matmul(h, l.W) + l.b, l.U)[0]
     if not return_sequences:
         return model.head(h[-1])
     return model.head(h).transpose(0, 1)

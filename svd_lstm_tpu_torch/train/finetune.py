@@ -78,9 +78,10 @@ def finetune(
     init_opt_state=None,
     windows: tuple | None = None,
 ) -> TrainResult:
-    """Fine-tune a copy of a factorized model; returns the ``TrainResult``
-    of :func:`fit`. Without ``train_cfg`` it trains for
-    ``finetune_epochs`` at ``finetune_batch_size``."""
+    """Fine-tune a copy of a factorized model on the model's device (the
+    windows move there); returns the ``TrainResult`` of :func:`fit`.
+    Without ``train_cfg`` it trains for ``finetune_epochs`` at
+    ``finetune_batch_size``."""
     if not isinstance(smodel, SingularLSTM):
         raise NotImplementedError(
             f"finetune of {type(smodel).__name__} is not ported yet (conv hybrids: "

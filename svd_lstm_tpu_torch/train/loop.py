@@ -175,7 +175,8 @@ def fit(
     init_opt_state: dict | None = None,
     loss_fn: Callable | None = None,
 ) -> TrainResult:
-    """Train a copy of ``model`` on random windows of the (1, T, d) run.
+    """Train a copy of ``model`` on random windows of the (1, T, d) run, on
+    the model's device (the windows move there once).
 
     ``apply_fn(model, x, return_sequences)``: the exact forward (default:
     the model family's). ``optimizer(model) -> torch.optim.Optimizer``

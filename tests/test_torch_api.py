@@ -53,7 +53,7 @@ def slice_jax():
 @pytest.mark.parametrize("impl", ["auto", "scan", "fused", "hybrid"])
 def test_slice_end_to_end_matches_jax(slice_jax, impl):
     x, y_full_j, y_red_j, rmse_j, weights_j = slice_jax
-    dense = P.load_params(SEQUENTIAL)
+    dense = P.load_params(SEQUENTIAL, device="cpu")
     reduced = P.make_reduced_model(P.make_singular_model(dense, merged_kernel=False), rank=15)
     y_full = P.predict(dense, torch.tensor(x), impl=impl)
     y_red = P.predict(reduced, torch.tensor(x), impl=impl)
@@ -69,7 +69,7 @@ def test_singular_predict_matches_jax(impl):
     x = _x(32, seed=1)
     sj = make_singular_model(jax_load_params(SEQUENTIAL), merged_kernel=True)
     want = japi.predict(sj, jnp.asarray(x), consult_cache=False)
-    _close(P.predict(P.from_numpy_tree(sj), torch.tensor(x), impl=impl), want)
+    _close(P.predict(P.from_numpy_tree(sj, device="cpu"), torch.tensor(x), impl=impl), want)
 
 
 @pytest.mark.parametrize("impl", ["scan", "hybrid", "apply"])
@@ -84,7 +84,7 @@ def test_wide_reduced_checkpoint_matches_jax(impl):
     spread = np.abs(
         np.asarray(reduced_forward_dense_recurrent(params, jnp.asarray(x)[None])[0]) - want
     ).max()
-    model = P.load_params(WIDE_R24)
+    model = P.load_params(WIDE_R24, device="cpu")
     if impl == "apply":
         got = P.reduced_lstm_apply(model, torch.tensor(x)[None])[0].detach()
     else:
@@ -98,7 +98,7 @@ def test_batched_predict_matches_jax(family):
     dj = jax_load_params(SEQUENTIAL)
     pj = dj if family == "dense" else make_reduced_model(make_singular_model(dj), rank=15)
     want = japi.predict(pj, jnp.asarray(x), consult_cache=False)
-    got = P.predict(P.from_numpy_tree(pj), torch.tensor(x))
+    got = P.predict(P.from_numpy_tree(pj, device="cpu"), torch.tensor(x))
     assert tuple(got.shape) == (3, 20, 1)
     _close(got, want)
 
@@ -107,21 +107,22 @@ def test_batched_predict_matches_jax(family):
 @pytest.mark.parametrize("batched", [False, True], ids=["batch1", "batched"])
 def test_valid_impls_and_input_dim_match_jax(path, batched):
     x = _x(8, batch=3 if batched else None)
-    pj, pt = jax_load_params(path), P.load_params(path)
+    pj, pt = jax_load_params(path), P.load_params(path, device="cpu")
     assert P.valid_impls(pt, torch.tensor(x)) == japi.valid_impls(pj, jnp.asarray(x))
     assert P.model_input_dim(pt) == japi.model_input_dim(pj) == 16
 
 
 def test_predict_contract():
-    narrow, wide = P.load_params(SEQUENTIAL), P.load_params(WIDE_R24)
+    narrow, wide = P.load_params(SEQUENTIAL, device="cpu"), P.load_params(WIDE_R24, device="cpu")
     x1, xb = torch.tensor(_x(4)), torch.tensor(_x(4, batch=2))
     with pytest.raises(ValueError, match="unknown impl"):
         P.predict(narrow, x1, impl="pallas")
     with pytest.raises(ValueError, match="unknown precision"):
         P.predict(narrow, x1, precision="f64")
-    for mode in ("fast", "high"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.predict(narrow, x1, precision=mode)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        P.predict(narrow, x1, precision="fast")  # batch-1 fast: bf16-operand K1-K3 to come
+    torch.testing.assert_close(P.predict(narrow, x1, precision="high"), P.predict(narrow, x1),
+                               rtol=0, atol=0)  # batch-1 high runs the exact path
     for impl in ("fused", "hybrid"):
         with pytest.raises(ValueError, match="batch-1 only"):
             P.predict(narrow, xb, impl=impl)
@@ -159,7 +160,7 @@ def test_exact_mode_is_set_per_call_and_restored(monkeypatch):
     try:
         torch.set_float32_matmul_precision("high")  # TF32 on
         assert torch.backends.cuda.matmul.allow_tf32 is True
-        P.predict(P.load_params(SEQUENTIAL), torch.tensor(_x(4)))
+        P.predict(P.load_params(SEQUENTIAL, device="cpu"), torch.tensor(_x(4)))
         assert seen == {"tf32": False, "precision": "highest", "grad": False}
         assert torch.backends.cuda.matmul.allow_tf32 is True
         assert torch.get_float32_matmul_precision() == "high"
@@ -177,6 +178,7 @@ def test_import_loads_no_jax():
         "import svd_lstm_tpu_torch\n"
         "import svd_lstm_tpu_torch.data, svd_lstm_tpu_torch.train.loop, svd_lstm_tpu_torch.train.finetune\n"
         "import svd_lstm_tpu_torch.ops.cuda_train, svd_lstm_tpu_torch.ops.singular_train\n"
+        "import svd_lstm_tpu_torch.ops.cuda_batched, svd_lstm_tpu_torch.utils.precision\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'svd_lstm_tpu')]\n"
         "assert not bad, bad\n"
         "assert torch.get_float32_matmul_precision() == prec\n"
@@ -199,6 +201,18 @@ def test_no_jax_import_in_the_port_sources():
                     src = f.read()
                 for banned in ("import jax", "from jax", "import optax", "from svd_lstm_tpu.", "import svd_lstm_tpu\n"):
                     assert banned not in src, (name, banned)
+
+
+def test_entry_points_default_to_the_card():
+    """Asked for nothing, the model goes to the card; with no card that
+    raises (as torch does), it does not fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    tree = P.to_numpy_tree(P.load_params(SEQUENTIAL, device="cpu"))
+    for make in (lambda: P.load_params(SEQUENTIAL), lambda: P.from_numpy_tree(tree),
+                 lambda: P.init_stacked_lstm(torch.Generator().manual_seed(0))):
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            make()
 
 
 def test_devtime_needs_a_card():

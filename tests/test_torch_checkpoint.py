@@ -63,7 +63,7 @@ def test_every_committed_checkpoint_is_covered():
 @pytest.mark.parametrize("path", CHECKPOINTS, ids=os.path.basename)
 def test_committed_checkpoint_loads_with_its_arrays(path):
     kind, leaves = _file_leaves(path)
-    model = P.load_params(path)
+    model = P.load_params(path, device="cpu")
     expected = {"StackedLSTMParams": P.StackedLSTM, "ReducedModelParams": P.ReducedLSTM}[kind]
     assert type(model) is expected
     assert all(p.is_contiguous() and p.dtype == torch.float32 for p in model.parameters())
@@ -75,7 +75,7 @@ def test_committed_checkpoint_loads_with_its_arrays(path):
 def test_port_checkpoint_loads_in_jax(jax_models, family, tmp_path):
     params = jax_models[family]
     path = str(tmp_path / "model.npz")
-    P.save_params(path, P.from_numpy_tree(params))
+    P.save_params(path, P.from_numpy_tree(params, device="cpu"))
     back = jckpt.load_params(path)
     assert type(back) is type(params)
     assert jax.tree_util.tree_structure(back) == jax.tree_util.tree_structure(params)
@@ -87,7 +87,7 @@ def test_jax_checkpoint_loads_in_port_and_runs_alike(jax_models, family, tmp_pat
     params = jax_models[family]
     path = str(tmp_path / "model")  # suffix-less: np.savez appends .npz
     jckpt.save_params(path, params)
-    model = P.load_params(path)
+    model = P.load_params(path, device="cpu")
     _same_leaves(P.to_numpy_tree(model), jax.tree_util.tree_leaves(params))
     x = np.random.default_rng(14).normal(size=(1, 12, 16)).astype(np.float32)
     if family.startswith("singular"):
@@ -102,11 +102,11 @@ def test_jax_checkpoint_loads_in_port_and_runs_alike(jax_models, family, tmp_pat
 @pytest.mark.parametrize("family", FAMILIES)
 def test_numpy_tree_round_trip(jax_models, family):
     params = jax_models[family]
-    tree = P.to_numpy_tree(P.from_numpy_tree(params))
+    tree = P.to_numpy_tree(P.from_numpy_tree(params, device="cpu"))
     assert type(tree).__name__ == type(params).__name__
     assert type(tree) is P.io.checkpoint.NODE_TYPES[type(params).__name__]
     _same_leaves(tree, jax.tree_util.tree_leaves(params))
-    again = P.to_numpy_tree(P.from_numpy_tree(tree))
+    again = P.to_numpy_tree(P.from_numpy_tree(tree, device="cpu"))
     _same_leaves(again, jax.tree_util.tree_leaves(tree))
 
 
@@ -121,7 +121,7 @@ def test_unsupported_node_types_raise_by_name(tmp_path, node):
     path = str(tmp_path / "other.npz")
     np.savez_compressed(path, __spec__=json.dumps(spec), leaf_0=np.zeros(3, np.float32))
     with pytest.raises(TypeError, match=node):
-        P.load_params(path)
+        P.load_params(path, device="cpu")
 
 
 def test_jax_conv_checkpoint_raises_by_name(tmp_path):
@@ -130,4 +130,4 @@ def test_jax_conv_checkpoint_raises_by_name(tmp_path):
     path = str(tmp_path / "conv.npz")
     jckpt.save_params(path, init_conv_lstm(jax.random.PRNGKey(0), units=(8,)))
     with pytest.raises(TypeError, match="ConvLSTMParams"):
-        P.load_params(path)
+        P.load_params(path, device="cpu")

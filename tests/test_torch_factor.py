@@ -26,7 +26,7 @@ ATOL, RTOL = 2e-5, 1e-5
 @pytest.fixture(scope="module")
 def dense_pair():
     params = init_stacked_lstm(jax.random.PRNGKey(7), input_dim=16, units=(24, 40))
-    return params, P.from_numpy_tree(params)
+    return params, P.from_numpy_tree(params, device="cpu")
 
 
 @pytest.fixture(scope="module")

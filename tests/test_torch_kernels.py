@@ -150,7 +150,7 @@ def test_reduced_recurrence_matches_pallas(pallas, n, merged):
 def test_fused_dense_stack_matches_pallas(pallas, units):
     tree = _stack_tree(3, units)
     x = _normal(np.random.default_rng(4), (T, 16))
-    got = ck.fused_dense_stack_plain(from_numpy_tree(tree), _t(x))
+    got = ck.fused_dense_stack_plain(from_numpy_tree(tree, device="cpu"), _t(x))
     want = pallas.fused_dense_stack_pallas(_jax_stack(tree), _jnp(x), interpret=True)
     _close(got, want)
 
@@ -167,7 +167,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
                                rtol=0, atol=0)
     rxp, uB, uC, rh0, rc0 = _reduced_case(5, 8, merged=False, T=6, r=2)
     ck.reduced_recurrence(_t(rxp), _t(uB), _t(uC), _t(rh0), _t(rc0))
-    ck.fused_dense_stack(from_numpy_tree(_stack_tree(5, (8,))), _t(_normal(np.random.default_rng(5), (6, 16))))
+    ck.fused_dense_stack(from_numpy_tree(_stack_tree(5, (8,)), device="cpu"), _t(_normal(np.random.default_rng(5), (6, 16))))
     assert [k.launches for k in ck.KERNELS] == before
 
 
@@ -188,7 +188,7 @@ def test_wrappers_reject_bad_arguments():
         ck.reduced_recurrence(_t(rxp), _t(uB)[:3], _t(uC)[:3])
     with pytest.raises(ValueError, match="uC"):
         ck.reduced_recurrence(_t(rxp), _t(uB), _t(uC)[1:] + _t(uC)[:1])
-    model = from_numpy_tree(_stack_tree(6, (8,) * (ck.MAX_LAYERS + 1)))
+    model = from_numpy_tree(_stack_tree(6, (8,) * (ck.MAX_LAYERS + 1)), device="cpu")
     with pytest.raises(ValueError, match="layers"):
         ck.fused_dense_stack(model, torch.zeros((5, 16)))
 

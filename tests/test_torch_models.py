@@ -64,7 +64,7 @@ def _close(got, want):
 @pytest.mark.parametrize("family", FAMILIES)
 def test_forward_matches_jax(jax_models, family, batch):
     params = jax_models[family]
-    model = P.from_numpy_tree(params)
+    model = P.from_numpy_tree(params, device="cpu")
     kind = family.split("-")[0]
     x = _x(batch)
     want = _JAX_APPLY[kind](params, jnp.asarray(x))
@@ -78,7 +78,7 @@ def test_last_step_matches_jax(jax_models, family):
     kind = family.split("-")[0]
     x = _x(2, seed=1)
     want = _JAX_APPLY[kind](params, jnp.asarray(x), return_sequences=False)
-    got = P.from_numpy_tree(params)(torch.tensor(x), return_sequences=False)
+    got = P.from_numpy_tree(params, device="cpu")(torch.tensor(x), return_sequences=False)
     assert tuple(got.shape) == (2, 1)
     _close(got, want)
 
@@ -88,7 +88,7 @@ def test_dense_recurrent_layout_matches_jax(jax_models, family):
     params = jax_models[family]
     x = _x(2, seed=2)
     want = reduced_forward_dense_recurrent(params, jnp.asarray(x))
-    got = reduced_forward_dense_recurrent_t(P.from_numpy_tree(params), torch.tensor(x))
+    got = reduced_forward_dense_recurrent_t(P.from_numpy_tree(params, device="cpu"), torch.tensor(x))
     _close(got, want)
 
 
@@ -105,7 +105,7 @@ def test_gate_update_matches_jax():
 @pytest.mark.parametrize("family", FAMILIES)
 def test_module_properties_match_jax(jax_models, family):
     params = jax_models[family]
-    model = P.from_numpy_tree(params)
+    model = P.from_numpy_tree(params, device="cpu")
     for lj, lt in zip(params.layers, model.layers):
         assert (lt.units, lt.input_dim) == (lj.units, lj.input_dim)
         if hasattr(lj, "split"):

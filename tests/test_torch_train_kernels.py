@@ -5,6 +5,10 @@ On the CPU:
 * the plain versions of K7 (narrow whole stack) and K9 (one wide layer)
   are held against the JAX package's Pallas kernels in interpret mode, on
   the same numpy inputs, after the JAX side's 128-lane padding is removed;
+* K6 (the recurrence-only pair): its plain versions and its autograd
+  Function against the JAX package's ``lstm_recurrence_trainable``
+  (interpret mode) and JAX autodiff through it: h within 1e-5, dxp and dU
+  within 1e-5 × their largest value;
 * each autograd Function is held against torch autograd of the plain
   forward (an independent oracle), and gradchecked in float64;
 * the training dispatch, forward and every gradient, against the JAX one;
@@ -163,6 +167,48 @@ def test_wide_layer_matches_pallas(din):
 
 
 # ---------------------------------------------------------------------------
+# CPU: K6 plain versions and autograd Function against the JAX package
+# ---------------------------------------------------------------------------
+
+def _recurrence_case(seed, T, B, n=WIDE_N):
+    """xp, U, cot as the JAX package's own K6 test draws them (U · 0.05)."""
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, (T, B, 4 * n)), _normal(rng, (n, 4 * n), 0.05),
+            _normal(rng, (T, B, n)))
+
+
+def _scaled(g):
+    g = np.asarray(g)
+    return dict(atol=1e-5 * np.abs(g).max(), rtol=0)
+
+
+@pytest.mark.parametrize("T,B", [(5, 8), (4, 12)])
+def test_recurrence_train_matches_jax(T, B):
+    import jax
+    import jax.numpy as jnp
+    from svd_lstm_tpu.ops.pallas_train import lstm_recurrence_trainable as jax_trainable
+
+    xp, U, cot = _recurrence_case(23 + B, T, B)
+
+    def loss(xp, U):
+        return jnp.sum(jax_trainable(xp, U, 8, True) * cot)
+
+    h_j = np.asarray(jax_trainable(jnp.asarray(xp), jnp.asarray(U), 8, True))
+    dxp_j, dU_j = jax.grad(loss, argnums=(0, 1))(jnp.asarray(xp), jnp.asarray(U))
+    for fwd, bwd in ((ct.lstm_recurrence_train_fwd_plain, ct.lstm_recurrence_train_bwd_plain),
+                     (ct.lstm_recurrence_train_fwd, ct.lstm_recurrence_train_bwd)):
+        h, c = fwd(*_t([xp, U]))
+        _close(h, h_j, dict(atol=1e-5, rtol=0), "h")
+        dxp, dU = bwd(*_t([xp, U]), h, c, _t(cot))
+        _close(dxp, dxp_j, _scaled(dxp_j), "dxp")
+        _close(dU, dU_j, _scaled(dU_j), "dU")
+    out, (dxp, dU) = _loss_and_grads(ct.RecurrenceTrain.apply, _t([xp, U]), _t(cot))
+    _close(out, h_j, dict(atol=1e-5, rtol=0), "Function h")
+    _close(dxp, dxp_j, _scaled(dxp_j), "Function dxp")
+    _close(dU, dU_j, _scaled(dU_j), "Function dU")
+
+
+# ---------------------------------------------------------------------------
 # CPU: autograd Functions against autograd of the plain forward
 # ---------------------------------------------------------------------------
 
@@ -200,6 +246,22 @@ def test_wide_layer_function_matches_autograd_of_plain():
         _close(a, r.numpy(), GRAD, name)
 
 
+def test_recurrence_function_matches_autograd_of_plain():
+    xp, U, cot = _recurrence_case(24, 6, 5)
+    flat = _t([xp, U])
+    out_k, g_k = _loss_and_grads(ct.RecurrenceTrain.apply, flat, _t(cot))
+    out_r, g_r = _loss_and_grads(lambda *a: ct.lstm_recurrence_train_fwd_plain(*a)[0], flat, _t(cot))
+    _close(out_k, out_r.numpy())
+    for name, a, r in zip(("xp", "U"), g_k, g_r):
+        _close(a, r.numpy(), GRAD, name)
+
+
+def test_recurrence_gradcheck_float64():
+    xp, U, _ = _recurrence_case(25, 2, 2)
+    inputs = [t.requires_grad_(True) for t in _t([xp, U], dtype=torch.float64)]
+    assert torch.autograd.gradcheck(ct.RecurrenceTrain.apply, inputs, fast_mode=True)
+
+
 def test_fused_narrow_gradcheck_float64():
     layers = _t(_layers_np(6, (2, 3), 3), dtype=torch.float64)
     x = _t(_normal(np.random.default_rng(7), (3, 2, 3)), dtype=torch.float64)
@@ -228,7 +290,8 @@ def _stack_tree(layers, seed, head=1):
     )
 
 
-@pytest.mark.parametrize("units,d", [((8, 12, 5), 16), ((256, 256), 6)], ids=["narrow", "uniform"])
+@pytest.mark.parametrize("units,d", [((8, 12, 5), 16), ((256, 256), 6), ((256,), 6), ((256, 40), 6)],
+                         ids=["narrow", "uniform", "one-aligned", "mixed"])
 def test_dispatch_matches_jax(units, d):
     import jax
     import jax.numpy as jnp
@@ -248,7 +311,7 @@ def test_dispatch_matches_jax(units, d):
     y_j = jax_apply(params, jnp.asarray(x), interpret=True)
     g_j = jax.grad(jloss)(params)
 
-    model = from_numpy_tree(tree)
+    model = from_numpy_tree(tree, device="cpu")
     y = ct.stacked_lstm_apply_fast_train(model, _t(x))
     _close(y, y_j)
     loss = torch.mean(ct.stacked_lstm_apply_fast_train(model, _t(x), return_sequences=False) ** 2)
@@ -261,21 +324,25 @@ def test_dispatch_matches_jax(units, d):
 
 
 def test_dispatch_routes():
-    """Narrow -> K7, uniform wide -> K9, anything else -> the plain scan."""
+    """Narrow -> K7, uniform wide -> K9, exactly one 128-aligned layer ->
+    K6 on it, anything else -> the plain scan."""
     rng = np.random.default_rng(12)
 
     def model(units, d):
-        return from_numpy_tree(_stack_tree(_layers_np(13, units, d), 14)), _t(_normal(rng, (2, 3, d)))
+        return from_numpy_tree(_stack_tree(_layers_np(13, units, d), 14), device="cpu"), _t(_normal(rng, (2, 3, d)))
 
     calls = []
-    real = {name: getattr(ct, name) for name in ("fused_narrow_train_apply", "wide_layer_trainable")}
+    real = {name: getattr(ct, name) for name in ("fused_narrow_train_apply", "wide_layer_trainable",
+                                                 "lstm_recurrence_trainable")}
     try:
         for name, fn in real.items():
             setattr(ct, name, lambda *a, _n=name, _f=fn, **k: calls.append(_n) or _f(*a, **k))
+        k6 = "lstm_recurrence_trainable"
         for units, d, want in (((8, 8), 4, "fused_narrow_train_apply"),
                                ((128, 128), 4, "fused_narrow_train_apply"),
                                ((256, 256), 4, "wide_layer_trainable"),
-                               ((256,), 4, None), ((128, 136), 4, None), ((8, 256), 4, None)):
+                               ((256,), 4, k6), ((128, 136), 4, k6), ((8, 256), 4, k6),
+                               ((136, 144), 4, None), ((256, 384), 4, None)):
             calls.clear()
             m, x = model(units, d)
             y = ct.stacked_lstm_apply_fast_train(m, x)
@@ -299,6 +366,9 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     W, U, b = _t(_layers_np(15, (WIDE_N,), 3)[0])
     h, c = ct.wide_layer_fwd(x, W, U, b)
     ct.wide_layer_bwd(x, W, U, b, h, c, torch.ones_like(h))
+    xp = _t(_normal(np.random.default_rng(15), (3, 2, 4 * WIDE_N)))
+    h, c = ct.lstm_recurrence_train_fwd(xp, U)
+    ct.lstm_recurrence_train_bwd(xp, U, h, c, torch.ones_like(h))
     assert [k.launches for k in ct.KERNELS] == before
 
 
@@ -327,6 +397,14 @@ def test_wrappers_reject_bad_arguments():
     h, c = ct.wide_layer_fwd(x, W, U, b)
     with pytest.raises(ValueError, match="dh_seq"):
         ct.wide_layer_bwd(x, W, U, b, h, c, torch.ones((3, 2, 5)))
+    with pytest.raises(ValueError, match="n % 128"):
+        ct.lstm_recurrence_train_fwd(torch.zeros((3, 2, 4 * 136)), wide[0][1])
+    with pytest.raises(ValueError, match="xp"):
+        ct.lstm_recurrence_train_fwd(torch.zeros((3, 2, 5)), U)
+    xp = torch.zeros((3, 2, 4 * WIDE_N))
+    h, c = ct.lstm_recurrence_train_fwd(xp, U)
+    with pytest.raises(ValueError, match="dh_seq"):
+        ct.lstm_recurrence_train_bwd(xp, U, h, c, torch.ones((3, 2, 5)))
 
 
 def test_wrappers_reject_other_devices():
@@ -389,6 +467,23 @@ def test_cuda_wide_layer_matches_plain(cuda, din, B, monkeypatch):
     _close(c, c_p.cpu().numpy())
     grads = _launched(ct.wide_layer_bwd, lambda: ct.wide_layer_bwd(x, W, U, b, h_p, c_p, dh))
     for name, a, r in zip(("dx", "dW", "dU", "db"), grads, grads_p):
+        _close(a, r.cpu().numpy(), GRAD, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(128, 8), (128, 20), (256, 33)])
+def test_cuda_recurrence_train_matches_plain(cuda, n, B, monkeypatch):
+    xp, U, dh = _t(_recurrence_case(26, 12, B, n), cuda)
+    h_p, c_p = ct.lstm_recurrence_train_fwd_plain(xp, U)
+    grads_p = ct.lstm_recurrence_train_bwd_plain(xp, U, h_p, c_p, dh)
+    monkeypatch.setattr(ct, "lstm_recurrence_train_fwd_plain", None)  # no fallback on the card
+    monkeypatch.setattr(ct, "lstm_recurrence_train_bwd_plain", None)
+    h, c = _launched(ct.lstm_recurrence_train_fwd, lambda: ct.lstm_recurrence_train_fwd(xp, U))
+    _close(h, h_p.cpu().numpy())
+    _close(c, c_p.cpu().numpy())
+    grads = _launched(ct.lstm_recurrence_train_bwd,
+                      lambda: ct.lstm_recurrence_train_bwd(xp, U, h_p, c_p, dh))
+    for name, a, r in zip(("dxp", "dU"), grads, grads_p):
         _close(a, r.cpu().numpy(), GRAD, name)
 
 
