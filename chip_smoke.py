@@ -22,6 +22,21 @@ Phases, each of which raises on failure (no phase is caught):
    the plain version's distance from the same recurrence with float64 state,
    whichever is larger (a float32 sum order that flips the rounding of one
    bf16 h carries on to the next steps, as in ``check_state``); time both;
+3c. check the batch-1 fast variants (bf16 operands, float32 sums and
+   state) against their plain fast versions at the main path's widths
+   (d = 16): K1f on the 4×30 checkpoint and K3f on each 3×512 layer over
+   T = 6656, within K5's limit; K2f on each layer of ``wide_r24_progressive``
+   (merged r = 24) and of the 4×30 split r = 15 truncation over 64 windows
+   of 16 steps spread over T = 6656, each restarted from the plain
+   version's (h, c); K4 (the fused reduced stack) exact over T = 6656 on
+   4×30 split r = 15 and the direct 3×512 merged r = 24 truncation, within
+   5e-4 or twice the plain float32 version's distance from float64 (ROADMAP
+   fault 3.1), and fast over 64 windows of 8 steps of x from zero state on
+   4×30 split r = 15 and ``wide_r24_progressive``. A windowed check holds
+   the median window to 5e-4 and three quarters of the windows to 2 bf16
+   ulps (``check_windows``: over a whole run, flipped bf16 roundings carry
+   the two runs apart); time each kernel, its plain version and (K1f, K3f)
+   cuDNN's bf16 LSTM;
 4. drive the main path through the public entry points — ``load_params`` →
    ``predict(dense)`` → ``make_singular_model`` → ``make_reduced_model`` →
    ``predict(reduced)`` — on the 3×512 checkpoint (merged, r=24) and the 4×30
@@ -38,6 +53,15 @@ Phases, each of which raises on failure (no phase is caught):
    error within the fast band of the JAX tests (2e-2 for the wide models,
    3e-2 for the narrow one; "high" is held to 2e-2 as well); time fast, high
    and exact;
+4c. drive batch-1 ``predict(model, x (T, d), precision="fast")`` on the
+   3×512 checkpoint (K3f), ``wide_r24_progressive`` (K2f), and the 4×30
+   checkpoint dense and split r = 15 (K1f); check that each launched its
+   kernel and its output against ``precision="exact"`` on the card within
+   the fast bands of 4b; report (not gate) the direct 3×512 r = 24
+   truncation's fast error; time fast and exact; then
+   ``bench.timing.time_all_impls`` with impls "auto", "pallas" (K1 for the
+   dense model, K4 for the reduced one) and "hybrid", exact and fast, on
+   4×30 r = 15 and 3×512 r = 24, and check that K4 ran in both modes;
 5. check the train kernels against their plain versions on the card at the
    training path's shapes (K7 at 4×40, B = 32; K9 on a 512-unit layer and on
    the first layer, d = 16, B = 128; T = 200): h and c within 1e-4 or twice
@@ -88,9 +112,10 @@ import torch
 import svd_lstm_tpu_torch as P
 from svd_lstm_tpu_torch.api import exact_matmul
 from svd_lstm_tpu_torch.bench.devtime import device_time_ms
-from svd_lstm_tpu_torch.bench.timing import time_full_vs_reduced
+from svd_lstm_tpu_torch.bench.timing import time_all_impls, time_full_vs_reduced
 from svd_lstm_tpu_torch.data import preprocess_raw, split_train_random, synthetic_dropbear_raw
-from svd_lstm_tpu_torch.models.reduced import reduced_projection
+from svd_lstm_tpu_torch.models.lstm import scan_recurrence
+from svd_lstm_tpu_torch.models.reduced import bf16_round, folded_projection, reduced_projection
 from svd_lstm_tpu_torch.ops import _build
 from svd_lstm_tpu_torch.ops import cuda_batched as cb
 from svd_lstm_tpu_torch.ops import cuda_lstm as ck
@@ -109,6 +134,15 @@ GRAD_RTOL = 1e-3    # every gradient: max abs diff <= GRAD_RTOL * max |plain gra
 HIST_RTOL = 1e-3    # loss histories, kernel runs vs plain runs
 BATCH_B, BATCH_T = 256, 128  # batched inference: the JAX package's throughput point
 FAST_BAND = {"wide": 2e-2, "narrow": 3e-2}  # rel. Frobenius error vs exact (tests/test_pallas_batched.py)
+PLAIN_REPEATS = 2   # timed calls of a slow plain version in 3c (already warm from its check)
+WINDOWS = 64        # 3c: windows a fast variant is checked over, spread over T
+WINDOW_T = 16       # steps of a K2f window, restarted from the plain version's (h, c)
+K4_WINDOW_T = 8     # steps of a K4 fast window, from zero state
+WINDOW_SHARE = 0.75  # least share of the windows within 2 bf16 ulps (see check_windows)
+IMPL_REPEATS = 3    # timed calls per model and impl in 4c (the JAX harness's default)
+EXACT_NAMES = ("fused_dense_stack", "reduced_recurrence", "lstm_recurrence")
+FAST_NAMES = ("fused_dense_stack_fast", "reduced_recurrence_fast", "lstm_recurrence_fast")
+K4_NAMES = ("fused_reduced_stack", "fused_reduced_stack_fast")
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
 HBM_BYTES_PER_S = 3.35e12
 SAVES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "model_saves")
@@ -250,6 +284,12 @@ def library_train(layers, x: torch.Tensor, dh: torch.Tensor) -> tuple:
     return fwd_ms, bwd_ms
 
 
+def report(name: str, r: dict) -> None:
+    lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+    log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 def recurrence_args(l):
     """What a layer's recurrence kernel takes after xp."""
     if isinstance(l, P.LSTMLayer):
@@ -336,9 +376,7 @@ def kernel_checks(dev, x):
         "shape": "one 512-unit layer, merged r=24, T=6656",
     }
     for name, r in results.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
-        log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
-            f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        report(name, r)
     return results
 
 
@@ -403,6 +441,239 @@ def batched_kernel_checks(dev) -> dict:
     return {"batched_lstm_recurrence": r}
 
 
+def fast_limit(name: str, plain: torch.Tensor, plain64: torch.Tensor) -> float:
+    """K5's limit for a fast variant: 2 bf16 ulps of the plain fast
+    version's largest value, or twice its distance from the same arithmetic
+    with float64 state, whichever is larger (a float32 sum order that flips
+    one bf16 rounding of h carries on through the later steps)."""
+    drift = max_err(plain.double(), plain64)
+    ulps = 2 * bf16_ulp(float(plain.abs().max()))
+    log(f"[info] {name}: 2 bf16 ulps of the largest value {ulps:.3e}, plain vs float64 state "
+        f"{drift:.3e}")
+    return max(ulps, 2 * drift)
+
+
+def as_double(model):
+    return copy.deepcopy(model).double()
+
+
+def bf16_bytes(*tensors) -> int:
+    """Bytes of the tensors stored as bf16 (the fast variants' weights)."""
+    return nbytes(*tensors) // 2
+
+
+def reduced_flops(T: int, model, d: int) -> int:
+    """Multiply-adds ×2 of the folded two-step products of both sides over
+    T steps: per side v·B and (v·B)·C, per gate when split (the identity
+    part of [I|C] and the zero blocks of a packed split layer are no work)."""
+    total, din = 0, d
+    for l in model.layers:
+        for Bs, Cs, rows in ((l.wB, l.wC, din), (l.uB, l.uC, l.units)):
+            pairs = zip(Bs, Cs) if l.split else ((Bs, Cs),)
+            total += sum(rows * B.shape[1] + C.numel() for B, C in pairs)
+        din = l.units
+    return 2 * T * total
+
+
+def window_starts(T: int, steps: int) -> list:
+    """WINDOWS start steps spread evenly over a sequence of T steps."""
+    return sorted({int(t) for t in np.linspace(0, T - steps, WINDOWS)})
+
+
+def plain_states(xp, rec, starts):
+    """The plain fast recurrence z_t = xp_t + rec(h) over the whole xp
+    (T, 4n), run in segments that end at ``starts`` (the same steps as one
+    run): (h_seq (T, n), {t: (h, c) before step t})."""
+    h = c = None
+    h_seq, states, prev = torch.empty_like(xp[:, : xp.shape[1] // 4]), {}, 0
+    for t in [*starts, xp.shape[0]]:
+        if t > prev:
+            seq, (h, c) = scan_recurrence(xp[None, prev:t], rec, h, c)
+            h_seq[prev:t] = seq[0]
+            prev = t
+        if h is None:
+            h = c = torch.zeros((1, h_seq.shape[1]), dtype=xp.dtype, device=xp.device)
+        states[t] = (h, c)
+    return h_seq, states
+
+
+def check_windows(name: str, errs, drifts, ulps: float) -> float:
+    """A fast variant against its plain fast version over short windows
+    (each started from the plain version's state, or from zero state): the
+    median window within TOL, a float32 sum order; at least WINDOW_SHARE of
+    the windows within 2 bf16 ulps of the largest value. A float32 sum order
+    that flips one bf16 rounding of h (or of h·B, x·B) carries on through the
+    rest of a window, and on the ill-conditioned factors such a flip can
+    reach far more than 2 ulps; ``drifts``, the plain version's distance
+    from float64 state over the same windows, shows how often that happens
+    without the kernel. Returns the largest window's error."""
+    errs, drifts = np.asarray(errs), np.asarray(drifts)
+    med, share = float(np.median(errs)), float(np.mean(errs <= ulps))
+    log(f"[check] {name}: {len(errs)} windows, median max abs diff {med:.3e} (tol {TOL:g}), "
+        f"share within 2 bf16 ulps ({ulps:.3e}) {share:.3f} (at least {WINDOW_SHARE}), largest "
+        f"{errs.max():.3e}; plain vs float64 state: median {np.median(drifts):.3e}, share within "
+        f"{np.mean(drifts <= ulps):.3f}")
+    if not bool(np.isfinite(errs).all()) or not med <= TOL or not share >= WINDOW_SHARE:
+        fail(f"{name}: the kernel disagrees with its plain version")
+    return float(errs.max())
+
+
+def check_finite(name: str, got: torch.Tensor, plain: torch.Tensor) -> None:
+    """A fast variant's whole run: finite, of the plain version's shape. Its
+    distance from the plain run is logged, not gated: over T = 6656 steps
+    the flipped bf16 roundings of check_windows carry the two runs apart."""
+    if got.shape != plain.shape or not bool(torch.isfinite(got).all()):
+        fail(f"{name}: bad output {tuple(got.shape)}")
+    log(f"[info] {name}, whole run: max abs diff from the plain version {max_err(got, plain):.3e}")
+
+
+def fast_kernel_checks(dev, x) -> dict:
+    """Phase 3c: the fast variants K1f–K3f and K4 (exact and fast) against
+    their plain versions at main-path widths, timed beside their bounds."""
+    results = {}
+    Tx, d = x.shape
+    fast = "default"
+    plain_ms = lambda fn, *a: device_time_ms(fn, *a, warmup=0, repeats=PLAIN_REPEATS)
+
+    # K1f: the 4x30 checkpoint
+    m30 = P.load_params(DENSE_30, device=dev)
+    plain = ck.fused_dense_stack_plain(m30, x, fast)
+    limit = fast_limit("K1f 4x30", plain, ck.fused_dense_stack_plain(as_double(m30), x.double(), fast))
+    got = ck.fused_dense_stack(m30, x, dot_precision=fast)
+    results["fused_dense_stack_fast"] = {
+        "max_abs_err": check_close("K1f fused_dense_stack fast 4x30 dense", got, plain, limit),
+        "ms": device_time_ms(lambda: ck.fused_dense_stack(m30, x, dot_precision=fast)),
+        "plain_ms": plain_ms(lambda: ck.fused_dense_stack_plain(m30, x, fast)),
+        "library_ms": library_forward("K1f 4x30 bf16", [(l.W, l.U, l.b) for l in m30.layers],
+                                      x[:, None].bfloat16(), got[:, None],
+                                      lambda o: m30.head(o.float())),
+        **bound(lstm_flops(Tx, 1, stack_shape(m30, d)) + 2 * Tx * 30,
+                nbytes(x, [(l.b,) for l in m30.layers], list(m30.head.parameters())) + 4 * Tx
+                + bf16_bytes([(l.W, l.U) for l in m30.layers]), torch.bfloat16),
+        "shape": "4x30, T=6656, d=16, bf16 operands",
+    }
+
+    # K3f: each layer of 3x512, from the fast x-side of the fast layer below
+    m512 = P.load_params(DENSE_512, device=dev)
+    proj = lambda l, h: torch.matmul(bf16_round(h), bf16_round(l.W))
+    rec = lambda xp, U: ck.lstm_recurrence_plain(xp, U, dot_precision=fast)
+    runs = layer_runs(m512, x, proj, rec)
+    err = 0.0
+    for i, (l, xp, h) in enumerate(runs):
+        limit = fast_limit(f"K3f 3x512 layer {i}", h, rec(xp.double(), l.U.double()))
+        err = max(err, check_close(f"K3f lstm_recurrence fast 3x512 layer {i}",
+                                   ck.lstm_recurrence(xp, l.U, dot_precision=fast), h, limit))
+    l0, xp0, h0 = runs[0]
+    n = l0.units
+    results["lstm_recurrence_fast"] = {
+        "max_abs_err": err,
+        "ms": device_time_ms(lambda: ck.lstm_recurrence(xp0, l0.U, dot_precision=fast)),
+        "plain_ms": plain_ms(rec, xp0, l0.U),
+        # cuDNN's bf16 LSTM also computes the x-side product x·W + b (d = 16)
+        "library_ms": library_forward("K3f 512 bf16", [(l0.W, l0.U, l0.b)], x[:, None].bfloat16(),
+                                      h0[:, None]),
+        **bound(lstm_flops(Tx, 1, [(0, n)]), nbytes(xp0, h0) + bf16_bytes(l0.U), torch.bfloat16),
+        "shape": "one 512-unit layer, T=6656, bf16 operands",
+    }
+
+    # K2f: each layer of wide_r24_progressive (merged r=24) and of 4x30 split
+    # r=15, over WINDOWS windows of WINDOW_T steps, each restarted from the
+    # plain version's (h, c); each layer's xp from the plain h of the layer below
+    wide = P.load_params(WIDE_R24, device=dev)
+    red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
+    starts = window_starts(Tx, WINDOW_T)
+    err, timed = 0.0, None
+    for name, m in (("merged r=24 (wide_r24_progressive)", wide), ("4x30 split r=15", red30)):
+        h = x
+        for i, l in enumerate(m.layers):
+            xp = (reduced_projection(l, h, "w", bf16=True) + l.b).contiguous()
+            uB, uC = recurrence_args(l)
+            uB64, uC64 = double([uB, uC])
+            h, states = plain_states(xp, folded_projection(uB, uC, True), starts)
+            errs, drifts = [], []
+            for t in starts:
+                hc, cc = states[t]
+                xw = xp[t : t + WINDOW_T]
+                plain = ck.reduced_recurrence_plain(xw, uB, uC, hc, cc, fast)
+                got = ck.reduced_recurrence(xw, uB, uC, hc, cc, dot_precision=fast)
+                plain64 = ck.reduced_recurrence_plain(xw.double(), uB64, uC64, hc.double(),
+                                                      cc.double(), fast)
+                errs.append(max_err(got, plain))
+                drifts.append(max_err(plain.double(), plain64))
+            label = f"K2f reduced_recurrence fast {name} layer {i}"
+            err = max(err, check_windows(label, errs, drifts, 2 * bf16_ulp(float(h.abs().max()))))
+            check_finite(label, ck.reduced_recurrence(xp, uB, uC, dot_precision=fast), h)
+            timed = timed or ((xp, uB, uC), h)
+    args, h = timed
+    r = args[1].shape[1]
+    results["reduced_recurrence_fast"] = {
+        "max_abs_err": err,
+        "ms": device_time_ms(lambda: ck.reduced_recurrence(*args, dot_precision=fast)),
+        "plain_ms": plain_ms(lambda: ck.reduced_recurrence_plain(*args, dot_precision=fast)),
+        "library_ms": None,  # no single PyTorch call runs the two-step recurrence (h·B)·[I|C]
+        **bound(2 * Tx * (n * r + r * (4 * n - r)), nbytes(args[0], h) + bf16_bytes(args[1:]),
+                torch.bfloat16),
+        "shape": "one 512-unit layer, merged r=24, T=6656, bf16 operands",
+    }
+
+    # K4 exact over the whole run: 4x30 split r=15 and the direct 3x512 merged
+    # r=24 truncation (|C| ~ 1.1e4, ROADMAP fault 3.1)
+    red512 = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=24)
+    err = 0.0
+    for name, m in (("4x30 split r=15", red30), ("3x512 merged r=24", red512)):
+        plain = ck.fused_reduced_stack_plain(m, x)
+        drift = max_err(plain.double(), ck.fused_reduced_stack_plain(as_double(m), x.double()))
+        log(f"[info] K4 {name} exact: plain float32 vs float64 {drift:.3e}")
+        err = max(err, check_close(f"K4 fused_reduced_stack exact {name}",
+                                   ck.fused_reduced_stack(m, x), plain, max(TOL, 2 * drift)))
+    log(f"[time] K4 exact 4x30 split r=15: kernel "
+        f"{device_time_ms(lambda: ck.fused_reduced_stack(red30, x)):.3f} ms")
+    results["fused_reduced_stack"] = {
+        "max_abs_err": err,
+        "ms": device_time_ms(lambda: ck.fused_reduced_stack(red512, x)),
+        "plain_ms": plain_ms(lambda: ck.fused_reduced_stack_plain(red512, x)),
+        "library_ms": None,  # no single PyTorch call runs a factored LSTM stack
+        **bound(reduced_flops(Tx, red512, d) + 2 * Tx * n,
+                nbytes(x, list(red512.parameters())) + 4 * Tx),
+        "shape": "3x512 merged r=24 (direct truncation), T=6656, d=16",
+    }
+
+    # K4 fast over WINDOWS windows of K4_WINDOW_T steps of x, each from zero
+    # state (the kernel takes no initial state): 4x30 split r=15 and
+    # wide_r24_progressive (3x512 merged r=24 after recovery, |C| <= 199; the
+    # direct truncation's bf16 operands flip apart within a few steps)
+    err = 0.0
+    for name, m in (("4x30 split r=15", red30), ("3x512 merged r=24 (wide_r24_progressive)", wide)):
+        m64 = as_double(m)
+        errs, drifts, largest = [], [], 0.0
+        for t in window_starts(Tx, K4_WINDOW_T):
+            xw = x[t : t + K4_WINDOW_T]
+            plain = ck.fused_reduced_stack_plain(m, xw, fast)
+            errs.append(max_err(ck.fused_reduced_stack(m, xw, dot_precision=fast), plain))
+            drifts.append(max_err(plain.double(), ck.fused_reduced_stack_plain(m64, xw.double(), fast)))
+            largest = max(largest, float(plain.abs().max()))
+        label = f"K4 fused_reduced_stack fast {name}"
+        err = max(err, check_windows(label, errs, drifts, 2 * bf16_ulp(largest)))
+        got = ck.fused_reduced_stack(m, x, dot_precision=fast)
+        check_finite(label, got, ck.fused_reduced_stack_plain(m, x, fast))
+    log(f"[time] K4 fast 4x30 split r=15: kernel "
+        f"{device_time_ms(lambda: ck.fused_reduced_stack(red30, x, dot_precision=fast)):.3f} ms")
+    results["fused_reduced_stack_fast"] = {
+        "max_abs_err": err,
+        "ms": device_time_ms(lambda: ck.fused_reduced_stack(wide, x, dot_precision=fast)),
+        "plain_ms": plain_ms(lambda: ck.fused_reduced_stack_plain(wide, x, fast)),
+        "library_ms": None,  # no single PyTorch call runs a factored LSTM stack
+        **bound(reduced_flops(Tx, wide, d) + 2 * Tx * n,
+                nbytes(x, [l.b for l in wide.layers], list(wide.head.parameters())) + 4 * Tx
+                + bf16_bytes([p for l in wide.layers for p in (l.wB, l.wC, l.uB, l.uC)]),
+                torch.bfloat16),
+        "shape": "3x512 merged r=24 (wide_r24_progressive), T=6656, d=16, bf16 operands",
+    }
+    for name, r in results.items():
+        report(name, r)
+    return results
+
+
 def check_vs_cpu_reference(name: str, y: torch.Tensor, m_cpu, x_cpu: torch.Tensor) -> None:
     """A card output y (T, 1) of predict(impl="auto") of a model: finite, and
     on its first REF_STEPS steps against the float64 plain scan of the same
@@ -433,8 +704,7 @@ def main_path(dev, x):
         ("3x512 merged r=24", DENSE_512, True, 24),
         ("4x30 split r=15", DENSE_30, False, 15),
     )
-    for k in ck.KERNELS:
-        k.launches = 0
+    ck.reset_launch_counts()
     runs = []
     for name, path, merged, rank in configs:
         dense = P.load_params(path, device=dev)
@@ -443,7 +713,7 @@ def main_path(dev, x):
         y_red = P.predict(reduced, x)
         runs.append((name, path, merged, rank, dense, reduced, y_full, y_red))
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in ck.KERNELS}
+    launches = {k: ck.LAUNCHES[k] for k in EXACT_NAMES}
     log(f"[main] kernel launches during the main path: {launches}")
     for k, v in launches.items():
         if v < 1:
@@ -511,6 +781,65 @@ def batched_path(dev) -> dict:
                  for p in dict.fromkeys((prec, "exact"))}
         log(f"[batched] {name} B={BATCH_B} T={BATCH_T}: "
             + ", ".join(f"{p} {t:.3f} ms" for p, t in times.items()))
+    return launches
+
+
+def fast_path(dev, x) -> dict:
+    """Phase 4c: batch-1 predict(precision="fast") through the public entry
+    points, counted, checked against exact mode on the card and timed; then
+    the timing harness over its impls, which reaches K4 through "pallas"."""
+    m512, m30 = P.load_params(DENSE_512, device=dev), P.load_params(DENSE_30, device=dev)
+    red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
+    red512 = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=24)
+    configs = (  # name, model, band (None: reported, not gated), the kernel it must launch
+        ("3x512 dense", m512, "wide", "lstm_recurrence_fast"),
+        ("wide_r24_progressive", P.load_params(WIDE_R24, device=dev), "wide", "reduced_recurrence_fast"),
+        ("4x30 dense", m30, "narrow", "fused_dense_stack_fast"),
+        ("4x30 split r=15", red30, "narrow", "fused_dense_stack_fast"),
+        ("3x512 direct merged r=24", red512, None, "reduced_recurrence_fast"),
+    )
+    ck.reset_launch_counts()
+    outs = []
+    for name, m, _, kernel in configs:
+        before = ck.LAUNCHES[kernel]
+        outs.append(P.predict(m, x, precision="fast"))
+        torch.cuda.synchronize()
+        if ck.LAUNCHES[kernel] == before:
+            fail(f"batch-1 fast {name}: {kernel} was not launched")
+    launches = {k: ck.LAUNCHES[k] for k in FAST_NAMES}
+    log(f"[fast] kernel launches during the batch-1 fast path: {launches}")
+
+    times = {}
+    for (name, m, band, _), y in zip(configs, outs):
+        if tuple(y.shape) != (T, 1) or not bool(torch.isfinite(y).all()):
+            fail(f"batch-1 fast {name}: bad output {tuple(y.shape)}")
+        exact = P.predict(m, x)
+        rel = rel_err(y, exact)
+        limit = "reported, not gated (ROADMAP fault 3.1)" if band is None else f"band {FAST_BAND[band]:g}"
+        log(f"[check] batch-1 fast {name} vs exact: rel Frobenius {rel:.3e}, max abs "
+            f"{max_err(y, exact):.3e} ({limit})")
+        if band is not None and not rel <= FAST_BAND[band]:
+            fail(f"batch-1 fast {name}: rel error {rel:.3e} above {FAST_BAND[band]:g}")
+        times[name] = {p: device_time_ms(lambda p=p: P.predict(m, x, precision=p))
+                       for p in ("fast", "exact")}
+        log(f"[fast] {name} T={T}: fast {times[name]['fast']:.3f} ms, exact "
+            f"{times[name]['exact']:.3f} ms")
+    for full, red in (("3x512 dense", "3x512 direct merged r=24"), ("4x30 dense", "4x30 split r=15")):
+        log(f"[fast] reduced/full fast ratio, {red}: {times[red]['fast'] / times[full]['fast']:.4f}")
+
+    for name, dense, reduced in (("4x30 split r=15", m30, red30), ("3x512 merged r=24", m512, red512)):
+        for precision in ("exact", "fast"):
+            for impl, r in time_all_impls(dense, reduced, x, impls=("auto", "pallas", "hybrid"),
+                                          repeats=IMPL_REPEATS, precision=precision).items():
+                log(f"[timing] {name} {precision} impl={impl!r}: full {r.full_ms:.3f} ms "
+                    f"({r.full_us_per_step:.3f} us/step), reduced {r.reduced_ms:.3f} ms "
+                    f"({r.reduced_us_per_step:.3f} us/step), ratio {r.ratio:.4f}")
+    torch.cuda.synchronize()
+    launches.update({k: ck.LAUNCHES[k] for k in K4_NAMES})
+    log(f"[timing] K4 launches through impl='pallas': {launches}")
+    for k in K4_NAMES:
+        if launches[k] < 1:
+            fail(f"kernel {k} was not launched by the timing harness")
     return launches
 
 
@@ -751,10 +1080,10 @@ def check_finetune(init, tuned, data, dev) -> None:
                 fail(f"run B: layers[{i}].{f} did not move during the fine-tune")
     reduced = P.make_reduced_model(tuned, cutoff=0.05)
     x = torch.tensor(data.X_test[0], device=dev)
-    k1 = ck.fused_dense_stack.launches
+    k1 = ck.LAUNCHES["fused_dense_stack"]
     y_red = P.predict(reduced, x)
     torch.cuda.synchronize()
-    if ck.fused_dense_stack.launches == k1:
+    if ck.LAUNCHES["fused_dense_stack"] == k1:
         fail("run B: the reduced predict did not launch K1 (fused_dense_stack)")
     y_tuned = P.predict(tuned, x)
     check_vs_cpu_reference("run B reduced predict", y_red, copy.deepcopy(reduced).cpu(),
@@ -768,7 +1097,8 @@ def check_finetune(init, tuned, data, dev) -> None:
 def train_path(dev, data) -> tuple:
     """Phase 6: runs A to D through the public entry points, counted.
     Returns (launches, {run name: loss history})."""
-    for k in (*ck.KERNELS, *ct.KERNELS):
+    ck.reset_launch_counts()
+    for k in ct.KERNELS:
         k.launches = 0
     histories = {}
     for run in TRAIN_RUNS:
@@ -869,8 +1199,10 @@ def main() -> int:
     with exact_matmul(), torch.no_grad():
         checks = kernel_checks(dev, x)
         checks.update(batched_kernel_checks(dev))
+        checks.update(fast_kernel_checks(dev, x))
         launches = main_path(dev, x)
         launches.update(batched_path(dev))
+        launches.update(fast_path(dev, x))
 
     data = train_data()
     with exact_matmul():

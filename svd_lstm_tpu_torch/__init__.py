@@ -3,8 +3,8 @@
 On an NVIDIA H100: train a stacked-LSTM regressor (``fit``), factorize it
 (U·Σ·Vᵀ), fine-tune σ under the Hoyer penalty (``finetune``), truncate to
 the exact two-step form ``(x·B)·[I|C]``, and predict with the dense or the
-reduced model at batch 1 (exact mode) or batched (``precision="exact"``,
-``"high"`` or ``"fast"``). The batch-1 recurrences, the batched fast-mode
+reduced model at batch 1 or batched (``precision="exact"``, ``"high"`` or
+``"fast"``). The batch-1 recurrences (exact and bf16-operand), the batched fast-mode
 recurrence and the training recurrences (forward and backward) run in
 hand-written CUDA kernels (``ops/csrc``); everything else is plain PyTorch.
 Weights keep the JAX package's Keras layout and its ``.npz`` checkpoint

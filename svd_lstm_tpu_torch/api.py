@@ -4,17 +4,32 @@ Counterpart of ``svd_lstm_tpu/api.py``.
 
 Routing (``impl="auto"``):
 
-* CPU tensors take the plain versions: the ``scan`` time loops of
-  ``models/*``, and K5's plain version in batched fast mode.
-* Batch-1 ``(T, d)`` CUDA input takes the kernels in ``ops/cuda_lstm.py``:
-  every layer n ≤ 128 → ``fused`` (the whole stack in one kernel; singular
-  and reduced models after their exact dense reconstruction), anything
-  wider → ``hybrid`` (matmul x-side projections + the recurrence kernel:
-  dense for dense and singular models, the folded two-step for reduced).
-  On the TPU the JAX package sent the wide dense model in exact mode to its
-  XLA scan, because the f32-forced 3-pass MXU emulation made its kernel
-  slower there. That reason does not hold on the H100, whose CUDA cores run
-  f32 natively, so the wide dense model takes its kernel here as well.
+* Batch-1 ``(T, d)`` CUDA input in exact mode takes the kernels in
+  ``ops/cuda_lstm.py``: every layer n ≤ 128 → ``fused`` (the whole stack in
+  one kernel; singular and reduced models after their exact dense
+  reconstruction), anything wider → ``hybrid`` (matmul x-side projections +
+  the recurrence kernel: dense for dense and singular models, the folded
+  two-step for reduced). On the TPU the JAX package sent the wide dense
+  model in exact mode to its XLA scan, because the f32-forced 3-pass MXU
+  emulation made its kernel slower there. That reason does not hold on the
+  H100, whose CUDA cores run f32 natively, so the wide dense model takes its
+  kernel here as well. CPU tensors in exact mode take the ``scan`` time
+  loops of ``models/*``.
+* Batch-1 input in ``"fast"`` mode follows ``svd_lstm_tpu/api.py:212-290``
+  with ``dot_precision="default"`` (the kernels' bf16-operand variants):
+
+  ========  ===========================  =====================  ======================
+  family    n ≤ 128 (auto, fused)        n ≥ 256, or hybrid     128 < n < 256 (auto)
+  ========  ===========================  =====================  ======================
+  dense     K1                           dense hybrid (K3)      dense hybrid (K3)
+  singular  K1 on the dense collapse     dense hybrid (K3) on   as n ≥ 256
+                                         the dense collapse
+  reduced   K1 on the reconstruction     reduced hybrid (K2)    dense hybrid (K3) of
+                                                                the reconstruction
+  ========  ===========================  =====================  ======================
+
+  on either device: CPU tensors run the same route through the kernels'
+  plain fast versions, so one mode has one meaning on both.
 * Batched ``(B, T, d)`` input runs the plain scan in ``"exact"`` and
   ``"high"``; in ``"fast"`` it runs ``ops/cuda_batched.batched_forward_fast``
   (bf16 x-side products, the K5 recurrence per layer) on the exact dense
@@ -29,9 +44,9 @@ nothing is set at import:
 * ``"exact"``: TF32 off, float32 matmul precision "highest";
 * ``"high"``: batched input runs the scan with TF32 on; batch-1 input runs
   the exact path, as in the JAX package;
-* ``"fast"``: batched input only. Its bf16 products are explicit, the rest
-  (the dense reconstruction, the head) runs in exact float32. Batch-1
-  ``"fast"`` needs bf16-operand variants of K1–K3 and raises until then.
+* ``"fast"``: its bf16 products are explicit (bf16-rounded operands, or bf16
+  tensors in the batched path); the rest (the dense reconstruction, the
+  head, the float32 products of rounded operands) runs with TF32 off.
 """
 
 from __future__ import annotations
@@ -51,6 +66,7 @@ from svd_lstm_tpu_torch.utils.precision import (  # exact_matmul: exported here
 
 IMPLS = ("auto", "scan", "fused", "hybrid")
 _FUSED_MAX_UNITS = 128
+_REDUCED_HYBRID_MIN_UNITS = 256  # batch-1 fast: narrower reduced models run dense
 
 
 def model_input_dim(model) -> int:
@@ -92,10 +108,11 @@ def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"
     impl: 'auto' | 'scan' | 'fused' | 'hybrid'; precision: 'exact' |
     'high' | 'fast' (see the module docstring for the routing).
 
-    Batched 'fast' with impl='auto' runs K5 on a CUDA input and K5's plain
-    version on a CPU input: one mode has one meaning on both devices (the
-    JAX package's off-TPU fallback to an all-bf16 scan is not carried
-    over). impl='scan' is the exact float32 loop in every mode."""
+    'fast' with impl='auto' runs the kernels' bf16-operand variants on a
+    CUDA input and their plain versions on a CPU input: one mode has one
+    meaning on both devices (the JAX package's off-TPU fallbacks, the exact
+    scan for batch-1 and an all-bf16 scan for batched input, are not
+    carried over). impl='scan' is the exact float32 loop in every mode."""
     if precision not in PRECISION_MODES:
         raise ValueError(f"unknown precision: {precision!r}")
     if impl not in IMPLS:
@@ -118,24 +135,23 @@ def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"
             f"{_max_units(model)}); use impl='hybrid' (wide-model kernel) "
             "or impl='auto'"
         )
-    if precision == "fast" and not batched:
-        raise NotImplementedError(
-            "batch-1 precision='fast' needs bf16-operand variants of the batch-1 "
-            "kernels, not ported yet (ROADMAP queue 1, item 5); use precision='exact' "
-            "or batched (B, T, d) input"
-        )
     # only batched 'high' runs with TF32: batch-1 'high' is the exact path, as
     # in JAX, and fast mode's bf16 products are explicit (the rest is exact)
     scope = "high" if batched and precision == "high" else "exact"
+    # batch-1 fast: the kernels' bf16-operand variants (JAX api.py:219)
+    dp = "default" if precision == "fast" and not batched else None
     with matmul_scope(scope), torch.no_grad():
-        if precision == "fast" and impl == "auto":
+        if precision == "fast" and batched and impl == "auto":
             return cuda_batched.batched_forward_fast(_dense(model), x)
-        return _dispatch(model, x, impl, batched)
+        return _dispatch(model, x, impl, batched, dp)
 
 
-def _dispatch(model, x, impl: str, batched: bool):
-    if impl == "auto":
-        if batched or x.device.type != "cuda":
+def _dispatch(model, x, impl: str, batched: bool, dp=None):
+    """Run the resolved impl; ``dp`` is the batch-1 kernels' dot_precision
+    (None: exact, "default": fast)."""
+    auto = impl == "auto"
+    if auto:
+        if batched or (x.device.type != "cuda" and dp is None):
             impl = "scan"
         else:
             impl = "fused" if _max_units(model) <= _FUSED_MAX_UNITS else "hybrid"
@@ -152,14 +168,20 @@ def _dispatch(model, x, impl: str, batched: bool):
 
     if impl == "fused":
         if isinstance(model, StackedLSTM):
-            return cuda_lstm.fused_dense_stack(model, x)
+            return cuda_lstm.fused_dense_stack(model, x, dot_precision=dp)
         if isinstance(model, SingularLSTM):
-            return layouts.singular_forward_fused(model, x)
-        return layouts.reduced_forward_fused(model, x)
+            return layouts.singular_forward_fused(model, x, dot_precision=dp)
+        return layouts.reduced_forward_fused(model, x, dot_precision=dp)
 
     # hybrid
     if isinstance(model, StackedLSTM):
-        return cuda_lstm.dense_forward_hybrid(model, x)
+        return cuda_lstm.dense_forward_hybrid(model, x, dot_precision=dp)
     if isinstance(model, SingularLSTM):
-        return cuda_lstm.dense_forward_hybrid(singular_to_dense(model), x)
-    return cuda_lstm.reduced_forward_hybrid(model, x)
+        return cuda_lstm.dense_forward_hybrid(singular_to_dense(model), x, dot_precision=dp)
+    if auto and dp is not None and _max_units(model) < _REDUCED_HYBRID_MIN_UNITS:
+        # mid-width (128 < n < 256) fast mode: the exact dense reconstruction
+        # through the dense hybrid, as JAX api.py:280-290
+        return cuda_lstm.dense_forward_hybrid(
+            layouts.reconstruct_dense_model(model), x, dot_precision=dp
+        )
+    return cuda_lstm.reduced_forward_hybrid(model, x, dot_precision=dp)

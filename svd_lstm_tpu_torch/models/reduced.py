@@ -98,34 +98,62 @@ def pack_split_projection(Bs, Cs) -> Tuple[torch.Tensor, torch.Tensor]:
     return Bp, ICp
 
 
-def apply_split_projection(x, Bp, ICp) -> torch.Tensor:
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (round to nearest even) and kept in its dtype:
+    the operand of a product in fast mode."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def operand_map(bf16: bool):
+    """The map applied to each operand of a product: ``bf16_round`` in fast
+    mode, the identity in exact mode."""
+    return bf16_round if bf16 else _same
+
+
+def apply_split_projection(x, Bp, ICp, operand=_same) -> torch.Tensor:
     """The batched split two-step: per gate (x @ B) @ [I|C], all four gates
-    in two einsums, gate blocks concatenated -> (..., 4n)."""
-    xb = torch.einsum("...d,gdr->...gr", x, Bp)
-    z = torch.einsum("...gr,grn->...gn", xb, ICp)
+    in two einsums, gate blocks concatenated -> (..., 4n). ``operand`` maps
+    x and x @ B before their products (``bf16_round`` in fast mode, where the
+    caller passes Bp and ICp rounded already)."""
+    xb = torch.einsum("...d,gdr->...gr", operand(x), Bp)
+    z = torch.einsum("...gr,grn->...gn", operand(xb), ICp)
     return z.reshape(*z.shape[:-2], -1)
 
 
-def reduced_projection(p: ReducedLayer, x, which: str) -> torch.Tensor:
+def folded_projection(Bs, Cs, bf16: bool = False):
+    """``v -> (v @ B) @ [I|C]`` of one side: merged (one B, C) or split (4
+    per-gate pairs, any sequence that is not a tensor), with the factors
+    packed once. ``bf16``: every operand of both products is rounded to bf16
+    (v, B, v @ B and [I|C]) and the products run in v's dtype, so each
+    product of two bf16 values is exact and the sums are float32, as the
+    TPU's single-pass dots; the result is not rounded."""
+    operand = operand_map(bf16)
+    if not isinstance(Bs, torch.Tensor):
+        Bp, ICp = pack_split_projection(Bs, Cs)
+        Bp, ICp = operand(Bp), operand(ICp)
+        return lambda v: apply_split_projection(v, Bp, ICp, operand)
+    B, IC = operand(Bs), operand(fold_IC(Bs, Cs))
+    return lambda v: torch.matmul(operand(torch.matmul(operand(v), B)), IC)
+
+
+def reduced_projection(p: ReducedLayer, x, which: str, bf16: bool = False) -> torch.Tensor:
     """Two-step product for input ('w') or recurrent ('u') side -> (..., 4n),
-    in the folded form ``(x @ B) @ [I|C]`` (identical values, no concat)."""
+    in the folded form ``(x @ B) @ [I|C]`` (identical values, no concat).
+    ``bf16``: with bf16-rounded operands (fast mode, see
+    :func:`folded_projection`)."""
     Bs = p.wB if which == "w" else p.uB
     Cs = p.wC if which == "w" else p.uC
-    if p.split:
-        return apply_split_projection(x, *pack_split_projection(Bs, Cs))
-    return torch.matmul(torch.matmul(x, Bs), fold_IC(Bs, Cs))
+    return folded_projection(Bs, Cs, bf16)(x)
 
 
 def reduced_layer_apply(p: ReducedLayer, x_seq, h0=None, c0=None, return_state=False):
     """x_seq: (batch, T, d) -> (batch, T, units)."""
     xp = reduced_projection(p, x_seq, "w") + p.b
-    if p.split:
-        Bp, ICp = pack_split_projection(p.uB, p.uC)
-        rec = lambda h: apply_split_projection(h, Bp, ICp)
-    else:
-        IC = fold_IC(p.uB, p.uC)
-        rec = lambda h: torch.matmul(torch.matmul(h, p.uB), IC)
-    h_seq, state = scan_recurrence(xp, rec, h0, c0)
+    h_seq, state = scan_recurrence(xp, folded_projection(p.uB, p.uC), h0, c0)
     return (h_seq, state) if return_state else h_seq
 
 

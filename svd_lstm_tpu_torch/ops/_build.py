@@ -10,7 +10,8 @@ is reused. A missing ``nvcc`` or a failed build raises; nothing degrades to
 another implementation.
 
 Exact mode needs ``expf``/``tanhf`` as written, so ``--use_fast_math`` is
-never passed.
+never passed (fast mode rounds only the products' operands, by the bf16
+intrinsics, and keeps the same gate arithmetic).
 """
 
 from __future__ import annotations
@@ -37,12 +38,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points of csrc/*.cu and their argument types; each returns a cudaError_t.
 _SIGNATURES = {
-    # meta, L, x, out, T, d, stream
-    "fused_dense_stack_launch": [_P, _I, _P, _P, _I, _I, _P],
-    # xp, Bt, IC, h0, c0, out, T, n, R, stream
-    "reduced_recurrence_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
-    # xp, U, h0, c0, out, T, n, stream
-    "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _P],
+    # meta, L, x, out, T, d, bf16, stream
+    "fused_dense_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+    # xp, Bt, IC, h0, c0, out, T, n, R, bf16, stream
+    "reduced_recurrence_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp, U, h0, c0, out, T, n, bf16, stream
+    "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # meta, L, x, out, T, d, bf16, stream
+    "fused_reduced_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
     # meta, L, x, T, B, d, stream
     "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _P],
     # meta, L, x, dh_last, dx, T, B, d, stream

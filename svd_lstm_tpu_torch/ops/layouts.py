@@ -45,16 +45,18 @@ def reconstruct_dense_model(model: ReducedLSTM) -> StackedLSTM:
     return StackedLSTM(layers, model.head)
 
 
-def singular_forward_fused(smodel, x: torch.Tensor) -> torch.Tensor:
+def singular_forward_fused(smodel, x: torch.Tensor, dot_precision=None) -> torch.Tensor:
     """Batch-1 evaluation of a (full-rank) singular model: exact dense
-    collapse W = (U·Σ)·Vᵀ through the fused kernel. x: (T, d)."""
-    return fused_dense_stack(singular_to_dense(smodel), x)
+    collapse W = (U·Σ)·Vᵀ through the fused kernel, in the kernel's
+    ``dot_precision`` (the collapse itself stays exact). x: (T, d)."""
+    return fused_dense_stack(singular_to_dense(smodel), x, dot_precision=dot_precision)
 
 
-def reduced_forward_fused(model: ReducedLSTM, x: torch.Tensor) -> torch.Tensor:
+def reduced_forward_fused(model: ReducedLSTM, x: torch.Tensor, dot_precision=None) -> torch.Tensor:
     """Batch-1 evaluation of a reduced model: exact dense reconstruction
-    through the fused kernel. x: (T, d) -> (T, head_dim)."""
-    return fused_dense_stack(reconstruct_dense_model(model), x)
+    through the fused kernel, in the kernel's ``dot_precision``.
+    x: (T, d) -> (T, head_dim)."""
+    return fused_dense_stack(reconstruct_dense_model(model), x, dot_precision=dot_precision)
 
 
 @torch.no_grad()

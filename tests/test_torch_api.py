@@ -119,8 +119,8 @@ def test_predict_contract():
         P.predict(narrow, x1, impl="pallas")
     with pytest.raises(ValueError, match="unknown precision"):
         P.predict(narrow, x1, precision="f64")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.predict(narrow, x1, precision="fast")  # batch-1 fast: bf16-operand K1-K3 to come
+    fast = P.predict(narrow, x1, precision="fast")  # batch-1 fast: bf16-operand K1-K3
+    assert fast.dtype == torch.float32 and tuple(fast.shape) == (4, 1)
     torch.testing.assert_close(P.predict(narrow, x1, precision="high"), P.predict(narrow, x1),
                                rtol=0, atol=0)  # batch-1 high runs the exact path
     for impl in ("fused", "hybrid"):
@@ -130,6 +130,69 @@ def test_predict_contract():
         P.predict(wide, x1, impl="fused")
     with pytest.raises(TypeError, match="unknown model params"):
         P.predict(torch.nn.Linear(16, 1), x1)
+
+
+@pytest.mark.parametrize("bad", ["bf16", "DEFAULT", "high"])
+def test_unknown_dot_precision_raises(bad):
+    """As the JAX package's _bad_dot_precision: only None, 'default' and
+    'highest' name a kernel precision."""
+    from svd_lstm_tpu_torch.ops import cuda_lstm as ck
+
+    narrow = P.load_params(SEQUENTIAL, device="cpu")
+    reduced = P.make_reduced_model(P.make_singular_model(narrow, merged_kernel=False), rank=15)
+    x = torch.tensor(_x(4))
+    calls = [
+        lambda: ck.fused_dense_stack(narrow, x, dot_precision=bad),
+        lambda: ck.fused_reduced_stack(reduced, x, dot_precision=bad),
+        lambda: ck.dense_forward_hybrid(narrow, x, dot_precision=bad),
+        lambda: ck.reduced_forward_hybrid(reduced, x, dot_precision=bad),
+        lambda: ck.lstm_recurrence(torch.zeros((4, 8)), torch.zeros((2, 8)), dot_precision=bad),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="unknown dot_precision"):
+            call()
+
+
+def test_unknown_timing_impl_raises():
+    from svd_lstm_tpu_torch.bench.timing import forward_fns, time_all_impls, time_full_vs_reduced
+
+    narrow = P.load_params(SEQUENTIAL, device="cpu")
+    x = torch.tensor(_x(4))
+    for impl in ("fused", "pallas2", "cudnn"):
+        with pytest.raises(ValueError, match="unknown impl"):
+            time_full_vs_reduced(narrow, narrow, x, impl=impl)  # before any timing
+    with pytest.raises(ValueError, match="unknown impl"):
+        time_all_impls(narrow, narrow, x, impls=("bogus",))
+    for precision in ("high", "bf16"):
+        with pytest.raises(ValueError, match="unknown precision"):
+            time_full_vs_reduced(narrow, narrow, x, precision=precision)
+    assert [len(forward_fns(impl)) for impl in ("auto", "scan", "pallas", "hybrid")] == [2] * 4
+
+
+@pytest.mark.parametrize("impl", ["auto", "scan", "pallas", "hybrid"])
+def test_timing_forward_fns_in_fast_mode(impl):
+    """The timing harness's fast mode runs each impl's bf16-operand kernels
+    (their plain versions on CPU tensors); scan stays the exact loop."""
+    from svd_lstm_tpu_torch.bench.timing import forward_fns
+    from svd_lstm_tpu_torch.ops import cuda_lstm as ck
+
+    dense = P.load_params(SEQUENTIAL, device="cpu")
+    reduced = P.make_reduced_model(P.make_singular_model(dense, merged_kernel=False), rank=15)
+    x = torch.tensor(_x(8))
+    want = {
+        "auto": (lambda m: P.predict(m, x, precision="fast"),) * 2,
+        "scan": (None, None),  # the exact loop itself
+        "pallas": (lambda m: ck.fused_dense_stack_plain(m, x, "default"),
+                   lambda m: ck.fused_reduced_stack_plain(m, x, "default")),
+        "hybrid": (lambda m: ck.dense_forward_hybrid(m, x, dot_precision="default"),
+                   lambda m: ck.reduced_forward_hybrid(m, x, dot_precision="default")),
+    }[impl]
+    for model, fast, exact, ref in zip((dense, reduced), forward_fns(impl, "fast"),
+                                       forward_fns(impl), want):
+        got = fast(model, x)
+        torch.testing.assert_close(got, exact(model, x) if ref is None else ref(model),
+                                   rtol=0, atol=0)
+        assert torch.equal(got, exact(model, x)) == (impl == "scan")
 
 
 def test_jax_raises_alike():
@@ -149,7 +212,7 @@ def test_jax_raises_alike():
 def test_exact_mode_is_set_per_call_and_restored(monkeypatch):
     seen = {}
 
-    def spy(model, x, impl, batched):
+    def spy(model, x, impl, batched, dp=None):
         seen["tf32"] = torch.backends.cuda.matmul.allow_tf32
         seen["precision"] = torch.get_float32_matmul_precision()
         seen["grad"] = torch.is_grad_enabled()

@@ -229,9 +229,17 @@ def test_batch1_high_equals_exact():
 
 
 def test_batch1_fast_raises_naming_roadmap():
+    """Batch-1 fast returns the float32 (T, out) of the plain fast versions
+    on the CPU (tests/test_torch_fast.py holds them to the JAX package), and
+    an unknown precision raises. The name is historical: batch-1 fast raised,
+    naming the ROADMAP item, until its bf16-operand kernels were ported."""
     model = P.load_params(SEQUENTIAL, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.predict(model, torch.zeros((5, 16)), precision="fast")
+    x = torch.tensor(_normal(np.random.default_rng(9), (5, 16)))
+    got = P.predict(model, x, precision="fast")
+    assert got.dtype == torch.float32 and tuple(got.shape) == (5, 1)
+    assert not torch.equal(got, P.predict(model, x))
+    with pytest.raises(ValueError, match="unknown precision"):
+        P.predict(model, x, precision="bf16")
 
 
 @pytest.mark.parametrize("precision", ["exact", "high", "fast"])
