@@ -81,10 +81,30 @@ Phases, each of which raises on failure (no phase is caught):
    uniform stack); check that each run launched its kernels, that every
    loss is finite, that the fine-tune froze the factors and moved σ, and the
    reduced output;
+5c. the same for K8 (the narrow whole-stack pair with the weights resident
+   in shared memory) at the recovery path's batch (B = 128, T = 200) on a
+   fresh 4×40 stack and on the dense view of the 4×30 split r = 15
+   truncation, timed beside K7 on the same inputs (K8, K7, K7, K8 in turn);
+6. (continued) drive the post-truncation recovery through its public entry
+   points, on the same windows: run E ``recover_reduced_gated`` of the 4×30
+   split r = 15 truncation at B = 128 (K8 both ways), run F
+   ``truncate_recover_progressive`` of the 3×512 checkpoint down ranks
+   (32, 24), merged (K9 through the dense view); the launch counts are set
+   to 0 just before these two runs and read just after. Each run's gate must
+   be monotone (best validation MSE ≤ the raw truncation's), the final
+   ranks held, and ``predict`` of the recovered model must launch K1 (E) or
+   K2 (F) and agree with the CPU float64 scan as in 4. The gate validates on
+   the first 2048 steps of the training half (its default, the whole half,
+   runs the plain exact scan, which is launch-bound on the card);
 7. hold each run against the same run with ``recurrence_kernel=False`` (the
    plain autograd scan): the first step's loss and gradients under the
    tolerances of 5, the loss histories within rtol 1e-3; time one train
-   step of each.
+   step of each. For E and F the first step is taken from the (first)
+   truncation, every factor, bias and head gradient is held to 1e-3 × its
+   largest plain value or twice the plain float32 gradient's distance from
+   float64, whichever is larger (the truncations' C factors amplify the
+   float32 sum order: ROADMAP fault 3.1), and the history is one epoch of
+   ``finetune_reduced``.
 
 Beside each kernel the script times one PyTorch library call that computes
 the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
@@ -120,6 +140,7 @@ from svd_lstm_tpu_torch.ops import _build
 from svd_lstm_tpu_torch.ops import cuda_batched as cb
 from svd_lstm_tpu_torch.ops import cuda_lstm as ck
 from svd_lstm_tpu_torch.ops import cuda_train as ct
+from svd_lstm_tpu_torch.ops.reduced_train import reduced_dense_view
 from svd_lstm_tpu_torch.train.finetune import make_finetune_optimizer, regularization_loss
 from svd_lstm_tpu_torch.train.loop import default_apply_fn, mse_last_step, resolve_train_apply_fn
 
@@ -132,6 +153,8 @@ TRAIN_T = 200       # window length of the training path
 FWD_TOL = 1e-4      # train kernels vs plain: h and c, max abs diff (floor; see check_state)
 GRAD_RTOL = 1e-3    # every gradient: max abs diff <= GRAD_RTOL * max |plain gradient|
 HIST_RTOL = 1e-3    # loss histories, kernel runs vs plain runs
+COMPACT_B = 128     # K8 and runs E, F: the batch from which the dispatch takes K8
+GATE_STEPS = 2048   # runs E, F: the gate validates on this many steps of the training half
 BATCH_B, BATCH_T = 256, 128  # batched inference: the JAX package's throughput point
 FAST_BAND = {"wide": 2e-2, "narrow": 3e-2}  # rel. Frobenius error vs exact (tests/test_pallas_batched.py)
 PLAIN_REPEATS = 2   # timed calls of a slow plain version in 3c (already warm from its check)
@@ -883,16 +906,69 @@ TRAIN_RUNS = (
 )
 
 
+def truncation(path: str, merged: bool, rank: int, dev):
+    """A checkpoint factorized and truncated to ``rank``."""
+    dense = P.load_params(path, device=dev)
+    return P.make_reduced_model(P.make_singular_model(dense, merged_kernel=merged), rank=rank)
+
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryRun(TrainRun):
+    """A post-truncation recovery: ``make`` gives the first stage's
+    truncation of ``path``; one rank runs ``recover_reduced_gated`` on it,
+    several run ``truncate_recover_progressive`` from the checkpoint."""
+
+    path: str = ""
+    merged: bool = False
+    ranks: tuple = ()
+    max_epochs: int = 1
+    predict_kernel: str = ""  # the batch-1 kernel that predict runs the recovered model through
+
+
+def recovery_run(name, path, merged, ranks, max_epochs, kernels, predict_kernel) -> RecoveryRun:
+    return RecoveryRun(
+        name, lambda dev: truncation(path, merged, ranks[0], dev),
+        P.TrainConfig(batch_size=COMPACT_B, window_len=TRAIN_T, recurrence_kernel=True,
+                      num_windows=256, epochs=1),
+        kernels, path=path, merged=merged, ranks=ranks, max_epochs=max_epochs,
+        predict_kernel=predict_kernel,
+    )
+
+
+RECOVERY_RUNS = (
+    recovery_run("E 4x30 split r=15 gated recovery", DENSE_30, False, (15,), 2,
+                 (ct.fused_narrow_train_compact_fwd, ct.fused_narrow_train_compact_bwd),
+                 "fused_dense_stack"),
+    recovery_run("F 3x512 merged progressive r=32 -> 24", DENSE_512, True, (32, 24), 1,
+                 (ct.wide_layer_fwd, ct.wide_layer_bwd), "reduced_recurrence"),
+)
+
+
 def train_data():
     """The package's deterministic DROPBEAR surrogate, preprocessed."""
     return preprocess_raw(synthetic_dropbear_raw(duration=12.0), P.DataConfig(split_time=8.0))
 
 
 def train(run: TrainRun, model, data, kernel: bool):
+    """Runs A–D as phase 6 trains them; for E and F one epoch of
+    ``finetune_reduced`` from the truncation (their loss history in 7)."""
     cfg = dataclasses.replace(run.cfg, recurrence_kernel=kernel)
+    if isinstance(run, RecoveryRun):
+        return P.finetune_reduced(model, data.X_train, data.y_train, cfg)
     if run.factor_cfg is None:
         return P.fit(model, data.X_train, data.y_train, cfg)
     return P.finetune(model, data.X_train, data.y_train, run.factor_cfg, cfg)
+
+
+def recover(run: RecoveryRun, data, dev):
+    """Run E or F through its public entry point. Returns (model, infos)."""
+    X, y = data.X_train, data.y_train
+    gate = dict(max_epochs=run.max_epochs, validation=(X[:, :GATE_STEPS], y[:GATE_STEPS]))
+    if len(run.ranks) == 1:
+        model, info = P.recover_reduced_gated(run.make(dev), X, y, train_cfg=run.cfg, **gate)
+        return model, [info]
+    return P.truncate_recover_progressive(P.load_params(run.path, device=dev), X, y, ranks=run.ranks,
+                                          train_cfg=run.cfg, merged_kernel=run.merged, **gate)
 
 
 def first_batch(run: TrainRun, data, dev):
@@ -1017,6 +1093,7 @@ def train_kernel_checks(dev, data) -> dict:
               lambda: ct.wide_layer_bwd(*args[:4], *ct.wide_layer_fwd(*args[:4]), dh),
               lambda: ct.wide_layer_bwd_plain(*args[:4], *ct.wide_layer_fwd_plain(*args[:4]), dh))
     results.update(recurrence_train_checks(dev, data, rng))
+    results.update(compact_kernel_checks(dev, data, rng))
     return results
 
 
@@ -1065,6 +1142,72 @@ def recurrence_train_checks(dev, data, rng) -> dict:
 
     log(f"[time] K6 with its x-side products (what cuDNN computes): forward "
         f"{device_time_ms(fwd_with_x):.3f} ms, backward {device_time_ms(bwd_with_x):.3f} ms")
+    return results
+
+
+def in_turns(name: str, shape: str, a, b, *args) -> None:
+    """Two kernels on the same inputs timed in turns (a, b, b, a) in one
+    call: the card and its neighbours change between calls."""
+    ms = [device_time_ms(f, *args) for f in (a, b, b, a)]
+    log(f"[time] {name} ({shape}), in turns: {ms[0]:.3f}, {ms[1]:.3f}, {ms[2]:.3f}, {ms[3]:.3f} ms")
+
+
+def compact_kernel_checks(dev, data, rng) -> dict:
+    """Phase 5c: K8 against its plain version at the recovery path's batch
+    (B = 128, T = 200, d = 16) on a fresh 4x40 stack (run A's) and on the
+    dense view of run E's 4x30 split r=15 truncation; timed on 4x40 beside
+    its plain version, cuDNN's LSTM and, in turns, K7 on the same inputs."""
+    x = first_batch(RECOVERY_RUNS[0], data, dev)[0].transpose(0, 1).contiguous()  # (T, B, d)
+    cases = (
+        ("4x40", [tuple(p.detach() for p in (l.W, l.U, l.b)) for l in TRAIN_RUNS[0].make(dev).layers]),
+        ("4x30 split r=15 dense view",
+         [tuple(p.detach() for p in l) for l in reduced_dense_view(RECOVERY_RUNS[0].make(dev)).layers]),
+    )
+    fwd_err = bwd_err = 0.0
+    for name, layers in cases:
+        hs_p, cs_p = ct.fused_narrow_train_compact_fwd_plain(layers, x)
+        hs64, cs64 = ct.fused_narrow_train_compact_fwd_plain(double(layers), x.double())
+        hs, cs = ct.fused_narrow_train_compact_fwd(layers, x)
+        fwd_err = max(fwd_err, *(check_state(f"K8 fwd {name} {k}{i}", a, r, r64)
+                                 for k, got, want, want64 in (("h", hs, hs_p, hs64), ("c", cs, cs_p, cs64))
+                                 for i, (a, r, r64) in enumerate(zip(got, want, want64))))
+        dh = torch.tensor(rng.normal(size=hs_p[-1].shape), dtype=torch.float32, device=dev)
+        args = (layers, x, hs_p, cs_p, dh)
+        got, want = ct.fused_narrow_train_compact_bwd(*args), ct.fused_narrow_train_compact_bwd_plain(*args)
+        bwd_err = max(bwd_err, *(check_grad(f"K8 bwd {name} {k}{i}", a, r)
+                                 for k, gs, ws in zip(("dW", "dU", "db"), got[:3], want[:3])
+                                 for i, (a, r) in enumerate(zip(gs, ws))),
+                      check_grad(f"K8 bwd {name} dx", got[3], want[3]))
+        shape = f"{name}, B={x.shape[1]}, T={x.shape[0]}, d={x.shape[2]}"
+        in_turns("K8 fwd, K7 fwd", shape, ct.fused_narrow_train_compact_fwd, ct.fused_narrow_train_fwd,
+                 layers, x)
+        in_turns("K8 bwd, K7 bwd", shape, ct.fused_narrow_train_compact_bwd, ct.fused_narrow_train_bwd,
+                 *args)
+        if name == "4x40":
+            timed = (shape, layers, hs, cs, args, got)
+    shape, layers, hs, cs, args, got = timed
+    T8, B8, _ = x.shape
+    flops = lstm_flops(T8, B8, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
+    lib_fwd, lib_bwd = library_train(layers, x, args[-1])
+    results = {
+        "fused_narrow_train_compact_fwd": {
+            "max_abs_err": fwd_err,
+            **time_pair("K8 fwd", shape, ct.fused_narrow_train_compact_fwd,
+                        ct.fused_narrow_train_compact_fwd_plain, layers, x,
+                        library_ms=lib_fwd, **bound(flops, nbytes(layers, x, hs, cs))),
+        },
+        "fused_narrow_train_compact_bwd": {
+            "max_abs_err": bwd_err,
+            **time_pair("K8 bwd", shape, ct.fused_narrow_train_compact_bwd,
+                        ct.fused_narrow_train_compact_bwd_plain, *args,
+                        library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
+        },
+    }
+    dh = args[-1]
+    time_pair("K8 fwd+bwd", shape,
+              lambda: ct.fused_narrow_train_compact_bwd(layers, x, *ct.fused_narrow_train_compact_fwd(layers, x), dh),
+              lambda: ct.fused_narrow_train_compact_bwd_plain(
+                  layers, x, *ct.fused_narrow_train_compact_fwd_plain(layers, x), dh))
     return results
 
 
@@ -1125,11 +1268,59 @@ def train_path(dev, data) -> tuple:
     return launches, histories
 
 
-def first_step(run: TrainRun, dev, x, y, kernel: bool):
-    """The first train step of a run from its initial model. Returns (loss,
-    {parameter: gradient}, step), where step() runs one whole train step
-    (forward, backward, Adam) on the same model, for timing."""
-    model = run.make(dev)
+def final_ranks(model) -> set:
+    """Every recurrent-side rank of a reduced model (every gate); the input
+    side of the first layer holds at most d = 16."""
+    return {r for l in model.layers for r in l.ranks[1]}
+
+
+def recovery_path(dev, data) -> dict:
+    """Phase 6, runs E and F: the recovery through its public entry points,
+    counted from zero just before and read just after. Returns the train
+    kernels' launch counts of these runs."""
+    ck.reset_launch_counts()
+    for k in ct.KERNELS:
+        k.launches = 0
+    x = torch.tensor(data.X_test[0], device=dev)
+    for run in RECOVERY_RUNS:
+        before = {k.__name__: k.launches for k in ct.KERNELS}
+        t0 = time.perf_counter()
+        model, infos = recover(run, data, dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        delta = {k.__name__: k.launches - before[k.__name__] for k in ct.KERNELS}
+        log(f"[recover] run {run.name}: {wall:.2f} s wall, train kernel launches {delta}")
+        for k in run.kernels:
+            if delta[k.__name__] < 1:
+                fail(f"run {run.name}: {k.__name__} was not launched")
+        for r, info in zip(run.ranks, infos):
+            log(f"[recover] run {run.name} rank {r}: raw val MSE {info['raw_val_mse']:.6e}, best "
+                f"{info['best_val_mse']:.6e}, trace {info['trace']}")
+            if not (np.isfinite(info["best_val_mse"]) and info["best_val_mse"] <= info["raw_val_mse"]):
+                fail(f"run {run.name} rank {r}: the gate returned a model worse than the truncation")
+        if final_ranks(model) != {run.ranks[-1]}:
+            fail(f"run {run.name}: ranks {final_ranks(model)} after recovery, not {run.ranks[-1]}")
+        k = ck.LAUNCHES[run.predict_kernel]
+        y_pred = P.predict(model, x)
+        torch.cuda.synchronize()
+        if ck.LAUNCHES[run.predict_kernel] == k:
+            fail(f"run {run.name}: predict did not launch {run.predict_kernel}")
+        check_vs_cpu_reference(f"run {run.name} predict", y_pred, copy.deepcopy(model).cpu(),
+                               x[:REF_STEPS].cpu())
+        log(f"[recover] run {run.name}: RMSE of the recovered model vs the test targets "
+            f"{P.rmse(y_pred[:, 0].cpu().numpy(), data.y_test):.6f}")
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in ct.KERNELS}
+    log(f"[recover] kernel launches during the recovery path: {launches}")
+    return launches
+
+
+def first_step(run: TrainRun, dev, x, y, kernel: bool, dtype=torch.float32):
+    """The first train step of a run from its initial model (in ``dtype``:
+    float64 for a plain reference). Returns (loss, {parameter: gradient},
+    step), where step() runs one whole train step (forward, backward, Adam)
+    on the same model, for timing."""
+    model = run.make(dev).to(dtype)
     cfg = dataclasses.replace(run.cfg, recurrence_kernel=kernel)
     apply_fn, used = resolve_train_apply_fn(cfg, default_apply_fn(model))
     if used != kernel:
@@ -1160,18 +1351,27 @@ def first_step(run: TrainRun, dev, x, y, kernel: bool):
 
 def train_comparisons(dev, data, histories: dict) -> None:
     """Phase 7: each run against the same run on the plain autograd scan.
-    ``histories`` holds each run's loss history from phase 6."""
-    for run in TRAIN_RUNS:
+    ``histories`` holds runs A–D's loss histories from phase 6; E's and F's
+    are one epoch of ``finetune_reduced``, taken here."""
+    for run in TRAIN_RUNS + RECOVERY_RUNS:
         x, y = first_batch(run, data, dev)
         loss_k, grads_k, step_k = first_step(run, dev, x, y, kernel=True)
         loss_p, grads_p, step_p = first_step(run, dev, x, y, kernel=False)
         tol = FWD_TOL * max(1.0, abs(loss_p))
+        drifts = {}
+        if isinstance(run, RecoveryRun):  # the drift of the plain float32 step from float64
+            loss64, grads64, _ = first_step(run, dev, x.double(), y.double(), False, torch.float64)
+            tol = max(tol, 2 * abs(loss_p - loss64))
+            drifts = {name: 2 * max_err(g.double(), grads64[name]) for name, g in grads_p.items()}
         log(f"[check] run {run.name} first-step loss: kernel {loss_k:.8f}, plain {loss_p:.8f} "
             f"(tol {tol:g})")
         if not abs(loss_k - loss_p) <= tol:
             fail(f"run {run.name}: first-step loss differs by {abs(loss_k - loss_p):.3e}")
         for name, want in grads_p.items():
-            check_grad(f"run {run.name} first-step d{name}", grads_k[name], want)
+            check_close(f"run {run.name} first-step d{name}", grads_k[name], want,
+                        max(GRAD_RTOL * float(want.abs().max()), drifts.get(name, 0.0)))
+        if run.name not in histories:
+            histories[run.name] = train(run, run.make(dev), data, kernel=True).history
         hist_k = np.asarray(histories[run.name])
         hist_p = np.asarray(train(run, run.make(dev), data, kernel=False).history)
         rel = float(np.max(np.abs(hist_k - hist_p) / np.abs(hist_p)))
@@ -1208,7 +1408,9 @@ def main() -> int:
     with exact_matmul():
         checks.update(train_kernel_checks(dev, data))
     train_launches, histories = train_path(dev, data)
-    launches.update(train_launches)
+    recovery_launches = recovery_path(dev, data)
+    # a train kernel's launches: phase 6's runs A-D and E-F, each counted from zero
+    launches.update({k: train_launches[k] + recovery_launches[k] for k in train_launches})
     train_comparisons(dev, data, histories)
 
     print(json.dumps({"kernels": kernel_entries(checks, launches)}))

@@ -2,9 +2,11 @@
 
 On an NVIDIA H100: train a stacked-LSTM regressor (``fit``), factorize it
 (U·Σ·Vᵀ), fine-tune σ under the Hoyer penalty (``finetune``), truncate to
-the exact two-step form ``(x·B)·[I|C]``, and predict with the dense or the
-reduced model at batch 1 or batched (``precision="exact"``, ``"high"`` or
-``"fast"``). The batch-1 recurrences (exact and bf16-operand), the batched fast-mode
+the exact two-step form ``(x·B)·[I|C]``, recover the truncated model's
+accuracy by training its factors (``finetune_reduced``, the gated
+``recover_reduced_gated`` and ``truncate_recover_progressive``), and
+predict with the dense or the reduced model at batch 1 or batched
+(``precision="exact"``, ``"high"`` or ``"fast"``). The batch-1 recurrences (exact and bf16-operand), the batched fast-mode
 recurrence and the training recurrences (forward and backward) run in
 hand-written CUDA kernels (``ops/csrc``); everything else is plain PyTorch.
 Weights keep the JAX package's Keras layout and its ``.npz`` checkpoint
@@ -13,8 +15,8 @@ format.
 The entry points run on the card unless asked for the CPU:
 ``load_params``, ``from_numpy_tree`` and ``init_stacked_lstm`` put the
 model on ``device="cuda"`` by default (``device="cpu"`` for the CPU), and
-``predict``, ``fit`` and ``finetune`` follow the device of their model and
-input.
+``predict``, ``fit``, ``finetune`` and the recovery functions follow the
+device of their model and input.
 
 Importing the package has no side effects: it imports neither JAX nor the
 JAX package, builds no kernel and changes no global setting.
@@ -52,7 +54,13 @@ from svd_lstm_tpu_torch.models.singular import (
 )
 from svd_lstm_tpu_torch.ops.cuda_batched import batched_forward_fast
 from svd_lstm_tpu_torch.ops.layouts import reconstruct_dense_model
-from svd_lstm_tpu_torch.train.finetune import finetune
-from svd_lstm_tpu_torch.train.loop import TrainResult, fit
+from svd_lstm_tpu_torch.train.finetune import (
+    finetune,
+    finetune_reduced,
+    harvest_sigmas,
+    recover_reduced_gated,
+    truncate_recover_progressive,
+)
+from svd_lstm_tpu_torch.train.loop import TrainResult, fit, predict_full_run
 from svd_lstm_tpu_torch.train.metrics import nrmse, rmse, signaltonoise
 from svd_lstm_tpu_torch.utils.precision import PRECISION_MODES, cast_params, matmul_scope

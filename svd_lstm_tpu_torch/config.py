@@ -49,9 +49,13 @@ class TrainConfig:
     float32, so unlike the JAX package's bf16-pass kernels they keep the
     exact-mode numerics.
 
-    ``compact_gates``: "auto" and False both mean the whole-stack pair; the
-    128-lane gate packing of the compact layout is a TPU layout (ROADMAP
-    queue 2, K8). True raises.
+    ``compact_gates`` picks the narrow whole-stack pair of the dense scan:
+    True sends stacks of layers ≤ 64 units (input ≤ 128) whose weights fit
+    in shared memory to K8 (``fused_narrow_train_apply_compact``, the
+    weights resident on chip), False keeps K7, "auto" takes K8 from
+    B = 128 on, the JAX package's rule. The singular and reduced views
+    always use "auto". The 128-lane gate packing of the JAX package's
+    compact layout is a TPU layout and is not carried over.
     """
 
     num_windows: int = 20_000
@@ -101,9 +105,4 @@ def check_train_config(cfg: TrainConfig) -> None:
         raise NotImplementedError(
             "auto_flags (the autotune cache) is not ported yet (ROADMAP queue 1, "
             "item 9); set the flags explicitly"
-        )
-    if cfg.recurrence_kernel and cfg.compact_gates is True:
-        raise NotImplementedError(
-            "compact_gates=True (the compact-gate train kernels, K8) is not ported "
-            "yet (ROADMAP queue 2); use 'auto' or False"
         )

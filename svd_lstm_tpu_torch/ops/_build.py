@@ -50,6 +50,9 @@ _SIGNATURES = {
     "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _P],
     # meta, L, x, dh_last, dx, T, B, d, stream
     "fused_narrow_train_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
+    # K8: as K7's
+    "fused_narrow_train_compact_fwd_launch": [_P, _I, _P, _I, _I, _I, _P],
+    "fused_narrow_train_compact_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     # A, shift, dz, out, partial, M, p, G, splits, stream
     "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, W, U, b, h, c, T, B, din, n, stream

@@ -1,12 +1,15 @@
 // LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores, and
 // the batched fast-mode recurrence that shares their tiles.
 //
-// Three forward/backward pairs, one per TPU train kernel pair on the
+// Four forward/backward pairs, one per TPU train kernel pair on the
 // training path of svd_lstm_tpu/ops/pallas_train.py, one reduction that the
 // backward passes share, and one inference kernel:
 //
 //   K7  narrow_fwd / narrow_bwd — replace svd_lstm_tpu/ops/pallas_train_fused.py:
 //       _fused_fwd / _fused_bwd (every layer n <= 128, the input <= 128).
+//   K8  the same kernels with the stack's weights resident in shared memory
+//       (kResident = true) — replace svd_lstm_tpu/ops/pallas_train_compact.py:
+//       _fused_fwd / _fused_bwd (see the K8 note above the launchers).
 //   K9  wide_fwd_step / wide_bwd_gates + matmul_nt — replace
 //       svd_lstm_tpu/ops/pallas_train_wide.py: _wide_fwd / _wide_bwd (one
 //       layer, n % 128 == 0).
@@ -38,8 +41,9 @@
 //    latency of the 56-160-long dots (one weight load each step of the
 //    dot) and of the barriers, per layer-step: ~2.4 us a layer-step forward
 //    at 4x40 on the H100. Only B / NARROW_ROWS CTAs run (8 at B = 32): the
-//    card is mostly idle. Weights resident in shared memory, and more CTAs
-//    per batch, are later work.
+//    card is mostly idle. K8 keeps the weights resident in shared memory
+//    before the state (no transposes needed there); more CTAs per batch are
+//    later work.
 //  * K9: at n = 512, W and U are 8 MB, against 227 KB of shared memory per
 //    block, and every unit's z at step t needs all of h_{t-1}: each step is
 //    a grid-wide dependency. So one launch per time step (the host loop
@@ -122,14 +126,33 @@ __device__ __forceinline__ float gate_bwd(float zi, float zf, float zg, float zo
   return dct * f;
 }
 
-// acc[r] += sum_{j<len} v[r*vs + j] * M[j*ld + col] for the CTA's rows.
+// A weight matrix as the narrow kernels' dots read it, M(r, c). K7 reads a
+// row-major global matrix through the read-only cache; K8 reads its resident
+// copy in shared memory, where a (rows, G) matrix has the odd row stride
+// G + 1, so a warp reading 32 columns of one row or 32 rows of one column
+// hits 32 distinct banks. A transposed view swaps the two strides.
+struct LdgMat {
+  const float* __restrict__ p;
+  int ld;
+  __device__ __forceinline__ float at(int r, int c) const {
+    return __ldg(p + (size_t)r * ld + c);
+  }
+};
+struct SmemMat {
+  const float* p;
+  int rs, cs;  // the strides of a row and of a column
+  __device__ __forceinline__ float at(int r, int c) const { return p[r * rs + c * cs]; }
+};
+
+// acc[r] += sum_{j<len} v[r*vs + j] * M(j, col) for the CTA's rows.
 // v lies in shared memory (every thread reads the same address: a
-// broadcast); M is a read-only global matrix read along one column. (An
-// explicit unroll by 8 made K7 slower on the H100: 7.8 -> 9.9 ms forward.)
-__device__ __forceinline__ void dot_rows(const float* v, int vs, const float* __restrict__ M,
-                                         int ld, int col, int len, float* acc) {
+// broadcast); M is read along one column. (An explicit unroll by 8 made K7
+// slower on the H100: 7.8 -> 9.9 ms forward.)
+template <typename Mat>
+__device__ __forceinline__ void dot_rows(const float* v, int vs, const Mat& M, int col, int len,
+                                         float* acc) {
   for (int j = 0; j < len; ++j) {
-    const float w = __ldg(M + (size_t)j * ld + col);
+    const float w = M.at(j, col);
 #pragma unroll
     for (int r = 0; r < NARROW_ROWS; ++r) acc[r] = fmaf(v[r * vs + j], w, acc[r]);
   }
@@ -152,6 +175,65 @@ struct NarrowArgs {
   NarrowLayer l[MAX_LAYERS];
 };
 
+// Floats of K8's resident weights: per layer W (din, 4n) and U (n, 4n) at
+// row stride 4n + 1, then b (4n).
+__host__ __device__ inline int resident_floats(const NarrowArgs& a) {
+  int f = 0;
+  for (int i = 0; i < a.L; ++i) f += (a.l[i].din + a.l[i].n) * (4 * a.l[i].n + 1) + 4 * a.l[i].n;
+  return f;
+}
+
+// Where the narrow kernels read their weights. Weights<false> (K7): the
+// global matrices, with the transposes Wt, Ut the wrapper made for the
+// backward's row reads. Weights<true> (K8): one copy of every layer's W, U
+// and b, staged into shared memory before the time loop and read from there
+// for all T steps; the backward reads the same copy by row.
+template <bool kResident> struct Weights;
+
+template <> struct Weights<false> {
+  const NarrowArgs& a;
+  __device__ explicit Weights(const NarrowArgs& args) : a(args) {}
+  __device__ int stage(float*) { return 0; }
+  __device__ LdgMat W(int i) const { return {a.l[i].W, 4 * a.l[i].n}; }
+  __device__ LdgMat U(int i) const { return {a.l[i].U, 4 * a.l[i].n}; }
+  __device__ LdgMat Wt(int i) const { return {a.l[i].Wt, a.l[i].din}; }  // Wt(g, j) = W(j, g)
+  __device__ LdgMat Ut(int i) const { return {a.l[i].Ut, a.l[i].n}; }
+  __device__ float b(int i, int k) const { return __ldg(a.l[i].b + k); }
+};
+
+template <> struct Weights<true> {
+  const NarrowArgs& a;
+  const float* w[MAX_LAYERS];
+  const float* u[MAX_LAYERS];
+  const float* bias[MAX_LAYERS];
+  __device__ explicit Weights(const NarrowArgs& args) : a(args) {}
+  // Copies the weights to dst (coalesced global reads); returns the floats
+  // used, resident_floats(a). The caller's barrier publishes them.
+  __device__ int stage(float* dst) {
+    int off = 0;
+    for (int i = 0; i < a.L; ++i) {
+      const NarrowLayer& l = a.l[i];
+      const int G = 4 * l.n, ld = G + 1;
+      float* W = dst + off;
+      float* U = W + l.din * ld;
+      float* b = U + l.n * ld;
+      for (int e = threadIdx.x; e < l.din * G; e += blockDim.x) W[(e / G) * ld + e % G] = l.W[e];
+      for (int e = threadIdx.x; e < l.n * G; e += blockDim.x) U[(e / G) * ld + e % G] = l.U[e];
+      for (int e = threadIdx.x; e < G; e += blockDim.x) b[e] = l.b[e];
+      w[i] = W;
+      u[i] = U;
+      bias[i] = b;
+      off += (l.din + l.n) * ld + G;
+    }
+    return off;
+  }
+  __device__ SmemMat W(int i) const { return {w[i], 4 * a.l[i].n + 1, 1}; }
+  __device__ SmemMat U(int i) const { return {u[i], 4 * a.l[i].n + 1, 1}; }
+  __device__ SmemMat Wt(int i) const { return {w[i], 1, 4 * a.l[i].n + 1}; }
+  __device__ SmemMat Ut(int i) const { return {u[i], 1, 4 * a.l[i].n + 1}; }
+  __device__ float b(int i, int k) const { return bias[i][k]; }
+};
+
 // ---------------------------------------------------------------------------
 // K7 forward — replaces pallas_train_fused.py:_fused_fwd. The whole stack,
 // per step and per layer: z = inp·W + h·U + b and the gate update, layer i's
@@ -159,12 +241,17 @@ struct NarrowArgs {
 // Shared memory per row: h and c of every layer, one z (4 nmax), x_t (d).
 // x_{t+1} is staged during the last layer's gate phase of step t, after the
 // barrier that ends layer 0's reads of x_t, so staging adds no barrier.
+// With kResident this is K8's forward (see the K8 note above the
+// launchers): the weights come first in shared memory, the state after.
 // ---------------------------------------------------------------------------
+template <bool kResident>
 __global__ void __launch_bounds__(NARROW_MAX_THREADS)
 narrow_fwd_kernel(NarrowArgs a, const float* __restrict__ x, int T, int B, int d, int zmax) {
-  extern __shared__ float smem[];
+  extern __shared__ float smem_all[];
   constexpr int R = NARROW_ROWS;
   const int row0 = blockIdx.x * R;
+  Weights<kResident> wts(a);
+  float* smem = smem_all + wts.stage(smem_all);
   float* hs[MAX_LAYERS];
   float* cs[MAX_LAYERS];
   int off = 0;
@@ -191,11 +278,11 @@ narrow_fwd_kernel(NarrowArgs a, const float* __restrict__ x, int T, int B, int d
       const int n = l.n, G = 4 * n;
       for (int k = threadIdx.x; k < G; k += blockDim.x) {
         float acc[R];
-        const float bk = __ldg(l.b + k);
+        const float bk = wts.b(i, k);
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = bk;
-        dot_rows(inp, is, l.W, G, k, l.din, acc);
-        dot_rows(hs[i], n, l.U, G, k, n, acc);
+        dot_rows(inp, is, wts.W(i), k, l.din, acc);
+        dot_rows(hs[i], n, wts.U(i), k, n, acc);
 #pragma unroll
         for (int r = 0; r < R; ++r) z[r * zmax + k] = acc[r];
       }
@@ -239,13 +326,18 @@ narrow_fwd_kernel(NarrowArgs a, const float* __restrict__ x, int T, int B, int d
 // reduced from the dz stores by weight_grad afterwards.
 // Shared memory per row: dh and dc carries of every layer, z, dz, dz_above
 // (4 nmax each), total dh and h_{t-1} (nmax each), inp_t (imax).
+// With kResident this is K8's backward: the resident W and U are read by
+// column for z and by row for the products into dh and dx (no transposes).
 // ---------------------------------------------------------------------------
+template <bool kResident>
 __global__ void __launch_bounds__(NARROW_MAX_THREADS)
 narrow_bwd_kernel(NarrowArgs a, const float* __restrict__ x, const float* __restrict__ dhl,
                   float* __restrict__ dx, int T, int B, int d, int zmax, int nmax, int imax) {
-  extern __shared__ float smem[];
+  extern __shared__ float smem_all[];
   constexpr int R = NARROW_ROWS;
   const int row0 = blockIdx.x * R;
+  Weights<kResident> wts(a);
+  float* smem = smem_all + wts.stage(smem_all);
   float* dhc[MAX_LAYERS];
   float* dcc[MAX_LAYERS];
   int off = 0;
@@ -289,11 +381,11 @@ narrow_bwd_kernel(NarrowArgs a, const float* __restrict__ x, const float* __rest
       // B
       for (int k = threadIdx.x; k < G; k += blockDim.x) {
         float acc[R];
-        const float bk = __ldg(l.b + k);
+        const float bk = wts.b(i, k);
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = bk;
-        dot_rows(inp, imax, l.W, G, k, din, acc);
-        dot_rows(hp, nmax, l.U, G, k, n, acc);
+        dot_rows(inp, imax, wts.W(i), k, din, acc);
+        dot_rows(hp, nmax, wts.U(i), k, n, acc);
 #pragma unroll
         for (int r = 0; r < R; ++r) z[r * zmax + k] = acc[r];
       }
@@ -306,10 +398,7 @@ narrow_bwd_kernel(NarrowArgs a, const float* __restrict__ x, const float* __rest
           if (i == a.L - 1 && row < B) v += dhl[((size_t)t * B + row) * nlast + j];
           acc[r] = v;
         }
-        if (i < a.L - 1) {
-          const NarrowLayer& up = a.l[i + 1];
-          dot_rows(dzA, zmax, up.Wt, up.din, j, 4 * up.n, acc);
-        }
+        if (i < a.L - 1) dot_rows(dzA, zmax, wts.Wt(i + 1), j, 4 * a.l[i + 1].n, acc);
 #pragma unroll
         for (int r = 0; r < R; ++r) dht[r * nmax + j] = acc[r];
       }
@@ -342,7 +431,7 @@ narrow_bwd_kernel(NarrowArgs a, const float* __restrict__ x, const float* __rest
         float acc[R];
 #pragma unroll
         for (int r = 0; r < R; ++r) acc[r] = 0.f;
-        dot_rows(dz, zmax, l.Ut, n, j, G, acc);
+        dot_rows(dz, zmax, wts.Ut(i), j, G, acc);
 #pragma unroll
         for (int r = 0; r < R; ++r) dhc[i][r * n + j] = acc[r];
       }
@@ -353,12 +442,11 @@ narrow_bwd_kernel(NarrowArgs a, const float* __restrict__ x, const float* __rest
     }
     // dx_t = dz_0·W_0ᵀ (dzA holds layer 0's dz). The next writer of that
     // buffer comes after at least one more barrier.
-    const NarrowLayer& l0 = a.l[0];
     for (int j = threadIdx.x; j < d; j += blockDim.x) {
       float acc[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      dot_rows(dzA, zmax, l0.Wt, d, j, 4 * l0.n, acc);
+      dot_rows(dzA, zmax, wts.Wt(0), j, 4 * a.l[0].n, acc);
 #pragma unroll
       for (int r = 0; r < R; ++r)
         if (row0 + r < B) dx[((size_t)t * B + row0 + r) * d + j] = acc[r];
@@ -820,31 +908,49 @@ int read_layers(const int64_t* meta, int L, int cols, NarrowArgs& a) {
   return nmax;
 }
 
-}  // namespace
-
-extern "C" {
-
-// meta: L rows of 7 int64 — din, n, W, U, b, h_out, c_out (device pointers).
-int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
-                                  void* stream) {
+// ---------------------------------------------------------------------------
+// K8 — replaces svd_lstm_tpu/ops/pallas_train_compact.py: _fused_fwd /
+// _fused_bwd, the whole-stack train pair the JAX package runs for narrow
+// stacks (every n <= 64, d <= 128) at B >= 128. It computes K7's function.
+// The TPU kernel's compact layout (2 or 4 gates packed into a 128-lane block,
+// rows padded to 128, gates extracted by lane rolls) answers the TPU's lane
+// tiles; on the H100 a narrow layer's four gate columns are dense already,
+// so it is not carried over. What is: on the TPU the packed weights are
+// whole-array VMEM blocks that stay on chip for all T grid steps. Here every
+// CTA stages the whole stack's W, U and b into shared memory once, before
+// the time loop (Weights<true>), and K7's step and layer loops then read
+// every weight from there instead of from L1/L2: 193 KB at 4x40, d = 16, of
+// the 227 KB a block may opt in to. The wrapper sends a stack whose weights
+// and state do not fit to K7 by a shape rule (ops/cuda_train.py:
+// compact_fits). Bound: at 4x40, B = 128, T = 200 the forward is 2.4 GFLOP,
+// 0.036 ms at 67 TFLOP/s, against a chain of 4·200 dependent layer-steps
+// that B / NARROW_ROWS = 32 CTAs (one per SM) run, each a dot of length
+// din + n per column from shared memory and two barriers; the backward
+// stores dz per layer and shares weight_grad with K7 and K9.
+// ---------------------------------------------------------------------------
+template <bool kResident>
+int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
+                      void* stream) {
   NarrowArgs a;
   const int nmax = read_layers(meta, L, 7, a);
   if (nmax < 1) return (int)cudaErrorInvalidValue;
   int nsum = 0;
   for (int i = 0; i < L; ++i) nsum += a.l[i].n;
   const int zmax = 4 * nmax;
-  const size_t smem = (size_t)NARROW_ROWS * (2 * nsum + zmax + d) * sizeof(float);
-  cudaError_t err = prepare_smem(narrow_fwd_kernel, smem);
+  const size_t smem =
+      ((kResident ? resident_floats(a) : 0) + (size_t)NARROW_ROWS * (2 * nsum + zmax + d)) *
+      sizeof(float);
+  cudaError_t err = prepare_smem(narrow_fwd_kernel<kResident>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
-  narrow_fwd_kernel<<<grid, narrow_threads(zmax), smem, (cudaStream_t)stream>>>(
+  narrow_fwd_kernel<kResident><<<grid, narrow_threads(zmax), smem, (cudaStream_t)stream>>>(
       a, (const float*)x, T, B, d, zmax);
   return (int)cudaGetLastError();
 }
 
-// meta: L rows of 10 int64 — din, n, W, U, b, Wt, Ut, h, c, dz_out.
-int fused_narrow_train_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl,
-                                  void* dx, int T, int B, int d, void* stream) {
+template <bool kResident>
+int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl, void* dx, int T,
+                      int B, int d, void* stream) {
   NarrowArgs a;
   const int nmax = read_layers(meta, L, 10, a);
   if (nmax < 1) return (int)cudaErrorInvalidValue;
@@ -852,14 +958,44 @@ int fused_narrow_train_bwd_launch(const int64_t* meta, int L, const void* x, con
   for (int i = 0; i < L; ++i) nsum += a.l[i].n;
   const int zmax = 4 * nmax;
   const int imax = d > nmax ? d : nmax;
-  const size_t smem =
-      (size_t)NARROW_ROWS * (2 * nsum + 3 * zmax + 2 * nmax + imax) * sizeof(float);
-  cudaError_t err = prepare_smem(narrow_bwd_kernel, smem);
+  const size_t smem = ((kResident ? resident_floats(a) : 0) +
+                       (size_t)NARROW_ROWS * (2 * nsum + 3 * zmax + 2 * nmax + imax)) *
+                      sizeof(float);
+  cudaError_t err = prepare_smem(narrow_bwd_kernel<kResident>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
-  narrow_bwd_kernel<<<grid, narrow_threads(zmax), smem, (cudaStream_t)stream>>>(
+  narrow_bwd_kernel<kResident><<<grid, narrow_threads(zmax), smem, (cudaStream_t)stream>>>(
       a, (const float*)x, (const float*)dhl, (float*)dx, T, B, d, zmax, nmax, imax);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K7. meta: L rows of 7 int64 — din, n, W, U, b, h_out, c_out (device pointers).
+int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
+                                  void* stream) {
+  return narrow_fwd_launch<false>(meta, L, x, T, B, d, stream);
+}
+
+// K7. meta: L rows of 10 int64 — din, n, W, U, b, Wt, Ut, h, c, dz_out.
+int fused_narrow_train_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl,
+                                  void* dx, int T, int B, int d, void* stream) {
+  return narrow_bwd_launch<false>(meta, L, x, dhl, dx, T, B, d, stream);
+}
+
+// K8, the forward: meta as K7's.
+int fused_narrow_train_compact_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B,
+                                          int d, void* stream) {
+  return narrow_fwd_launch<true>(meta, L, x, T, B, d, stream);
+}
+
+// K8, the backward: meta as K7's, Wt and Ut unused (0).
+int fused_narrow_train_compact_bwd_launch(const int64_t* meta, int L, const void* x,
+                                          const void* dhl, void* dx, int T, int B, int d,
+                                          void* stream) {
+  return narrow_bwd_launch<true>(meta, L, x, dhl, dx, T, B, d, stream);
 }
 
 // out (p, G) = Σ_m a_m ⊗ dz_m (see weight_grad); partial holds

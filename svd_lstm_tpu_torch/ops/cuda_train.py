@@ -2,24 +2,29 @@
 and the training dispatch.
 
 Counterpart of ``svd_lstm_tpu/ops/pallas_train_fused.py`` (K7),
+``svd_lstm_tpu/ops/pallas_train_compact.py`` (K8),
 ``svd_lstm_tpu/ops/pallas_train_wide.py`` (K9), the recurrence-only pair
 of ``svd_lstm_tpu/ops/pallas_train.py`` (K6) and its dispatch. The kernels
 are hand-written CUDA in ``csrc/lstm_train.cu`` (design notes there):
 
-========================= ================================ =================================
-wrapper                   plain version                    replaces
-========================= ================================ =================================
-fused_narrow_train_fwd    fused_narrow_train_fwd_plain     pallas_train_fused.py:_fused_fwd
-fused_narrow_train_bwd    fused_narrow_train_bwd_plain     pallas_train_fused.py:_fused_bwd
-wide_layer_fwd            wide_layer_fwd_plain             pallas_train_wide.py:_wide_fwd
-wide_layer_bwd            wide_layer_bwd_plain             pallas_train_wide.py:_wide_bwd
-lstm_recurrence_train_fwd lstm_recurrence_train_fwd_plain  pallas_train.py:_pallas_fwd_hc
-lstm_recurrence_train_bwd lstm_recurrence_train_bwd_plain  pallas_train.py:_pallas_bwd
-========================= ================================ =================================
+============================== ==================================== ====================================
+wrapper                        plain version                        replaces
+============================== ==================================== ====================================
+fused_narrow_train_fwd         fused_narrow_train_fwd_plain         pallas_train_fused.py:_fused_fwd
+fused_narrow_train_bwd         fused_narrow_train_bwd_plain         pallas_train_fused.py:_fused_bwd
+fused_narrow_train_compact_fwd fused_narrow_train_compact_fwd_plain pallas_train_compact.py:_fused_fwd
+fused_narrow_train_compact_bwd fused_narrow_train_compact_bwd_plain pallas_train_compact.py:_fused_bwd
+wide_layer_fwd                 wide_layer_fwd_plain                 pallas_train_wide.py:_wide_fwd
+wide_layer_bwd                 wide_layer_bwd_plain                 pallas_train_wide.py:_wide_bwd
+lstm_recurrence_train_fwd      lstm_recurrence_train_fwd_plain      pallas_train.py:_pallas_fwd_hc
+lstm_recurrence_train_bwd      lstm_recurrence_train_bwd_plain      pallas_train.py:_pallas_bwd
+============================== ==================================== ====================================
 
-K6 runs K9's step kernels with the x·W part taken out; like K7 and K9 it
-computes in float32 (exact mode). The JAX kernel's ``precision=DEFAULT``
-dots are exact float32 on the CPU, where the tests compare.
+K8 computes K7's function (the compact gate packing of the TPU kernel is a
+lane layout, not carried over) with the stack's weights resident in shared
+memory; K6 runs K9's step kernels with the x·W part taken out. All compute
+in float32 (exact mode). The JAX kernels' ``precision=DEFAULT`` dots are
+exact float32 on the CPU, where the tests compare.
 
 Layouts are time-major, as the TPU kernels take them: x (T, B, d), every
 layer's h and c (T, B, n). The weights keep the Keras layout, unpadded: the
@@ -44,13 +49,15 @@ import numpy as np
 import torch
 
 from svd_lstm_tpu_torch.models.lstm import gate_update, gate_update_bwd, stacked_lstm_apply
-from svd_lstm_tpu_torch.ops.cuda_lstm import _check_smem, _check_T, _launch, _on_card
+from svd_lstm_tpu_torch.ops.cuda_lstm import _SMEM_LIMIT, _check_smem, _check_T, _launch, _on_card
 
 SOURCE = "svd_lstm_tpu_torch/ops/csrc/lstm_train.cu"
 # the TPU kernel each wrapper replaces, as file:line of its definition
 REPLACES = {
     "fused_narrow_train_fwd": "svd_lstm_tpu/ops/pallas_train_fused.py:67",
     "fused_narrow_train_bwd": "svd_lstm_tpu/ops/pallas_train_fused.py:122",
+    "fused_narrow_train_compact_fwd": "svd_lstm_tpu/ops/pallas_train_compact.py:151",
+    "fused_narrow_train_compact_bwd": "svd_lstm_tpu/ops/pallas_train_compact.py:201",
     "wide_layer_fwd": "svd_lstm_tpu/ops/pallas_train_wide.py:82",
     "wide_layer_bwd": "svd_lstm_tpu/ops/pallas_train_wide.py:130",
     "lstm_recurrence_train_fwd": "svd_lstm_tpu/ops/pallas_train.py:105",
@@ -58,7 +65,9 @@ REPLACES = {
 }
 NARROW_MAX = 128      # largest layer width and input width of K7
 MAX_LAYERS = 8        # csrc MAX_LAYERS
-NARROW_ROWS = 4       # csrc NARROW_ROWS: batch rows per CTA of K7
+NARROW_ROWS = 4       # csrc NARROW_ROWS: batch rows per CTA of K7 and K8
+COMPACT_MAX_UNITS = 64  # K8's layers: the JAX package's ≥ 2 gates per 128-lane block
+COMPACT_MIN_BATCH = 128  # compact="auto" takes K8 from this batch on, as the JAX dispatch
 WIDE_ALIGN = 128      # K9 takes n % 128 == 0, as the TPU kernel did
 _SM_COUNT = 132       # H100 SXM: the weight-gradient split fills about two waves
 
@@ -247,19 +256,73 @@ def _layer_weight_grads(inp, h, dz):
 
 
 # ---------------------------------------------------------------------------
-# K7: narrow whole-stack train pair
+# K7 and K8: the narrow whole-stack train pairs (one function, two kernels)
 # ---------------------------------------------------------------------------
 
-def fused_narrow_train_fwd(layers: Sequence[Layer], x: torch.Tensor):
-    """Whole-stack forward for narrow stacks (every layer n ≤ 128, d ≤ 128,
-    at most 8 layers). x (T, B, d) -> (hs, cs), (T, B, n_l) per layer."""
+def _resident_floats(units: Sequence[int], d: int) -> int:
+    """Floats of K8's resident weights (csrc ``resident_floats``): per layer
+    W (din, 4n) and U (n, 4n) at row stride 4n + 1, and b (4n)."""
+    total, din = 0, d
+    for n in units:
+        total += (din + n) * (4 * n + 1) + 4 * n
+        din = n
+    return total
+
+
+def _narrow_state_floats(units: Sequence[int], d: int, backward: bool) -> int:
+    """Floats of shared memory a K7 CTA holds (its state; csrc launchers)."""
+    nmax = max(units)
+    if backward:
+        return NARROW_ROWS * (2 * sum(units) + 14 * nmax + max(d, nmax))
+    return NARROW_ROWS * (2 * sum(units) + 4 * nmax + d)
+
+
+def compact_smem_bytes(units: Sequence[int], d: int) -> int:
+    """Shared memory of K8's larger kernel, the backward: the resident
+    weights and K7's backward state (193 184 + 14 720 B at 4×40, d = 16)."""
+    return 4 * (_resident_floats(units, d) + _narrow_state_floats(units, d, backward=True))
+
+
+def compact_fits(units: Sequence[int], d: int) -> bool:
+    """K8's shape rule: the stack's weights and a CTA's state fit in the
+    shared memory one H100 block may use. A compact-eligible stack that does
+    not fit (e.g. 4×64, or 8 layers of 64 with d = 128) trains through K7."""
+    return compact_smem_bytes(units, d) <= _SMEM_LIMIT
+
+
+def compact_eligible(model, d_in: int) -> bool:
+    """The JAX package's eligibility for the compact train pair
+    (``pallas_train_compact.compact_eligible``): every layer packs at least
+    two gates into a 128-lane block (n ≤ 64) and the input fits one block."""
+    return all(l.units <= COMPACT_MAX_UNITS for l in model.layers) and d_in <= NARROW_MAX
+
+
+def _check_compact(name: str, units: List[int], d: int) -> None:
+    if max(units) > COMPACT_MAX_UNITS:
+        raise ValueError(f"{name}: every layer at most {COMPACT_MAX_UNITS} units, got {units}")
+    if not compact_fits(units, d):
+        raise ValueError(
+            f"{name}: the resident weights need {compact_smem_bytes(units, d)} B of shared "
+            f"memory, over {_SMEM_LIMIT}; such a stack trains through K7"
+        )
+
+
+def _narrow_fwd(wrapper, plain, layers: Sequence[Layer], x: torch.Tensor):
+    """The checks and the launch of K7's (``fused_narrow_train_fwd``) or
+    K8's (``fused_narrow_train_compact_fwd``) forward; ``plain`` runs CPU
+    tensors."""
+    name = wrapper.__name__
+    resident = wrapper is fused_narrow_train_compact_fwd
     T, B, d = x.shape
-    _check_T("fused_narrow_train_fwd", T)
+    _check_T(name, T)
     _check("x", x, (T, B, d))
     units = _check_layers(layers, d)
+    if resident:
+        _check_compact(name, units, d)
     if not _card([x, *(w for l in layers for w in l)]):
-        return fused_narrow_train_fwd_plain(layers, x)
-    _check_smem("fused_narrow_train_fwd", NARROW_ROWS * (2 * sum(units) + 4 * max(units) + d))
+        return plain(layers, x)
+    _check_smem(name, (_resident_floats(units, d) if resident else 0)
+                + _narrow_state_floats(units, d, backward=False))
     hs = [torch.empty((T, B, n), dtype=torch.float32, device=x.device) for n in units]
     cs = [torch.empty_like(h) for h in hs]
     meta = np.array(
@@ -267,89 +330,163 @@ def fused_narrow_train_fwd(layers: Sequence[Layer], x: torch.Tensor):
           c.data_ptr()] for (W, U, b), h, c in zip(layers, hs, cs)],
         dtype=np.int64,
     )
-    _launch("fused_narrow_train_fwd", x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d)
-    fused_narrow_train_fwd.launches += 1
+    _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d)
+    wrapper.launches += 1
     return hs, cs
 
 
-fused_narrow_train_fwd.launches = 0
-
-
-def fused_narrow_train_bwd(layers: Sequence[Layer], x, hs, cs, dh_last):
-    """Whole-stack reverse-time backward. dh_last (T, B, n_last) is the
-    cotangent on the last layer's h. Returns (dWs, dUs, dbs, dx)."""
+def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last):
+    """The checks and the launches of K7's or K8's backward (the reverse-time
+    kernel, then ``weight_grad`` per layer); ``plain`` runs CPU tensors."""
+    name = wrapper.__name__
+    resident = wrapper is fused_narrow_train_compact_bwd
     T, B, d = x.shape
-    _check_T("fused_narrow_train_bwd", T)
+    _check_T(name, T)
     _check("x", x, (T, B, d))
     units = _check_layers(layers, d)
+    if resident:
+        _check_compact(name, units, d)
     if len(hs) != len(layers) or len(cs) != len(layers):
-        raise ValueError("fused_narrow_train_bwd: one h and one c per layer")
+        raise ValueError(f"{name}: one h and one c per layer")
     for i, n in enumerate(units):
         _check(f"hs[{i}]", hs[i], (T, B, n))
         _check(f"cs[{i}]", cs[i], (T, B, n))
     _check("dh_last", dh_last, (T, B, units[-1]))
     if not _card([x, dh_last, *hs, *cs, *(w for l in layers for w in l)]):
-        return fused_narrow_train_bwd_plain(layers, x, hs, cs, dh_last)
-    nmax = max(units)
-    _check_smem("fused_narrow_train_bwd",
-                NARROW_ROWS * (2 * sum(units) + 14 * nmax + max(d, nmax)))
+        return plain(layers, x, hs, cs, dh_last)
+    _check_smem(name, (_resident_floats(units, d) if resident else 0)
+                + _narrow_state_floats(units, d, backward=True))
     dev = x.device
     dx = torch.empty((T, B, d), dtype=torch.float32, device=dev)
     dzs = [torch.empty((T, B, 4 * n), dtype=torch.float32, device=dev) for n in units]
-    Wts = [W.t().contiguous() for W, _, _ in layers]
-    Uts = [U.t().contiguous() for _, U, _ in layers]
+    # K7 reads Wᵀ and Uᵀ by row from global memory; K8 reads its resident W and U
+    Wts = [None if resident else W.t().contiguous() for W, _, _ in layers]
+    Uts = [None if resident else U.t().contiguous() for _, U, _ in layers]
     meta = np.array(
-        [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), Wt.data_ptr(),
-          Ut.data_ptr(), h.data_ptr(), c.data_ptr(), dz.data_ptr()]
+        [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), _ptr(Wt) or 0,
+          _ptr(Ut) or 0, h.data_ptr(), c.data_ptr(), dz.data_ptr()]
          for (W, U, b), Wt, Ut, h, c, dz in zip(layers, Wts, Uts, hs, cs, dzs)],
         dtype=np.int64,
     )
-    _launch("fused_narrow_train_bwd", dev, meta.ctypes.data, len(layers), x.data_ptr(),
-            dh_last.data_ptr(), dx.data_ptr(), T, B, d)
+    _launch(name, dev, meta.ctypes.data, len(layers), x.data_ptr(), dh_last.data_ptr(),
+            dx.data_ptr(), T, B, d)
     grads = [_layer_weight_grads(x if i == 0 else hs[i - 1], hs[i], dzs[i])
              for i in range(len(layers))]
-    fused_narrow_train_bwd.launches += 1
+    wrapper.launches += 1
     dWs, dUs, dbs = (list(g) for g in zip(*grads))
     return dWs, dUs, dbs, dx
 
 
+def fused_narrow_train_fwd(layers: Sequence[Layer], x: torch.Tensor):
+    """K7, whole-stack forward for narrow stacks (every layer n ≤ 128,
+    d ≤ 128, at most 8 layers). x (T, B, d) -> (hs, cs), (T, B, n_l) per
+    layer."""
+    return _narrow_fwd(fused_narrow_train_fwd, fused_narrow_train_fwd_plain, layers, x)
+
+
+def fused_narrow_train_bwd(layers: Sequence[Layer], x, hs, cs, dh_last):
+    """K7, whole-stack reverse-time backward. dh_last (T, B, n_last) is the
+    cotangent on the last layer's h. Returns (dWs, dUs, dbs, dx)."""
+    return _narrow_bwd(fused_narrow_train_bwd, fused_narrow_train_bwd_plain, layers, x, hs, cs,
+                       dh_last)
+
+
+def fused_narrow_train_compact_fwd_plain(layers: Sequence[Layer], x: torch.Tensor):
+    """K8's function is K7's: its plain version is K7's."""
+    return fused_narrow_train_fwd_plain(layers, x)
+
+
+def fused_narrow_train_compact_bwd_plain(layers: Sequence[Layer], x, hs, cs, dh_last):
+    """K8's function is K7's: its plain version is K7's."""
+    return fused_narrow_train_bwd_plain(layers, x, hs, cs, dh_last)
+
+
+def fused_narrow_train_compact_fwd(layers: Sequence[Layer], x: torch.Tensor):
+    """K8, the whole-stack forward with the weights resident in shared
+    memory, for compact-eligible stacks (every layer n ≤ 64, d ≤ 128) that
+    fit (:func:`compact_fits`). x (T, B, d) -> (hs, cs)."""
+    return _narrow_fwd(fused_narrow_train_compact_fwd, fused_narrow_train_compact_fwd_plain,
+                       layers, x)
+
+
+def fused_narrow_train_compact_bwd(layers: Sequence[Layer], x, hs, cs, dh_last):
+    """K8, the whole-stack reverse-time backward. Returns (dWs, dUs, dbs,
+    dx)."""
+    return _narrow_bwd(fused_narrow_train_compact_bwd, fused_narrow_train_compact_bwd_plain,
+                       layers, x, hs, cs, dh_last)
+
+
+fused_narrow_train_fwd.launches = 0
 fused_narrow_train_bwd.launches = 0
+fused_narrow_train_compact_fwd.launches = 0
+fused_narrow_train_compact_bwd.launches = 0
+
+
+def _stack_forward(ctx, fwd, x, weights):
+    layers = [tuple(weights[i : i + 3]) for i in range(0, len(weights), 3)]
+    hs, cs = fwd(layers, x)
+    ctx.save_for_backward(x, *weights, *hs, *cs)
+    ctx.num_layers = len(layers)
+    return hs[-1]
+
+
+def _stack_backward(ctx, bwd, dh_last):
+    L = ctx.num_layers
+    saved = ctx.saved_tensors
+    x, weights = saved[0], saved[1 : 1 + 3 * L]
+    hs, cs = list(saved[1 + 3 * L : 1 + 4 * L]), list(saved[1 + 4 * L :])
+    layers = [tuple(weights[i : i + 3]) for i in range(0, 3 * L, 3)]
+    dWs, dUs, dbs, dx = bwd(layers, x, hs, cs, dh_last.contiguous())
+    return (dx, *(g for tri in zip(dWs, dUs, dbs) for g in tri))
 
 
 class FusedNarrowTrain(torch.autograd.Function):
-    """Differentiable whole-stack recurrence: (x (T, B, d), W0, U0, b0, W1,
-    ...) -> the last layer's h (T, B, n_last). The forward saves every
-    layer's h and c; the backward is the reverse-time kernel."""
+    """Differentiable whole-stack recurrence through K7: (x (T, B, d), W0,
+    U0, b0, W1, ...) -> the last layer's h (T, B, n_last). The forward saves
+    every layer's h and c; the backward is the reverse-time kernel."""
 
     @staticmethod
     def forward(ctx, x, *weights):
-        layers = [tuple(weights[i : i + 3]) for i in range(0, len(weights), 3)]
-        hs, cs = fused_narrow_train_fwd(layers, x)
-        ctx.save_for_backward(x, *weights, *hs, *cs)
-        ctx.num_layers = len(layers)
-        return hs[-1]
+        return _stack_forward(ctx, fused_narrow_train_fwd, x, weights)
 
     @staticmethod
     def backward(ctx, dh_last):
-        L = ctx.num_layers
-        saved = ctx.saved_tensors
-        x, weights = saved[0], saved[1 : 1 + 3 * L]
-        hs, cs = list(saved[1 + 3 * L : 1 + 4 * L]), list(saved[1 + 4 * L :])
-        layers = [tuple(weights[i : i + 3]) for i in range(0, 3 * L, 3)]
-        dWs, dUs, dbs, dx = fused_narrow_train_bwd(layers, x, hs, cs, dh_last.contiguous())
-        return (dx, *(g for tri in zip(dWs, dUs, dbs) for g in tri))
+        return _stack_backward(ctx, fused_narrow_train_bwd, dh_last)
 
 
-def fused_narrow_train_apply(model, x_seq: torch.Tensor, return_sequences: bool = True):
-    """Whole-stack trainable forward for narrow models. ``model`` has
-    ``layers`` (each with W, U, b) and a ``head``. x_seq (B, T, d) ->
-    (B, T, out), or (B, out) for the last step."""
+class FusedNarrowTrainCompact(torch.autograd.Function):
+    """:class:`FusedNarrowTrain` through K8 (the same function, the weights
+    resident in shared memory)."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        return _stack_forward(ctx, fused_narrow_train_compact_fwd, x, weights)
+
+    @staticmethod
+    def backward(ctx, dh_last):
+        return _stack_backward(ctx, fused_narrow_train_compact_bwd, dh_last)
+
+
+def _stack_apply(fn, model, x_seq: torch.Tensor, return_sequences: bool):
     x = x_seq.transpose(0, 1).contiguous()  # (T, B, d)
     weights = [w.contiguous() for l in model.layers for w in (l.W, l.U, l.b)]
-    h = FusedNarrowTrain.apply(x, *weights)  # (T, B, n)
+    h = fn.apply(x, *weights)  # (T, B, n)
     if not return_sequences:
         return model.head(h[-1])
     return model.head(h).transpose(0, 1)
+
+
+def fused_narrow_train_apply(model, x_seq: torch.Tensor, return_sequences: bool = True):
+    """Whole-stack trainable forward for narrow models through K7. ``model``
+    has ``layers`` (each with W, U, b) and a ``head``. x_seq (B, T, d) ->
+    (B, T, out), or (B, out) for the last step."""
+    return _stack_apply(FusedNarrowTrain, model, x_seq, return_sequences)
+
+
+def fused_narrow_train_apply_compact(model, x_seq: torch.Tensor, return_sequences: bool = True):
+    """:func:`fused_narrow_train_apply` through K8, for compact-eligible
+    stacks that fit (:func:`compact_eligible`, :func:`compact_fits`)."""
+    return _stack_apply(FusedNarrowTrainCompact, model, x_seq, return_sequences)
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +607,8 @@ def lstm_recurrence_train_bwd(xp, U, h, c, dh_seq):
 
 lstm_recurrence_train_bwd.launches = 0
 
-KERNELS = (fused_narrow_train_fwd, fused_narrow_train_bwd, wide_layer_fwd, wide_layer_bwd,
+KERNELS = (fused_narrow_train_fwd, fused_narrow_train_bwd, fused_narrow_train_compact_fwd,
+           fused_narrow_train_compact_bwd, wide_layer_fwd, wide_layer_bwd,
            lstm_recurrence_train_fwd, lstm_recurrence_train_bwd)
 
 
@@ -523,10 +661,17 @@ def is_narrow(model, d_in: int) -> bool:
     return all(l.units <= NARROW_MAX for l in model.layers) and d_in <= NARROW_MAX
 
 
-def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: bool = True):
+def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: bool = True,
+                                  compact: bool | str = "auto"):
     """Drop-in training apply for ``fit`` that runs the recurrences through
     the train kernels. ``model`` is a ``StackedLSTM`` or a ``DenseView``.
 
+    * **compact narrow stack** (``compact`` true, every layer n ≤ 64, input
+      ≤ 128, and :func:`compact_fits`): one whole-stack kernel per direction
+      with the weights resident in shared memory (K8,
+      :func:`fused_narrow_train_apply_compact`). ``compact="auto"`` means
+      B ≥ 128, the JAX dispatch's rule; the dense ``fit`` passes
+      ``TrainConfig.compact_gates``, the singular and reduced views "auto".
     * **narrow stack** (every layer n ≤ 128, input ≤ 128): one whole-stack
       kernel per direction (K7, :func:`fused_narrow_train_apply`).
     * **uniform wide stack** (≥ 2 layers, all the same n, n % 128 == 0,
@@ -544,8 +689,13 @@ def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: 
     x_seq (B, T, d) -> (B, T, out), or (B, out) for the last step.
     """
     units = [l.units for l in model.layers]
-    d_in = x_seq.shape[-1]
-    if is_narrow(model, d_in):
+    B, _, d_in = x_seq.shape
+    narrow = is_narrow(model, d_in)
+    if compact == "auto":
+        compact = B >= COMPACT_MIN_BATCH
+    if compact and narrow and compact_eligible(model, d_in) and compact_fits(units, d_in):
+        return fused_narrow_train_apply_compact(model, x_seq, return_sequences)
+    if narrow:
         return fused_narrow_train_apply(model, x_seq, return_sequences)
     n0 = units[0]
     uniform = len(units) >= 2 and all(u == n0 for u in units) and n0 % WIDE_ALIGN == 0 and d_in <= n0

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 from typing import Any, Callable
 
 import numpy as np
@@ -122,41 +123,46 @@ def drive_epochs(
 
 def resolve_train_apply_fn(cfg: TrainConfig, apply_fn: Callable) -> tuple:
     """The kernel swap of the training step. Returns ``(apply_fn,
-    using_kernel)``. With ``cfg.recurrence_kernel`` the dense scan and the
-    σ fine-tune run through the CUDA train kernels (``ops/cuda_train.py``,
-    ``ops/singular_train.py``; on CPU tensors through their plain versions).
-    Reduced and conv models have no kernel path in the port yet. Other
-    applies keep their scan."""
+    using_kernel)``. With ``cfg.recurrence_kernel`` the dense scan, the σ
+    fine-tune and the reduced recovery run through the CUDA train kernels
+    (``ops/cuda_train.py``, ``ops/singular_train.py``,
+    ``ops/reduced_train.py``; on CPU tensors through their plain versions).
+    As in the JAX package, the dense scan passes ``cfg.compact_gates`` to
+    the dispatch and the singular and reduced views keep its "auto". Conv
+    models have no kernel path in the port yet. Other applies keep their
+    scan."""
     if not cfg.recurrence_kernel:
         return apply_fn, False
     if apply_fn is stacked_lstm_apply:
         from svd_lstm_tpu_torch.ops.cuda_train import stacked_lstm_apply_fast_train
 
-        return stacked_lstm_apply_fast_train, True
+        return functools.partial(stacked_lstm_apply_fast_train, compact=cfg.compact_gates), True
     if apply_fn is singular_lstm_apply:
         from svd_lstm_tpu_torch.ops.singular_train import singular_lstm_apply_fast_train
 
         return singular_lstm_apply_fast_train, True
     if apply_fn is reduced_lstm_apply:
-        raise NotImplementedError(
-            "recurrence_kernel training of reduced models (ops/reduced_train.py) is not "
-            "ported yet (ROADMAP queue 1, item 4)"
-        )
+        from svd_lstm_tpu_torch.ops.reduced_train import reduced_lstm_apply_fast_train
+
+        return reduced_lstm_apply_fast_train, True
     return apply_fn, False
 
 
 def default_apply_fn(model) -> Callable:
-    """The family's exact forward: dense or singular. Reduced models have
-    no training path in the port yet; conv hybrids are not ported."""
+    """The family's exact forward: dense, singular or reduced. Conv hybrids
+    are not ported."""
     from svd_lstm_tpu_torch.models.lstm import StackedLSTM
+    from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
     from svd_lstm_tpu_torch.models.singular import SingularLSTM
 
     if isinstance(model, StackedLSTM):
         return stacked_lstm_apply
     if isinstance(model, SingularLSTM):
         return singular_lstm_apply
+    if isinstance(model, ReducedLSTM):
+        return reduced_lstm_apply
     raise NotImplementedError(
-        f"training {type(model).__name__} is not ported yet (ROADMAP queue 1, items 4 and 7)"
+        f"training {type(model).__name__} is not ported yet (ROADMAP queue 1, item 7)"
     )
 
 
@@ -185,7 +191,8 @@ def fit(
     ``loss_fn(model, x, y, apply_fn) -> scalar`` replaces the window-end
     MSE. ``validation=(X, y)`` evaluates the whole-run MSE each epoch on
     the exact forward. ``checkpoint_path`` saves the best-by-loss model.
-    ``windows=(X_mini, y_mini)`` replaces the random sampler.
+    ``windows=(X_mini, y_mini)`` (arrays or tensors) replaces the random
+    sampler.
     ``init_opt_state`` is an optimizer state_dict to start from (a
     ``TrainResult.opt_state``)."""
     check_train_config(cfg)
@@ -219,9 +226,10 @@ def fit(
             "every epoch would run zero steps"
         )
     device = next(model.parameters()).device
-    # the window set moves to the device once; each epoch gathers from it
-    X_dev = torch.as_tensor(np.asarray(X_mini, dtype=np.float32), device=device)
-    y_dev = torch.as_tensor(np.asarray(y_mini, dtype=np.float32), device=device)
+    # the window set moves to the device once (a no-op for windows already
+    # there); each epoch gathers from it
+    X_dev = torch.as_tensor(X_mini, dtype=torch.float32, device=device)
+    y_dev = torch.as_tensor(y_mini, dtype=torch.float32, device=device)
     val_fn = make_val_fn(exact_apply_fn, validation, device)
 
     def epoch_step(epoch: int) -> float:
@@ -244,3 +252,13 @@ def fit(
         cfg, model, opt, epoch_step,
         val_fn=val_fn, checkpoint_path=checkpoint_path, verbose=verbose,
     )
+
+
+@torch.no_grad()
+def predict_full_run(model, X: np.ndarray, apply_fn: Callable = stacked_lstm_apply) -> np.ndarray:
+    """Whole-run sequence prediction in exact mode, (1, T, d) -> (T,) on the
+    host: the reference's return_sequences=True evaluation clone."""
+    x = torch.as_tensor(np.asarray(X, dtype=np.float32), device=next(model.parameters()).device)
+    with exact_matmul():
+        out = apply_fn(model, x, return_sequences=True)
+    return out[0, :, 0].cpu().numpy()

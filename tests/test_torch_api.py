@@ -241,6 +241,8 @@ def test_import_loads_no_jax():
         "import svd_lstm_tpu_torch\n"
         "import svd_lstm_tpu_torch.data, svd_lstm_tpu_torch.train.loop, svd_lstm_tpu_torch.train.finetune\n"
         "import svd_lstm_tpu_torch.ops.cuda_train, svd_lstm_tpu_torch.ops.singular_train\n"
+        "import svd_lstm_tpu_torch.ops.reduced_train\n"
+        "from svd_lstm_tpu_torch import recover_reduced_gated, truncate_recover_progressive\n"
         "import svd_lstm_tpu_torch.ops.cuda_batched, svd_lstm_tpu_torch.utils.precision\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'svd_lstm_tpu')]\n"
         "assert not bad, bad\n"

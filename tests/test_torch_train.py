@@ -82,17 +82,18 @@ def test_config_defaults_match_jax(name):
 def test_unported_knobs_raise(data, windows):
     model = P.from_numpy_tree(jax_init(jax.random.PRNGKey(0), input_dim=16, units=(4,)), device="cpu")
     for kw in (dict(matmul_precision="bfloat16"), dict(matmul_precision="tensorfloat32"),
-               dict(remat_chunk=4), dict(auto_flags=True),
-               dict(recurrence_kernel=True, compact_gates=True)):
+               dict(remat_chunk=4), dict(auto_flags=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             P.fit(model, data.X_train, data.y_train, _train_cfg(pcfg, **kw), windows=windows)
     smodel = P.make_singular_model(model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.finetune(smodel, data.X_train, data.y_train, pcfg.FactorConfig(dropout=0.1),
                    _train_cfg(pcfg), windows=windows)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.fit(P.make_reduced_model(smodel, rank=2), data.X_train, data.y_train,
-              _train_cfg(pcfg), windows=windows)
+    # ported since: compact_gates=True (K8) and the reduced recovery
+    P.fit(model, data.X_train, data.y_train,
+          _train_cfg(pcfg, epochs=1, recurrence_kernel=True, compact_gates=True), windows=windows)
+    P.fit(P.make_reduced_model(smodel, rank=2), data.X_train, data.y_train,
+          _train_cfg(pcfg, epochs=1), windows=windows)
 
 
 def test_preprocess_matches_jax(data):
