@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port (``svd_lstm_tpu_torch``) on one card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Needs one CUDA card and ``nvcc``; with no card it exits non-zero at once and
-prints no result. It imports torch, numpy and the port, never JAX.
+prints no result. It imports torch, numpy and the port, never JAX. With
+``--parent DIR`` (another checkout of the repo, e.g. the parent commit
+unpacked by ``git archive``) phase 5c also times DIR's narrow train kernels
+and steps in turns with this checkout's (see 5c).
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -84,7 +87,13 @@ Phases, each of which raises on failure (no phase is caught):
 5c. the same for K8 (the narrow whole-stack pair with the weights resident
    in shared memory) at the recovery path's batch (B = 128, T = 200) on a
    fresh 4×40 stack and on the dense view of the 4×30 split r = 15
-   truncation, timed beside K7 on the same inputs (K8, K7, K7, K8 in turn);
+   truncation, timed beside K7 on the same inputs (K8, K7, K7, K8 in turn),
+   and in turns with K7 at run A's inputs (B = 32) too; with ``--parent
+   DIR``, K7 forward and backward at run A's shapes, K8's at B = 128, cuDNN's
+   on both, and one train step of runs A, B and E (its span, the host's
+   time to issue it, the card's busy time from torch.profiler), each
+   measured in a fresh process on DIR's package and on this checkout's, in
+   turns (P C C P C P P C: parent, change);
 6. (continued) drive the post-truncation recovery through its public entry
    points, on the same windows: run E ``recover_reduced_gated`` of the 4×30
    split r = 15 truncation at B = 128 (K8 both ways), run F
@@ -128,6 +137,10 @@ import time
 
 import numpy as np
 import torch
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--time-tree"]:
+    # tree_times on another checkout's package (see tree_turns): import it first
+    sys.path.insert(0, os.path.abspath(sys.argv[2]))
 
 import svd_lstm_tpu_torch as P
 from svd_lstm_tpu_torch.api import exact_matmul
@@ -1185,6 +1198,16 @@ def compact_kernel_checks(dev, data, rng) -> dict:
                  *args)
         if name == "4x40":
             timed = (shape, layers, hs, cs, args, got)
+    # below the dispatch's B = 128: K8 and K7 on run A's inputs (B = 32)
+    xa = first_batch(TRAIN_RUNS[0], data, dev)[0].transpose(0, 1).contiguous()
+    layers = timed[1]
+    hs_a, cs_a = ct.fused_narrow_train_fwd_plain(layers, xa)
+    dh_a = torch.tensor(rng.normal(size=hs_a[-1].shape), dtype=torch.float32, device=dev)
+    shape_a = f"4x40, B={xa.shape[1]}, T={xa.shape[0]}, d={xa.shape[2]}"
+    in_turns("K8 fwd, K7 fwd", shape_a, ct.fused_narrow_train_compact_fwd, ct.fused_narrow_train_fwd,
+             layers, xa)
+    in_turns("K8 bwd, K7 bwd", shape_a, ct.fused_narrow_train_compact_bwd, ct.fused_narrow_train_bwd,
+             layers, xa, hs_a, cs_a, dh_a)
     shape, layers, hs, cs, args, got = timed
     T8, B8, _ = x.shape
     flops = lstm_flops(T8, B8, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
@@ -1209,6 +1232,94 @@ def compact_kernel_checks(dev, data, rng) -> dict:
               lambda: ct.fused_narrow_train_compact_bwd_plain(
                   layers, x, *ct.fused_narrow_train_compact_fwd_plain(layers, x), dh))
     return results
+
+
+@torch.no_grad()
+def narrow_times(dev, data) -> dict:
+    """K7's pair at run A's shapes, K8's at B = 128 (4x40), cuDNN's LSTM on
+    both: ms of each, in the package this process imported."""
+    rng = np.random.default_rng(1)
+    layers = [tuple(p.detach() for p in (l.W, l.U, l.b)) for l in TRAIN_RUNS[0].make(dev).layers]
+    out = {}
+    for tag, run, fwd, bwd in (("K7", TRAIN_RUNS[0], ct.fused_narrow_train_fwd, ct.fused_narrow_train_bwd),
+                               ("K8", RECOVERY_RUNS[0], ct.fused_narrow_train_compact_fwd,
+                                ct.fused_narrow_train_compact_bwd)):
+        x = first_batch(run, data, dev)[0].transpose(0, 1).contiguous()
+        hs, cs = fwd(layers, x)
+        dh = torch.tensor(rng.normal(size=hs[-1].shape), dtype=torch.float32, device=dev)
+        shape = f"B={x.shape[1]}"
+        out[f"{tag} fwd ({shape})"] = device_time_ms(fwd, layers, x)
+        out[f"{tag} bwd ({shape})"] = device_time_ms(bwd, layers, x, hs, cs, dh)
+        out[f"cuDNN fwd ({shape})"], out[f"cuDNN bwd ({shape})"] = library_train(layers, x, dh)
+    return out
+
+
+def step_split(step) -> dict:
+    """A train step's host time to issue it (the card idle at its start;
+    median of 5) and what it ran on the card (torch.profiler, mean of 3
+    steps): the summed duration of its kernels and copies, and of the narrow
+    forward's and backward's kernels alone; ms each."""
+    issue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        issue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def busy(part: str = "") -> float:
+        return sum(e.time_range.elapsed_us() for e in on_card if part in e.name) / 3e3
+
+    return {"host issue": sorted(issue)[2], "card busy": busy(),
+            "card busy in the narrow fwd": busy("narrow_fwd"),
+            "card busy in the narrow bwd": busy("narrow_bwd")}
+
+
+def tree_times(dev) -> dict:
+    """``--time-tree DIR``: narrow_times and one train step (forward,
+    backward, Adam) of runs A, B and E, on DIR's package: the step's span
+    on the card, the host's time to issue it and the card's busy time in it,
+    in all and in the narrow kernels (step_split)."""
+    data = train_data()
+    with exact_matmul():
+        out = narrow_times(dev, data)
+    for run in (TRAIN_RUNS[0], TRAIN_RUNS[1], RECOVERY_RUNS[0]):
+        x, y = first_batch(run, data, dev)
+        step = first_step(run, dev, x, y, kernel=True)[2]
+        name = f"run {run.name.split()[0]} step"
+        out[name] = device_time_ms(step)
+        out.update({f"{name}, {k}": v for k, v in step_split(step).items()})
+    return out
+
+
+def tree_turns(parent: str) -> None:
+    """``--parent DIR``: tree_times on DIR's package and on this checkout's,
+    each in a fresh process (their kernels built from their own sources),
+    in turns, each side first in one pair of two: parent, change, change,
+    parent, change, parent, parent, change."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    order = (parent, here, here, parent, here, parent, parent, here)
+    runs = []
+    for tree in order:
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-tree", tree],
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            fail(f"--time-tree {tree} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    sides = "/".join("P" if tree == parent else "C" for tree in order)
+    for key in runs[0]:
+        ms = [r[key] for r in runs]
+        p = np.median([m for m, tree in zip(ms, order) if tree == parent])
+        c = np.median([m for m, tree in zip(ms, order) if tree != parent])
+        log(f"[turns] {key} (ms), {sides} (P parent, C change): "
+            + ", ".join(f"{m:.3f}" for m in ms) + f"; medians P {p:.3f}, C {c:.3f}")
 
 
 def check_finetune(init, tuned, data, dev) -> None:
@@ -1389,6 +1500,13 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only "
               "on a CUDA card", file=sys.stderr)
         return 2
+    args = sys.argv[1:]
+    if args[:1] == ["--time-tree"]:
+        print(json.dumps(tree_times(torch.device("cuda", 0))))
+        return 0
+    if args and (args[0] != "--parent" or len(args) != 2 or not os.path.isdir(args[1])):
+        print(f"usage: {sys.argv[0]} [--parent DIR]", file=sys.stderr)
+        return 2
     log(card_line())  # the card's name and power limit, as nvidia-smi prints them
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
@@ -1407,6 +1525,8 @@ def main() -> int:
     data = train_data()
     with exact_matmul():
         checks.update(train_kernel_checks(dev, data))
+    if args:
+        tree_turns(args[1])
     train_launches, histories = train_path(dev, data)
     recovery_launches = recovery_path(dev, data)
     # a train kernel's launches: phase 6's runs A-D and E-F, each counted from zero

@@ -46,12 +46,12 @@ _SIGNATURES = {
     "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     # meta, L, x, out, T, d, bf16, stream
     "fused_reduced_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
-    # meta, L, x, T, B, d, stream
-    "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _P],
+    # meta, L, x, T, B, d, lanes, stream
+    "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
     # meta, L, x, dh_last, dx, T, B, d, stream
     "fused_narrow_train_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     # K8: as K7's
-    "fused_narrow_train_compact_fwd_launch": [_P, _I, _P, _I, _I, _I, _P],
+    "fused_narrow_train_compact_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
     "fused_narrow_train_compact_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _P],
     # A, shift, dz, out, partial, M, p, G, splits, stream
     "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -5,11 +5,13 @@
 // training path of svd_lstm_tpu/ops/pallas_train.py, one reduction that the
 // backward passes share, and one inference kernel:
 //
-//   K7  narrow_fwd / narrow_bwd — replace svd_lstm_tpu/ops/pallas_train_fused.py:
-//       _fused_fwd / _fused_bwd (every layer n <= 128, the input <= 128).
-//   K8  the same kernels with the stack's weights resident in shared memory
+//   K7  narrow_fwd_wave / narrow_bwd_kernel — replace
+//       svd_lstm_tpu/ops/pallas_train_fused.py: _fused_fwd / _fused_bwd
+//       (every layer n <= 128, the input <= 128).
+//   K8  the same forward with the weights always staged in shared memory,
+//       and the backward with the stack's weights resident there
 //       (kResident = true) — replace svd_lstm_tpu/ops/pallas_train_compact.py:
-//       _fused_fwd / _fused_bwd (see the K8 note above the launchers).
+//       _fused_fwd / _fused_bwd (see the note above the launchers).
 //   K9  wide_fwd_step / wide_bwd_gates + matmul_nt — replace
 //       svd_lstm_tpu/ops/pallas_train_wide.py: _wide_fwd / _wide_bwd (one
 //       layer, n % 128 == 0).
@@ -32,18 +34,16 @@
 //    gradients are deterministic. Storing dz is HBM traffic the TPU kernels
 //    avoided: 16 MB per step at 4x40/B=32/T=200, 210 MB per layer at
 //    3x512/B=128/T=200. A later PR keeps the sums on chip.
-//  * K7: batch rows are independent in the forward and in the backward's
-//    carries, so a CTA owns NARROW_ROWS rows and runs the time loop and the
-//    layer loop inside the block (one launch per direction). The 4x40
-//    weights (192 KB, and their transposes in the backward) do not fit in
-//    shared memory beside the state, so they are read through __ldg from
-//    L1/L2 every step; each weight read feeds NARROW_ROWS FMAs. Bound: the
-//    latency of the 56-160-long dots (one weight load each step of the
-//    dot) and of the barriers, per layer-step: ~2.4 us a layer-step forward
-//    at 4x40 on the H100. Only B / NARROW_ROWS CTAs run (8 at B = 32): the
-//    card is mostly idle. K8 keeps the weights resident in shared memory
-//    before the state (no transposes needed there); more CTAs per batch are
-//    later work.
+//  * K7, K8: batch rows are independent in the forward and in the
+//    backward's carries, so a CTA owns NARROW_ROWS rows and runs the whole
+//    recurrence inside the block (one launch per direction); only
+//    B / NARROW_ROWS CTAs run (8 at B = 32), so each is a chain of dependent
+//    steps and its latency is the bound. The forward (narrow_fwd_wave, see
+//    its note and the one above the launchers) runs the layers as a
+//    wavefront of T + L - 1 steps with one barrier each, a lane group per
+//    unit and the gate update in registers. The backward still walks the
+//    T·L layer-steps with four barriers each; K7's reads its weights and
+//    their transposes through __ldg from L1/L2, K8's its resident copy.
 //  * K9: at n = 512, W and U are 8 MB, against 227 KB of shared memory per
 //    block, and every unit's z at step t needs all of h_{t-1}: each step is
 //    a grid-wide dependency. So one launch per time step (the host loop
@@ -126,7 +126,7 @@ __device__ __forceinline__ float gate_bwd(float zi, float zf, float zg, float zo
   return dct * f;
 }
 
-// A weight matrix as the narrow kernels' dots read it, M(r, c). K7 reads a
+// A weight matrix as the narrow backward's dots read it, M(r, c). K7 reads a
 // row-major global matrix through the read-only cache; K8 reads its resident
 // copy in shared memory, where a (rows, G) matrix has the odd row stride
 // G + 1, so a warp reading 32 columns of one row or 32 rows of one column
@@ -183,11 +183,11 @@ __host__ __device__ inline int resident_floats(const NarrowArgs& a) {
   return f;
 }
 
-// Where the narrow kernels read their weights. Weights<false> (K7): the
-// global matrices, with the transposes Wt, Ut the wrapper made for the
-// backward's row reads. Weights<true> (K8): one copy of every layer's W, U
-// and b, staged into shared memory before the time loop and read from there
-// for all T steps; the backward reads the same copy by row.
+// Where the narrow backward reads its weights. Weights<false> (K7): the
+// global matrices, with the transposes Wt, Ut the wrapper made for its row
+// reads. Weights<true> (K8): one copy of every layer's W, U and b, staged
+// into shared memory before the time loop and read from there, by column
+// and by row, for all T steps.
 template <bool kResident> struct Weights;
 
 template <> struct Weights<false> {
@@ -235,81 +235,246 @@ template <> struct Weights<true> {
 };
 
 // ---------------------------------------------------------------------------
-// K7 forward — replaces pallas_train_fused.py:_fused_fwd. The whole stack,
-// per step and per layer: z = inp·W + h·U + b and the gate update, layer i's
-// new h feeding layer i+1 within the step; every layer's h and c go out.
-// Shared memory per row: h and c of every layer, one z (4 nmax), x_t (d).
-// x_{t+1} is staged during the last layer's gate phase of step t, after the
-// barrier that ends layer 0's reads of x_t, so staging adds no barrier.
-// With kResident this is K8's forward (see the K8 note above the
-// launchers): the weights come first in shared memory, the state after.
+// K7 and K8 forward — replace pallas_train_fused.py:_fused_fwd and
+// pallas_train_compact.py:_fused_fwd (design: the note above the launchers).
+// The whole stack over T steps: per layer z = inp·W + h·U + b and the gate
+// update; every layer's h and c go out.
+//
+// A group of S lanes of one warp owns unit j of layer i for the CTA's
+// NARROW_ROWS rows: all four gate pre-activations of the four rows (16
+// sums), the din + n terms split over the lanes (lane l takes k = l, l + S,
+// ... < din + n), summed across the group by reduce_lanes. A warp holds
+// 32 / S units, lane-major: its lanes [l·32/S, (l + 1)·32/S) are lane l of
+// each group, so a quarter-warp reads one state entry and 8 neighbouring
+// units' weights at one k. The cell state stays in the owning lane's registers for all T
+// steps; h goes to the shared state and to the outputs.
+//
+// The layers run as a wavefront: at step s layer i computes t = s - i, from
+// the state that step s - 1 wrote (h of the layer below at t, its own h at
+// t - 1), into the other parity of the state; one barrier a step, T + L - 1
+// steps. One parity of the state is the vector [x_t | h_0 | ... | h_{L-1}]
+// of float4 entries, one float per row ([k][r]), so layer i's input
+// [h_{i-1} | h_i] (or [x | h_0]) is one contiguous range and one 16-byte
+// broadcast load gives the four rows at input k. A lane stops at its last
+// k < din + n, so it never reads the next layer's h (a diverged upper layer
+// leaves the lower ones as the plain version does). x_{s+1} is loaded at
+// the top of step s and stored into the state at its end.
+//
+// Weights, gate-interleaved as [k][j][4] (one 16-byte load gives unit j's
+// four gates at input k; a quarter-warp reads 128 contiguous bytes, no bank
+// conflict): kStaged (K8, and K7 when the stack fits) stages every layer's
+// [W; U] rows into shared memory so; without kStaged (K7's stacks that do
+// not fit) the kernel reads the wrapper's copy P, so laid out, from L1/L2
+// through __ldg.
 // ---------------------------------------------------------------------------
-template <bool kResident>
-__global__ void __launch_bounds__(NARROW_MAX_THREADS)
-narrow_fwd_kernel(NarrowArgs a, const float* __restrict__ x, int T, int B, int d, int zmax) {
-  extern __shared__ float smem_all[];
+#define FWD_MAX_THREADS 1024
+
+struct FwdLayer {
+  int din, n;
+  const float* W;  // (din, 4n)
+  const float* U;  // (n, 4n)
+  const float* b;  // (4n)
+  const float* P;  // (din + n, n, 4), or null: staged from W and U
+  float* h;        // (T, B, n)
+  float* c;        // (T, B, n)
+};
+
+struct FwdArgs {
+  int L;
+  FwdLayer l[MAX_LAYERS];
+};
+
+// float4 entries of the staged weights
+inline int fwd_weight_entries(const FwdArgs& a) {
+  int e = 0;
+  for (int i = 0; i < a.L; ++i) e += (a.l[i].din + a.l[i].n) * a.l[i].n;
+  return e;
+}
+
+// entries (four rows each) of one parity of the state vector
+inline int fwd_state_entries(const FwdArgs& a, int d) {
+  int v = d;
+  for (int i = 0; i < a.L; ++i) v += a.l[i].n;
+  return v;
+}
+
+// One exchange of a reduce-scatter over the lane group: the lane keeps the
+// lower or upper half of v[0, 2·HALF) (its bit says which) and adds the
+// partner's copy of that half; the kept half moves to v[0, HALF).
+template <int HALF>
+__device__ __forceinline__ void split_half(float (&v)[16], bool upper, int offset, unsigned mask) {
+#pragma unroll
+  for (int q = 0; q < HALF; ++q) {
+    const float send = upper ? v[q] : v[q + HALF];
+    const float keep = upper ? v[q + HALF] : v[q];
+    v[q] = keep + __shfl_xor_sync(mask, send, offset);
+  }
+}
+
+// Sums the group's partial pre-activations v[r·4 + g]. Each sum is taken
+// by one lane in a fixed order (the last exchange of S = 8 is symmetric), so
+// the result does not depend on timing. Afterwards v[q·4 + g] holds row
+// fwd_first_row<S>(l) + q, q < 4 / S (one row for S ≥ 4).
+template <int S>
+__device__ __forceinline__ void reduce_lanes(float (&v)[16], int l, unsigned mask) {
+  constexpr int G = 32 / S;  // lane l' of a group sits at warp lane l'·G + its group
+  if constexpr (S == 2) {
+    split_half<8>(v, l & 1, G, mask);
+  } else if constexpr (S == 4) {
+    split_half<8>(v, (l >> 1) & 1, 2 * G, mask);
+    split_half<4>(v, l & 1, G, mask);
+  } else if constexpr (S == 8) {
+    split_half<8>(v, (l >> 2) & 1, 4 * G, mask);
+    split_half<4>(v, (l >> 1) & 1, 2 * G, mask);
+#pragma unroll
+    for (int g = 0; g < 4; ++g) v[g] += __shfl_xor_sync(mask, v[g], G);
+  }
+}
+
+template <int S> __device__ __forceinline__ int fwd_first_row(int l) {
+  return S == 1 ? 0 : S == 2 ? 2 * l : S == 4 ? l : (l >> 1) & 3;
+}
+
+template <int S, bool kStaged>
+__global__ void __launch_bounds__(FWD_MAX_THREADS)
+narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int V) {
+  extern __shared__ float4 fwd_smem[];
   constexpr int R = NARROW_ROWS;
-  const int row0 = blockIdx.x * R;
-  Weights<kResident> wts(a);
-  float* smem = smem_all + wts.stage(smem_all);
-  float* hs[MAX_LAYERS];
-  float* cs[MAX_LAYERS];
-  int off = 0;
-  for (int i = 0; i < a.L; ++i) {
-    hs[i] = smem + off;
-    off += R * a.l[i].n;
-    cs[i] = smem + off;
-    off += R * a.l[i].n;
+  constexpr int RL = S >= 4 ? 1 : 4 / S;  // rows a lane updates
+  const int tid = threadIdx.x, row0 = blockIdx.x * R;
+
+  // this thread's unit (layer li, unit j) and lane l: a warp holds 32 / S
+  // units, lane l of its groups at lanes [l·32/S, (l + 1)·32/S)
+  constexpr int G = 32 / S;
+  const int lane = tid & 31, l = lane / G, g = (tid >> 5) * G + lane % G;
+  int li = -1, j = 0, w_off = 0, h_off = 0;
+  {
+    int u = 0, wo = 0, so = d;
+    for (int i = 0; i < a.L; ++i) {
+      const int n = a.l[i].n;
+      if (li < 0 && g < u + n) {
+        li = i;
+        j = g - u;
+        w_off = wo;
+        h_off = so;
+      }
+      u += n;
+      wo += (a.l[i].din + n) * n;
+      so += n;
+    }
   }
-  for (int k = threadIdx.x; k < off; k += blockDim.x) smem[k] = 0.f;
-  float* z = smem + off;  // (R, zmax)
-  float* xs = z + R * zmax;  // (R, d)
-  for (int e = threadIdx.x; e < R * d; e += blockDim.x) {
-    const int r = e / d, j = e % d;
-    xs[e] = row0 + r < B ? x[(size_t)(row0 + r) * d + j] : 0.f;
+
+  int w_entries = 0;
+  if constexpr (kStaged) {
+    for (int i = 0; i < a.L; ++i) {
+      const FwdLayer& ly = a.l[i];
+      const int n = ly.n, din = ly.din;
+      for (int e = tid; e < (din + n) * n; e += blockDim.x) {
+        const int k = e / n, jj = e % n;
+        const float* src = k < din ? ly.W + (size_t)k * 4 * n : ly.U + (size_t)(k - din) * 4 * n;
+        fwd_smem[w_entries + e] = make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]);
+      }
+      w_entries += (din + n) * n;
+    }
   }
+  float4* state = fwd_smem + w_entries;  // two parities of V entries
+  float* statef = reinterpret_cast<float*>(state);
+  // zeros, and x_0 into parity 1 (read at s = 0)
+  for (int e = tid; e < 2 * V; e += blockDim.x) {
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    const int k = e - V;
+    if (k >= 0 && k < d) {
+      float r4[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) r4[r] = row0 + r < B ? x[(size_t)(row0 + r) * d + k] : 0.f;
+      v = make_float4(r4[0], r4[1], r4[2], r4[3]);
+    }
+    state[e] = v;
+  }
+
+  const bool unit = li >= 0;
+  const int n = unit ? a.l[li].n : 0;
+  const int in_off = unit ? h_off - a.l[li].din : 0;
+  // this lane's k = l + kb·S < din + n
+  const int KB = unit ? (a.l[li].din + n - l + S - 1) / S : 0;
+  const int w_stride = n * S;  // float4 entries from one lane block to the next
+  const float4* wp;
+  if constexpr (kStaged) {
+    wp = fwd_smem + w_off + l * n + j;
+  } else {
+    wp = unit ? reinterpret_cast<const float4*>(a.l[li].P) + l * n + j : nullptr;
+  }
+  float bias[4] = {0.f, 0.f, 0.f, 0.f};
+  float* hout = nullptr;
+  float* cout = nullptr;
+  if (unit) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bias[q] = __ldg(a.l[li].b + q * n + j);
+    hout = a.l[li].h;
+    cout = a.l[li].c;
+  }
+  float c[RL];
+#pragma unroll
+  for (int q = 0; q < RL; ++q) c[q] = 0.f;
+  unsigned mask = 0;  // the group's lanes
+#pragma unroll
+  for (int q = 0; q < S; ++q) mask |= 1u << (q * G + lane % G);
+  const int r0 = fwd_first_row<S>(l);
+  const bool owner = S < 8 || (l & 1) == 0;
+  // x staging: thread tid < R·d owns entry k = tid / R, row tid % R
+  const int xk = tid / R, xr = tid % R;
+  const bool stager = tid < R * d;
   __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
-    const float* inp = xs;
-    int is = d;
-    for (int i = 0; i < a.L; ++i) {
-      const NarrowLayer& l = a.l[i];
-      const int n = l.n, G = 4 * n;
-      for (int k = threadIdx.x; k < G; k += blockDim.x) {
-        float acc[R];
-        const float bk = wts.b(i, k);
+  const int steps = T + a.L - 1;
+  for (int s = 0; s < steps; ++s) {
+    const int P = (s + 1) & 1, Q = s & 1;
+    float xn = 0.f;
+    if (stager && s + 1 < T && row0 + xr < B) xn = x[((size_t)(s + 1) * B + row0 + xr) * d + xk];
+    const int t = s - li;
+    if (unit && t >= 0 && t < T) {
+      float v[16];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = bk;
-        dot_rows(inp, is, wts.W(i), k, l.din, acc);
-        dot_rows(hs[i], n, wts.U(i), k, n, acc);
+      for (int q = 0; q < 16; ++q) v[q] = 0.f;
+      const float4* sp = state + P * V + in_off + l;
+#pragma unroll 2
+      for (int kb = 0; kb < KB; ++kb) {
+        const float4 hv = sp[kb * S];
+        float4 w;
+        if constexpr (kStaged) {
+          w = wp[kb * w_stride];
+        } else {
+          w = __ldg(wp + kb * w_stride);
+        }
+        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
-        for (int r = 0; r < R; ++r) z[r * zmax + k] = acc[r];
-      }
-      __syncthreads();
-      for (int e = threadIdx.x; e < R * n; e += blockDim.x) {
-        const int r = e / n, j = e % n;
-        const float* zr = z + r * zmax;
-        float hn, cn;
-        gate_fwd(zr[j], zr[n + j], zr[2 * n + j], zr[3 * n + j], cs[i][e], hn, cn);
-        hs[i][e] = hn;
-        cs[i][e] = cn;
-        if (row0 + r < B) {
-          const size_t o = ((size_t)t * B + row0 + r) * n + j;
-          l.h[o] = hn;
-          l.c[o] = cn;
+        for (int r = 0; r < 4; ++r) {
+          v[r * 4 + 0] = fmaf(hr[r], w.x, v[r * 4 + 0]);
+          v[r * 4 + 1] = fmaf(hr[r], w.y, v[r * 4 + 1]);
+          v[r * 4 + 2] = fmaf(hr[r], w.z, v[r * 4 + 2]);
+          v[r * 4 + 3] = fmaf(hr[r], w.w, v[r * 4 + 3]);
         }
       }
-      if (i == a.L - 1 && t + 1 < T) {
-        for (int e = threadIdx.x; e < R * d; e += blockDim.x) {
-          const int r = e / d, j = e % d;
-          xs[e] = row0 + r < B ? x[((size_t)(t + 1) * B + row0 + r) * d + j] : 0.f;
+      reduce_lanes<S>(v, l, mask);
+      if (owner) {
+#pragma unroll
+        for (int q = 0; q < RL; ++q) {
+          const int r = r0 + q;
+          float hn, cn;
+          gate_fwd(v[q * 4 + 0] + bias[0], v[q * 4 + 1] + bias[1], v[q * 4 + 2] + bias[2],
+                   v[q * 4 + 3] + bias[3], c[q], hn, cn);
+          c[q] = cn;
+          statef[(Q * V + h_off + j) * R + r] = hn;
+          if (row0 + r < B) {
+            const size_t o = ((size_t)t * B + row0 + r) * n + j;
+            hout[o] = hn;
+            cout[o] = cn;
+          }
         }
       }
-      __syncthreads();
-      inp = hs[i];
-      is = n;
     }
+    if (stager && s + 1 < T) statef[(Q * V + xk) * R + xr] = xn;
+    __syncthreads();
   }
 }
 
@@ -876,83 +1041,143 @@ cudaError_t prepare_smem(K kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// meta: L rows of `cols` int64 — din, n, W, U, b, then (cols 7) h, c or
-// (cols 10) Wt, Ut, h, c, dz. Fills a, returns max units or -1.
-int read_layers(const int64_t* meta, int L, int cols, NarrowArgs& a) {
+// meta: L rows of 10 int64 — din, n, W, U, b, Wt, Ut, h, c, dz. Fills a,
+// returns max units or -1.
+int read_layers(const int64_t* meta, int L, NarrowArgs& a) {
   if (L < 1 || L > MAX_LAYERS) return -1;
   a.L = L;
   int nmax = 0;
   for (int i = 0; i < L; ++i) {
-    const int64_t* m = meta + (size_t)cols * i;
+    const int64_t* m = meta + (size_t)10 * i;
     NarrowLayer& l = a.l[i];
     l.din = (int)m[0];
     l.n = (int)m[1];
     l.W = reinterpret_cast<const float*>(m[2]);
     l.U = reinterpret_cast<const float*>(m[3]);
     l.b = reinterpret_cast<const float*>(m[4]);
-    if (cols == 7) {
-      l.Wt = nullptr;
-      l.Ut = nullptr;
-      l.h = reinterpret_cast<float*>(m[5]);
-      l.c = reinterpret_cast<float*>(m[6]);
-      l.dz = nullptr;
-    } else {
-      l.Wt = reinterpret_cast<const float*>(m[5]);
-      l.Ut = reinterpret_cast<const float*>(m[6]);
-      l.h = reinterpret_cast<float*>(m[7]);
-      l.c = reinterpret_cast<float*>(m[8]);
-      l.dz = reinterpret_cast<float*>(m[9]);
-    }
+    l.Wt = reinterpret_cast<const float*>(m[5]);
+    l.Ut = reinterpret_cast<const float*>(m[6]);
+    l.h = reinterpret_cast<float*>(m[7]);
+    l.c = reinterpret_cast<float*>(m[8]);
+    l.dz = reinterpret_cast<float*>(m[9]);
     if (l.n > nmax) nmax = l.n;
   }
   return nmax;
 }
 
-// ---------------------------------------------------------------------------
-// K8 — replaces svd_lstm_tpu/ops/pallas_train_compact.py: _fused_fwd /
-// _fused_bwd, the whole-stack train pair the JAX package runs for narrow
-// stacks (every n <= 64, d <= 128) at B >= 128. It computes K7's function.
-// The TPU kernel's compact layout (2 or 4 gates packed into a 128-lane block,
-// rows padded to 128, gates extracted by lane rolls) answers the TPU's lane
-// tiles; on the H100 a narrow layer's four gate columns are dense already,
-// so it is not carried over. What is: on the TPU the packed weights are
-// whole-array VMEM blocks that stay on chip for all T grid steps. Here every
-// CTA stages the whole stack's W, U and b into shared memory once, before
-// the time loop (Weights<true>), and K7's step and layer loops then read
-// every weight from there instead of from L1/L2: 193 KB at 4x40, d = 16, of
-// the 227 KB a block may opt in to. The wrapper sends a stack whose weights
-// and state do not fit to K7 by a shape rule (ops/cuda_train.py:
-// compact_fits). Bound: at 4x40, B = 128, T = 200 the forward is 2.4 GFLOP,
-// 0.036 ms at 67 TFLOP/s, against a chain of 4·200 dependent layer-steps
-// that B / NARROW_ROWS = 32 CTAs (one per SM) run, each a dot of length
-// din + n per column from shared memory and two barriers; the backward
-// stores dz per layer and shares weight_grad with K7 and K9.
-// ---------------------------------------------------------------------------
-template <bool kResident>
-int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
-                      void* stream) {
-  NarrowArgs a;
-  const int nmax = read_layers(meta, L, 7, a);
-  if (nmax < 1) return (int)cudaErrorInvalidValue;
+// meta: L rows of 8 int64 — din, n, W, U, b, h, c, P (0: staged). Fills a,
+// returns the sum of the units or -1.
+int read_fwd_layers(const int64_t* meta, int L, FwdArgs& a) {
+  if (L < 1 || L > MAX_LAYERS) return -1;
+  a.L = L;
   int nsum = 0;
-  for (int i = 0; i < L; ++i) nsum += a.l[i].n;
-  const int zmax = 4 * nmax;
-  const size_t smem =
-      ((kResident ? resident_floats(a) : 0) + (size_t)NARROW_ROWS * (2 * nsum + zmax + d)) *
-      sizeof(float);
-  cudaError_t err = prepare_smem(narrow_fwd_kernel<kResident>, smem);
+  for (int i = 0; i < L; ++i) {
+    const int64_t* m = meta + (size_t)8 * i;
+    FwdLayer& l = a.l[i];
+    l.din = (int)m[0];
+    l.n = (int)m[1];
+    l.W = reinterpret_cast<const float*>(m[2]);
+    l.U = reinterpret_cast<const float*>(m[3]);
+    l.b = reinterpret_cast<const float*>(m[4]);
+    l.h = reinterpret_cast<float*>(m[5]);
+    l.c = reinterpret_cast<float*>(m[6]);
+    l.P = reinterpret_cast<const float*>(m[7]);
+    if (l.n < 1) return -1;
+    nsum += l.n;
+  }
+  return nsum;
+}
+
+// S lanes a unit, and x_0's R·d stagers (ops/cuda_train.py:
+// narrow_fwd_threads)
+int fwd_threads(int nsum, int d, int S) {
+  const int units = (S * nsum + 31) / 32 * 32, stagers = (NARROW_ROWS * d + 31) / 32 * 32;
+  return units > stagers ? units : stagers;
+}
+
+template <int S, bool kStaged>
+int launch_wave(const FwdArgs& a, const float* x, int T, int B, int d, int threads, size_t smem,
+                cudaStream_t stream) {
+  cudaError_t err = prepare_smem(narrow_fwd_wave<S, kStaged>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
-  narrow_fwd_kernel<kResident><<<grid, narrow_threads(zmax), smem, (cudaStream_t)stream>>>(
-      a, (const float*)x, T, B, d, zmax);
+  narrow_fwd_wave<S, kStaged><<<grid, threads, smem, stream>>>(a, x, T, B, d,
+                                                               fwd_state_entries(a, d));
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K7 and K8 forward (narrow_fwd_wave): what bounds it on the H100, and what
+// the design does about it. At 4x40, d = 16, T = 200 the forward is 2.4
+// GFLOP at B = 128 (0.036 ms at 67 TFLOP/s), but batch rows are the only
+// independent work: a CTA owns NARROW_ROWS rows (B / 4 CTAs, 8 at run A's
+// B = 32, 32 at K8's B = 128) and runs a chain of dependent steps. So the
+// bound is the latency of one step times the length of the chain:
+//  * the chain: the layers run as a wavefront (T + L - 1 = 203 steps at
+//    4x40, not T·L = 800 layer-steps), one __syncthreads a step;
+//  * one step: every unit's dot of din + n terms is split over S lanes
+//    (S from the wrapper's rule, ops/cuda_train.py: narrow_fwd_lanes; S = 4
+//    at 4x40: 640 threads, 20 warps), summed by shuffles,
+//    and the gate update runs in the lane's registers, so z never goes
+//    through shared memory. Each step of a dot is one 16-byte weight load
+//    (four gates), one 16-byte broadcast state load (four rows) and 16 FMAs.
+//    At 4x40 a step takes ~2.9 us on the H100, and what sets it is each
+//    warp's chain through the step (its K / S dot steps, the shuffles, the
+//    gate math with expf, tanhf and IEEE divides, the barrier), not the
+//    shared-memory traffic: S = 1, 2, 4 ran 0.87, 0.71, 0.56 ms at 4x40
+//    (scripts/probe_torch_narrow_fwd.py), while one lane group owning two
+//    units (a state load shared by two weight loads, half the warps) ran
+//    ~10 % slower, and a layout giving the state load one address per
+//    quarter-warp changed nothing. S = 8 would need 1280 threads; more
+//    parallelism per step means splitting a CTA's units over a cluster of
+//    CTAs (distributed shared memory).
+// Weights: K8 (compact) always stages them into shared memory (the TPU
+// kernel's whole-array VMEM blocks, on chip for all T steps; its 2-or-4
+// gates-a-lane-block packing answers the TPU's lane tiles and is not carried
+// over). K7 stages them when the stack fits (the wrapper passes P null),
+// else reads the wrapper's gate-interleaved copy P from L1/L2: at 4x40 that
+// ran 0.83 ms against 0.63 staged (the same script).
+// K8 replaces svd_lstm_tpu/ops/pallas_train_compact.py: _fused_fwd /
+// _fused_bwd, the pair the JAX package runs for narrow stacks (every n <=
+// 64, d <= 128) at B >= 128; the wrapper sends a stack whose resident
+// weights do not fit to K7 by a shape rule (ops/cuda_train.py:
+// compact_fits). Its backward reads its own resident copy, odd-strided
+// (Weights<true>), stores dz per layer and shares weight_grad with K7, K9.
+// ---------------------------------------------------------------------------
+int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
+                      int lanes, bool compact, void* stream) {
+  FwdArgs a;
+  const int nsum = read_fwd_layers(meta, L, a);
+  if (nsum < 1 || T < 1 || B < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  bool staged = true;
+  for (int i = 0; i < L; ++i) staged = staged && a.l[i].P == nullptr;
+  if (compact && !staged) return (int)cudaErrorInvalidValue;
+  const int S = lanes, threads = fwd_threads(nsum, d, S);
+  if ((S != 1 && S != 2 && S != 4 && S != 8) || threads > FWD_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  // the staged weights, then two parities of the state
+  const size_t smem =
+      ((staged ? (size_t)fwd_weight_entries(a) : 0) + 2 * (size_t)fwd_state_entries(a, d)) *
+      sizeof(float4);
+  const float* xs = (const float*)x;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (S * 2 + (staged ? 1 : 0)) {
+    case 2: return launch_wave<1, false>(a, xs, T, B, d, threads, smem, s);
+    case 3: return launch_wave<1, true>(a, xs, T, B, d, threads, smem, s);
+    case 4: return launch_wave<2, false>(a, xs, T, B, d, threads, smem, s);
+    case 5: return launch_wave<2, true>(a, xs, T, B, d, threads, smem, s);
+    case 8: return launch_wave<4, false>(a, xs, T, B, d, threads, smem, s);
+    case 9: return launch_wave<4, true>(a, xs, T, B, d, threads, smem, s);
+    case 16: return launch_wave<8, false>(a, xs, T, B, d, threads, smem, s);
+    default: return launch_wave<8, true>(a, xs, T, B, d, threads, smem, s);
+  }
 }
 
 template <bool kResident>
 int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl, void* dx, int T,
                       int B, int d, void* stream) {
   NarrowArgs a;
-  const int nmax = read_layers(meta, L, 10, a);
+  const int nmax = read_layers(meta, L, a);
   if (nmax < 1) return (int)cudaErrorInvalidValue;
   int nsum = 0;
   for (int i = 0; i < L; ++i) nsum += a.l[i].n;
@@ -973,10 +1198,14 @@ int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl
 
 extern "C" {
 
-// K7. meta: L rows of 7 int64 — din, n, W, U, b, h_out, c_out (device pointers).
+// K7. meta: L rows of 8 int64 — din, n, W, U, b, h_out, c_out (device
+// pointers), P: the gate-interleaved copy of [W; U] (ops/cuda_train.py:
+// pack_gates), or 0 in every row to stage the weights in shared memory.
+// lanes: S, 1, 2, 4 or 8 (the wrapper's rule, ops/cuda_train.py:
+// narrow_fwd_lanes), checked here against the 1024-thread block.
 int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
-                                  void* stream) {
-  return narrow_fwd_launch<false>(meta, L, x, T, B, d, stream);
+                                  int lanes, void* stream) {
+  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, false, stream);
 }
 
 // K7. meta: L rows of 10 int64 — din, n, W, U, b, Wt, Ut, h, c, dz_out.
@@ -985,10 +1214,11 @@ int fused_narrow_train_bwd_launch(const int64_t* meta, int L, const void* x, con
   return narrow_bwd_launch<false>(meta, L, x, dhl, dx, T, B, d, stream);
 }
 
-// K8, the forward: meta as K7's.
+// K8, the forward: meta and lanes as K7's, P 0 (the weights are always
+// staged).
 int fused_narrow_train_compact_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B,
-                                          int d, void* stream) {
-  return narrow_fwd_launch<true>(meta, L, x, T, B, d, stream);
+                                          int d, int lanes, void* stream) {
+  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, true, stream);
 }
 
 // K8, the backward: meta as K7's, Wt and Ut unused (0).

@@ -21,10 +21,15 @@ lstm_recurrence_train_bwd      lstm_recurrence_train_bwd_plain      pallas_train
 ============================== ==================================== ====================================
 
 K8 computes K7's function (the compact gate packing of the TPU kernel is a
-lane layout, not carried over) with the stack's weights resident in shared
-memory; K6 runs K9's step kernels with the x·W part taken out. All compute
-in float32 (exact mode). The JAX kernels' ``precision=DEFAULT`` dots are
-exact float32 on the CPU, where the tests compare.
+lane layout, not carried over). Both forwards are one kernel: a group of
+``narrow_fwd_lanes`` lanes owns each unit, the layers run as a wavefront
+(T + L − 1 steps), and the weights are read gate-interleaved, staged in
+shared memory (K8 always; K7 when the stack fits) or from K7's copy
+:func:`pack_gates` in global memory. The backwards differ: K8's
+keeps its own resident copy of the weights, K7's reads Wᵀ and Uᵀ from
+global memory. K6 runs K9's step kernels with the x·W part taken out. All
+compute in float32 (exact mode). The JAX kernels' ``precision=DEFAULT``
+dots are exact float32 on the CPU, where the tests compare.
 
 Layouts are time-major, as the TPU kernels take them: x (T, B, d), every
 layer's h and c (T, B, n). The weights keep the Keras layout, unpadded: the
@@ -69,6 +74,7 @@ NARROW_ROWS = 4       # csrc NARROW_ROWS: batch rows per CTA of K7 and K8
 COMPACT_MAX_UNITS = 64  # K8's layers: the JAX package's ≥ 2 gates per 128-lane block
 COMPACT_MIN_BATCH = 128  # compact="auto" takes K8 from this batch on, as the JAX dispatch
 WIDE_ALIGN = 128      # K9 takes n % 128 == 0, as the TPU kernel did
+FWD_MAX_THREADS = 1024  # csrc FWD_MAX_THREADS: the narrow forward's block
 _SM_COUNT = 132       # H100 SXM: the weight-gradient split fills about two waves
 
 Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (W, U, b)
@@ -269,12 +275,53 @@ def _resident_floats(units: Sequence[int], d: int) -> int:
     return total
 
 
+def _round_up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
 def _narrow_state_floats(units: Sequence[int], d: int, backward: bool) -> int:
-    """Floats of shared memory a K7 CTA holds (its state; csrc launchers)."""
+    """Floats of shared memory a K7 or K8 CTA holds for its state (csrc
+    launchers): the backward's carries and scratch, or the forward's two
+    parities of the state vector [x_t | h_0 | ... | h_{L-1}], four rows an
+    entry."""
     nmax = max(units)
     if backward:
         return NARROW_ROWS * (2 * sum(units) + 14 * nmax + max(d, nmax))
-    return NARROW_ROWS * (2 * sum(units) + 4 * nmax + d)
+    return 2 * NARROW_ROWS * (d + sum(units))
+
+
+def narrow_fwd_threads(units: Sequence[int], d: int, lanes: int) -> int:
+    """Threads of the forward's block (csrc ``fwd_threads``): ``lanes`` a
+    unit, and at least one for each of x_t's NARROW_ROWS·d entries."""
+    return max(_round_up(lanes * sum(units), 32), _round_up(NARROW_ROWS * d, 32))
+
+
+def narrow_fwd_smem_bytes(units: Sequence[int], d: int, staged: bool) -> int:
+    """Shared memory of the forward (csrc ``narrow_fwd_launch``): with
+    ``staged`` every layer's [W; U] rows, four gates each, then the
+    state."""
+    weights, din = 0, d
+    for n in units:
+        weights += (din + n) * 4 * n
+        din = n
+    return 4 * ((weights if staged else 0) + _narrow_state_floats(units, d, False))
+
+
+def narrow_fwd_lanes(units: Sequence[int], d: int) -> int:
+    """Lanes S a unit of the forward: the largest of 8, 4, 2, 1 whose block
+    has at most FWD_MAX_THREADS threads. The wrapper passes it to the
+    launcher, which checks it."""
+    for lanes in (8, 4, 2):
+        if narrow_fwd_threads(units, d, lanes) <= FWD_MAX_THREADS:
+            return lanes
+    return 1
+
+
+def pack_gates(W: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """K7's gate-interleaved copy of a layer for its forward: P (din + n, n,
+    4) with P[k, j, g] = [W; U][k, g·n + j] (csrc ``FwdLayer.P``)."""
+    din, n = W.shape[0], U.shape[0]
+    return torch.cat([W.view(din, 4, n), U.view(n, 4, n)]).transpose(1, 2).contiguous()
 
 
 def compact_smem_bytes(units: Sequence[int], d: int) -> int:
@@ -321,17 +368,33 @@ def _narrow_fwd(wrapper, plain, layers: Sequence[Layer], x: torch.Tensor):
         _check_compact(name, units, d)
     if not _card([x, *(w for l in layers for w in l)]):
         return plain(layers, x)
-    _check_smem(name, (_resident_floats(units, d) if resident else 0)
-                + _narrow_state_floats(units, d, backward=False))
+    # K8 always stages its weights: a stack compact_fits admits fits staged
+    # (tests/test_torch_narrow_fwd.py)
+    staged = resident or narrow_fwd_smem_bytes(units, d, True) <= _SMEM_LIMIT
+    hs, cs = _launch_narrow_fwd(name, layers, x, narrow_fwd_lanes(units, d), staged)
+    wrapper.launches += 1
+    return hs, cs
+
+
+def _launch_narrow_fwd(name: str, layers: Sequence[Layer], x: torch.Tensor, lanes: int,
+                       staged: bool):
+    """One launch of the narrow forward ``name`` (K7's or K8's launcher) on
+    checked card tensors, at ``lanes`` a unit, the weights staged in shared
+    memory or read from :func:`pack_gates`' copy."""
+    T, B, d = x.shape
+    units = [U.shape[0] for _, U, _ in layers]
+    if lanes not in (1, 2, 4, 8) or narrow_fwd_threads(units, d, lanes) > FWD_MAX_THREADS:
+        raise ValueError(f"{name}: {lanes} lanes a unit do not fit a block of {FWD_MAX_THREADS} threads")
+    _check_smem(name, narrow_fwd_smem_bytes(units, d, staged) // 4)
     hs = [torch.empty((T, B, n), dtype=torch.float32, device=x.device) for n in units]
     cs = [torch.empty_like(h) for h in hs]
+    packed = [None if staged else pack_gates(W, U) for W, U, _ in layers]
     meta = np.array(
         [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), h.data_ptr(),
-          c.data_ptr()] for (W, U, b), h, c in zip(layers, hs, cs)],
+          c.data_ptr(), _ptr(P) or 0] for (W, U, b), h, c, P in zip(layers, hs, cs, packed)],
         dtype=np.int64,
     )
-    _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d)
-    wrapper.launches += 1
+    _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d, lanes)
     return hs, cs
 
 

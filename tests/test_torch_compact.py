@@ -338,13 +338,18 @@ def _launched(wrapper, fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("units,d,batch", [((40, 40, 40, 40), 16, 128), ((30, 30, 30, 30), 16, 130),
-                                           ((8, 12, 5), 7, 9)])
-def test_cuda_compact_matches_plain(cuda, units, d, batch, monkeypatch):
+@pytest.mark.parametrize("units,d,batch,steps", [
+    ((40, 40, 40, 40), 16, 128, 20), ((30, 30, 30, 30), 16, 130, 20), ((8, 12, 5), 7, 9, 20),
+    # the forward's edges: T < L, one layer, 8 layers, uneven widths with
+    # d > n, B = 1 and B % 4 != 0
+    ((40, 40, 40, 40), 16, 128, 1), ((40, 40, 40, 40), 16, 128, 3), ((30,), 16, 9, 20),
+    ((8,) * 8, 16, 12, 10), ((20, 12, 9), 40, 1, 10), ((33, 17), 64, 6, 12),
+])
+def test_cuda_compact_matches_plain(cuda, units, d, batch, steps, monkeypatch):
     layers = _t(_layers_np(13, units, d), cuda)
     rng = np.random.default_rng(14)
-    x = _t(_normal(rng, (20, batch, d)), cuda)
-    dh = _t(_normal(rng, (20, batch, units[-1])), cuda)
+    x = _t(_normal(rng, (steps, batch, d)), cuda)
+    dh = _t(_normal(rng, (steps, batch, units[-1])), cuda)
     hs_p, cs_p = ct.fused_narrow_train_compact_fwd_plain(layers, x)
     grads_p = ct.fused_narrow_train_compact_bwd_plain(layers, x, hs_p, cs_p, dh)
     monkeypatch.setattr(ct, "fused_narrow_train_compact_fwd_plain", None)  # no fallback on the card

@@ -428,13 +428,24 @@ def _launched(wrapper, fn):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("units,d,B", [((8, 12, 5), 16, 8), ((40, 40, 40, 40), 16, 32),
-                                       ((128, 30), 128, 6)])
-def test_cuda_fused_narrow_matches_plain(cuda, units, d, B, monkeypatch):
+@pytest.mark.parametrize("units,d,B,T", [
+    ((8, 12, 5), 16, 8, 20), ((40, 40, 40, 40), 16, 32, 20), ((128, 30), 128, 6, 20),
+    # the forward's edges: T < L (the wavefront's edge layers idle), one
+    # layer, 8 layers, 8x128 at 1024 threads (one lane a unit), uneven
+    # widths with d > n, B = 1 and B % 4 != 0; with the lane rule's choices
+    # (tests/test_torch_narrow_fwd.py) these reach S = 8 and 4 with the
+    # weights staged, and S = 8, 4, 2, 1 from the wrapper's copy in global
+    # memory (4x100, 1x128, 128+30, 8x128)
+    ((40, 40, 40, 40), 16, 8, 1), ((40, 40, 40, 40), 16, 8, 3),
+    ((24,), 16, 5, 20), ((16,) * 8, 16, 8, 12), ((128,) * 8, 128, 4, 6),
+    ((12, 20, 9), 48, 1, 10), ((6, 7, 5), 20, 7, 9),
+    ((100,) * 4, 16, 5, 3), ((128,), 128, 6, 8),
+])
+def test_cuda_fused_narrow_matches_plain(cuda, units, d, B, T, monkeypatch):
     layers = _t(_layers_np(18, units, d), cuda)
     rng = np.random.default_rng(19)
-    x = _t(_normal(rng, (20, B, d)), cuda)
-    dh = _t(_normal(rng, (20, B, units[-1])), cuda)
+    x = _t(_normal(rng, (T, B, d)), cuda)
+    dh = _t(_normal(rng, (T, B, units[-1])), cuda)
     hs_p, cs_p = ct.fused_narrow_train_fwd_plain(layers, x)
     grads_p = ct.fused_narrow_train_bwd_plain(layers, x, hs_p, cs_p, dh)
     monkeypatch.setattr(ct, "fused_narrow_train_fwd_plain", None)  # no fallback on the card
@@ -448,6 +459,28 @@ def test_cuda_fused_narrow_matches_plain(cuda, units, d, B, monkeypatch):
         for a, r in zip(got, want):
             _close(a, r.cpu().numpy(), GRAD)
     _close(grads[3], grads_p[3].cpu().numpy(), GRAD)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compact,units,d", [
+    (False, (12, 9, 5), 7),   # S = 8, staged
+    (False, (128, 30), 127),  # S = 4, from the global copy
+    (True, (12, 9, 5), 7),    # K8
+])
+def test_cuda_narrow_fwd_keeps_a_diverged_layer_to_itself(cuda, compact, units, d):
+    """A top layer whose h is NaN leaves the layers below as the plain
+    version computes them: no lane's dot reads past its layer's din + n
+    inputs into the next layer's h (din + n is no multiple of S here)."""
+    layers = _layers_np(29, units, d)
+    layers[-1][2][:] = np.nan  # the top layer's bias
+    layers = _t(layers, cuda)
+    x = _t(_normal(np.random.default_rng(30), (5, 6, d)), cuda)
+    hs_p, cs_p = ct.fused_narrow_train_fwd_plain(layers, x)
+    wrapper = ct.fused_narrow_train_compact_fwd if compact else ct.fused_narrow_train_fwd
+    hs, cs = _launched(wrapper, lambda: wrapper(layers, x))
+    assert torch.isnan(hs[-1]).all()
+    for a, r in zip(hs[:-1] + cs[:-1], hs_p[:-1] + cs_p[:-1]):
+        _close(a, r.cpu().numpy())
 
 
 @pytest.mark.cuda
