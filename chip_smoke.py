@@ -71,7 +71,11 @@ Phases, each of which raises on failure (no phase is caught):
    the plain float32 version's distance from the float64 one, whichever is
    larger (the cell state is unbounded and drifts by its ulps), every
    gradient within 1e-3 × its largest plain value (a weight gradient sums
-   T·B products in another order), and time forward and backward;
+   T·B products in another order), and time forward and backward. K7's
+   forward is ``narrow_fwd_wave`` (the layers as a wavefront), its backward
+   ``narrow_bwd_wave`` (the layers as a reverse wavefront, dx a layer of its
+   own, z recomputed from the forward's h) and then ``weight_grad``, which
+   reduces every layer's dz into dW, dU and db;
 5b. the same for K6 (the recurrence-only train pair) at run D's shapes
    (n = 512, B = 128, T = 200);
 6. drive the training path through the public entry points, on windows of
@@ -84,14 +88,15 @@ Phases, each of which raises on failure (no phase is caught):
    uniform stack); check that each run launched its kernels, that every
    loss is finite, that the fine-tune froze the factors and moved σ, and the
    reduced output;
-5c. the same for K8 (the narrow whole-stack pair with the weights resident
-   in shared memory) at the recovery path's batch (B = 128, T = 200) on a
-   fresh 4×40 stack and on the dense view of the 4×30 split r = 15
+5c. the same for K8 (K7's two kernels with the weights staged in shared
+   memory wherever the stack fits) at the recovery path's batch (B = 128,
+   T = 200) on a fresh 4×40 stack and on the dense view of the 4×30 split r = 15
    truncation, timed beside K7 on the same inputs (K8, K7, K7, K8 in turn),
    and in turns with K7 at run A's inputs (B = 32) too; with ``--parent
    DIR``, K7 forward and backward at run A's shapes, K8's at B = 128, cuDNN's
    on both, and one train step of runs A, B and E (its span, the host's
-   time to issue it, the card's busy time from torch.profiler), each
+   time to issue it, the card's busy time from torch.profiler, in all and
+   in the narrow forward's and backward's kernels), each
    measured in a fresh process on DIR's package and on this checkout's, in
    turns (P C C P C P P C: parent, change);
 6. (continued) drive the post-truncation recovery through its public entry

@@ -5,12 +5,11 @@
 // training path of svd_lstm_tpu/ops/pallas_train.py, one reduction that the
 // backward passes share, and one inference kernel:
 //
-//   K7  narrow_fwd_wave / narrow_bwd_kernel — replace
+//   K7  narrow_fwd_wave / narrow_bwd_wave — replace
 //       svd_lstm_tpu/ops/pallas_train_fused.py: _fused_fwd / _fused_bwd
 //       (every layer n <= 128, the input <= 128).
-//   K8  the same forward with the weights always staged in shared memory,
-//       and the backward with the stack's weights resident there
-//       (kResident = true) — replace svd_lstm_tpu/ops/pallas_train_compact.py:
+//   K8  the same two kernels, the weights staged in shared memory wherever
+//       the stack fits — replace svd_lstm_tpu/ops/pallas_train_compact.py:
 //       _fused_fwd / _fused_bwd (see the note above the launchers).
 //   K9  wide_fwd_step / wide_bwd_gates + matmul_nt — replace
 //       svd_lstm_tpu/ops/pallas_train_wide.py: _wide_fwd / _wide_bwd (one
@@ -38,12 +37,11 @@
 //    backward's carries, so a CTA owns NARROW_ROWS rows and runs the whole
 //    recurrence inside the block (one launch per direction); only
 //    B / NARROW_ROWS CTAs run (8 at B = 32), so each is a chain of dependent
-//    steps and its latency is the bound. The forward (narrow_fwd_wave, see
-//    its note and the one above the launchers) runs the layers as a
-//    wavefront of T + L - 1 steps with one barrier each, a lane group per
-//    unit and the gate update in registers. The backward still walks the
-//    T·L layer-steps with four barriers each; K7's reads its weights and
-//    their transposes through __ldg from L1/L2, K8's its resident copy.
+//    steps and its latency is the bound. Both directions (narrow_fwd_wave,
+//    narrow_bwd_wave, see their notes and the ones above the launchers) run
+//    the layers as a wavefront, T + L - 1 steps forward and T + L back
+//    (with dx as a layer of its own), one barrier a step, a lane group per
+//    unit, the gate math and the carries in registers.
 //  * K9: at n = 512, W and U are 8 MB, against 227 KB of shared memory per
 //    block, and every unit's z at step t needs all of h_{t-1}: each step is
 //    a grid-wide dependency. So one launch per time step (the host loop
@@ -69,7 +67,6 @@
 
 #define MAX_LAYERS 8
 #define NARROW_ROWS 4
-#define NARROW_MAX_THREADS 512
 #define WIDE_BR 16   // batch rows per CTA
 #define WIDE_UJ 32   // units per CTA (4 gate columns each)
 #define WIDE_KC 32   // reduction chunk
@@ -125,114 +122,6 @@ __device__ __forceinline__ float gate_bwd(float zi, float zf, float zg, float zo
   dz[3] = dh * tc * o * (1.0f - o);
   return dct * f;
 }
-
-// A weight matrix as the narrow backward's dots read it, M(r, c). K7 reads a
-// row-major global matrix through the read-only cache; K8 reads its resident
-// copy in shared memory, where a (rows, G) matrix has the odd row stride
-// G + 1, so a warp reading 32 columns of one row or 32 rows of one column
-// hits 32 distinct banks. A transposed view swaps the two strides.
-struct LdgMat {
-  const float* __restrict__ p;
-  int ld;
-  __device__ __forceinline__ float at(int r, int c) const {
-    return __ldg(p + (size_t)r * ld + c);
-  }
-};
-struct SmemMat {
-  const float* p;
-  int rs, cs;  // the strides of a row and of a column
-  __device__ __forceinline__ float at(int r, int c) const { return p[r * rs + c * cs]; }
-};
-
-// acc[r] += sum_{j<len} v[r*vs + j] * M(j, col) for the CTA's rows.
-// v lies in shared memory (every thread reads the same address: a
-// broadcast); M is read along one column. (An explicit unroll by 8 made K7
-// slower on the H100: 7.8 -> 9.9 ms forward.)
-template <typename Mat>
-__device__ __forceinline__ void dot_rows(const float* v, int vs, const Mat& M, int col, int len,
-                                         float* acc) {
-  for (int j = 0; j < len; ++j) {
-    const float w = M.at(j, col);
-#pragma unroll
-    for (int r = 0; r < NARROW_ROWS; ++r) acc[r] = fmaf(v[r * vs + j], w, acc[r]);
-  }
-}
-
-struct NarrowLayer {
-  int din, n;
-  const float* W;   // (din, 4n)
-  const float* U;   // (n, 4n)
-  const float* b;   // (4n)
-  const float* Wt;  // (4n, din), backward only
-  const float* Ut;  // (4n, n), backward only
-  float* h;         // (T, B, n): written by the forward, read by the backward
-  float* c;         // (T, B, n)
-  float* dz;        // (T, B, 4n): written by the backward
-};
-
-struct NarrowArgs {
-  int L;
-  NarrowLayer l[MAX_LAYERS];
-};
-
-// Floats of K8's resident weights: per layer W (din, 4n) and U (n, 4n) at
-// row stride 4n + 1, then b (4n).
-__host__ __device__ inline int resident_floats(const NarrowArgs& a) {
-  int f = 0;
-  for (int i = 0; i < a.L; ++i) f += (a.l[i].din + a.l[i].n) * (4 * a.l[i].n + 1) + 4 * a.l[i].n;
-  return f;
-}
-
-// Where the narrow backward reads its weights. Weights<false> (K7): the
-// global matrices, with the transposes Wt, Ut the wrapper made for its row
-// reads. Weights<true> (K8): one copy of every layer's W, U and b, staged
-// into shared memory before the time loop and read from there, by column
-// and by row, for all T steps.
-template <bool kResident> struct Weights;
-
-template <> struct Weights<false> {
-  const NarrowArgs& a;
-  __device__ explicit Weights(const NarrowArgs& args) : a(args) {}
-  __device__ int stage(float*) { return 0; }
-  __device__ LdgMat W(int i) const { return {a.l[i].W, 4 * a.l[i].n}; }
-  __device__ LdgMat U(int i) const { return {a.l[i].U, 4 * a.l[i].n}; }
-  __device__ LdgMat Wt(int i) const { return {a.l[i].Wt, a.l[i].din}; }  // Wt(g, j) = W(j, g)
-  __device__ LdgMat Ut(int i) const { return {a.l[i].Ut, a.l[i].n}; }
-  __device__ float b(int i, int k) const { return __ldg(a.l[i].b + k); }
-};
-
-template <> struct Weights<true> {
-  const NarrowArgs& a;
-  const float* w[MAX_LAYERS];
-  const float* u[MAX_LAYERS];
-  const float* bias[MAX_LAYERS];
-  __device__ explicit Weights(const NarrowArgs& args) : a(args) {}
-  // Copies the weights to dst (coalesced global reads); returns the floats
-  // used, resident_floats(a). The caller's barrier publishes them.
-  __device__ int stage(float* dst) {
-    int off = 0;
-    for (int i = 0; i < a.L; ++i) {
-      const NarrowLayer& l = a.l[i];
-      const int G = 4 * l.n, ld = G + 1;
-      float* W = dst + off;
-      float* U = W + l.din * ld;
-      float* b = U + l.n * ld;
-      for (int e = threadIdx.x; e < l.din * G; e += blockDim.x) W[(e / G) * ld + e % G] = l.W[e];
-      for (int e = threadIdx.x; e < l.n * G; e += blockDim.x) U[(e / G) * ld + e % G] = l.U[e];
-      for (int e = threadIdx.x; e < G; e += blockDim.x) b[e] = l.b[e];
-      w[i] = W;
-      u[i] = U;
-      bias[i] = b;
-      off += (l.din + l.n) * ld + G;
-    }
-    return off;
-  }
-  __device__ SmemMat W(int i) const { return {w[i], 4 * a.l[i].n + 1, 1}; }
-  __device__ SmemMat U(int i) const { return {u[i], 4 * a.l[i].n + 1, 1}; }
-  __device__ SmemMat Wt(int i) const { return {w[i], 1, 4 * a.l[i].n + 1}; }
-  __device__ SmemMat Ut(int i) const { return {u[i], 1, 4 * a.l[i].n + 1}; }
-  __device__ float b(int i, int k) const { return bias[i][k]; }
-};
 
 // ---------------------------------------------------------------------------
 // K7 and K8 forward — replace pallas_train_fused.py:_fused_fwd and
@@ -301,8 +190,8 @@ inline int fwd_state_entries(const FwdArgs& a, int d) {
 // One exchange of a reduce-scatter over the lane group: the lane keeps the
 // lower or upper half of v[0, 2·HALF) (its bit says which) and adds the
 // partner's copy of that half; the kept half moves to v[0, HALF).
-template <int HALF>
-__device__ __forceinline__ void split_half(float (&v)[16], bool upper, int offset, unsigned mask) {
+template <int HALF, int N>
+__device__ __forceinline__ void split_half(float (&v)[N], bool upper, int offset, unsigned mask) {
 #pragma unroll
   for (int q = 0; q < HALF; ++q) {
     const float send = upper ? v[q] : v[q + HALF];
@@ -311,23 +200,25 @@ __device__ __forceinline__ void split_half(float (&v)[16], bool upper, int offse
   }
 }
 
-// Sums the group's partial pre-activations v[r·4 + g]. Each sum is taken
-// by one lane in a fixed order (the last exchange of S = 8 is symmetric), so
-// the result does not depend on timing. Afterwards v[q·4 + g] holds row
-// fwd_first_row<S>(l) + q, q < 4 / S (one row for S ≥ 4).
-template <int S>
-__device__ __forceinline__ void reduce_lanes(float (&v)[16], int l, unsigned mask) {
+// Sums the group's partial sums v[r·P + g] of the four rows r, P = N / 4
+// a row (the forward's four gate pre-activations, or the backward's one dh
+// or dx). Each sum is taken by one lane in a fixed order (the last exchange
+// of S = 8 is symmetric), so the result does not depend on timing.
+// Afterwards v[q·P + g] holds row fwd_first_row<S>(l) + q, q < 4 / S (one
+// row for S ≥ 4).
+template <int S, int N>
+__device__ __forceinline__ void reduce_lanes(float (&v)[N], int l, unsigned mask) {
   constexpr int G = 32 / S;  // lane l' of a group sits at warp lane l'·G + its group
   if constexpr (S == 2) {
-    split_half<8>(v, l & 1, G, mask);
+    split_half<N / 2>(v, l & 1, G, mask);
   } else if constexpr (S == 4) {
-    split_half<8>(v, (l >> 1) & 1, 2 * G, mask);
-    split_half<4>(v, l & 1, G, mask);
+    split_half<N / 2>(v, (l >> 1) & 1, 2 * G, mask);
+    split_half<N / 4>(v, l & 1, G, mask);
   } else if constexpr (S == 8) {
-    split_half<8>(v, (l >> 2) & 1, 4 * G, mask);
-    split_half<4>(v, (l >> 1) & 1, 2 * G, mask);
+    split_half<N / 2>(v, (l >> 2) & 1, 4 * G, mask);
+    split_half<N / 4>(v, (l >> 1) & 1, 2 * G, mask);
 #pragma unroll
-    for (int g = 0; g < 4; ++g) v[g] += __shfl_xor_sync(mask, v[g], G);
+    for (int g = 0; g < N / 4; ++g) v[g] += __shfl_xor_sync(mask, v[g], G);
   }
 }
 
@@ -479,142 +370,375 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
 }
 
 // ---------------------------------------------------------------------------
-// K7 backward — replaces pallas_train_fused.py:_fused_bwd. Reverse time;
-// per step, top-down through the stack, per layer:
-//   A  stage inp_t (x_t or the layer below's h_t) and h_{t-1};
-//   B  recompute z (remat) and total dh = carry + output cotangent (top
-//      layer) + dz_above·W_aboveᵀ;
-//   C  gate_bwd -> dz (to shared memory and to the layer's dz store), dc;
-//   D  dh carry = dz·Uᵀ;
-// then dx_t = dz_0·W_0ᵀ. The transposes Wᵀ, Uᵀ come from the wrapper, so a
-// thread that owns one output unit reads a contiguous row. dW/dU/db are
-// reduced from the dz stores by weight_grad afterwards.
-// Shared memory per row: dh and dc carries of every layer, z, dz, dz_above
-// (4 nmax each), total dh and h_{t-1} (nmax each), inp_t (imax).
-// With kResident this is K8's backward: the resident W and U are read by
-// column for z and by row for the products into dh and dx (no transposes).
+// K7 and K8 backward — replace pallas_train_fused.py:_fused_bwd and
+// pallas_train_compact.py:_fused_bwd (design: the note above the launchers).
+// The whole stack in reverse time: per layer z recomputed from the forward's
+// h, dh = dz(t+1)·Uᵀ + dz_above(t)·W_aboveᵀ (+ dh_last on the top layer),
+// gate_bwd with the dc carry; every layer's dz goes out for weight_grad, and
+// dx_t = dz_0(t)·W_0ᵀ.
+//
+// As the forward, a group of S lanes of one warp owns unit j of layer i for
+// the CTA's NARROW_ROWS rows, lane-major, and splits its dots: the z dot over
+// the din + n inputs (lane l takes k = l, l + S, ...), and the dh dot over
+// the n own units of dz(t+1) and the n_above units of dz_above(t), as one
+// range of n + n_above terms; reduce_lanes sums both, and gate_bwd runs in
+// the owning lane's registers, where the dc carry stays for all T steps.
+// dx is a layer of d units below layer 0 with groups of its own: dx unit k
+// has group Σn + k, and where the block's 1024 threads run out (S = 1 at
+// 8x128), group Σn + k - groups, one of layer 0's.
+//
+// The layers run as a reverse wavefront: at step s layer i computes
+// t = T - 1 - s + (L - 1 - i) and the dx layer t = T - 1 - s + L, so every
+// layer runs one step behind the layer above, whose dz(t) it reads, and one
+// step after its own dz(t + 1): both were written at step s - 1. T + L
+// steps. Every layer's dz lives in the two parities of dzs ([row][unit],
+// four gates a float4), written at step s into parity s & 1 and read from
+// the other, behind one barrier a step. A layer idle at the top of the
+// sequence reads zeros, its dz(T).
+//
+// z's inputs do not depend on the chain: at step s layer i reads
+// [h_{i-1}(t) | h_i(t - 1)], and h_{i-1}(t) is layer i - 1's own h(t' - 1) at
+// its t' = t + 1. So one state vector [x | h_0 | ... | h_{L-1}] of float4
+// entries, four rows each (the forward's), holds at step s x(t_0) and every
+// h_i(t_i - 1), and layer i's input is one contiguous range of it. The
+// vector of step s + 1 is loaded from the forward's outputs at the top of
+// step s into registers and stored into the other parity at its end; so are
+// each owner's c(t - 2) and dh_last (top layer).
+//
+// Weights, gate-interleaved as [k][j][4] (one 16-byte load gives four
+// gates): the z dot reads column j (entries (k, j) over k), the dh dot row j
+// of U_i and of W_{i+1} (entries (din + j, m), (j, m) over m), dx row k of
+// W_0. kStaged stages every layer's [W; U] rows into shared memory at the
+// odd row stride n | 1, so 8 units at one m hit distinct banks; without it
+// the kernel reads the wrapper's copy P (row stride n) through __ldg.
 // ---------------------------------------------------------------------------
-template <bool kResident>
-__global__ void __launch_bounds__(NARROW_MAX_THREADS)
-narrow_bwd_kernel(NarrowArgs a, const float* __restrict__ x, const float* __restrict__ dhl,
-                  float* __restrict__ dx, int T, int B, int d, int zmax, int nmax, int imax) {
-  extern __shared__ float smem_all[];
+#define BWD_MAX_THREADS 1024
+
+struct BwdLayer {
+  int din, n;
+  const float* W;  // (din, 4n)
+  const float* U;  // (n, 4n)
+  const float* b;  // (4n)
+  const float* P;  // (din + n, n, 4), or null: staged from W and U
+  const float* h;  // (T, B, n), the forward's
+  const float* c;  // (T, B, n)
+  float* dz;       // (T, B, 4n)
+};
+
+struct BwdArgs {
+  int L;
+  BwdLayer l[MAX_LAYERS];
+};
+
+// float4 entries of the staged weights: row stride n | 1
+inline int bwd_weight_entries(const BwdArgs& a) {
+  int e = 0;
+  for (int i = 0; i < a.L; ++i) e += (a.l[i].din + a.l[i].n) * (a.l[i].n | 1);
+  return e;
+}
+
+// floats of the state vector each thread loads a step: enough for its
+// R·(d + Σn) floats at the wrapper's S and threads (its twin:
+// ops/cuda_train.py: BWD_LOADS; change both together)
+template <int S> __host__ __device__ constexpr int bwd_loads() {
+  return S == 1 ? 5 : S == 2 ? 2 : 1;
+}
+
+template <int S, bool kStaged>
+__global__ void __launch_bounds__(BWD_MAX_THREADS)
+narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict__ dhl,
+                float* __restrict__ dx, int T, int B, int d, int V, int nsum) {
+  extern __shared__ float4 bwd_smem[];
   constexpr int R = NARROW_ROWS;
-  const int row0 = blockIdx.x * R;
-  Weights<kResident> wts(a);
-  float* smem = smem_all + wts.stage(smem_all);
-  float* dhc[MAX_LAYERS];
-  float* dcc[MAX_LAYERS];
-  int off = 0;
-  for (int i = 0; i < a.L; ++i) {
-    dhc[i] = smem + off;
-    off += R * a.l[i].n;
-    dcc[i] = smem + off;
-    off += R * a.l[i].n;
+  constexpr int RL = S >= 4 ? 1 : 4 / S;  // rows a lane updates
+  constexpr int PF = bwd_loads<S>();
+  constexpr int G = 32 / S;
+  const int L = a.L;
+  const int tid = threadIdx.x, row0 = blockIdx.x * R;
+  const int lane = tid & 31, l = lane / G, g = (tid >> 5) * G + lane % G;
+  const int groups = blockDim.x / S;
+
+  // this thread's unit (layer li, unit j), where its layer's and the layer
+  // above's units start in dzs, its h in the state and its weights
+  int li = -1, j = 0, u_off = 0, u_up = 0, h_off = 0, w_off = 0, w_up = 0, wo = 0;
+  {
+    int u = 0, so = d;
+    for (int i = 0; i < L; ++i) {
+      const int n = a.l[i].n;
+      if (li >= 0 && i == li + 1) {
+        u_up = u;
+        w_up = wo;
+      }
+      if (li < 0 && g < u + n) {
+        li = i;
+        j = g - u;
+        u_off = u;
+        h_off = so;
+        w_off = wo;
+      }
+      u += n;
+      wo += (a.l[i].din + n) * (n | 1);
+      so += n;
+    }
   }
-  for (int k = threadIdx.x; k < off; k += blockDim.x) smem[k] = 0.f;
-  float* z = smem + off;           // (R, zmax)
-  float* dz = z + R * zmax;        // (R, zmax)
-  float* dzA = dz + R * zmax;      // (R, zmax): dz of the layer above / of layer 0
-  float* dht = dzA + R * zmax;     // (R, nmax)
-  float* hp = dht + R * nmax;      // (R, nmax)
-  float* inp = hp + R * nmax;      // (R, imax)
-  const int nlast = a.l[a.L - 1].n;
+
+  if constexpr (kStaged) {
+    int w_entries = 0;
+    for (int i = 0; i < L; ++i) {
+      const BwdLayer& ly = a.l[i];
+      const int n = ly.n, din = ly.din, ns = n | 1;
+      for (int e = tid; e < (din + n) * n; e += blockDim.x) {
+        const int k = e / n, jj = e % n;
+        const float* src = k < din ? ly.W + (size_t)k * 4 * n : ly.U + (size_t)(k - din) * 4 * n;
+        bwd_smem[w_entries + k * ns + jj] =
+            make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]);
+      }
+      w_entries += (din + n) * ns;
+    }
+  }
+  float4* state = bwd_smem + (kStaged ? wo : 0);  // two parities of V entries
+  float* statef = reinterpret_cast<float*>(state);
+  float4* dzs = state + 2 * V;  // two parities of [row][unit]
+  for (int e = tid; e < 2 * R * nsum; e += blockDim.x) dzs[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  const bool unit = li >= 0;
+  const bool top = li == L - 1;
+  const int n = unit ? a.l[li].n : 0;
+  const int din = unit ? a.l[li].din : 0;
+  const int n_up = unit && !top ? a.l[li + 1].n : 0;
+  const int in_off = h_off - din;
+  const int KZ = unit ? (din + n - l + S - 1) / S : 0;  // z dot: k = l + kb·S < din + n
+  const int KA = unit ? (n - l + S - 1) / S : 0;        // dh dot, own dz: m = l + kb·S < n
+  const int lb = ((l - n) % S + S) % S;                 // ... above: m = lb + kb·S < n_up
+  const int KB = (n_up - lb + S - 1) / S;
+  // the dx unit kx this group owns, if any
+  const int kx = g >= nsum ? g - nsum : g + groups - nsum;
+  const bool dx_unit = kx < d;
+  const int n0 = a.l[0].n;
+  const int KX = dx_unit ? (n0 - l + S - 1) / S : 0;
+
+  // Where this lane's dots start: the z dot at state entry k = l and weight
+  // entry (l, j) of layer li, a lane step S entries and S weight rows on;
+  // the dh dot at dz unit m = l of its layer with entry (din + j, l), then at
+  // m = lb of the layer above with entry (j, lb) of that layer; the dx dot
+  // at dz unit m = l of layer 0 with entry (kx, l). Weight entry (k, m) of
+  // layer i lies at k·ws_i + m from the layer's first.
+  const float4* zw = nullptr;
+  const float4* aw = nullptr;
+  const float4* bw = nullptr;
+  const float4* xw = nullptr;
+  const int ws = kStaged ? n | 1 : n;
+  const int zs = in_off + l, za = u_off + l, zb = u_up + lb;
+  {
+    const float4* base = kStaged ? bwd_smem : nullptr;
+    if (unit) {
+      const float4* wi = kStaged ? base + w_off : reinterpret_cast<const float4*>(a.l[li].P);
+      zw = wi + l * ws + j;
+      aw = wi + (din + j) * ws + l;
+    }
+    if (unit && !top) {
+      const float4* wu = kStaged ? base + w_up : reinterpret_cast<const float4*>(a.l[li + 1].P);
+      bw = wu + j * (kStaged ? n_up | 1 : n_up) + lb;
+    }
+    if (dx_unit) {
+      const float4* w0 = kStaged ? base : reinterpret_cast<const float4*>(a.l[0].P);
+      xw = w0 + kx * (kStaged ? n0 | 1 : n0) + l;
+    }
+  }
+  auto wload = [](const float4* p) {
+    if constexpr (kStaged) {
+      return *p;
+    } else {
+      return __ldg(p);
+    }
+  };
+
+  float bias[4] = {0.f, 0.f, 0.f, 0.f};
+  if (unit) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bias[q] = __ldg(a.l[li].b + q * n + j);
+  }
+  unsigned mask = 0;  // the group's lanes
+#pragma unroll
+  for (int q = 0; q < S; ++q) mask |= 1u << (q * G + lane % G);
+  const int r0 = fwd_first_row<S>(l);
+  const bool owner = S < 8 || (l & 1) == 0;
+  const bool carrier = unit && owner;
+  const int nlast = a.l[L - 1].n;
+  const int tbase = T + L - 2 - li;  // layer li's t at step s: tbase - s
+  const float* c_in = unit ? a.l[li].c : nullptr;
+  float* dz_out = unit ? a.l[li].dz : nullptr;
+
+  // the owner's c(tt) and dh_last(tt) of its row q: 0 outside [0, T) and for
+  // rows >= B
+  auto c_at = [&](int tt, int q) {
+    const int row = row0 + r0 + q;
+    return (tt >= 0 && tt < T && row < B) ? c_in[((size_t)tt * B + row) * n + j] : 0.f;
+  };
+  auto dhl_at = [&](int tt, int q) {
+    const int row = row0 + r0 + q;
+    return (top && tt >= 0 && tt < T && row < B) ? dhl[((size_t)tt * B + row) * nlast + j] : 0.f;
+  };
+  // the state vector of step s + 1: entry k of row r (element e = r·V + k)
+  // is x(T + L - 3 - s) for k < d, else h_i(T + L - 4 - s - i) of its layer
+  auto load_state = [&](int s, float (&buf)[PF]) {
+#pragma unroll
+    for (int q = 0; q < PF; ++q) {
+      const int e = tid + q * blockDim.x;
+      float v = 0.f;
+      const int r = e / V, k = e % V, row = row0 + r;
+      if (e < R * V && row < B) {
+        if (k < d) {
+          const int tt = T + L - 3 - s;
+          if (tt >= 0 && tt < T) v = x[((size_t)tt * B + row) * d + k];
+        } else {
+          int so = d;
+          for (int i = 0; i < L; ++i) {
+            const int ni = a.l[i].n;
+            if (k < so + ni) {
+              const int tt = T + L - 4 - s - i;
+              if (tt >= 0 && tt < T) v = a.l[i].h[((size_t)tt * B + row) * ni + k - so];
+              break;
+            }
+            so += ni;
+          }
+        }
+      }
+      buf[q] = v;
+    }
+  };
+  auto store_state = [&](int s, const float (&buf)[PF]) {
+    const int Q = s & 1;
+#pragma unroll
+    for (int q = 0; q < PF; ++q) {
+      const int e = tid + q * blockDim.x;
+      if (e < R * V) statef[(Q * V + e % V) * R + e / V] = buf[q];
+    }
+  };
+
+  float dc[RL], ct[RL], cp[RL], dht[RL];
+#pragma unroll
+  for (int q = 0; q < RL; ++q) {
+    dc[q] = 0.f;
+    ct[q] = carrier ? c_at(tbase, q) : 0.f;
+    cp[q] = carrier ? c_at(tbase - 1, q) : 0.f;
+    dht[q] = carrier ? dhl_at(T - 1, q) : 0.f;
+  }
+  float hb[PF];
+  load_state(-1, hb);
+  store_state(-1, hb);  // into parity 1, read at s = 0
   __syncthreads();
 
-  for (int t = T - 1; t >= 0; --t) {
-    for (int i = a.L - 1; i >= 0; --i) {
-      const NarrowLayer& l = a.l[i];
-      const int n = l.n, G = 4 * n, din = l.din;
-      // A
-      for (int e = threadIdx.x; e < R * din; e += blockDim.x) {
-        const int r = e / din, j = e % din;
-        const int row = row0 + r;
-        float v = 0.f;
-        if (row < B) {
-          const size_t o = ((size_t)t * B + row) * din + j;
-          v = i == 0 ? x[o] : a.l[i - 1].h[o];
-        }
-        inp[r * imax + j] = v;
-      }
-      for (int e = threadIdx.x; e < R * n; e += blockDim.x) {
-        const int r = e / n, j = e % n;
-        const int row = row0 + r;
-        hp[r * nmax + j] = (t > 0 && row < B) ? l.h[((size_t)(t - 1) * B + row) * n + j] : 0.f;
-      }
-      __syncthreads();
-      // B
-      for (int k = threadIdx.x; k < G; k += blockDim.x) {
-        float acc[R];
-        const float bk = wts.b(i, k);
+  const int steps = T + L;
+  for (int s = 0; s < steps; ++s) {
+    const int P = (s + 1) & 1, Q = s & 1;
+    const bool more = s + 1 < steps;
+    if (more) load_state(s, hb);
+    float cn[RL], dhn[RL];
 #pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = bk;
-        dot_rows(inp, imax, wts.W(i), k, din, acc);
-        dot_rows(hp, nmax, wts.U(i), k, n, acc);
-#pragma unroll
-        for (int r = 0; r < R; ++r) z[r * zmax + k] = acc[r];
-      }
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        float acc[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int row = row0 + r;
-          float v = dhc[i][r * n + j];
-          if (i == a.L - 1 && row < B) v += dhl[((size_t)t * B + row) * nlast + j];
-          acc[r] = v;
-        }
-        if (i < a.L - 1) dot_rows(dzA, zmax, wts.Wt(i + 1), j, 4 * a.l[i + 1].n, acc);
-#pragma unroll
-        for (int r = 0; r < R; ++r) dht[r * nmax + j] = acc[r];
-      }
-      __syncthreads();
-      // C
-      for (int e = threadIdx.x; e < R * n; e += blockDim.x) {
-        const int r = e / n, j = e % n;
-        const int row = row0 + r;
-        float cp = 0.f, ct = 0.f;
-        if (row < B) {
-          ct = l.c[((size_t)t * B + row) * n + j];
-          if (t > 0) cp = l.c[((size_t)(t - 1) * B + row) * n + j];
-        }
-        const float* zr = z + r * zmax;
-        float g[4];
-        dcc[i][e] = gate_bwd(zr[j], zr[n + j], zr[2 * n + j], zr[3 * n + j], cp, ct,
-                             dht[r * nmax + j], dcc[i][e], g);
-        float* dzr = dz + r * zmax;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) dzr[q * n + j] = g[q];
-        if (row < B) {
-          float* out = l.dz + ((size_t)t * B + row) * G;
-#pragma unroll
-          for (int q = 0; q < 4; ++q) out[q * n + j] = g[q];
-        }
-      }
-      __syncthreads();
-      // D
-      for (int j = threadIdx.x; j < n; j += blockDim.x) {
-        float acc[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) acc[r] = 0.f;
-        dot_rows(dz, zmax, wts.Ut(i), j, G, acc);
-#pragma unroll
-        for (int r = 0; r < R; ++r) dhc[i][r * n + j] = acc[r];
-      }
-      float* tmp = dz;
-      dz = dzA;
-      dzA = tmp;
-      __syncthreads();
+    for (int q = 0; q < RL; ++q) {
+      cn[q] = carrier ? c_at(tbase - s - 2, q) : 0.f;
+      dhn[q] = carrier ? dhl_at(T - 2 - s, q) : 0.f;
     }
-    // dx_t = dz_0·W_0ᵀ (dzA holds layer 0's dz). The next writer of that
-    // buffer comes after at least one more barrier.
-    for (int j = threadIdx.x; j < d; j += blockDim.x) {
-      float acc[R];
+    const int t = tbase - s;
+    if (unit && t >= 0 && t < T) {
+      // z = [h_{i-1}(t) | h_i(t - 1)]·[W; U], without the bias, summed over
+      // the group first: its 16 sums are not live through the dh dot
+      float v[16];
 #pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = 0.f;
-      dot_rows(dzA, zmax, wts.Wt(0), j, 4 * a.l[0].n, acc);
+      for (int q = 0; q < 16; ++q) v[q] = 0.f;
+      const float4* sp = state + P * V + zs;
+#pragma unroll 2
+      for (int kb = 0; kb < KZ; ++kb) {
+        const float4 hv = sp[kb * S];
+        const float4 w = wload(zw + kb * S * ws);
+        const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        if (row0 + r < B) dx[((size_t)t * B + row0 + r) * d + j] = acc[r];
+        for (int r = 0; r < 4; ++r) {
+          v[r * 4 + 0] = fmaf(hr[r], w.x, v[r * 4 + 0]);
+          v[r * 4 + 1] = fmaf(hr[r], w.y, v[r * 4 + 1]);
+          v[r * 4 + 2] = fmaf(hr[r], w.z, v[r * 4 + 2]);
+          v[r * 4 + 3] = fmaf(hr[r], w.w, v[r * 4 + 3]);
+        }
+      }
+      reduce_lanes<S>(v, l, mask);
+      // dh = dz_i(t + 1)·U_iᵀ + dz_{i+1}(t)·W_{i+1}ᵀ: row j of each
+      float u[4] = {0.f, 0.f, 0.f, 0.f};
+      const float4* dp = dzs + P * R * nsum;
+#pragma unroll 1
+      for (int kb = 0; kb < KA; ++kb) {
+        const float4 w = wload(aw + kb * S);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 z4 = dp[r * nsum + za + kb * S];
+          u[r] = fmaf(z4.x, w.x, u[r]);
+          u[r] = fmaf(z4.y, w.y, u[r]);
+          u[r] = fmaf(z4.z, w.z, u[r]);
+          u[r] = fmaf(z4.w, w.w, u[r]);
+        }
+      }
+#pragma unroll 1
+      for (int kb = 0; kb < KB; ++kb) {
+        const float4 w = wload(bw + kb * S);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 z4 = dp[r * nsum + zb + kb * S];
+          u[r] = fmaf(z4.x, w.x, u[r]);
+          u[r] = fmaf(z4.y, w.y, u[r]);
+          u[r] = fmaf(z4.z, w.z, u[r]);
+          u[r] = fmaf(z4.w, w.w, u[r]);
+        }
+      }
+      reduce_lanes<S>(u, l, mask);
+      if (owner) {
+#pragma unroll
+        for (int q = 0; q < RL; ++q) {
+          const int r = r0 + q, row = row0 + r;
+          float gz[4];
+          dc[q] = gate_bwd(v[q * 4 + 0] + bias[0], v[q * 4 + 1] + bias[1], v[q * 4 + 2] + bias[2],
+                           v[q * 4 + 3] + bias[3], cp[q], ct[q], u[q] + dht[q], dc[q], gz);
+          dzs[(Q * R + r) * nsum + u_off + j] = make_float4(gz[0], gz[1], gz[2], gz[3]);
+          if (row < B) {
+            float* out = dz_out + ((size_t)t * B + row) * 4 * n + j;
+#pragma unroll
+            for (int q4 = 0; q4 < 4; ++q4) out[q4 * n] = gz[q4];
+          }
+        }
+      }
+    }
+    // dx(t) = dz_0(t)·W_0ᵀ, row kx of W_0
+    const int tx = T + L - 1 - s;
+    if (dx_unit && tx < T) {
+      float u[4] = {0.f, 0.f, 0.f, 0.f};
+      const float4* dp = dzs + P * R * nsum + l;
+#pragma unroll 1
+      for (int kb = 0; kb < KX; ++kb) {
+        const float4 w = wload(xw + kb * S);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float4 z4 = dp[r * nsum + kb * S];
+          u[r] = fmaf(z4.x, w.x, u[r]);
+          u[r] = fmaf(z4.y, w.y, u[r]);
+          u[r] = fmaf(z4.z, w.z, u[r]);
+          u[r] = fmaf(z4.w, w.w, u[r]);
+        }
+      }
+      reduce_lanes<S>(u, l, mask);
+      if (owner) {
+#pragma unroll
+        for (int q = 0; q < RL; ++q) {
+          const int row = row0 + r0 + q;
+          if (row < B) dx[((size_t)tx * B + row) * d + kx] = u[q];
+        }
+      }
+    }
+    if (more) store_state(s, hb);
+    __syncthreads();
+#pragma unroll
+    for (int q = 0; q < RL; ++q) {
+      ct[q] = cp[q];
+      cp[q] = cn[q];
+      dht[q] = dhn[q];
     }
   }
 }
@@ -1030,39 +1154,10 @@ __global__ void sum_splits(const float* __restrict__ partial, float* __restrict_
   }
 }
 
-int narrow_threads(int zmax) {
-  int t = ((zmax + 31) / 32) * 32;
-  return t > NARROW_MAX_THREADS ? NARROW_MAX_THREADS : t;
-}
-
 template <typename K>
 cudaError_t prepare_smem(K kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// meta: L rows of 10 int64 — din, n, W, U, b, Wt, Ut, h, c, dz. Fills a,
-// returns max units or -1.
-int read_layers(const int64_t* meta, int L, NarrowArgs& a) {
-  if (L < 1 || L > MAX_LAYERS) return -1;
-  a.L = L;
-  int nmax = 0;
-  for (int i = 0; i < L; ++i) {
-    const int64_t* m = meta + (size_t)10 * i;
-    NarrowLayer& l = a.l[i];
-    l.din = (int)m[0];
-    l.n = (int)m[1];
-    l.W = reinterpret_cast<const float*>(m[2]);
-    l.U = reinterpret_cast<const float*>(m[3]);
-    l.b = reinterpret_cast<const float*>(m[4]);
-    l.Wt = reinterpret_cast<const float*>(m[5]);
-    l.Ut = reinterpret_cast<const float*>(m[6]);
-    l.h = reinterpret_cast<float*>(m[7]);
-    l.c = reinterpret_cast<float*>(m[8]);
-    l.dz = reinterpret_cast<float*>(m[9]);
-    if (l.n > nmax) nmax = l.n;
-  }
-  return nmax;
 }
 
 // meta: L rows of 8 int64 — din, n, W, U, b, h, c, P (0: staged). Fills a,
@@ -1082,6 +1177,30 @@ int read_fwd_layers(const int64_t* meta, int L, FwdArgs& a) {
     l.h = reinterpret_cast<float*>(m[5]);
     l.c = reinterpret_cast<float*>(m[6]);
     l.P = reinterpret_cast<const float*>(m[7]);
+    if (l.n < 1) return -1;
+    nsum += l.n;
+  }
+  return nsum;
+}
+
+// meta: L rows of 9 int64 — din, n, W, U, b, P (0: staged), h, c, dz.
+// Fills a, returns the sum of the units or -1.
+int read_bwd_layers(const int64_t* meta, int L, BwdArgs& a) {
+  if (L < 1 || L > MAX_LAYERS) return -1;
+  a.L = L;
+  int nsum = 0;
+  for (int i = 0; i < L; ++i) {
+    const int64_t* m = meta + (size_t)9 * i;
+    BwdLayer& l = a.l[i];
+    l.din = (int)m[0];
+    l.n = (int)m[1];
+    l.W = reinterpret_cast<const float*>(m[2]);
+    l.U = reinterpret_cast<const float*>(m[3]);
+    l.b = reinterpret_cast<const float*>(m[4]);
+    l.P = reinterpret_cast<const float*>(m[5]);
+    l.h = reinterpret_cast<const float*>(m[6]);
+    l.c = reinterpret_cast<const float*>(m[7]);
+    l.dz = reinterpret_cast<float*>(m[8]);
     if (l.n < 1) return -1;
     nsum += l.n;
   }
@@ -1139,10 +1258,8 @@ int launch_wave(const FwdArgs& a, const float* x, int T, int B, int d, int threa
 // ran 0.83 ms against 0.63 staged (the same script).
 // K8 replaces svd_lstm_tpu/ops/pallas_train_compact.py: _fused_fwd /
 // _fused_bwd, the pair the JAX package runs for narrow stacks (every n <=
-// 64, d <= 128) at B >= 128; the wrapper sends a stack whose resident
-// weights do not fit to K7 by a shape rule (ops/cuda_train.py:
-// compact_fits). Its backward reads its own resident copy, odd-strided
-// (Weights<true>), stores dz per layer and shares weight_grad with K7, K9.
+// 64, d <= 128) at B >= 128; the wrapper sends a stack that does not fit to
+// K7 by a shape rule (ops/cuda_train.py: compact_fits).
 // ---------------------------------------------------------------------------
 int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
                       int lanes, bool compact, void* stream) {
@@ -1173,25 +1290,81 @@ int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, i
   }
 }
 
-template <bool kResident>
-int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl, void* dx, int T,
-                      int B, int d, void* stream) {
-  NarrowArgs a;
-  const int nmax = read_layers(meta, L, a);
-  if (nmax < 1) return (int)cudaErrorInvalidValue;
-  int nsum = 0;
-  for (int i = 0; i < L; ++i) nsum += a.l[i].n;
-  const int zmax = 4 * nmax;
-  const int imax = d > nmax ? d : nmax;
-  const size_t smem = ((kResident ? resident_floats(a) : 0) +
-                       (size_t)NARROW_ROWS * (2 * nsum + 3 * zmax + 2 * nmax + imax)) *
-                      sizeof(float);
-  cudaError_t err = prepare_smem(narrow_bwd_kernel<kResident>, smem);
+template <int S, bool kStaged>
+int launch_bwd_wave(const BwdArgs& a, const float* x, const float* dhl, float* dx, int T, int B,
+                    int d, int V, int nsum, int threads, size_t smem, cudaStream_t stream) {
+  // the state vector's R·V floats over the loads each thread makes a step
+  if (NARROW_ROWS * V > bwd_loads<S>() * threads) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare_smem(narrow_bwd_wave<S, kStaged>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
-  narrow_bwd_kernel<kResident><<<grid, narrow_threads(zmax), smem, (cudaStream_t)stream>>>(
-      a, (const float*)x, (const float*)dhl, (float*)dx, T, B, d, zmax, nmax, imax);
+  narrow_bwd_wave<S, kStaged><<<grid, threads, smem, stream>>>(a, x, dhl, dx, T, B, d, V, nsum);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K7 and K8 backward (narrow_bwd_wave): what bounds it on the H100, and what
+// the design does about it. As the forward, batch rows are the only
+// independent work (B / 4 CTAs), so the bound is one step's latency times
+// the chain:
+//  * the chain: a reverse wavefront of T + L steps (204 at 4x40, with dx as
+//    a layer), one barrier each, against T·L layer-steps of four;
+//  * one step: the z dot (din + n terms: a weight load, a state load, 16
+//    FMAs each) and the dh dot (n + n_above terms: a weight load, four dz
+//    loads, 16 FMAs) split over S lanes, summed by shuffles, the cell
+//    gradient in registers; the forward's h, c and dh_last are loaded one
+//    step ahead, off the chain. At 4x40, S = 4, B = 32 the kernel takes
+//    ~1.3 ms on the H100, ~6.3 us a step (chip_smoke.py --parent: the card's
+//    busy time in run A's step), about what its 16-byte shared-memory loads
+//    cost at four wavefronts each (~10 000 a CTA a step): the dh dot's four dz loads per 16 FMAs are the largest
+//    part. From the global copy S = 1, 2, 4 ran 7.7, 4.6, 2.9 ms, the
+//    weights staged at S = 4 half that (scripts/probe_torch_narrow_bwd.py);
+//    on the 4x30 view S = 8 with 8 dx units on layer 0's groups ran 1.2x
+//    S = 4 with groups of their own. Next: fewer loads per FMA in the dh dot (a lane owning
+//    two units' sums, so one dz load serves both).
+// Weights: staged into shared memory at the odd row stride n | 1 wherever
+// the stack fits, else read from the wrapper's gate-interleaved copy
+// (ops/cuda_train.py: narrow_bwd_staged), which fits every stack K7 admits;
+// K8's route (compact_fits) is the rule its first backward set, and a few
+// of the stacks it admits take the copy. At S = 1 (more than 512 units and
+// dx units) the weights never fit, so only the copy is built. No atomics:
+// every sum is taken in a fixed order, so the gradients do not change from
+// run to run.
+//
+// lanes: S, threads: the block (ops/cuda_train.py: narrow_bwd_lanes,
+// narrow_bwd_threads). Checked here, not chosen: S·Σn units' lanes and a
+// group for each of the d dx units within the block.
+// ---------------------------------------------------------------------------
+int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl, void* dx, int T,
+                      int B, int d, int lanes, int threads, void* stream) {
+  BwdArgs a;
+  const int nsum = read_bwd_layers(meta, L, a);
+  if (nsum < 1 || T < 1 || B < 1 || d < 1) return (int)cudaErrorInvalidValue;
+  bool staged = true;
+  for (int i = 0; i < L; ++i) staged = staged && a.l[i].P == nullptr;
+  const int S = lanes;
+  if ((S != 1 && S != 2 && S != 4 && S != 8) || threads % 32 != 0 || threads > BWD_MAX_THREADS ||
+      S * nsum > threads || d > threads / S || (S == 1 && staged)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int V = d + nsum;
+  // the staged weights, then two parities of the state vector and of dz
+  const size_t smem =
+      ((staged ? (size_t)bwd_weight_entries(a) : 0) + 2 * (size_t)(V + NARROW_ROWS * nsum)) *
+      sizeof(float4);
+  const float* xs = (const float*)x;
+  const float* dh = (const float*)dhl;
+  float* out = (float*)dx;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (S * 2 + (staged ? 1 : 0)) {
+    case 2: return launch_bwd_wave<1, false>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
+    case 4: return launch_bwd_wave<2, false>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
+    case 5: return launch_bwd_wave<2, true>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
+    case 8: return launch_bwd_wave<4, false>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
+    case 9: return launch_bwd_wave<4, true>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
+    case 16: return launch_bwd_wave<8, false>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
+    default: return launch_bwd_wave<8, true>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
+  }
 }
 
 }  // namespace
@@ -1208,10 +1381,15 @@ int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int
   return narrow_fwd_launch(meta, L, x, T, B, d, lanes, false, stream);
 }
 
-// K7. meta: L rows of 10 int64 — din, n, W, U, b, Wt, Ut, h, c, dz_out.
+// K7. meta: L rows of 9 int64 — din, n, W, U, b, P: the gate-interleaved
+// copy of [W; U] (ops/cuda_train.py: pack_gates), or 0 in every row to stage
+// the weights in shared memory; h, c: the forward's; dz_out (T, B, 4n) for
+// weight_grad. lanes and threads: the wrapper's rule (ops/cuda_train.py:
+// narrow_bwd_lanes, narrow_bwd_threads), checked here.
 int fused_narrow_train_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl,
-                                  void* dx, int T, int B, int d, void* stream) {
-  return narrow_bwd_launch<false>(meta, L, x, dhl, dx, T, B, d, stream);
+                                  void* dx, int T, int B, int d, int lanes, int threads,
+                                  void* stream) {
+  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, stream);
 }
 
 // K8, the forward: meta and lanes as K7's, P 0 (the weights are always
@@ -1221,11 +1399,11 @@ int fused_narrow_train_compact_fwd_launch(const int64_t* meta, int L, const void
   return narrow_fwd_launch(meta, L, x, T, B, d, lanes, true, stream);
 }
 
-// K8, the backward: meta as K7's, Wt and Ut unused (0).
+// K8, the backward: as K7's (the same kernel).
 int fused_narrow_train_compact_bwd_launch(const int64_t* meta, int L, const void* x,
                                           const void* dhl, void* dx, int T, int B, int d,
-                                          void* stream) {
-  return narrow_bwd_launch<true>(meta, L, x, dhl, dx, T, B, d, stream);
+                                          int lanes, int threads, void* stream) {
+  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, stream);
 }
 
 // out (p, G) = Σ_m a_m ⊗ dz_m (see weight_grad); partial holds

@@ -21,15 +21,15 @@ lstm_recurrence_train_bwd      lstm_recurrence_train_bwd_plain      pallas_train
 ============================== ==================================== ====================================
 
 K8 computes K7's function (the compact gate packing of the TPU kernel is a
-lane layout, not carried over). Both forwards are one kernel: a group of
-``narrow_fwd_lanes`` lanes owns each unit, the layers run as a wavefront
-(T + L − 1 steps), and the weights are read gate-interleaved, staged in
-shared memory (K8 always; K7 when the stack fits) or from K7's copy
-:func:`pack_gates` in global memory. The backwards differ: K8's
-keeps its own resident copy of the weights, K7's reads Wᵀ and Uᵀ from
-global memory. K6 runs K9's step kernels with the x·W part taken out. All
-compute in float32 (exact mode). The JAX kernels' ``precision=DEFAULT``
-dots are exact float32 on the CPU, where the tests compare.
+lane layout, not carried over). Both forwards are one kernel, and both
+backwards another: a group of lanes (``narrow_fwd_lanes``,
+``narrow_bwd_lanes``) owns each unit, the layers run as a wavefront (T + L
+− 1 steps forward, T + L back), and the weights are read gate-interleaved,
+staged in shared memory wherever the stack fits (``narrow_fwd_smem_bytes``,
+``narrow_bwd_staged``) or from the copy :func:`pack_gates` in global
+memory. K6 runs K9's step kernels with the x·W part taken out. All compute
+in float32 (exact mode). The JAX kernels' ``precision=DEFAULT`` dots are
+exact float32 on the CPU, where the tests compare.
 
 Layouts are time-major, as the TPU kernels take them: x (T, B, d), every
 layer's h and c (T, B, n). The weights keep the Keras layout, unpadded: the
@@ -75,6 +75,10 @@ COMPACT_MAX_UNITS = 64  # K8's layers: the JAX package's ≥ 2 gates per 128-lan
 COMPACT_MIN_BATCH = 128  # compact="auto" takes K8 from this batch on, as the JAX dispatch
 WIDE_ALIGN = 128      # K9 takes n % 128 == 0, as the TPU kernel did
 FWD_MAX_THREADS = 1024  # csrc FWD_MAX_THREADS: the narrow forward's block
+BWD_MAX_THREADS = 1024  # csrc BWD_MAX_THREADS: the narrow backward's block
+# state floats a thread of the backward loads a step, by S (its twin: csrc
+# bwd_loads<S>; change both together)
+BWD_LOADS = {1: 5, 2: 2, 4: 1, 8: 1}
 _SM_COUNT = 132       # H100 SXM: the weight-gradient split fills about two waves
 
 Layer = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # (W, U, b)
@@ -265,29 +269,18 @@ def _layer_weight_grads(inp, h, dz):
 # K7 and K8: the narrow whole-stack train pairs (one function, two kernels)
 # ---------------------------------------------------------------------------
 
-def _resident_floats(units: Sequence[int], d: int) -> int:
-    """Floats of K8's resident weights (csrc ``resident_floats``): per layer
-    W (din, 4n) and U (n, 4n) at row stride 4n + 1, and b (4n)."""
-    total, din = 0, d
-    for n in units:
-        total += (din + n) * (4 * n + 1) + 4 * n
-        din = n
-    return total
-
-
 def _round_up(a: int, m: int) -> int:
     return -(-a // m) * m
 
 
-def _narrow_state_floats(units: Sequence[int], d: int, backward: bool) -> int:
-    """Floats of shared memory a K7 or K8 CTA holds for its state (csrc
-    launchers): the backward's carries and scratch, or the forward's two
-    parities of the state vector [x_t | h_0 | ... | h_{L-1}], four rows an
-    entry."""
-    nmax = max(units)
-    if backward:
-        return NARROW_ROWS * (2 * sum(units) + 14 * nmax + max(d, nmax))
-    return 2 * NARROW_ROWS * (d + sum(units))
+def _staged_weight_floats(units: Sequence[int], d: int, stride) -> int:
+    """Floats of every layer's [W; U] rows staged gate-interleaved, four
+    floats an entry, at ``stride(n)`` entries a row."""
+    total, din = 0, d
+    for n in units:
+        total += (din + n) * stride(n) * 4
+        din = n
+    return total
 
 
 def narrow_fwd_threads(units: Sequence[int], d: int, lanes: int) -> int:
@@ -298,13 +291,10 @@ def narrow_fwd_threads(units: Sequence[int], d: int, lanes: int) -> int:
 
 def narrow_fwd_smem_bytes(units: Sequence[int], d: int, staged: bool) -> int:
     """Shared memory of the forward (csrc ``narrow_fwd_launch``): with
-    ``staged`` every layer's [W; U] rows, four gates each, then the
-    state."""
-    weights, din = 0, d
-    for n in units:
-        weights += (din + n) * 4 * n
-        din = n
-    return 4 * ((weights if staged else 0) + _narrow_state_floats(units, d, False))
+    ``staged`` every layer's [W; U] rows, four gates each, then two parities
+    of the state vector [x_t | h_0 | ... | h_{L-1}], four rows an entry."""
+    weights = _staged_weight_floats(units, d, lambda n: n) if staged else 0
+    return 4 * (weights + 2 * NARROW_ROWS * (d + sum(units)))
 
 
 def narrow_fwd_lanes(units: Sequence[int], d: int) -> int:
@@ -317,23 +307,82 @@ def narrow_fwd_lanes(units: Sequence[int], d: int) -> int:
     return 1
 
 
+def narrow_bwd_threads(units: Sequence[int], d: int, lanes: int) -> int:
+    """Threads of the backward's block: ``lanes`` a unit of every layer and
+    of the dx layer, at most BWD_MAX_THREADS (then dx units share layer 0's
+    groups). The wrapper passes it to the launcher, which checks it."""
+    return min(BWD_MAX_THREADS, _round_up(lanes * (sum(units) + d), 32))
+
+
+def narrow_bwd_fits(units: Sequence[int], d: int, lanes: int, staged: bool) -> bool:
+    """The launcher's checks (csrc ``narrow_bwd_launch`` and
+    ``launch_bwd_wave``; change both together): S·Σn lanes and a group for
+    every dx unit within the block, the state vector's NARROW_ROWS·(d + Σn)
+    floats within the loads its threads make a step, and S = 1 only from
+    the global copy (its stacks never fit staged)."""
+    if lanes not in BWD_LOADS or (lanes == 1 and staged):
+        return False
+    threads = narrow_bwd_threads(units, d, lanes)
+    return (lanes * sum(units) <= threads and d <= threads // lanes
+            and NARROW_ROWS * (d + sum(units)) <= BWD_LOADS[lanes] * threads)
+
+
+def narrow_bwd_lanes(units: Sequence[int], d: int) -> int:
+    """Lanes S a unit of the backward: the largest of 8, 4, 2 whose block
+    gives every unit and every dx unit a group of its own (S = 4 at 4×40
+    and on the 4×30 view), else 1, where dx units past the block's 1024
+    threads share layer 0's groups (8×128). Sharing at S = 8 on the 4×30
+    view ran slower than S = 4 (scripts/probe_torch_narrow_bwd.py). The
+    wrapper passes S to the launcher, which checks it."""
+    for lanes in (8, 4, 2):
+        if lanes * (sum(units) + d) <= BWD_MAX_THREADS:
+            return lanes
+    return 1
+
+
+def narrow_bwd_smem_bytes(units: Sequence[int], d: int, staged: bool) -> int:
+    """Shared memory of the backward (csrc ``narrow_bwd_launch``): with
+    ``staged`` every layer's [W; U] rows, four gates an entry, at the odd
+    row stride n | 1; then two parities of the state vector [x | h_0 | ...
+    | h_{L-1}] and of every layer's dz, four rows an entry each."""
+    weights = _staged_weight_floats(units, d, lambda n: n | 1) if staged else 0
+    return 4 * (weights + 2 * NARROW_ROWS * (d + sum(units) + 4 * sum(units)))
+
+
+def narrow_bwd_staged(units: Sequence[int], d: int) -> bool:
+    """Where the backward keeps its weights: staged in shared memory when
+    the stack fits, else read from the global copy :func:`pack_gates`,
+    which fits every stack K7 admits (167 936 B at 8×128, d = 128)."""
+    return narrow_bwd_smem_bytes(units, d, True) <= _SMEM_LIMIT
+
+
 def pack_gates(W: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """K7's gate-interleaved copy of a layer for its forward: P (din + n, n,
-    4) with P[k, j, g] = [W; U][k, g·n + j] (csrc ``FwdLayer.P``)."""
+    """K7's gate-interleaved copy of a layer for the kernels that read their
+    weights from global memory: P (din + n, n, 4) with P[k, j, g] = [W;
+    U][k, g·n + j] (csrc ``FwdLayer.P``, ``BwdLayer.P``)."""
     din, n = W.shape[0], U.shape[0]
     return torch.cat([W.view(din, 4, n), U.view(n, 4, n)]).transpose(1, 2).contiguous()
 
 
 def compact_smem_bytes(units: Sequence[int], d: int) -> int:
-    """Shared memory of K8's larger kernel, the backward: the resident
-    weights and K7's backward state (193 184 + 14 720 B at 4×40, d = 16)."""
-    return 4 * (_resident_floats(units, d) + _narrow_state_floats(units, d, backward=True))
+    """K8's route rule, in bytes (193 184 + 14 720 B at 4×40, d = 16): the
+    shared memory of the backward K8 first ran, every W, U and b at row
+    stride 4n + 1 and four rows of its carries and scratch. The rule keeps
+    that value, so the route stays where it was; the kernels K8 runs now fit
+    every stack it admits (:func:`narrow_fwd_smem_bytes`,
+    :func:`narrow_bwd_staged`)."""
+    weights, din = 0, d
+    for n in units:
+        weights += (din + n) * (4 * n + 1) + 4 * n
+        din = n
+    scratch = NARROW_ROWS * (2 * sum(units) + 14 * max(units) + max(d, max(units)))
+    return 4 * (weights + scratch)
 
 
 def compact_fits(units: Sequence[int], d: int) -> bool:
-    """K8's shape rule: the stack's weights and a CTA's state fit in the
-    shared memory one H100 block may use. A compact-eligible stack that does
-    not fit (e.g. 4×64, or 8 layers of 64 with d = 128) trains through K7."""
+    """K8's shape rule (:func:`compact_smem_bytes` within the shared memory
+    one H100 block may use). A compact-eligible stack that does not fit
+    (e.g. 4×64, or 8 layers of 64 with d = 128) trains through K7."""
     return compact_smem_bytes(units, d) <= _SMEM_LIMIT
 
 
@@ -349,7 +398,7 @@ def _check_compact(name: str, units: List[int], d: int) -> None:
         raise ValueError(f"{name}: every layer at most {COMPACT_MAX_UNITS} units, got {units}")
     if not compact_fits(units, d):
         raise ValueError(
-            f"{name}: the resident weights need {compact_smem_bytes(units, d)} B of shared "
+            f"{name}: the route rule gives {compact_smem_bytes(units, d)} B of shared "
             f"memory, over {_SMEM_LIMIT}; such a stack trains through K7"
         )
 
@@ -402,12 +451,11 @@ def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last):
     """The checks and the launches of K7's or K8's backward (the reverse-time
     kernel, then ``weight_grad`` per layer); ``plain`` runs CPU tensors."""
     name = wrapper.__name__
-    resident = wrapper is fused_narrow_train_compact_bwd
     T, B, d = x.shape
     _check_T(name, T)
     _check("x", x, (T, B, d))
     units = _check_layers(layers, d)
-    if resident:
+    if wrapper is fused_narrow_train_compact_bwd:
         _check_compact(name, units, d)
     if len(hs) != len(layers) or len(cs) != len(layers):
         raise ValueError(f"{name}: one h and one c per layer")
@@ -417,27 +465,39 @@ def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last):
     _check("dh_last", dh_last, (T, B, units[-1]))
     if not _card([x, dh_last, *hs, *cs, *(w for l in layers for w in l)]):
         return plain(layers, x, hs, cs, dh_last)
-    _check_smem(name, (_resident_floats(units, d) if resident else 0)
-                + _narrow_state_floats(units, d, backward=True))
-    dev = x.device
-    dx = torch.empty((T, B, d), dtype=torch.float32, device=dev)
-    dzs = [torch.empty((T, B, 4 * n), dtype=torch.float32, device=dev) for n in units]
-    # K7 reads Wᵀ and Uᵀ by row from global memory; K8 reads its resident W and U
-    Wts = [None if resident else W.t().contiguous() for W, _, _ in layers]
-    Uts = [None if resident else U.t().contiguous() for _, U, _ in layers]
-    meta = np.array(
-        [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), _ptr(Wt) or 0,
-          _ptr(Ut) or 0, h.data_ptr(), c.data_ptr(), dz.data_ptr()]
-         for (W, U, b), Wt, Ut, h, c, dz in zip(layers, Wts, Uts, hs, cs, dzs)],
-        dtype=np.int64,
-    )
-    _launch(name, dev, meta.ctypes.data, len(layers), x.data_ptr(), dh_last.data_ptr(),
-            dx.data_ptr(), T, B, d)
+    dx, dzs = _launch_narrow_bwd(name, layers, x, hs, cs, dh_last, narrow_bwd_lanes(units, d),
+                                 narrow_bwd_staged(units, d))
     grads = [_layer_weight_grads(x if i == 0 else hs[i - 1], hs[i], dzs[i])
              for i in range(len(layers))]
     wrapper.launches += 1
     dWs, dUs, dbs = (list(g) for g in zip(*grads))
     return dWs, dUs, dbs, dx
+
+
+def _launch_narrow_bwd(name: str, layers: Sequence[Layer], x, hs, cs, dh_last, lanes: int,
+                       staged: bool):
+    """One launch of the narrow backward ``name`` (K7's or K8's launcher) on
+    checked card tensors, at ``lanes`` a unit, the weights staged in shared
+    memory or read from :func:`pack_gates`' copy. Returns dx (T, B, d) and
+    every layer's dz (T, B, 4n)."""
+    T, B, d = x.shape
+    units = [U.shape[0] for _, U, _ in layers]
+    if not narrow_bwd_fits(units, d, lanes, staged):
+        raise ValueError(f"{name}: no block of {lanes} lanes a unit with the weights "
+                         f"{'staged' if staged else 'in the global copy'}")
+    _check_smem(name, narrow_bwd_smem_bytes(units, d, staged) // 4)
+    dx = torch.empty((T, B, d), dtype=torch.float32, device=x.device)
+    dzs = [torch.empty((T, B, 4 * n), dtype=torch.float32, device=x.device) for n in units]
+    packed = [None if staged else pack_gates(W, U) for W, U, _ in layers]
+    meta = np.array(
+        [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), _ptr(P) or 0,
+          h.data_ptr(), c.data_ptr(), dz.data_ptr()]
+         for (W, U, b), P, h, c, dz in zip(layers, packed, hs, cs, dzs)],
+        dtype=np.int64,
+    )
+    _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), dh_last.data_ptr(),
+            dx.data_ptr(), T, B, d, lanes, narrow_bwd_threads(units, d, lanes))
+    return dx, dzs
 
 
 def fused_narrow_train_fwd(layers: Sequence[Layer], x: torch.Tensor):
@@ -518,8 +578,8 @@ class FusedNarrowTrain(torch.autograd.Function):
 
 
 class FusedNarrowTrainCompact(torch.autograd.Function):
-    """:class:`FusedNarrowTrain` through K8 (the same function, the weights
-    resident in shared memory)."""
+    """:class:`FusedNarrowTrain` through K8 (the same function and kernels,
+    the weights staged in shared memory)."""
 
     @staticmethod
     def forward(ctx, x, *weights):
@@ -731,7 +791,7 @@ def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: 
 
     * **compact narrow stack** (``compact`` true, every layer n ≤ 64, input
       ≤ 128, and :func:`compact_fits`): one whole-stack kernel per direction
-      with the weights resident in shared memory (K8,
+      with the weights staged in shared memory (K8,
       :func:`fused_narrow_train_apply_compact`). ``compact="auto"`` means
       B ≥ 128, the JAX dispatch's rule; the dense ``fit`` passes
       ``TrainConfig.compact_gates``, the singular and reduced views "auto".

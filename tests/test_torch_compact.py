@@ -344,6 +344,11 @@ def _launched(wrapper, fn):
     # d > n, B = 1 and B % 4 != 0
     ((40, 40, 40, 40), 16, 128, 1), ((40, 40, 40, 40), 16, 128, 3), ((30,), 16, 9, 20),
     ((8,) * 8, 16, 12, 10), ((20, 12, 9), 40, 1, 10), ((33, 17), 64, 6, 12),
+    # the stacks of K8's route whose backward reads the global copy
+    # (tests/test_torch_narrow_bwd.py): S = 4 with d = 16 and 128, S = 4
+    # with d = 16 on 6 layers, S = 2 with d = 128
+    ((42, 42, 42, 42), 16, 12, 6), ((48, 48), 128, 9, 5), ((34,) * 6, 16, 8, 5),
+    ((32,) * 5, 128, 5, 4),
 ])
 def test_cuda_compact_matches_plain(cuda, units, d, batch, steps, monkeypatch):
     layers = _t(_layers_np(13, units, d), cuda)

@@ -12,8 +12,9 @@ the rules to their promises:
   layers, every width and the input at most 128);
 * the repo's stacks and the edge stacks of the card tests get the lane
   count and weight home the card tests name for them;
-* K8's forward needs no more shared memory than K8's backward, which
-  decides its route (``compact_fits``), so no stack changes route;
+* K8's forward needs no more shared memory than K8's first backward,
+  whose size is its route rule (``compact_smem_bytes``, ``compact_fits``),
+  so no stack changes route;
 * K7's gate-interleaved copy of the weights (``pack_gates``) inverts
   exactly to the Keras layout.
 """

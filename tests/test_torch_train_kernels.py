@@ -440,6 +440,14 @@ def _launched(wrapper, fn):
     ((24,), 16, 5, 20), ((16,) * 8, 16, 8, 12), ((128,) * 8, 128, 4, 6),
     ((12, 20, 9), 48, 1, 10), ((6, 7, 5), 20, 7, 9),
     ((100,) * 4, 16, 5, 3), ((128,), 128, 6, 8),
+    # the backward's rule (tests/test_torch_narrow_bwd.py) reaches S = 8
+    # and 4 staged, S = 4, 2, 1 from the global copy (1x128, 4x100 and
+    # 128+30, 8x128 with d = 128, where dx shares layer 0's groups) with
+    # the cases above; here S = 2 staged, S = 8 from the global copy, and
+    # S = 4 from the global copy on stacks of K8's route with d = 16 and
+    # 128 (S = 1 never fits staged)
+    ((17,) * 8, 128, 6, 5), ((110,), 18, 7, 6), ((42, 42, 42, 42), 16, 9, 7),
+    ((48, 48), 128, 5, 6),
 ])
 def test_cuda_fused_narrow_matches_plain(cuda, units, d, B, T, monkeypatch):
     layers = _t(_layers_np(18, units, d), cuda)
