@@ -6,8 +6,8 @@
 Needs one CUDA card and ``nvcc``; with no card it exits non-zero at once and
 prints no result. It imports torch, numpy and the port, never JAX. With
 ``--parent DIR`` (another checkout of the repo, e.g. the parent commit
-unpacked by ``git archive``) phase 5c also times DIR's narrow train kernels
-and steps in turns with this checkout's (see 5c).
+unpacked by ``git archive``) phase 5c also times DIR's narrow and wide train
+kernels and steps in turns with this checkout's (see 5c).
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -75,9 +75,14 @@ Phases, each of which raises on failure (no phase is caught):
    forward is ``narrow_fwd_wave`` (the layers as a wavefront), its backward
    ``narrow_bwd_wave`` (the layers as a reverse wavefront, dx a layer of its
    own, z recomputed from the forward's h) and then ``weight_grad``, which
-   reduces every layer's dz into dW, dU and db;
-5b. the same for K6 (the recurrence-only train pair) at run D's shapes
-   (n = 512, B = 128, T = 200);
+   reduces every layer's dz into dW, dU and db. K9's backward runs four
+   phases (R: ``gemm_f32`` recomputes z over all T·B rows; C: the dh chain,
+   ``wide_bwd_chain``, one persistent cooperative launch; X: dx; G: the
+   weight gradients): each phase is timed alone beside its bound, and the
+   kernels one call launches are listed at T and T/2 (as many either way,
+   the chain kernel among them);
+5b. the same for K6 (the recurrence-only train pair, K9's backward without
+   X) at run D's shapes (n = 512, B = 128, T = 200);
 6. drive the training path through the public entry points, on windows of
    the package's deterministic DROPBEAR surrogate: run A ``fit`` of a fresh
    4×40 stack (K7), run B ``finetune`` of σ under the Hoyer penalty on the
@@ -93,12 +98,13 @@ Phases, each of which raises on failure (no phase is caught):
    T = 200) on a fresh 4×40 stack and on the dense view of the 4×30 split r = 15
    truncation, timed beside K7 on the same inputs (K8, K7, K7, K8 in turn),
    and in turns with K7 at run A's inputs (B = 32) too; with ``--parent
-   DIR``, K7 forward and backward at run A's shapes, K8's at B = 128, cuDNN's
-   on both, and one train step of runs A, B and E (its span, the host's
+   DIR``, K7 forward and backward at run A's shapes, K8's at B = 128, K9's
+   at run C's (layer 1), K6's at run D's, cuDNN's on each, and one train
+   step of runs A, B, E (narrow) and C, D, F (wide): its span, the host's
    time to issue it, the card's busy time from torch.profiler, in all and
-   in the narrow forward's and backward's kernels), each
-   measured in a fresh process on DIR's package and on this checkout's, in
-   turns (P C C P C P P C: parent, change);
+   in the pair's forward and backward kernels; each measured in a fresh
+   process on DIR's package and on this checkout's, in turns (P C C P C P P
+   C: parent, change);
 6. (continued) drive the post-truncation recovery through its public entry
    points, on the same windows: run E ``recover_reduced_gated`` of the 4×30
    split r = 15 truncation at B = 128 (K8 both ways), run F
@@ -1030,6 +1036,77 @@ def time_pair(name: str, shape: str, kernel, plain, *args, library_ms=None, **bo
     return r
 
 
+def entry_launches(fn) -> list:
+    """The C entry points one call of ``fn`` launched through the train
+    wrappers (``cuda_train._launch``), in order; each of the wide backward's
+    (wide_gemm, wide_bwd_chain, sum_splits) launches one kernel, and its
+    launcher reports a launch the card refused. Counted on the host, since
+    torch.profiler's device trace can drop kernels (a call once listed 1 of
+    its 5)."""
+    names = []
+    launch = ct._launch
+
+    def counted(name, device, *args):
+        names.append(name)
+        launch(name, device, *args)
+
+    ct._launch = counted
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        ct._launch = launch
+    return names
+
+
+def wide_bwd_phases(name: str, x, W, U, b, h, c, dh) -> None:
+    """K9's backward (W given) or K6's (W None, x the projection xp) by
+    phase, each alone beside its bound: R (z), C (the dh chain), X (dx, K9),
+    G (the weight gradients); then the kernels one wrapper call launches at
+    T and at T/2: as many either way, the chain kernel among them."""
+    T, B, n = h.shape
+    G, M = 4 * n, T * B
+    din = 0 if W is None else x.shape[2]
+    sms = ct.sm_count(x.device)
+    plan = ct.chain_plan(B, n, sms)
+    z = ct.phase_r(x, W, U, b, h)
+    dz = torch.empty_like(z)
+    Ut = U.t().contiguous()
+    ct.phase_c(z, Ut, c, dh, dz, plan)
+    phases = [("R", lambda: ct.phase_r(x, W, U, b, h), 2 * M * (din + n) * G,
+               nbytes(x, h, U, z) + (0 if W is None else nbytes(W, b))),
+              ("C", lambda: ct.phase_c(z, Ut, c, dh, dz, plan), 2 * (T - 1) * B * G * n,
+               nbytes(z, U, c, dh, dz))]
+    if W is None:
+        phases.append(("G", lambda: ct.phase_g(None, h, dz, sms), 2 * M * G * n, nbytes(dz, h, U)))
+    else:
+        phases += [("X", lambda: ct.phase_x(dz, W), 2 * M * G * din, nbytes(dz, W, x)),
+                   ("G", lambda: ct.phase_g(x, h, dz, sms), 2 * M * G * (din + n + 1),
+                    nbytes(dz, x, h, W, U, b))]
+    for phase, fn, flops, moved in phases:
+        ms = device_time_ms(fn)
+        r = bound(flops, moved)
+        log(f"[phase] {name} {phase}: {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"[phase] {name} chain: {plan}")
+    del z, dz
+    counts = {}
+    for steps in (T, T // 2):
+        part = [t[:steps].contiguous() for t in (x, h, c, dh)]
+        if W is None:
+            call = lambda: ct.lstm_recurrence_train_bwd(part[0], U, *part[1:])  # noqa: E731
+        else:
+            call = lambda: ct.wide_layer_bwd(part[0], W, U, b, *part[1:])  # noqa: E731
+        names = entry_launches(call)
+        counts[steps] = len(names)
+        log(f"[launches] {name} at T={steps}: {len(names)} kernels and one copy of U's transpose: "
+            + ", ".join(names))
+        if "wide_bwd_chain" not in names:
+            fail(f"{name}: the chain kernel did not run")
+    if counts[T] != counts[T // 2]:
+        fail(f"{name}: launches grow with T: {counts}")
+
+
 @torch.no_grad()
 def train_kernel_checks(dev, data) -> dict:
     """Phases 5 and 5b: K7, K9 and K6 against their plain versions at the
@@ -1107,6 +1184,7 @@ def train_kernel_checks(dev, data) -> dict:
         **time_pair("K9 bwd", shape, ct.wide_layer_bwd, ct.wide_layer_bwd_plain, *args,
                     library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
     }
+    wide_bwd_phases("K9 bwd", *args)
     time_pair("K9 fwd+bwd", shape,
               lambda: ct.wide_layer_bwd(*args[:4], *ct.wide_layer_fwd(*args[:4]), dh),
               lambda: ct.wide_layer_bwd_plain(*args[:4], *ct.wide_layer_fwd_plain(*args[:4]), dh))
@@ -1147,6 +1225,7 @@ def recurrence_train_checks(dev, data, rng) -> dict:
                         *args, library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
         },
     }
+    wide_bwd_phases("K6 bwd", xp, None, U, None, h_p, c_p, dh)
     time_pair("K6 fwd+bwd", shape,
               lambda: ct.lstm_recurrence_train_bwd(xp, U, *ct.lstm_recurrence_train_fwd(xp, U), dh),
               lambda: ct.lstm_recurrence_train_bwd_plain(xp, U, *ct.lstm_recurrence_train_fwd_plain(xp, U), dh))
@@ -1259,11 +1338,19 @@ def narrow_times(dev, data) -> dict:
     return out
 
 
-def step_split(step) -> dict:
+NARROW_PARTS = {"narrow fwd": ("narrow_fwd",), "narrow bwd": ("narrow_bwd",)}
+# the wide pair's kernels in this checkout and in the parent's (the per-step
+# backward: wide_bwd_gates, matmul_nt, weight_grad)
+WIDE_PARTS = {"wide fwd": ("wide_fwd_step",),
+              "wide bwd": ("gemm_f32", "wide_bwd_chain", "wide_bwd_gates", "matmul_nt",
+                           "weight_grad", "sum_splits")}
+
+
+def step_split(step, parts: dict) -> dict:
     """A train step's host time to issue it (the card idle at its start;
     median of 5) and what it ran on the card (torch.profiler, mean of 3
-    steps): the summed duration of its kernels and copies, and of the narrow
-    forward's and backward's kernels alone; ms each."""
+    steps): the summed duration of its kernels and copies, and of the
+    kernels whose names hold one of ``parts``' strings; ms each."""
     issue = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -1279,28 +1366,60 @@ def step_split(step) -> dict:
         torch.cuda.synchronize()
     on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
-    def busy(part: str = "") -> float:
-        return sum(e.time_range.elapsed_us() for e in on_card if part in e.name) / 3e3
+    def busy(names=("",)) -> float:
+        return sum(e.time_range.elapsed_us() for e in on_card if any(nm in e.name for nm in names)) / 3e3
 
     return {"host issue": sorted(issue)[2], "card busy": busy(),
-            "card busy in the narrow fwd": busy("narrow_fwd"),
-            "card busy in the narrow bwd": busy("narrow_bwd")}
+            **{f"card busy in the {part}": busy(names) for part, names in parts.items()}}
+
+
+@torch.no_grad()
+def wide_times(dev, data) -> dict:
+    """K9's pair at run C's shapes (the 3x512 checkpoint's layer 1, x its
+    layer 0's h) and K6's at run D's (a fresh 512-unit layer's xp), cuDNN's
+    LSTM on both: ms of each, in the package this process imported."""
+    rng = np.random.default_rng(1)
+    out = {}
+    model = TRAIN_RUNS[2].make(dev)
+    x = first_batch(TRAIN_RUNS[2], data, dev)[0].transpose(0, 1).contiguous()
+    l0, l1 = ([p.detach() for p in (l.W, l.U, l.b)] for l in model.layers[:2])
+    x = ct.wide_layer_fwd(x, *l0)[0]
+    W, U, b = l1
+    h, c = ct.wide_layer_fwd(x, W, U, b)
+    dh = torch.tensor(rng.normal(size=h.shape), dtype=torch.float32, device=dev)
+    out["K9 fwd (run C layer 1)"] = device_time_ms(ct.wide_layer_fwd, x, W, U, b)
+    out["K9 bwd (run C layer 1)"] = device_time_ms(ct.wide_layer_bwd, x, W, U, b, h, c, dh)
+    out["cuDNN fwd (run C layer 1)"], out["cuDNN bwd (run C layer 1)"] = library_train([(W, U, b)], x, dh)
+    l = TRAIN_RUNS[3].make(dev).layers[0]
+    W, U, b = (p.detach() for p in (l.W, l.U, l.b))
+    x = first_batch(TRAIN_RUNS[3], data, dev)[0].transpose(0, 1).contiguous()
+    xp = (torch.matmul(x, W) + b).contiguous()
+    h, c = ct.lstm_recurrence_train_fwd(xp, U)
+    dh = torch.tensor(rng.normal(size=h.shape), dtype=torch.float32, device=dev)
+    out["K6 fwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_fwd, xp, U)
+    out["K6 bwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_bwd, xp, U, h, c, dh)
+    out["cuDNN fwd (run D)"], out["cuDNN bwd (run D)"] = library_train([(W, U, b)], x, dh)
+    return out
 
 
 def tree_times(dev) -> dict:
-    """``--time-tree DIR``: narrow_times and one train step (forward,
-    backward, Adam) of runs A, B and E, on DIR's package: the step's span
-    on the card, the host's time to issue it and the card's busy time in it,
-    in all and in the narrow kernels (step_split)."""
+    """``--time-tree DIR``: narrow_times, wide_times and one train step
+    (forward, backward, Adam) of runs A, B, E (narrow) and C, D, F (wide),
+    on DIR's package: the step's span on the card, the host's time to issue
+    it and the card's busy time in it, in all and in the pair's kernels
+    (step_split)."""
     data = train_data()
     with exact_matmul():
         out = narrow_times(dev, data)
-    for run in (TRAIN_RUNS[0], TRAIN_RUNS[1], RECOVERY_RUNS[0]):
+        out.update(wide_times(dev, data))
+    for run, parts in ((TRAIN_RUNS[0], NARROW_PARTS), (TRAIN_RUNS[1], NARROW_PARTS),
+                       (RECOVERY_RUNS[0], NARROW_PARTS), (TRAIN_RUNS[2], WIDE_PARTS),
+                       (TRAIN_RUNS[3], WIDE_PARTS), (RECOVERY_RUNS[1], WIDE_PARTS)):
         x, y = first_batch(run, data, dev)
         step = first_step(run, dev, x, y, kernel=True)[2]
         name = f"run {run.name.split()[0]} step"
         out[name] = device_time_ms(step)
-        out.update({f"{name}, {k}": v for k, v in step_split(step).items()})
+        out.update({f"{name}, {k}": v for k, v in step_split(step, parts).items()})
     return out
 
 
@@ -1314,7 +1433,7 @@ def tree_turns(parent: str) -> None:
     runs = []
     for tree in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--time-tree", tree],
-                              capture_output=True, text=True, timeout=600)
+                              capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             fail(f"--time-tree {tree} failed:\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))

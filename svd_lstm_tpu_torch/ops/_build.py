@@ -57,8 +57,12 @@ _SIGNATURES = {
     "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, W, U, b, h, c, T, B, din, n, stream
     "wide_layer_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, W, U, b, h, c, dh, dx, dz, dhc, dcc, T, B, din, n, stream
-    "wide_layer_bwd_launch": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # meta (int64: see csrc wide_gemm_launch), stream
+    "wide_gemm_launch": [_P, _P],
+    # partial, out, size, splits, stream
+    "sum_splits_launch": [_P, _P, _I, _I, _P],
+    # z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups, stream
+    "wide_bwd_chain_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # xp, U, h, c, T, B, n, bf16, stream
     "batched_lstm_recurrence_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }

@@ -11,23 +11,25 @@
 //   K8  the same two kernels, the weights staged in shared memory wherever
 //       the stack fits — replace svd_lstm_tpu/ops/pallas_train_compact.py:
 //       _fused_fwd / _fused_bwd (see the note above the launchers).
-//   K9  wide_fwd_step / wide_bwd_gates + matmul_nt — replace
+//   K9  wide_fwd_step / gemm_f32 + wide_bwd_chain — replace
 //       svd_lstm_tpu/ops/pallas_train_wide.py: _wide_fwd / _wide_bwd (one
 //       layer, n % 128 == 0).
-//   K6  the same step kernels with the x·W part compiled out (kXW = false,
-//       chosen by the launchers when W is null: z = xp_t + h_{t-1}·U, and
-//       dxp = dz) — replace
-//       svd_lstm_tpu/ops/pallas_train.py: _pallas_fwd_hc / _pallas_bwd.
+//   K6  the same kernels with the x·W part left out (the forward step with
+//       kXW = false, chosen by the launcher when W is null: z = xp_t +
+//       h_{t-1}·U; the backward's GEMMs without x and W, and dxp = dz) —
+//       replace svd_lstm_tpu/ops/pallas_train.py: _pallas_fwd_hc /
+//       _pallas_bwd.
 //   weight_grad (+ sum_splits) — the dW/dU/db accumulation that the TPU
-//       backward kernels carried in VMEM scratch.
+//       backward kernels carried in VMEM scratch (K7, K8; K9 and K6 take
+//       gemm_f32's TN form).
 //   K5  batched_step — replaces svd_lstm_tpu/ops/pallas_batched.py:
 //       batched_lstm_recurrence_pallas (see its own note below).
 //
 // What differs from the TPU, and what the design does about it:
 //  * The TPU grid walks T in order and carries dW/dU in VMEM across steps.
 //    Here blocks run in parallel in no order, so the backward kernels store
-//    dz = dL/dz (T, B, 4n) per layer in device memory and weight_grad
-//    reduces it afterwards: dW = Σ_t,b inpᵀ·dz, dU = Σ_t,b h_prevᵀ·dz,
+//    dz = dL/dz (T, B, 4n) per layer in device memory and weight_grad (K7,
+//    K8) or gemm_f32 (K9, K6) reduces it afterwards: dW = Σ_t,b inpᵀ·dz, dU = Σ_t,b h_prevᵀ·dz,
 //    db = Σ_t,b dz, in a fixed order (split over M = T·B into at most a few
 //    partial sums that sum_splits adds in order). No atomics, so the
 //    gradients are deterministic. Storing dz is HBM traffic the TPU kernels
@@ -42,18 +44,22 @@
 //    the layers as a wavefront, T + L - 1 steps forward and T + L back
 //    (with dx as a layer of its own), one barrier a step, a lane group per
 //    unit, the gate math and the carries in registers.
-//  * K9: at n = 512, W and U are 8 MB, against 227 KB of shared memory per
-//    block, and every unit's z at step t needs all of h_{t-1}: each step is
-//    a grid-wide dependency. So one launch per time step (the host loop
-//    runs in the C launcher; a CUDA graph is later work) of a tiled kernel:
-//    a CTA owns WIDE_BR rows x WIDE_UJ units and computes the four gate
-//    columns of its units, so the gate update stays in registers. Each
-//    K chunk of the tiles is read into registers before it is stored to
-//    shared memory, and the next chunk's reads are started before this one
-//    is multiplied, so the loads overlap (3.6x faster forward than loading
-//    straight into shared memory). Bound: ~52 us a step forward at n = 512,
-//    B = 128, against 0.5 GFLOP (~10 TFLOP/s): one CTA of 4 warps per SM,
-//    and ~3 launches per step in the backward.
+//  * K9 forward: at n = 512, W and U are 8 MB, against 227 KB of shared
+//    memory per block, and every unit's z at step t needs all of h_{t-1}:
+//    each step is a grid-wide dependency. So one launch per time step (the
+//    host loop runs in the C launcher; a CUDA graph is later work) of a
+//    tiled kernel: a CTA owns WIDE_BR rows x WIDE_UJ units and computes the
+//    four gate columns of its units, so the gate update stays in registers.
+//    Each K chunk of the tiles is read into registers before it is stored
+//    to shared memory, and the next chunk's reads are started before this
+//    one is multiplied, so the loads overlap (3.6x faster forward than
+//    loading straight into shared memory). Bound: ~52 us a step at n = 512,
+//    B = 128, against 0.5 GFLOP (~10 TFLOP/s): one CTA of 4 warps per SM.
+//  * K9 and K6 backward: only the dh carry is recurrent. z needs only x_t
+//    and the forward's h_{t-1}, dx only dz, and the weight gradients only
+//    dz and the forward's tensors, so they run as GEMMs over all T·B rows,
+//    out of the time loop; the dh chain is one persistent cooperative
+//    launch with its units' columns of U on chip (see the note above gemm_f32).
 //  * The cell gradient is one __device__ function, gate_bwd, that both
 //    backward kernels call (the counterpart of models/lstm.py:
 //    gate_update_bwd). expf/tanhf as written, no fast math.
@@ -61,6 +67,7 @@
 // Every launcher runs on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() for the Python wrapper to check.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,7 +78,6 @@
 #define WIDE_UJ 32   // units per CTA (4 gate columns each)
 #define WIDE_KC 32   // reduction chunk
 #define WIDE_THREADS 128
-#define MM_COLS 64   // output columns per CTA of matmul_nt
 #define WG_TP 64     // rows of a weight-gradient tile
 #define WG_TG 64     // columns of a weight-gradient tile
 #define WG_KM 32     // M chunk of a weight-gradient tile
@@ -890,114 +896,433 @@ wide_fwd_step(const float* __restrict__ x, const float* __restrict__ W, const fl
 }
 
 // ---------------------------------------------------------------------------
-// K9 backward, gate phase of one reverse step — part of the replacement of
-// pallas_train_wide.py:_wide_bwd: recompute z for the tile (remat), then
-// gate_bwd with dh = dh_seq[t] + the dh carry, the dc carry updated in place
-// (each element has one owner), dz_t out to the dz store. Without kXW, the
-// gate phase of K6's backward (pallas_train.py:_pallas_bwd), whose dz store
-// is dxp itself.
+// K9 and K6 backward — replace pallas_train_wide.py:_wide_bwd and
+// pallas_train.py:_pallas_bwd. Four phases, a launch each (the weight
+// gradients two GEMMs and their ordered sum, K6's one), none a launch per
+// step:
+//
+//   R  z = x·W + h_prev·U + b over all M = T·B rows (K6: z = xp + h_prev·U),
+//      gemm_f32 in its NN form; h_prev is h read B rows back, zero for t = 0;
+//   C  the dh chain, the only recurrent part: wide_bwd_chain, one persistent
+//      cooperative launch, T steps of dh = dh_seq[t] + dz_{t+1}·Uᵀ, gate_bwd
+//      and dz_t out, one grid barrier a step;
+//   X  dx = dz·Wᵀ (K9), gemm_f32 in its NT form;
+//   G  dW, db and dU, gemm_f32 in its TN form, split over M in a fixed order
+//      and summed by sum_splits in order: no atomics, so the gradients do
+//      not change from run to run.
+//
+// What bounds it, and what the design does about it: at 3x512, B = 128,
+// T = 200 the backward is 322 GFLOP (4.8 ms at 67 TFLOP/s float32 on the
+// CUDA cores; exact mode keeps the tensor cores out). Only the dh chain
+// depends on the previous step: R, X and G are large GEMMs at full
+// occupancy, and the chain keeps its units' columns of U on chip for all T
+// steps (PERF.md §6 gives each phase's time against its bound and against
+// cuBLAS on the same products).
 // ---------------------------------------------------------------------------
-template <bool kXW>
-__global__ void __launch_bounds__(WIDE_THREADS)
-wide_bwd_gates(const float* __restrict__ x, const float* __restrict__ W,
-               const float* __restrict__ U, const float* __restrict__ b,
-               const float* __restrict__ h, const float* __restrict__ c,
-               const float* __restrict__ dh_seq, const float* __restrict__ dhc,
-               float* __restrict__ dcc, float* __restrict__ dz, int t, int B, int din, int n) {
-  __shared__ WideSmem s;
-  const int j0 = blockIdx.x * WIDE_UJ, r0 = blockIdx.y * WIDE_BR;
-  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
-  float acc[4][4];
-  wide_z<kXW>(x, W, U, h, t, B, din, n, r0, j0, s, acc);
-  const int j = j0 + tx;
-  const int G = 4 * n;
-  float bg[4];
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// 4 bytes global -> shared, zero-filled where !pred (src is then not read)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(pred ? 4 : 0));
+}
+
+// 16 bytes global -> shared through L2 only: the first `bytes` bytes of src,
+// zero-filled past them (0: src is not read)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// ---------------------------------------------------------------------------
+// gemm_f32: C (M, N) = Σ_seg A_seg·B_seg (+ bias[j]) (+ addend[i][j]), float32
+// on the CUDA cores with fmaf. A CTA owns a BM x BN tile, a thread 8 x 8 of
+// it (two 4-row and two 4-column strips, so its shared-memory reads are
+// 16-byte and conflict-free); K runs in chunks of GM_BK, each staged by
+// cp.async into one of two shared-memory buffers while the other is
+// multiplied, one barrier a chunk. The operand forms are template flags
+// (kAT: A is read transposed, kBT: B is), giving the NN (phase R), NT (X)
+// and TN (G) products without a branch in the loads: an operand whose
+// memory runs along the tile's shared-memory rows (A transposed, B as it
+// is) comes in 16-byte copies where its row stride and base allow, any
+// other one element by element (the transposing store). Every copy is
+// masked (rows, columns and K; a partial 16-byte run is zero-filled past
+// its end), so no shape needs padding. shift reads stored row r - shift of
+// A (h_prev from h); ones_row makes row ones_row of A all ones (db beside
+// dW). With gridDim.z > 1 split s sums k in [s·kchunk, (s + 1)·kchunk) into
+// C + s·split_stride.
+// ---------------------------------------------------------------------------
+#define GM_BM 128  // the CTA tile, rows x columns of C
+#define GM_BN 128
+#define GM_BK 16
+#define GM_MAX_SEGS 2
+
+struct GemmSeg {
+  const float* A;
+  const float* B;
+  int lda, ldb;
+  int shift;     // A(i, k) reads stored row r - shift (r = i, or k when transposed); zero for r < shift
+  int ones_row;  // A(ones_row, k) = 1 for every k in range (-1: none)
+  int K;
+  int vec_a, vec_b;  // set by the launcher: 16-byte copies allowed (aligned, stride % 4 == 0)
+};
+
+struct GemmArgs {
+  GemmSeg seg[GM_MAX_SEGS];
+  int nseg;
+  float* C;
+  int ldc, M, N;
+  const float* bias;    // (N,) or null
+  const float* addend;  // (M, N) at row stride ldc, or null
+  int kchunk;
+  long long split_stride;
+};
+
+// seg[second], field by field: no local-memory copy of the parameters
+__device__ __forceinline__ GemmSeg pick_seg(const GemmArgs& a, bool second) {
+  const GemmSeg &s0 = a.seg[0], &s1 = a.seg[1];
+  GemmSeg g;
+  g.A = second ? s1.A : s0.A;
+  g.B = second ? s1.B : s0.B;
+  g.lda = second ? s1.lda : s0.lda;
+  g.ldb = second ? s1.ldb : s0.ldb;
+  g.shift = second ? s1.shift : s0.shift;
+  g.ones_row = second ? s1.ones_row : s0.ones_row;
+  g.K = second ? s1.K : s0.K;
+  g.vec_a = second ? s1.vec_a : s0.vec_a;
+  g.vec_b = second ? s1.vec_b : s0.vec_b;
+  return g;
+}
+
+// A(i, k) for the tile of rows [i0, i0 + BM) and chunk [k0, kend): into
+// As[k][i]. Transposed A (kAT) runs along i in memory.
+template <int BM, int NT, bool kAT>
+__device__ __forceinline__ void gemm_load_a(float (*As)[BM + 4], const GemmSeg& g, int M, int i0,
+                                            int k0, int kend) {
+  const int tid = threadIdx.x;
+  // rows of A in memory: those below ones_row (or M)
+  const int ia = g.ones_row >= 0 ? min(M, g.ones_row) : M;
+  if (kAT && g.vec_a) {
 #pragma unroll
-  for (int g = 0; g < 4; ++g) bg[g] = kXW ? __ldg(b + g * n + j) : 0.f;
+    for (int q = 0; q < BM * GM_BK / 4 / NT; ++q) {
+      const int e = tid + q * NT;
+      const int ii = (e % (BM / 4)) * 4, kk = e / (BM / 4);
+      const int i = i0 + ii, k = k0 + kk;
+      const bool krow = k < kend && k >= g.shift;
+      const int in = krow ? max(0, min(4, ia - i)) : 0;
+      if (in > 0) {
+        cp_async16(&As[kk][ii], g.A + (size_t)(k - g.shift) * g.lda + i, 4 * in);
+      } else {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (k < kend && g.ones_row >= i && g.ones_row < i + 4 && g.ones_row < M) v.x = 1.f;  // ones_row % 4 == 0
+        *reinterpret_cast<float4*>(&As[kk][ii]) = v;
+      }
+    }
+  } else {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + ty * 4 + r;
-    if (row >= B) continue;
-    const size_t o = ((size_t)t * B + row) * n + j;
-    const float cp = t > 0 ? c[o - (size_t)B * n] : 0.f;
-    const float dh = dh_seq[o] + dhc[(size_t)row * n + j];
-    float g4[4];
-    dcc[(size_t)row * n + j] = gate_bwd(acc[r][0] + bg[0], acc[r][1] + bg[1], acc[r][2] + bg[2],
-                                        acc[r][3] + bg[3], cp, c[o], dh,
-                                        dcc[(size_t)row * n + j], g4);
-    float* out = dz + ((size_t)t * B + row) * G;
+    for (int q = 0; q < BM * GM_BK / NT; ++q) {
+      const int e = tid + q * NT;
+      // neighbouring threads on neighbouring addresses of memory
+      const int ii = kAT ? e % BM : e / GM_BK, kk = kAT ? e / BM : e % GM_BK;
+      const int i = i0 + ii, k = k0 + kk;
+      const int r = kAT ? k : i;
+      if (i == g.ones_row) {
+        As[kk][ii] = i < M && k < kend ? 1.f : 0.f;
+        continue;
+      }
+      const bool ok = i < ia && k < kend && r >= g.shift;
+      const float* src = ok ? g.A + (size_t)(r - g.shift) * g.lda + (kAT ? i : k) : g.A;
+      cp_async4(&As[kk][ii], src, ok);
+    }
+  }
+}
+
+// B(k, j) for the tile of columns [j0, j0 + BN) and chunk [k0, kend): into
+// Bs[k][j]. B as it is (!kBT) runs along j in memory.
+template <int BN, int NT, bool kBT>
+__device__ __forceinline__ void gemm_load_b(float (*Bs)[BN + 4], const GemmSeg& g, int N, int j0,
+                                            int k0, int kend) {
+  const int tid = threadIdx.x;
+  if (!kBT && g.vec_b) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) out[q * n + j] = g4[q];
+    for (int q = 0; q < BN * GM_BK / 4 / NT; ++q) {
+      const int e = tid + q * NT;
+      const int jj = (e % (BN / 4)) * 4, kk = e / (BN / 4);
+      const int j = j0 + jj, k = k0 + kk;
+      const int in = k < kend ? max(0, min(4, N - j)) : 0;
+      cp_async16(&Bs[kk][jj], in > 0 ? g.B + (size_t)k * g.ldb + j : g.B, 4 * in);
+    }
+  } else {
+#pragma unroll
+    for (int q = 0; q < BN * GM_BK / NT; ++q) {
+      const int e = tid + q * NT;
+      const int jj = kBT ? e / GM_BK : e % BN, kk = kBT ? e % GM_BK : e / BN;
+      const int j = j0 + jj, k = k0 + kk;
+      const bool ok = j < N && k < kend;
+      const float* src = ok ? g.B + (kBT ? (size_t)j * g.ldb + k : (size_t)k * g.ldb + j) : g.B;
+      cp_async4(&Bs[kk][jj], src, ok);
+    }
+  }
+}
+
+template <int BM, int BN, bool kAT, bool kBT>
+__global__ void __launch_bounds__((BM / 8) * (BN / 8), 512 / ((BM / 8) * (BN / 8)))
+gemm_f32(const GemmArgs a) {
+  constexpr int NT = (BM / 8) * (BN / 8);
+  // rows padded by 4 words: a transposing store of GM_BK k's x 4 rows hits 32 banks
+  __shared__ __align__(16) float As[2][GM_BK][BM + 4];
+  __shared__ __align__(16) float Bs[2][GM_BK][BN + 4];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // a warp holds 4 x 8 threads' tiles (32 rows x 64 columns): its A reads
+  // are 4 addresses, its B reads 8 (one shared-memory wavefront each)
+  constexpr int WX = BN / 64;  // warps across the tile's columns
+  const int ty = (warp / WX) * 4 + lane / 8, tx = (warp % WX) * 8 + lane % 8;
+  const int i0 = blockIdx.y * BM, j0 = blockIdx.x * BN;
+  const bool split = gridDim.z > 1;
+  int kb[GM_MAX_SEGS], ke[GM_MAX_SEGS], nc[GM_MAX_SEGS];
+#pragma unroll
+  for (int s = 0; s < GM_MAX_SEGS; ++s) {
+    const int K = s < a.nseg ? a.seg[s].K : 0;
+    kb[s] = split ? min(K, (int)blockIdx.z * a.kchunk) : 0;
+    ke[s] = split ? min(K, kb[s] + a.kchunk) : K;
+    nc[s] = (ke[s] - kb[s] + GM_BK - 1) / GM_BK;
+  }
+  auto load = [&](int c, int buf) {
+    const bool second = c >= nc[0];
+    const GemmSeg g = pick_seg(a, second);
+    const int k0 = second ? kb[1] + (c - nc[0]) * GM_BK : kb[0] + c * GM_BK;
+    const int kend = second ? ke[1] : ke[0];
+    gemm_load_a<BM, NT, kAT>(As[buf], g, a.M, i0, k0, kend);
+    gemm_load_b<BN, NT, kBT>(Bs[buf], g, a.N, j0, k0, kend);
+    cp_async_commit();
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int chunks = nc[0] + nc[1];
+  if (chunks > 0) load(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    cp_async_wait<0>();  // chunk c has landed (the only copies in flight)
+    __syncthreads();     // ... for every thread; and chunk c - 1's buffer is free
+    if (c + 1 < chunks) load(c + 1, (c + 1) & 1);  // in flight while chunk c is multiplied
+    const int buf = c & 1;
+    // the next k's fragments are read while this k's are multiplied
+    float4 frag[2][4];
+    auto read = [&](int kk, float4* f) {
+      f[0] = *reinterpret_cast<const float4*>(&As[buf][kk][ty * 4]);
+      f[1] = *reinterpret_cast<const float4*>(&As[buf][kk][BM / 2 + ty * 4]);
+      f[2] = *reinterpret_cast<const float4*>(&Bs[buf][kk][tx * 4]);
+      f[3] = *reinterpret_cast<const float4*>(&Bs[buf][kk][BN / 2 + tx * 4]);
+    };
+    read(0, frag[0]);
+#pragma unroll
+    for (int kk = 0; kk < GM_BK; ++kk) {
+      if (kk + 1 < GM_BK) read(kk + 1, frag[(kk + 1) & 1]);
+      const float4* f = frag[kk & 1];
+      const float av[8] = {f[0].x, f[0].y, f[0].z, f[0].w, f[1].x, f[1].y, f[1].z, f[1].w};
+      const float bv[8] = {f[2].x, f[2].y, f[2].z, f[2].w, f[3].x, f[3].y, f[3].z, f[3].w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+  }
+  float* C = a.C + (size_t)blockIdx.z * a.split_stride;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = i0 + (i < 4 ? ty * 4 + i : BM / 2 + ty * 4 + i - 4);
+    if (row >= a.M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = j0 + (j < 4 ? tx * 4 + j : BN / 2 + tx * 4 + j - 4);
+      if (col >= a.N) continue;
+      float v = acc[i][j];
+      if (a.bias != nullptr) v += __ldg(a.bias + col);
+      if (a.addend != nullptr) v += __ldg(a.addend + (size_t)row * a.ldc + col);
+      C[(size_t)row * a.ldc + col] = v;
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
-// K9 backward, product phase: C (rows, cols) = A (rows, K) · Mᵀ with M
-// (cols, K) row-major — dh carry = dz_t·Uᵀ and dx_t = dz_t·Wᵀ. A CTA owns
-// WIDE_BR rows x MM_COLS columns; a thread owns 4 rows x 2 columns.
+// wide_bwd_chain: phase C, the reverse-time dh chain of one wide layer in one
+// persistent cooperative launch (at most one CTA an SM, all co-resident).
+//
+// A CTA owns J units (blockIdx.x, of unit_groups = n / J) and walks row
+// tiles of R batch rows (blockIdx.y, + gridDim.y, ...: more rows a CTA when
+// B > R·gridDim.y, never more CTAs). Its units' 4J gate columns of U
+// (rows g·n + j of Ut = Uᵀ) are staged in shared memory once, for all T
+// steps (kStaged), else read from Ut in global memory through L1. For t =
+// T-1 down to 0, for each row tile:
+//   * dh_c = dz_{t+1}·Uᵀ for the CTA's cells, as the sum over unit groups
+//     u' = 0, 1, ... in order of the partial sums P_{t+1}[u'] that every CTA
+//     stored in the previous step (none at t = T-1). P was stored by other
+//     CTAs in this launch, so it is read through L2 (ld.global.cg), never by
+//     ld.global.nc;
+//   * gate_bwd on z (phase R), c_{t-1}, c_t and dh = dh_seq[t] + dh_c, two
+//     cells a thread; the dc carry stays in registers for all T steps; dz_t
+//     goes to the dz store (K6: dxp itself) and to shared memory. Rows >= B
+//     are neither stored nor carried;
+//   * (t > 0) P_t[this group][rows][0:n] = dz_t[rows, its 4J columns] ·
+//     U[0:n, its 4J columns]ᵀ: R x n sums of 4J products each, a thread 8
+//     rows x 8 units (16-byte shared-memory loads, the rows broadcast), into
+//     P's parity t & 1;
+// then cooperative_groups' grid.sync().
+//
+// Batch rows are independent in the chain, so a batch larger than one
+// launch holds (CHAIN_MAX_ROW_TILES row tiles a CTA, the registers of the
+// dc carry) runs as consecutive launches over chunks of rows: the pointers
+// start at the chunk's first row, B is the chunk's rows and stride the
+// whole batch's (the rows between two steps). Where n / 16 unit groups
+// would outnumber the SMs, the wrapper's rule takes a wider unit group
+// (R x J = 16 x 32, 8 x 64: two cells a thread all the same).
+//
+// So no global load sits inside the product: a CTA reads R·J·unit_groups
+// floats of P and stores R·n a step (64 KB each way at n = 512, R = 32, J =
+// 16). A first version that read dz_{t+1}'s R x 4n floats (256 KB a CTA)
+// from L2 each step and multiplied them by U's rows spent longer on those
+// loads than on the product, whatever the number of CTAs: a step's loads
+// are bound by the bytes a CTA keeps in flight, not by L2's rate.
+//
+// What bounds it now (PERF.md §6): the product, R·n·4J FMAs a CTA a step
+// (1 M at n = 512: ~4 us at the card's FMA rate), then the step's chain of
+// latencies: the grid barrier, storing P before it and reading P after it.
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(WIDE_THREADS)
-matmul_nt(const float* __restrict__ A, const float* __restrict__ M, float* __restrict__ C,
-          int rows, int cols, int K) {
-  __shared__ float sa[WIDE_KC][WIDE_BR + 1];
-  __shared__ float sm[WIDE_KC][MM_COLS + 1];
-  const int c0 = blockIdx.x * MM_COLS, r0 = blockIdx.y * WIDE_BR;
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  constexpr int A_PER = WIDE_KC * WIDE_BR / WIDE_THREADS;   // 4
-  constexpr int M_PER = WIDE_KC * MM_COLS / WIDE_THREADS;   // 16
-  float acc[4][2];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) acc[r][0] = acc[r][1] = 0.f;
-  float va[A_PER], vm[M_PER];  // the next chunk, in flight (as in gates_tile)
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int q = 0; q < A_PER; ++q) {
-      const int e = threadIdx.x + q * WIDE_THREADS;
-      const int row = r0 + e / WIDE_KC, k = k0 + e % WIDE_KC;
-      va[q] = (row < rows && k < K) ? A[(size_t)row * K + k] : 0.f;
+#define CHAIN_THREADS 256
+#define CHAIN_MAX_ROW_TILES 8 // row tiles a CTA may walk each step
+
+template <int R, int J, bool kStaged>
+__global__ void __launch_bounds__(CHAIN_THREADS, 1)
+wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
+               const float* __restrict__ c, const float* __restrict__ dh_seq, float* dz, float* P,
+               int T, int B, int stride, int n, int row_tiles) {
+  constexpr int K = 4 * J;  // the CTA's gate columns
+  constexpr int CELLS = R * J / CHAIN_THREADS;
+  static_assert(CELLS >= 1 && R % 8 == 0, "every thread a cell; 8-row thread tiles");
+  extern __shared__ float4 chain_smem[];
+  float* sm = reinterpret_cast<float*>(chain_smem);
+  float* dzs = sm;                     // [K][R]: dz_t of the tile's rows at the CTA's columns
+  float* us = sm + K * R;              // [K][n]: Ut's rows of the CTA's columns (kStaged)
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * J;
+  const int groups = gridDim.x;
+  const int G = 4 * n;
+  const size_t pstride = (size_t)groups * B * n;  // floats of one parity of P
+  auto col = [&](int k) { return (k / J) * n + j0 + k % J; };  // gate column of local k
+  if (kStaged) {
+    for (int e = tid; e < K * (n / 4); e += CHAIN_THREADS) {
+      const int k = e / (n / 4), a4 = e % (n / 4);
+      *reinterpret_cast<float4*>(us + (size_t)k * n + 4 * a4) =
+          __ldg(reinterpret_cast<const float4*>(Ut + (size_t)col(k) * n) + a4);
     }
-#pragma unroll
-    for (int q = 0; q < M_PER; ++q) {
-      const int e = threadIdx.x + q * WIDE_THREADS;
-      const int col = c0 + e / WIDE_KC, k = k0 + e % WIDE_KC;
-      vm[q] = (col < cols && k < K) ? __ldg(M + (size_t)col * K + k) : 0.f;
-    }
-  };
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += WIDE_KC) {
-#pragma unroll
-    for (int q = 0; q < A_PER; ++q) {
-      const int e = threadIdx.x + q * WIDE_THREADS;
-      sa[e % WIDE_KC][e / WIDE_KC] = va[q];
-    }
-#pragma unroll
-    for (int q = 0; q < M_PER; ++q) {
-      const int e = threadIdx.x + q * WIDE_THREADS;
-      sm[e % WIDE_KC][e / WIDE_KC] = vm[q];
-    }
-    __syncthreads();
-    if (k0 + WIDE_KC < K) load(k0 + WIDE_KC);
-#pragma unroll 8
-    for (int kk = 0; kk < WIDE_KC; ++kk) {
-      const float m0 = sm[kk][tx], m1 = sm[kk][tx + 32];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const float v = sa[kk][ty * 4 + r];
-        acc[r][0] = fmaf(v, m0, acc[r][0]);
-        acc[r][1] = fmaf(v, m1, acc[r][1]);
-      }
-    }
-    __syncthreads();
+    // first read after the gate phase's barrier
   }
+  float dc[CHAIN_MAX_ROW_TILES][CELLS];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + ty * 4 + r;
-    if (row >= rows) continue;
+  for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
 #pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      const int col = c0 + tx + 32 * q;
-      if (col < cols) C[(size_t)row * cols + col] = acc[r][q];
+    for (int p = 0; p < CELLS; ++p) dc[q][p] = 0.f;
+  for (int t = T - 1; t >= 0; --t) {
+    for (int tile = 0; tile < row_tiles; ++tile) {
+      const int r0 = (blockIdx.y + tile * gridDim.y) * R;
+      float zv[CELLS][4], cp[CELLS], ct[CELLS], dh[CELLS];
+#pragma unroll
+      for (int p = 0; p < CELLS; ++p) {
+        const int o = tid + p * CHAIN_THREADS, row = r0 + o / J, j = j0 + o % J;
+        const bool ok = row < B;
+        const size_t m = (size_t)t * stride + row;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) zv[p][g] = ok ? __ldg(z + m * G + g * n + j) : 0.f;
+        ct[p] = ok ? __ldg(c + m * n + j) : 0.f;
+        cp[p] = ok && t > 0 ? __ldg(c + (m - stride) * n + j) : 0.f;
+        dh[p] = ok ? __ldg(dh_seq + m * n + j) : 0.f;
+      }
+      if (t + 1 < T) {
+        const float* Pp = P + (size_t)((t + 1) & 1) * pstride;  // P_{t+1}
+#pragma unroll
+        for (int p = 0; p < CELLS; ++p) {
+          const int o = tid + p * CHAIN_THREADS, row = r0 + o / J, j = j0 + o % J;
+          if (row >= B) continue;
+          float dh_c = 0.f;
+          for (int u = 0; u < groups; ++u) dh_c += __ldcg(Pp + ((size_t)u * B + row) * n + j);
+          dh[p] += dh_c;
+        }
+      }
+#pragma unroll
+      for (int p = 0; p < CELLS; ++p) {
+        const int o = tid + p * CHAIN_THREADS, r = o / J, u = o % J, row = r0 + r;
+        if (row >= B) continue;
+        float dcv = 0.f;
+#pragma unroll
+        for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
+          if (q == tile) dcv = dc[q][p];
+        float g4[4];
+        dcv = gate_bwd(zv[p][0], zv[p][1], zv[p][2], zv[p][3], cp[p], ct[p], dh[p], dcv, g4);
+#pragma unroll
+        for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
+          if (q == tile) dc[q][p] = dcv;
+        float* out = dz + ((size_t)t * stride + row) * G + j0 + u;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          out[g * n] = g4[g];
+          dzs[(g * J + u) * R + r] = g4[g];
+        }
+      }
+      __syncthreads();  // dzs complete
+      if (t > 0) {
+        float* Pt = P + (size_t)(t & 1) * pstride + (size_t)blockIdx.x * B * n;  // P_t[this group]
+        for (int q = tid; q < (R / 8) * (n / 8); q += CHAIN_THREADS) {
+          const int ty = q / (n / 8), tx = q % (n / 8);
+          float acc[8][8];
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+#pragma unroll 4
+          for (int k = 0; k < K; ++k) {
+            const float4 d0 = *reinterpret_cast<const float4*>(dzs + k * R + ty * 4);
+            const float4 d1 = *reinterpret_cast<const float4*>(dzs + k * R + R / 2 + ty * 4);
+            float4 w0, w1;
+            if (kStaged) {
+              w0 = *reinterpret_cast<const float4*>(us + (size_t)k * n + tx * 4);
+              w1 = *reinterpret_cast<const float4*>(us + (size_t)k * n + n / 2 + tx * 4);
+            } else {
+              const float* ur = Ut + (size_t)col(k) * n;
+              w0 = __ldg(reinterpret_cast<const float4*>(ur + tx * 4));
+              w1 = __ldg(reinterpret_cast<const float4*>(ur + n / 2 + tx * 4));
+            }
+            const float dv[8] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
+            const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+#pragma unroll
+              for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(dv[i], wv[j], acc[i][j]);
+          }
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const int row = r0 + (i < 4 ? ty * 4 + i : R / 2 + ty * 4 + i - 4);
+            if (row >= B) continue;
+            float* pr = Pt + (size_t)row * n;
+            *reinterpret_cast<float4*>(pr + tx * 4) =
+                make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+            *reinterpret_cast<float4*>(pr + n / 2 + tx * 4) =
+                make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+          }
+        }
+      }
+      __syncthreads();  // dzs is rewritten by the next tile
     }
+    if (t > 0) cooperative_groups::this_grid().sync();
   }
 }
 
@@ -1367,6 +1692,48 @@ int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl
   }
 }
 
+template <int BM, int BN, bool kAT, bool kBT>
+int launch_gemm(const GemmArgs& a, int splits, cudaStream_t s) {
+  const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, splits);
+  gemm_f32<BM, BN, kAT, kBT><<<grid, (BM / 8) * (BN / 8), 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+
+// Phase C at one (R, J, home): checks the shape, the shared memory and
+// co-residency (every CTA of the grid on the card at once, from the
+// occupancy of this kernel and the device's SM count), then the cooperative
+// launch; a grid that cannot be co-resident is refused, never run another
+// way.
+template <int R, int J, bool kStaged>
+int launch_chain(const float* z, const float* Ut, const float* c, const float* dh, float* dz,
+                 float* P, int T, int B, int stride, int n, int row_groups, cudaStream_t s) {
+  const int tiles = (B + R - 1) / R;
+  if (n % J != 0 || n % 8 != 0 || row_groups < 1 || row_groups > tiles || stride < B)
+    return (int)cudaErrorInvalidValue;
+  int row_tiles = (tiles + row_groups - 1) / row_groups;
+  if (row_tiles > CHAIN_MAX_ROW_TILES) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)4 * J * R + (kStaged ? (size_t)4 * J * n : 0)) * sizeof(float);
+  const auto kernel = wide_bwd_chain<R, J, kStaged>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, CHAIN_THREADS, smem)) !=
+      cudaSuccess)
+    return (int)err;
+  const dim3 grid(n / J, row_groups);
+  if (per_sm < 1 || (long long)grid.x * grid.y > (long long)per_sm * sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {(void*)&z,  (void*)&Ut, (void*)&c,      (void*)&dh, (void*)&dz,       (void*)&P,
+                  (void*)&T,  (void*)&B,  (void*)&stride, (void*)&n,  (void*)&row_tiles};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(CHAIN_THREADS), args, smem, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1443,35 +1810,92 @@ int wide_layer_fwd_launch(const void* x, const void* W, const void* U, const voi
   return (int)cudaSuccess;
 }
 
-// One wide layer backward, reverse time: per step the gate phase, then the
-// dh carry (skipped at t = 0) and dx_t (skipped when W is null: K6, whose dz
-// is dxp). dhc and dcc (B, n) must hold zeros on entry; dz (T, B, 4n)
-// receives every step's dz for the weight gradients.
-int wide_layer_bwd_launch(const void* x, const void* W, const void* U, const void* b,
-                          const void* h, const void* c, const void* dh, void* dx, void* dz,
-                          void* dhc, void* dcc, int T, int B, int din, int n, void* stream) {
-  if (n % WIDE_UJ != 0) return (int)cudaErrorInvalidValue;
-  const int G = 4 * n;
-  const dim3 grid_g(n / WIDE_UJ, (B + WIDE_BR - 1) / WIDE_BR);
-  const dim3 grid_h((n + MM_COLS - 1) / MM_COLS, (B + WIDE_BR - 1) / WIDE_BR);
-  const dim3 grid_x((din + MM_COLS - 1) / MM_COLS, (B + WIDE_BR - 1) / WIDE_BR);
-  cudaStream_t s = (cudaStream_t)stream;
-  const auto gates = W != nullptr ? &wide_bwd_gates<true> : &wide_bwd_gates<false>;
-  for (int t = T - 1; t >= 0; --t) {
-    gates<<<grid_g, WIDE_THREADS, 0, s>>>(
-        (const float*)x, (const float*)W, (const float*)U, (const float*)b, (const float*)h,
-        (const float*)c, (const float*)dh, (const float*)dhc, (float*)dcc, (float*)dz, t, B, din,
-        n);
-    const float* dzt = (const float*)dz + (size_t)t * B * G;
-    if (t > 0)
-      matmul_nt<<<grid_h, WIDE_THREADS, 0, s>>>(dzt, (const float*)U, (float*)dhc, B, n, G);
-    if (W != nullptr)
-      matmul_nt<<<grid_x, WIDE_THREADS, 0, s>>>(dzt, (const float*)W,
-                                                (float*)dx + (size_t)t * B * din, B, din, G);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// gemm_f32 (phases R, X, G of K9's and K6's backward), at its 128 x 128
+// tile. meta: 10 int64 — nseg, M, N, C, ldc, bias, addend, splits, kchunk,
+// split_stride — then GM_MAX_SEGS rows of 9: A, B,
+// lda, ldb, a_t, b_t, shift, ones_row, K (see GemmSeg; a_t: A read
+// transposed, b_t: B read transposed, the same in every segment, not both).
+// Pointers are device pointers or 0.
+int wide_gemm_launch(const int64_t* meta, void* stream) {
+  GemmArgs a;
+  a.nseg = (int)meta[0];
+  a.M = (int)meta[1];
+  a.N = (int)meta[2];
+  a.C = reinterpret_cast<float*>(meta[3]);
+  a.ldc = (int)meta[4];
+  a.bias = reinterpret_cast<const float*>(meta[5]);
+  a.addend = reinterpret_cast<const float*>(meta[6]);
+  const int splits = (int)meta[7];
+  a.kchunk = (int)meta[8];
+  a.split_stride = meta[9];
+  if (a.nseg < 1 || a.nseg > GM_MAX_SEGS || a.M < 1 || a.N < 1 || a.C == nullptr || splits < 1 ||
+      (splits > 1 && (a.kchunk < 1 || a.split_stride < (long long)a.M * a.ldc)) || a.ldc < a.N)
+    return (int)cudaErrorInvalidValue;
+  int form = -1;
+  for (int i = 0; i < GM_MAX_SEGS; ++i) {
+    const int64_t* m = meta + 10 + 9 * i;
+    GemmSeg& g = a.seg[i];
+    g.A = reinterpret_cast<const float*>(m[0]);
+    g.B = reinterpret_cast<const float*>(m[1]);
+    g.lda = (int)m[2];
+    g.ldb = (int)m[3];
+    const int a_t = (int)m[4], b_t = (int)m[5];
+    g.shift = (int)m[6];
+    g.ones_row = (int)m[7];
+    g.K = i < a.nseg ? (int)m[8] : 0;
+    g.vec_a = g.lda % 4 == 0 && ((uintptr_t)g.A & 15) == 0 && (g.ones_row < 0 || g.ones_row % 4 == 0);
+    g.vec_b = g.ldb % 4 == 0 && ((uintptr_t)g.B & 15) == 0;
+    if (i >= a.nseg) continue;
+    const int f = a_t ? (b_t ? -1 : 2) : (b_t ? 1 : 0);
+    if (g.A == nullptr || g.B == nullptr || g.K < 0 || f < 0 || (form >= 0 && f != form))
+      return (int)cudaErrorInvalidValue;
+    form = f;
   }
-  return (int)cudaSuccess;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {  // NN (phase R), NT (X), TN (G)
+    case 0: return launch_gemm<GM_BM, GM_BN, false, false>(a, splits, s);
+    case 1: return launch_gemm<GM_BM, GM_BN, false, true>(a, splits, s);
+    default: return launch_gemm<GM_BM, GM_BN, true, false>(a, splits, s);
+  }
+}
+
+// out[i] = Σ_{s<splits} partial[s·size + i], in order of s.
+int sum_splits_launch(const void* partial, void* out, int size, int splits, void* stream) {
+  if (size < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  const int blocks = (size + 255) / 256 < 1024 ? (size + 255) / 256 : 1024;
+  sum_splits<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)partial, (float*)out, size,
+                                                       splits);
+  return (int)cudaGetLastError();
+}
+
+// Phase C of K9's and K6's backward (wide_bwd_chain) over B rows of a
+// batch of stride rows: z (T, stride, 4n) from phase R, the forward's c and
+// the cotangent dh_seq (T, stride, n), dz (T, stride, 4n), each pointer at
+// the chunk's first row; Ut = Uᵀ (4n, n); P: two parities of the partial
+// sums, 2 x (n / units) x B x n floats. rows x units: the CTA's tile R x J
+// (32x16, U staged or from the global copy; 16x32 and 8x64 from the global
+// copy), row_groups: gridDim.y (ops/cuda_train.py: chain_plan). Checked
+// here, not chosen.
+int wide_bwd_chain_launch(const void* z, const void* Ut, const void* c, const void* dh, void* dz,
+                          void* P, int T, int B, int stride, int n, int rows, int units, int staged,
+                          int row_groups, void* stream) {
+  if (T < 1 || B < 1 || n < 1 || z == nullptr || Ut == nullptr || c == nullptr || dh == nullptr ||
+      dz == nullptr || P == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)Ut) | ((uintptr_t)P)) & 15) return (int)cudaErrorMisalignedAddress;
+  const float *zf = (const float*)z, *Uf = (const float*)Ut, *cf = (const float*)c,
+              *dhf = (const float*)dh;
+  float *dzf = (float*)dz, *Pf = (float*)P;
+  cudaStream_t s = (cudaStream_t)stream;
+#define CHAIN_CASE(R_, J_, ST_)                                         \
+  if (rows == R_ && units == J_ && (staged != 0) == ST_)                \
+    return launch_chain<R_, J_, ST_>(zf, Uf, cf, dhf, dzf, Pf, T, B, stride, n, row_groups, s);
+  CHAIN_CASE(32, 16, true)
+  CHAIN_CASE(32, 16, false)
+  CHAIN_CASE(16, 32, false)
+  CHAIN_CASE(8, 64, false)
+#undef CHAIN_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // K5: T launches of batched_step in stream order. xp (T, B, 4n) and h

@@ -27,9 +27,12 @@ backwards another: a group of lanes (``narrow_fwd_lanes``,
 − 1 steps forward, T + L back), and the weights are read gate-interleaved,
 staged in shared memory wherever the stack fits (``narrow_fwd_smem_bytes``,
 ``narrow_bwd_staged``) or from the copy :func:`pack_gates` in global
-memory. K6 runs K9's step kernels with the x·W part taken out. All compute
-in float32 (exact mode). The JAX kernels' ``precision=DEFAULT`` dots are
-exact float32 on the CPU, where the tests compare.
+memory. K9's forward is a kernel a step; its backward runs four phases
+(:func:`wide_bwd`: GEMMs for z, dx and the weight gradients over all T·B
+rows, and one persistent launch for the dh chain). K6 runs K9's kernels
+with the x·W part taken out. All compute in float32 (exact mode). The JAX
+kernels' ``precision=DEFAULT`` dots are exact float32 on the CPU, where
+the tests compare.
 
 Layouts are time-major, as the TPU kernels take them: x (T, B, d), every
 layer's h and c (T, B, n). The weights keep the Keras layout, unpadded: the
@@ -613,6 +616,206 @@ def fused_narrow_train_apply_compact(model, x_seq: torch.Tensor, return_sequence
 
 
 # ---------------------------------------------------------------------------
+# K9's and K6's backward: phases R, C, X, G (csrc gemm_f32, wide_bwd_chain)
+# ---------------------------------------------------------------------------
+
+GEMM_TILE = (128, 128)  # csrc GM_BM, GM_BN: a GEMM CTA's rows × columns of C
+GEMM_BK = 16           # csrc GM_BK: the K chunk of a GEMM
+GEMM_MAX_SEGS = 2      # csrc GM_MAX_SEGS: products summed by one GEMM
+GEMM_MAX_SPLITS = 16
+# phase C's tiles, rows × units a CTA (csrc wide_bwd_chain_launch), by width:
+# the first whose unit groups the card's SMs hold. U is staged at the first
+# only: the wider ones are taken past 16·SMs units, where it never fits.
+CHAIN_TILES = ((32, 16), (16, 32), (8, 64))
+CHAIN_MAX_ROW_TILES = 8  # csrc CHAIN_MAX_ROW_TILES
+
+
+class ChainPlan(NamedTuple):
+    """Phase C's launches (csrc ``wide_bwd_chain_launch``, which checks
+    each): the batch in chunks of at most ``chunk_rows`` rows, one launch a
+    chunk; in each, a CTA owns ``units`` units and walks at most
+    ``row_tiles`` tiles of ``rows`` batch rows a step; the grid is
+    unit_groups × row_groups CTAs (fewer row groups where a chunk has fewer
+    row tiles), one an SM at most, all co-resident."""
+
+    rows: int
+    units: int
+    staged: bool
+    unit_groups: int
+    row_groups: int
+    row_tiles: int
+    chunk_rows: int
+    smem_bytes: int
+
+    @property
+    def ctas(self) -> int:
+        return self.unit_groups * self.row_groups
+
+
+def chain_smem_bytes(n: int, rows: int, units: int, staged: bool) -> int:
+    """Shared memory of phase C: the tile's dz at the CTA's 4·units gate
+    columns, and with ``staged`` those columns of U for all n units."""
+    return 4 * 4 * units * (rows + (n if staged else 0))
+
+
+def chain_plan(B: int, n: int, sm_count: int) -> ChainPlan:
+    """Phase C's tile, weight home, grid and chunks for a batch of B rows
+    and n units on a card of ``sm_count`` SMs: the first of CHAIN_TILES
+    whose n / units groups the SMs hold; U staged where it fits a block's
+    shared memory (at the first tile), else read from the global copy; as
+    many row groups as the SMs left by the unit groups hold, at most one a
+    row tile; the batch split into the fewest chunks of equal row tiles that
+    keep each CTA within CHAIN_MAX_ROW_TILES. Raises only where even the
+    widest unit groups outnumber the SMs (n > 64·sm_count)."""
+    for rows, units in CHAIN_TILES:
+        if n // units <= sm_count:
+            break
+    else:
+        raise ValueError(f"wide backward chain: n = {n} needs {-(-n // units)} unit groups of "
+                         f"{units}, which cannot be co-resident on {sm_count} SMs")
+    if n % units or n % 8:
+        raise ValueError(f"wide backward chain: n = {n} does not split into {units}-unit groups")
+    staged = (rows, units) == CHAIN_TILES[0] and chain_smem_bytes(n, rows, units, True) <= _SMEM_LIMIT
+    smem = chain_smem_bytes(n, rows, units, staged)
+    _check_smem("wide backward chain", smem // 4)
+    unit_groups = n // units
+    most = sm_count // unit_groups  # row groups the SMs hold
+    tiles = -(-B // rows)
+    chunks = -(-tiles // (most * CHAIN_MAX_ROW_TILES))
+    chunk_tiles = -(-tiles // chunks)
+    row_groups = min(chunk_tiles, most)
+    row_tiles = -(-chunk_tiles // row_groups)
+    return ChainPlan(rows, units, staged, unit_groups, row_groups, row_tiles, chunk_tiles * rows, smem)
+
+
+def gemm_splits(K: int, tiles: int, sm_count: int) -> int:
+    """Splits S of a TN GEMM's reduction over K rows (phase G): the S ≤
+    GEMM_MAX_SPLITS, each split at least 256 rows, whose CTAs (two of 256
+    threads an SM: csrc ``__launch_bounds__``) run in the fewest waves per
+    unit of work, ⌈tiles·S / slots⌉ / S; the smallest such S."""
+    slots = 2 * sm_count
+    best, best_cost = 1, math.inf
+    for S in range(1, min(GEMM_MAX_SPLITS, max(1, K // 256)) + 1):
+        cost = math.ceil(tiles * S / slots) / S
+        if cost < best_cost - 1e-12:
+            best, best_cost = S, cost
+    return best
+
+
+def _seg(A: torch.Tensor, lda: int, B: torch.Tensor, ldb: int, K: int, a_t: int = 0,
+         b_t: int = 0, shift: int = 0, ones_row: int = -1) -> list:
+    """One product of a GEMM (csrc ``GemmSeg``, in its meta order)."""
+    return [A.data_ptr(), B.data_ptr(), lda, ldb, a_t, b_t, shift, ones_row, K]
+
+
+def _gemm(C: torch.Tensor, M: int, N: int, segs, offset: int = 0, bias=None, addend=None,
+          splits: int = 1, kchunk: int = 0, split_stride: int = 0) -> None:
+    """C[offset:] (M, N), row stride N, = Σ of the products ``segs`` (+ bias)
+    (+ addend), by csrc gemm_f32; with ``splits`` > 1 split s of the
+    reduction goes to C[offset + s·split_stride:]."""
+    meta = np.zeros(10 + 9 * GEMM_MAX_SEGS, dtype=np.int64)
+    meta[:10] = [len(segs), M, N, C.data_ptr() + 4 * offset, N, _ptr(bias) or 0,
+                 _ptr(addend) or 0, splits, kchunk, split_stride]
+    for i, seg in enumerate(segs):
+        meta[10 + 9 * i : 19 + 9 * i] = seg
+    _launch("wide_gemm", C.device, meta.ctypes.data)
+
+
+def phase_r(x, W, U, b, h) -> torch.Tensor:
+    """z (T, B, 4n) = x·W + h_prev·U + b over all T·B rows, h_prev being h
+    read B rows back (zero at t = 0); K6 (W None, x the projection xp): z =
+    xp + h_prev·U."""
+    T, B, din = x.shape
+    n = U.shape[0]
+    z = torch.empty((T, B, 4 * n), dtype=torch.float32, device=x.device)
+    h_prev = _seg(h, n, U, 4 * n, n, shift=B)
+    if W is None:
+        _gemm(z, T * B, 4 * n, [h_prev], addend=x)
+    else:
+        _gemm(z, T * B, 4 * n, [_seg(x, din, W, 4 * n, din), h_prev], bias=b)
+    return z
+
+
+def phase_c(z, Ut, c, dh_seq, dz, plan: ChainPlan) -> None:
+    """The dh chain (csrc wide_bwd_chain) from z and Ut = Uᵀ (4n, n): every
+    step's dz into ``dz`` (T, B, 4n), one launch a chunk of the batch's
+    rows."""
+    T, B, n = c.shape
+    G = 4 * n
+    # the partial sums of dh: two parities of unit_groups × chunk rows × n
+    P = torch.empty(2 * plan.unit_groups * min(B, plan.chunk_rows) * n, dtype=torch.float32,
+                    device=z.device)
+    for b0 in range(0, B, plan.chunk_rows):
+        rows = min(plan.chunk_rows, B - b0)
+        row_groups = min(plan.row_groups, -(-rows // plan.rows))
+        _launch("wide_bwd_chain", z.device, z.data_ptr() + 4 * b0 * G, Ut.data_ptr(),
+                c.data_ptr() + 4 * b0 * n, dh_seq.data_ptr() + 4 * b0 * n,
+                dz.data_ptr() + 4 * b0 * G, P.data_ptr(), T, rows, B, n, plan.rows, plan.units,
+                int(plan.staged), row_groups)
+
+
+def phase_x(dz, W) -> torch.Tensor:
+    """dx (T, B, din) = dz·Wᵀ."""
+    T, B, G = dz.shape
+    dx = torch.empty((T, B, W.shape[0]), dtype=torch.float32, device=dz.device)
+    _gemm(dx, T * B, W.shape[0], [_seg(dz, G, W, G, G, b_t=1)])
+    return dx
+
+
+def phase_g(inp, h, dz, sm_count: int):
+    """The weight gradients over all T·B rows, split over them in a fixed
+    order (:func:`gemm_splits`) and summed in order: one output of rows [dW;
+    db; dU] (K9, ``inp`` the layer's input; db is a row of ones beside inp's
+    columns), or dU alone (K6, ``inp`` None). Returns (dW, dU, db), views of
+    that output, or dU."""
+    T, B, G = dz.shape
+    n, M = h.shape[2], T * B
+    gemms = []  # (first output row, rows, product)
+    if inp is not None:
+        din = inp.shape[2]
+        gemms.append((0, din + 1, _seg(inp, din, dz, G, M, a_t=1, ones_row=din)))
+    first = 0 if inp is None else din + 1
+    gemms.append((first, n, _seg(h, n, dz, G, M, a_t=1, shift=B)))
+    rows = first + n
+    BM, BN = GEMM_TILE
+    S = gemm_splits(M, sum(-(-r // BM) * -(-G // BN) for _, r, _ in gemms), sm_count)
+    out = torch.empty((rows, G), dtype=torch.float32, device=dz.device)
+    partial = torch.empty((S, rows, G), dtype=torch.float32, device=dz.device) if S > 1 else out
+    kchunk = _round_up(-(-M // S), GEMM_BK)
+    for r0, r, seg in gemms:
+        _gemm(partial, r, G, [seg], offset=r0 * G, splits=S, kchunk=kchunk,
+              split_stride=rows * G)
+    if S > 1:
+        _launch("sum_splits", dz.device, partial.data_ptr(), out.data_ptr(), rows * G, S)
+    if inp is None:
+        return out
+    return out[:din], out[din + 1 :], out[din]
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's own SM count."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def wide_bwd(x, W, U, b, h, c, dh_seq):
+    """K9's backward (W given) or K6's (W and b None, x the projection xp)
+    on checked card tensors: phase R (z), C (the dh chain, writing dz; K6's
+    dz is dxp), X (dx, K9) and G (the weight gradients). Returns (dx, dW,
+    dU, db) or (dxp, dU)."""
+    T, B, _ = x.shape
+    n = U.shape[0]
+    sms = sm_count(x.device)
+    plan = chain_plan(B, n, sms)
+    z = phase_r(x, W, U, b, h)
+    dz = torch.empty_like(z)
+    phase_c(z, U.t().contiguous(), c, dh_seq, dz, plan)
+    del z  # 4·T·B·4n bytes: freed before phases X and G
+    if W is None:
+        return dz, phase_g(None, h, dz, sms)
+    return (phase_x(dz, W), *phase_g(x, h, dz, sms))
+
+
+# ---------------------------------------------------------------------------
 # K9: one wide layer, train pair
 # ---------------------------------------------------------------------------
 
@@ -639,17 +842,9 @@ def wide_layer_bwd(x, W, U, b, h, c, dh_seq):
         _check(name, t, (T, B, n))
     if not _card([x, W, U, b, h, c, dh_seq]):
         return wide_layer_bwd_plain(x, W, U, b, h, c, dh_seq)
-    dev = x.device
-    dx = torch.empty((T, B, din), dtype=torch.float32, device=dev)
-    dz = torch.empty((T, B, 4 * n), dtype=torch.float32, device=dev)
-    dhc = torch.zeros((B, n), dtype=torch.float32, device=dev)
-    dcc = torch.zeros((B, n), dtype=torch.float32, device=dev)
-    _launch("wide_layer_bwd", dev, x.data_ptr(), W.data_ptr(), U.data_ptr(), b.data_ptr(),
-            h.data_ptr(), c.data_ptr(), dh_seq.data_ptr(), dx.data_ptr(), dz.data_ptr(),
-            dhc.data_ptr(), dcc.data_ptr(), T, B, din, n)
-    dW, dU, db = _layer_weight_grads(x, h, dz)
+    grads = wide_bwd(x, W, U, b, h, c, dh_seq)
     wide_layer_bwd.launches += 1
-    return dx, dW, dU, db
+    return grads
 
 
 wide_layer_bwd.launches = 0
@@ -715,17 +910,9 @@ def lstm_recurrence_train_bwd(xp, U, h, c, dh_seq):
         _check(name, t, (T, B, n))
     if not _card([xp, U, h, c, dh_seq]):
         return lstm_recurrence_train_bwd_plain(xp, U, h, c, dh_seq)
-    dev = xp.device
-    dxp = torch.empty((T, B, 4 * n), dtype=torch.float32, device=dev)
-    dhc = torch.zeros((B, n), dtype=torch.float32, device=dev)
-    dcc = torch.zeros((B, n), dtype=torch.float32, device=dev)
-    # K9's launcher with no W, no b and no dx: its dz store is dxp
-    _launch("wide_layer_bwd", dev, xp.data_ptr(), None, U.data_ptr(), None, h.data_ptr(),
-            c.data_ptr(), dh_seq.data_ptr(), None, dxp.data_ptr(), dhc.data_ptr(), dcc.data_ptr(),
-            T, B, 0, n)
-    dU = _weight_grad(h.view(T * B, n), B, dxp.view(T * B, 4 * n))
+    grads = wide_bwd(xp, None, U, None, h, c, dh_seq)
     lstm_recurrence_train_bwd.launches += 1
-    return dxp, dU
+    return grads
 
 
 lstm_recurrence_train_bwd.launches = 0

@@ -528,6 +528,90 @@ def test_cuda_recurrence_train_matches_plain(cuda, n, B, monkeypatch):
         _close(a, r.cpu().numpy(), GRAD, name)
 
 
+# the four-phase backward of K9 and K6 (R: z, C: the dh chain, X: dx, G: the
+# weight gradients) at the shapes its rule must take: (n, d, B, T) with
+# ragged B (1, 17, 130: masked row tiles; 130 and 600: more than one row
+# tile a CTA; 2048: the chain in two launches), T = 1 (no step reads dz_T),
+# n = 128 and 256 (fewer unit groups), n = 1024 (U from the global copy), n
+# = 2176 and 4352 on 132 SMs (wider unit groups: 16 x 32, 8 x 64), d = 16
+# and 7 (K not a multiple of the GEMM's chunk)
+WIDE_BWD_CASES = [
+    (512, 16, 1, 5), (512, 512, 17, 4), (512, 16, 130, 3), (512, 16, 600, 2),
+    (256, 64, 256, 3), (128, 16, 33, 1), (128, 7, 9, 4), (1024, 128, 20, 3),
+    (512, 16, 2048, 2), (2176, 16, 20, 2), (4352, 16, 9, 2),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,B,T", WIDE_BWD_CASES)
+def test_cuda_wide_bwd_matches_plain(cuda, n, d, B, T, monkeypatch):
+    W, U, b = _t(_layers_np(40 + n + B, (n,), d)[0], cuda)
+    rng = np.random.default_rng(41 + B)
+    x = _t(_normal(rng, (T, B, d)), cuda)
+    dh = _t(_normal(rng, (T, B, n)), cuda)
+    plan = ct.chain_plan(B, n, ct.sm_count(cuda))
+    assert plan.staged == (n <= 512)
+    h_p, c_p = ct.wide_layer_fwd_plain(x, W, U, b)
+    grads_p = ct.wide_layer_bwd_plain(x, W, U, b, h_p, c_p, dh)
+    xp = (torch.matmul(x, W) + b).contiguous()
+    rec_p = ct.lstm_recurrence_train_bwd_plain(xp, U, h_p, c_p, dh)
+    monkeypatch.setattr(ct, "wide_layer_bwd_plain", None)  # no fallback on the card
+    monkeypatch.setattr(ct, "lstm_recurrence_train_bwd_plain", None)
+    grads = _launched(ct.wide_layer_bwd, lambda: ct.wide_layer_bwd(x, W, U, b, h_p, c_p, dh))
+    for name, a, r in zip(("dx", "dW", "dU", "db"), grads, grads_p):
+        _close(a, r.cpu().numpy(), GRAD, name)
+    rec = _launched(ct.lstm_recurrence_train_bwd,
+                    lambda: ct.lstm_recurrence_train_bwd(xp, U, h_p, c_p, dh))
+    for name, a, r in zip(("dxp", "dU"), rec, rec_p):
+        _close(a, r.cpu().numpy(), GRAD, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+def test_cuda_wide_bwd_weight_homes_match_plain(cuda, staged):
+    """Phase C with U staged and from the global copy at one shape (the
+    rule stages it there), forced past the rule."""
+    n, d, B, T = 256, 16, 40, 4
+    W, U, b = _t(_layers_np(50, (n,), d)[0], cuda)
+    rng = np.random.default_rng(51)
+    x = _t(_normal(rng, (T, B, d)), cuda)
+    dh = _t(_normal(rng, (T, B, n)), cuda)
+    h_p, c_p = ct.wide_layer_fwd_plain(x, W, U, b)
+    plan = ct.chain_plan(B, n, ct.sm_count(cuda))
+    assert plan.staged
+    plan = plan._replace(staged=staged, smem_bytes=ct.chain_smem_bytes(n, plan.rows, plan.units, staged))
+    xp = (torch.matmul(x, W) + b).contiguous()
+    for inp, Wi, bi, plain in ((x, W, b, ct.wide_layer_bwd_plain(x, W, U, b, h_p, c_p, dh)),
+                               (xp, None, None, ct.lstm_recurrence_train_bwd_plain(xp, U, h_p, c_p, dh))):
+        z = ct.phase_r(inp, Wi, U, bi, h_p)
+        dz = torch.empty_like(z)
+        ct.phase_c(z, U.t().contiguous(), c_p, dh, dz, plan)
+        grads = (dz, ct.phase_g(None, h_p, dz, ct.sm_count(cuda))) if Wi is None else \
+            (ct.phase_x(dz, W), *ct.phase_g(x, h_p, dz, ct.sm_count(cuda)))
+        torch.cuda.synchronize()
+        for i, (a, r) in enumerate(zip(grads, plain)):
+            _close(a, r.cpu().numpy(), GRAD, f"gradient {i}")
+
+
+@pytest.mark.cuda
+def test_cuda_wide_bwd_refuses_a_grid_that_cannot_be_co_resident(cuda):
+    """A chain grid larger than the card holds at once is refused by the
+    launcher (cudaErrorCooperativeLaunchTooLarge), not run another way; the
+    rule raises before it for a width whose unit groups alone overflow."""
+    n, B, T = 512, 256, 2
+    sms = ct.sm_count(cuda)
+    U = torch.zeros((n, 4 * n), device=cuda)
+    z = torch.zeros((T, B, 4 * n), device=cuda)
+    c = torch.zeros((T, B, n), device=cuda)
+    plan = ct.chain_plan(B, n, sms)
+    forged = plan._replace(row_groups=-(-B // plan.rows))  # 8 row groups: 256 CTAs
+    assert forged.ctas > sms
+    with pytest.raises(RuntimeError, match="cudaError"):
+        ct.phase_c(z, U.t().contiguous(), c, c, torch.empty_like(z), forged)
+    with pytest.raises(ValueError, match="co-resident"):
+        ct.chain_plan(B, 64 * sms + 128, sms)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_float64(cuda):
     layers = _t(_layers_np(22, (4,), 3), cuda, torch.float64)
