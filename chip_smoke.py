@@ -6,8 +6,9 @@
 Needs one CUDA card and ``nvcc``; with no card it exits non-zero at once and
 prints no result. It imports torch, numpy and the port, never JAX. With
 ``--parent DIR`` (another checkout of the repo, e.g. the parent commit
-unpacked by ``git archive``) phase 5c also times DIR's narrow and wide train
-kernels and steps in turns with this checkout's (see 5c).
+unpacked by ``git archive``) phase 5c also times DIR's inference kernels and
+paths, narrow and wide train kernels and steps in turns with this
+checkout's (see 5c).
 
 Phases, each of which raises on failure (no phase is caught):
 
@@ -15,12 +16,14 @@ Phases, each of which raises on failure (no phase is caught):
 2. build the CUDA kernels from ``svd_lstm_tpu_torch/ops/csrc`` and print the
    build time and the compiler's resource report;
 3. check each batch-1 kernel against its plain PyTorch version on the card
-   at the main path's shapes (T = 6656, d = 16, TF32 off): max abs
+   at the main path's shapes (T = 6656, d = 16, TF32 off; K1's route, the
+   weights' home and lanes of ``cuda_lstm.dense_plan``, is printed): max abs
    difference at most 5e-4 (the layout-exactness bound of ``bench.py``: the
    sum order differs from the plain version and the error grows over 6656
    steps), and time both;
 3b. check K5 (the batched fast-mode recurrence) against its plain version on
-   every layer of the 3×512 and the 4×30 checkpoints at B = 256, T = 128:
+   every layer of the 3×512 and the 4×30 checkpoints at B = 256, T = 128
+   (its tile and launches a call, ``cuda_batched.batched_plan``, printed):
    within 2 bf16 ulps of max |h| (the rounding of the bf16 output) or twice
    the plain version's distance from the same recurrence with float64 state,
    whichever is larger (a float32 sum order that flips the rounding of one
@@ -104,7 +107,12 @@ Phases, each of which raises on failure (no phase is caught):
    time to issue it, the card's busy time from torch.profiler, in all and
    in the pair's forward and backward kernels; each measured in a fresh
    process on DIR's package and on this checkout's, in turns (P C C P C P P
-   C: parent, change);
+   C: parent, change); in the same processes the inference side: K1 exact
+   at 4×30 (the checkpoint) and 4×40 (run A's fresh stack) and K1f at 4×30
+   over T = 6656, K5 on 3×512's layer 1 at B = 256, T = 128 alone and with
+   its x-side product, cuDNN's LSTM beside each, batch-1 ``predict`` of
+   4×30 dense and split r = 15 (full_ms, reduced_ms) and batched fast
+   ``predict`` on 3×512;
 6. (continued) drive the post-truncation recovery through its public entry
    points, on the same windows: run E ``recover_reduced_gated`` of the 4×30
    split r = 15 truncation at B = 128 (K8 both ways), run F
@@ -364,6 +372,9 @@ def kernel_checks(dev, x):
 
     # K1: 4x30 dense, and its split r=15 truncation reconstructed to dense
     m30 = P.load_params(DENSE_30, device=dev)
+    for units in ((30,) * 4, (40,) * 4, (512,) * 3):
+        log(f"[info] K1 route {'x'.join(map(str, units))}, d={d}: exact "
+            f"{ck.dense_plan(units, d, False)}, fast {ck.dense_plan(units, d, True)}")
     red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
     err = 0.0
     for name, m in (("4x30 dense", m30), ("4x30 split r=15 reconstructed", P.reconstruct_dense_model(red30))):
@@ -468,6 +479,9 @@ def batched_kernel_checks(dev) -> dict:
                                     cb.batched_lstm_recurrence(xp, l.U), xp, l.U, h))
             if name == "3x512" and i == 1:
                 timed = (l, xp, h)
+    for n in (512, 30):
+        plan = cb._card_plan(dev, BATCH_B, n, True)
+        log(f"[info] K5 at n={n}, B={BATCH_B}: {plan}, {plan.chunks(BATCH_B)} launch(es) a call")
     l, xp, h = timed  # layer 1 of 3x512: a 512-wide input, as layers 1 and 2 have
     h_in = batched_layer_inputs(P.load_params(DENSE_512, device=dev), xb)[0][2]  # layer 0's h
     n, W16, b16 = l.units, l.W.to(torch.bfloat16), l.b.to(torch.bfloat16)
@@ -1402,15 +1416,54 @@ def wide_times(dev, data) -> dict:
     return out
 
 
+@torch.no_grad()
+def inference_times(dev) -> dict:
+    """K1 exact at 4x30 (the checkpoint) and 4x40 (run A's fresh stack) and
+    K1f at 4x30 over T = 6656; K5 on 3x512's layer 1 at B = 256, T = 128,
+    alone and with its x-side product; cuDNN's LSTM beside each (the whole
+    stack, or the layer with its x-side, as in phases 3, 3b, 3c); batch-1
+    predict of 4x30 dense and split r = 15; batched fast predict on 3x512:
+    ms of each, in the package this process imported."""
+    out = {}
+    x = torch.tensor(np.random.default_rng(0).normal(size=(T, D)), dtype=torch.float32, device=dev)
+    m30 = P.load_params(DENSE_30, device=dev)
+    m40 = TRAIN_RUNS[0].make(dev)
+    for name, m, dp in (("K1 4x30", m30, None), ("K1 4x40", m40, None), ("K1f 4x30", m30, "default")):
+        out[name] = device_time_ms(lambda: ck.fused_dense_stack(m, x, dot_precision=dp))
+        xs = x[:, None] if dp is None else x[:, None].bfloat16()
+        lstm = cudnn_lstm([(l.W, l.U, l.b) for l in m.layers], dev, xs.dtype)
+        with cudnn_exact():
+            out[f"cuDNN beside {name}"] = device_time_ms(lambda: lstm(xs))
+    m512 = P.load_params(DENSE_512, device=dev)
+    xb = torch.tensor(np.random.default_rng(2).normal(size=(BATCH_B, BATCH_T, D)),
+                      dtype=torch.float32, device=dev)
+    (_, _, h_in), (l, xp, _) = batched_layer_inputs(m512, xb)[:2]
+    W16, b16 = l.W.to(torch.bfloat16), l.b.to(torch.bfloat16)
+    out["K5 3x512 layer 1"] = device_time_ms(cb.batched_lstm_recurrence, xp, l.U)
+    out["K5 3x512 layer 1 with its x-side"] = device_time_ms(
+        lambda: cb.batched_lstm_recurrence(torch.matmul(h_in, W16) + b16, l.U))
+    lstm = cudnn_lstm([(l.W, l.U, l.b)], dev, torch.bfloat16)
+    out["cuDNN bf16 beside K5 (with its x-side)"] = device_time_ms(lambda: lstm(h_in))
+    red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
+    timing = time_full_vs_reduced(m30, red30, x)
+    out["predict 4x30 dense (full_ms)"] = timing.full_ms
+    out["predict 4x30 split r=15 (reduced_ms)"] = timing.reduced_ms
+    xb3 = torch.tensor(np.random.default_rng(3).normal(size=(BATCH_B, BATCH_T, D)),
+                       dtype=torch.float32, device=dev)
+    out["batched fast predict 3x512"] = device_time_ms(lambda: P.predict(m512, xb3, precision="fast"))
+    return out
+
+
 def tree_times(dev) -> dict:
-    """``--time-tree DIR``: narrow_times, wide_times and one train step
-    (forward, backward, Adam) of runs A, B, E (narrow) and C, D, F (wide),
-    on DIR's package: the step's span on the card, the host's time to issue
-    it and the card's busy time in it, in all and in the pair's kernels
-    (step_split)."""
+    """``--time-tree DIR``: inference_times, narrow_times, wide_times and
+    one train step (forward, backward, Adam) of runs A, B, E (narrow) and C,
+    D, F (wide), on DIR's package: the step's span on the card, the host's
+    time to issue it and the card's busy time in it, in all and in the
+    pair's kernels (step_split)."""
     data = train_data()
     with exact_matmul():
-        out = narrow_times(dev, data)
+        out = inference_times(dev)
+        out.update(narrow_times(dev, data))
         out.update(wide_times(dev, data))
     for run, parts in ((TRAIN_RUNS[0], NARROW_PARTS), (TRAIN_RUNS[1], NARROW_PARTS),
                        (RECOVERY_RUNS[0], NARROW_PARTS), (TRAIN_RUNS[2], WIDE_PARTS),

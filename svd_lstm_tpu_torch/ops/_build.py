@@ -40,6 +40,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # meta, L, x, out, T, d, bf16, stream
     "fused_dense_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+    # meta, L, P, E, x, out, T, d, lanes, home, bf16, stream
+    "dense_stack_wave_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # xp, Bt, IC, h0, c0, out, T, n, R, bf16, stream
     "reduced_recurrence_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # xp, U, h0, c0, out, T, n, bf16, stream
@@ -63,8 +65,10 @@ _SIGNATURES = {
     "sum_splits_launch": [_P, _P, _I, _I, _P],
     # z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups, stream
     "wide_bwd_chain_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # xp, U, h, c, T, B, n, bf16, stream
-    "batched_lstm_recurrence_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp, Ut, h, T, B, stride, n, rows, units, bf16, stream
+    "batched_lstm_recurrence_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # n, rows, units, bf16, per_sm (int*)
+    "batched_lstm_per_sm": [_I, _I, _I, _I, _P],
 }
 
 

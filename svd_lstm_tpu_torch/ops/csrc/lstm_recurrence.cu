@@ -13,16 +13,21 @@
 //    steps inside the kernel, which replaces the TPU's sequential grid and
 //    its CT-step chunking (no time padding). One launch per sequence, no
 //    per-step launch.
-//  * h, c and z live in shared memory; every phase of a step ends with a
-//    __syncthreads().
-//  * Thread k owns gate column k of (., 4n) (strided by blockDim when 4n is
-//    wider than the block). Weights are row-major (Keras layout), so a warp
-//    reads 32 neighbouring columns of one row: the reads coalesce.
-//  * Weights are read through __ldg from global memory. A narrow stack stays
-//    L1-resident; the wide ones come from L2 every step. Staging them in
-//    shared memory, splitting over CTAs and wgmma are later work.
-//  * Each thread's dot runs four independent accumulators, so the FMA
-//    chain does not serialise on its own latency.
+//  * K1 (dense_stack_wave, every stack of at most 1024 units) runs the
+//    layers as a one-row wavefront: one barrier a step, a group of S lanes a
+//    unit splitting its dot, the gate update and c in the owning lane's
+//    registers, the weights gate-interleaved in registers, in shared memory
+//    or read from a global copy (see its note). A wider stack (3x512) runs
+//    fused_dense_stack_kernel, the time-outer, layer-inner loop below.
+//  * K2, K3, K4 and K1's layer loop: h, c and z live in shared memory; every
+//    phase of a step ends with a __syncthreads(). Thread k owns gate column
+//    k of (., 4n) (strided by blockDim when 4n is wider than the block).
+//    Weights are row-major (Keras layout), so a warp reads 32 neighbouring
+//    columns of one row: the reads coalesce. They are read through __ldg
+//    from global memory: a narrow stack stays L1-resident, the wide ones
+//    come from L2 every step. Each thread's dot runs four independent
+//    accumulators, so the FMA chain does not serialise on its own latency.
+//    Splitting the wide layers over CTAs is later work (ROADMAP).
 //  * The gate update is one __device__ function (the counterpart of
 //    models/lstm.py:gate_update), with expf/tanhf in f32. No fast math.
 //
@@ -74,6 +79,16 @@ __device__ __forceinline__ float ldw(const __nv_bfloat16* p) {
 
 __device__ __forceinline__ float sigmoid_f32(float v) { return 1.0f / (1.0f + expf(-v)); }
 
+// One cell from its four gate pre-activations: updates c, returns the new h.
+__device__ __forceinline__ float gate_cell(float zi, float zf, float zg, float zo, float& c) {
+  const float i = sigmoid_f32(zi);
+  const float f = sigmoid_f32(zf);
+  const float g = tanhf(zg);
+  const float o = sigmoid_f32(zo);
+  c = f * c + i * g;
+  return o * tanhf(c);
+}
+
 // z: (4n) pre-activations [i|f|c|o]; updates c (n) in place and h (n) to the
 // new h as the next products' operand (rounded in fast mode), and writes the
 // unrounded h to out_row (global) when it is given. Callers sync before and
@@ -82,13 +97,9 @@ template <bool BF16>
 __device__ __forceinline__ void gate_update(const float* z, float* h, float* c, int n,
                                             float* out_row) {
   for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    const float i = sigmoid_f32(z[j]);
-    const float f = sigmoid_f32(z[n + j]);
-    const float g = tanhf(z[2 * n + j]);
-    const float o = sigmoid_f32(z[3 * n + j]);
-    const float cn = f * c[j] + i * g;
-    const float hn = o * tanhf(cn);
-    c[j] = cn;
+    float cj = c[j];
+    const float hn = gate_cell(z[j], z[n + j], z[2 * n + j], z[3 * n + j], cj);
+    c[j] = cj;
     h[j] = Mode<BF16>::round(hn);
     if (out_row != nullptr) out_row[j] = hn;
   }
@@ -192,13 +203,16 @@ struct StackArgs {
 };
 
 // ---------------------------------------------------------------------------
-// K1. fused_dense_stack — replaces svd_lstm_tpu/ops/pallas_lstm.py:
-// fused_dense_stack_pallas. The whole dense stack (every layer n <= 128 on
-// the main path) for batch 1: per step, per layer, z = x_t·W + h·U + b and
-// the gate update, layer i's new h feeding layer i+1 within the step. Only
-// the last layer's h goes out; the head runs outside.
+// K1's layer loop (fused_dense_stack_kernel) — for the stacks that
+// dense_stack_wave below cannot take: more than 1024 units (3x512, reached
+// only through bench/timing.py's "pallas" impl) or an input wider than its
+// block (ops/cuda_lstm.py: dense_plan). Replaces, with it,
+// svd_lstm_tpu/ops/pallas_lstm.py: fused_dense_stack_pallas. Per step, per
+// layer, z = x_t·W + h·U + b and the gate update, layer i's new h feeding
+// layer i+1 within the step. Only the last layer's h goes out; the head
+// runs outside.
 // Bound: the dependent chain of 2 barriers per layer-step plus a
-// (din + n)-long dot per thread; the 4x40 weights (~188 KB) stay in L1/L2.
+// (din + n)-long dot per thread, the weights from L1/L2.
 // Design: everything stays in one CTA for all T; x_{t+1} is staged into
 // shared memory during the last layer's gate phase of step t, so staging
 // adds no barrier.
@@ -247,6 +261,252 @@ fused_dense_stack_kernel(StackArgs<typename Mode<BF16>::W> a, const float* __res
       __syncthreads();
       inp = hs[i];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K1. dense_stack_wave — replaces svd_lstm_tpu/ops/pallas_lstm.py:
+// fused_dense_stack_pallas for every stack of at most 1024 units (the
+// wrapper's rule, ops/cuda_lstm.py: dense_plan). The whole dense stack for
+// batch 1: per layer z = inp·W + h·U + b and the gate update; only the last
+// layer's h goes out (T, n_out), the head runs outside.
+//
+// What bounds it: at one row every step reads every weight once and does
+// (din + n)·4n multiply-adds a layer (28 800 at 4x30), so the chain of
+// dependent steps is the bound, each step's latency: its loads, its dot, the
+// sum across lanes, the gate math (expf, tanhf, IEEE divides) and a barrier.
+// What the design does about it:
+//  * The layers run as a wavefront: at step s layer i computes t = s - i,
+//    from the state that step s - 1 wrote (h of the layer below at t, its
+//    own h at t - 1), into the other parity; T + L - 1 steps, one barrier a
+//    step (the layer loop has two a layer-step). One parity of the state is
+//    the vector [x_t | h_0 | ... | h_{L-1}], one float an entry, so layer
+//    i's input [h_{i-1} | h_i] (or [x | h_0]) is one contiguous range.
+//    x_{s+1} is loaded at the top of step s and stored into the state at
+//    its end. Both parities start at zero (h_{-1} = 0).
+//  * A group of S lanes of one warp owns unit j of layer i and splits its
+//    din + n terms (lane l takes k = l, l + S, ...) for all four gates; a
+//    warp holds 32 / S units, lane-major (lane l of its groups at lanes
+//    [l·32/S, (l + 1)·32/S)), so the groups of a warp read one state entry
+//    at a time. sum_gates adds the lanes' partial sums by shuffles in a
+//    fixed order (a tree over the lane index, the highest bit first) and
+//    hands the owning lane (l = 0) all four; it runs the gate update with c
+//    in a register for all T steps. z never touches shared memory.
+//  * A lane stops at its last k < din + n, so it never reads the next
+//    layer's h or weights (zero padding would let a NaN top layer leak
+//    downwards, as 0·NaN is NaN).
+//  * The weights, gate-interleaved as [k][j][4] (one 16-byte load, 8 in fast
+//    mode, gives unit j's four gates at input k; the 32 / S groups of a warp
+//    read neighbouring units), come from the wrapper's packed copy P of all
+//    layers (ops/cuda_lstm.py: pack_wave), where HOME says:
+//      kRegs   — each lane loads its at most WAVE_REG_KB entries into
+//                registers once (indexed at compile time), at most
+//                WAVE_REG_THREADS threads (4x30 at S = 4: 15 entries, 480
+//                threads);
+//      kStaged — P is staged into shared memory once (4x40 exact: 189 KB);
+//      kGlobal — P is read through __ldg from L1/L2 every step (4x128, and
+//                (128,) in exact mode).
+//    The wrapper's rule takes the registers where they hold a lane's
+//    entries, else shared memory where P fits, else the global copy.
+// Fast mode (BF16): P holds bf16 weights; x_t and h are rounded to bf16
+// where they are written into the state; c, the bias and the h that goes
+// out stay float32.
+// Measured on the H100 (PERF.md §6), by taking one part of the step
+// out at a time: at 4x30 (registers, S = 4) a step takes ~0.95 us, of which
+// the gate math ~0.22, the dot ~0.22 and the shuffles ~0.11; without the
+// barrier it takes as long, so each warp's own chain through the step sets
+// it. At 4x40 (staged) ~1.75 us, ~0.96 of it the dot's shared-memory loads:
+// the registers home ran 1.5x faster than the staged one at 4x30.
+// ---------------------------------------------------------------------------
+#define WAVE_REG_KB 16        // entries a lane holds in registers (kRegs)
+#define WAVE_REG_THREADS 512  // the block of kRegs: 128 registers a thread
+
+enum WaveHome { kRegs = 0, kStaged = 1, kGlobal = 2 };
+
+// One [k][j] entry of P: unit j's four gate weights at input k.
+template <bool BF16> struct WaveEntry;
+template <> struct WaveEntry<false> {
+  using E = float4;
+  static __device__ __forceinline__ float4 unpack(float4 e) { return e; }
+};
+template <> struct WaveEntry<true> {
+  using E = uint2;  // four bf16, gate 0 in the low half of x
+  static __device__ __forceinline__ float4 unpack(uint2 e) {
+    return make_float4(__uint_as_float(e.x << 16), __uint_as_float(e.x & 0xffff0000u),
+                       __uint_as_float(e.y << 16), __uint_as_float(e.y & 0xffff0000u));
+  }
+};
+
+struct WaveLayer {
+  int din, n;
+  int w_off;       // first entry of the layer's (din + n) x n entries in P
+  const float* b;  // (4n)
+};
+
+struct WaveArgs {
+  int L;
+  WaveLayer l[MAX_LAYERS];
+};
+
+// One exchange of a reduce-scatter over the lane group: the lane keeps the
+// lower or upper half of v[0, 2·HALF) (its bit says which) and adds the
+// partner's copy of that half; the kept half moves to v[0, HALF).
+template <int HALF>
+__device__ __forceinline__ void keep_half(float (&v)[4], bool upper, int offset, unsigned mask) {
+#pragma unroll
+  for (int q = 0; q < HALF; ++q) {
+    const float send = upper ? v[q] : v[q + HALF];
+    const float keep = upper ? v[q + HALF] : v[q];
+    v[q] = keep + __shfl_xor_sync(mask, send, offset);
+  }
+}
+
+// Sums the group's four partial gate sums v[0..3] over its S lanes: a
+// reduce-scatter (the pair across the highest lane bit first, so every sum
+// is the same tree over the lane index, in a fixed order), after which the
+// owning lane (l = 0) gathers the other gates; only its v is complete.
+template <int S>
+__device__ __forceinline__ void sum_gates(float (&v)[4], int l, int lane, unsigned mask) {
+  constexpr int G = 32 / S;  // lane l' of a group sits at warp lane l'·G + its group
+  const int base = lane % G;
+  if constexpr (S == 2) {
+    keep_half<2>(v, l & 1, G, mask);  // l = 0: gates 0, 1; l = 1: gates 2, 3
+    const float g2 = __shfl_xor_sync(mask, v[0], G), g3 = __shfl_xor_sync(mask, v[1], G);
+    v[2] = g2;
+    v[3] = g3;
+  } else if constexpr (S == 4) {
+    keep_half<2>(v, (l >> 1) & 1, 2 * G, mask);
+    keep_half<1>(v, l & 1, G, mask);  // lane l: gate l
+    const float g1 = __shfl_sync(mask, v[0], base + G);
+    const float g2 = __shfl_sync(mask, v[0], base + 2 * G);
+    const float g3 = __shfl_sync(mask, v[0], base + 3 * G);
+    v[1] = g1;
+    v[2] = g2;
+    v[3] = g3;
+  } else if constexpr (S == 8) {
+    keep_half<2>(v, (l >> 2) & 1, 4 * G, mask);
+    keep_half<1>(v, (l >> 1) & 1, 2 * G, mask);
+    v[0] += __shfl_xor_sync(mask, v[0], G);  // lanes 2q, 2q + 1: gate q
+    const float g1 = __shfl_sync(mask, v[0], base + 2 * G);
+    const float g2 = __shfl_sync(mask, v[0], base + 4 * G);
+    const float g3 = __shfl_sync(mask, v[0], base + 6 * G);
+    v[1] = g1;
+    v[2] = g2;
+    v[3] = g3;
+  }
+}
+
+template <bool BF16, int S, int HOME>
+__global__ void __launch_bounds__(HOME == kRegs ? WAVE_REG_THREADS : MAX_THREADS)
+dense_stack_wave(WaveArgs a, const typename WaveEntry<BF16>::E* __restrict__ P,
+                 const float* __restrict__ x, float* __restrict__ out, int T, int d, int V,
+                 int E) {
+  using Ent = typename WaveEntry<BF16>::E;
+  extern __shared__ float4 wave_smem[];
+  constexpr int G = 32 / S;
+  const int tid = threadIdx.x, lane = tid & 31, l = lane / G, g = (tid >> 5) * G + lane % G;
+
+  // this thread's unit: layer li, unit j; its entries from w_off, its h at h_off
+  int li = -1, j = 0, w_off = 0, h_off = 0;
+  {
+    int u = 0, so = d;
+    for (int i = 0; i < a.L; ++i) {
+      const int n = a.l[i].n;
+      if (li < 0 && g < u + n) {
+        li = i;
+        j = g - u;
+        w_off = a.l[i].w_off;
+        h_off = so;
+      }
+      u += n;
+      so += n;
+    }
+  }
+
+  Ent* ws = reinterpret_cast<Ent*>(wave_smem);
+  float* state = reinterpret_cast<float*>(wave_smem);  // two parities of V floats
+  if constexpr (HOME == kStaged) {
+    for (int e = tid; e < E; e += blockDim.x) ws[e] = P[e];
+    state = reinterpret_cast<float*>(ws + E);
+  }
+  // zeros, and x_0 into parity 1 (read at s = 0)
+  for (int e = tid; e < 2 * V; e += blockDim.x)
+    state[e] = e >= V && e - V < d ? Mode<BF16>::round(x[e - V]) : 0.f;
+
+  const bool unit = li >= 0;
+  const int n = unit ? a.l[li].n : 0;
+  const int din = unit ? a.l[li].din : 0;
+  const int in_off = h_off - din;
+  const int KB = unit ? (din + n - l + S - 1) / S : 0;  // this lane's k = l + kb·S < din + n
+  const int w_stride = n * S;                            // entries from one of its k to the next
+  const Ent* wp = (HOME == kStaged ? ws : P) + w_off + l * n + j;
+  float4 wr[HOME == kRegs ? WAVE_REG_KB : 1];
+  if constexpr (HOME == kRegs) {
+#pragma unroll
+    for (int kb = 0; kb < WAVE_REG_KB; ++kb)
+      wr[kb] = kb < KB ? WaveEntry<BF16>::unpack(__ldg(wp + kb * w_stride))
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float bias[4] = {0.f, 0.f, 0.f, 0.f};
+  if (unit) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) bias[q] = __ldg(a.l[li].b + q * n + j);
+  }
+  unsigned mask = 0;  // the group's lanes
+#pragma unroll
+  for (int q = 0; q < S; ++q) mask |= 1u << (q * G + lane % G);
+  const bool owner = l == 0;
+  const bool last = unit && li == a.L - 1;
+  const bool stager = tid < d;
+  float c = 0.f;
+  __syncthreads();
+
+  const int steps = T + a.L - 1;
+  for (int s = 0; s < steps; ++s) {
+    const int Pr = (s + 1) & 1, Q = s & 1;  // read parity, write parity
+    float xn = 0.f;
+    if (stager && s + 1 < T) xn = x[(size_t)(s + 1) * d + tid];
+    const int t = s - li;
+    if (unit && t >= 0 && t < T) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      const float* sp = state + Pr * V + in_off + l;
+      if constexpr (HOME == kRegs) {
+#pragma unroll
+        for (int kb = 0; kb < WAVE_REG_KB; ++kb) {
+          if (kb < KB) {
+            const float hv = sp[kb * S];
+            v[0] = fmaf(hv, wr[kb].x, v[0]);
+            v[1] = fmaf(hv, wr[kb].y, v[1]);
+            v[2] = fmaf(hv, wr[kb].z, v[2]);
+            v[3] = fmaf(hv, wr[kb].w, v[3]);
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int kb = 0; kb < KB; ++kb) {
+          const float hv = sp[kb * S];
+          float4 w;
+          if constexpr (HOME == kStaged) {
+            w = WaveEntry<BF16>::unpack(wp[kb * w_stride]);
+          } else {
+            w = WaveEntry<BF16>::unpack(__ldg(wp + kb * w_stride));
+          }
+          v[0] = fmaf(hv, w.x, v[0]);
+          v[1] = fmaf(hv, w.y, v[1]);
+          v[2] = fmaf(hv, w.z, v[2]);
+          v[3] = fmaf(hv, w.w, v[3]);
+        }
+      }
+      sum_gates<S>(v, l, lane, mask);
+      if (owner) {
+        const float hn =
+            gate_cell(v[0] + bias[0], v[1] + bias[1], v[2] + bias[2], v[3] + bias[3], c);
+        state[Q * V + h_off + j] = Mode<BF16>::round(hn);
+        if (last) out[(size_t)t * n + j] = hn;
+      }
+    }
+    if (stager && s + 1 < T) state[Q * V + tid] = Mode<BF16>::round(xn);
+    __syncthreads();
   }
 }
 
@@ -474,6 +734,59 @@ int launch_dense_stack(const int64_t* meta, int L, const void* x, void* out, int
   return (int)cudaGetLastError();
 }
 
+// threads of dense_stack_wave's block: S lanes for every unit, and one
+// thread for each input entry that x_{s+1} stages (ops/cuda_lstm.py:
+// wave_threads)
+int wave_threads(int nsum, int d, int S) {
+  const int units = (S * nsum + 31) / 32 * 32, stagers = (d + 31) / 32 * 32;
+  return units > stagers ? units : stagers;
+}
+
+template <bool BF16, int S, int HOME>
+int launch_wave(const WaveArgs& a, const void* P, const float* x, float* out, int T, int d, int V,
+                int E, int threads, size_t smem, cudaStream_t stream) {
+  using Ent = typename WaveEntry<BF16>::E;
+  const auto kernel = dense_stack_wave<BF16, S, HOME>;
+  cudaError_t err = prepare_smem(kernel, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, threads, smem, stream>>>(a, (const Ent*)P, x, out, T, d, V, E);
+  return (int)cudaGetLastError();
+}
+
+// Checks what the wrapper chose (lanes S, the weights' home) against the
+// block: S·Σn lanes and the x stagers within the block, a lane's entries
+// within WAVE_REG_KB in registers, P within shared memory when staged.
+template <bool BF16>
+int launch_dense_wave(const WaveArgs& a, const void* P, int E, const float* x, float* out, int T,
+                      int d, int S, int home, cudaStream_t s) {
+  using Ent = typename WaveEntry<BF16>::E;
+  int nsum = 0, kb = 0, entries = 0;
+  for (int i = 0; i < a.L; ++i) {
+    const WaveLayer& ly = a.l[i];
+    if (ly.din < 1 || ly.n < 1 || ly.w_off != entries) return (int)cudaErrorInvalidValue;
+    entries += (ly.din + ly.n) * ly.n;
+    nsum += ly.n;
+    const int k = (ly.din + ly.n + S - 1) / S;
+    if (k > kb) kb = k;
+  }
+  const int threads = wave_threads(nsum, d, S);
+  const int V = d + nsum;
+  const size_t smem = (home == kStaged ? (size_t)E * sizeof(Ent) : 0) + 2 * (size_t)V * sizeof(float);
+  if ((S != 1 && S != 2 && S != 4 && S != 8) || E != entries || threads > MAX_THREADS ||
+      (home == kRegs && (threads > WAVE_REG_THREADS || kb > WAVE_REG_KB)) ||
+      (home != kRegs && home != kStaged && home != kGlobal) || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+#define WAVE_CASE(S_, H_)                                                                  \
+  if (S == S_ && home == H_)                                                               \
+    return launch_wave<BF16, S_, H_>(a, P, x, out, T, d, V, E, threads, smem, s);
+  WAVE_CASE(1, kRegs) WAVE_CASE(1, kStaged) WAVE_CASE(1, kGlobal)
+  WAVE_CASE(2, kRegs) WAVE_CASE(2, kStaged) WAVE_CASE(2, kGlobal)
+  WAVE_CASE(4, kRegs) WAVE_CASE(4, kStaged) WAVE_CASE(4, kGlobal)
+  WAVE_CASE(8, kRegs) WAVE_CASE(8, kStaged) WAVE_CASE(8, kGlobal)
+#undef WAVE_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
 template <bool BF16>
 int launch_reduced_recurrence(const void* xp, const void* Bt, const void* IC, const void* h0,
                               const void* c0, void* out, int T, int n, int R,
@@ -536,14 +849,39 @@ int launch_reduced_stack(const int64_t* meta, int L, const void* x, void* out, i
 
 extern "C" {
 
-// meta: L rows of 5 int64 — din, units, W, U, b (device pointers). bf16 != 0:
-// fast mode, W and U bf16.
+// K1's layer loop (fused_dense_stack_kernel). meta: L rows of 5 int64 —
+// din, units, W, U, b (device pointers). bf16 != 0: fast mode, W and U bf16.
 int fused_dense_stack_launch(const int64_t* meta, int L, const void* x, void* out, int T, int d,
                              int bf16, void* stream) {
   if (L < 1 || L > MAX_LAYERS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return bf16 ? launch_dense_stack<true>(meta, L, x, out, T, d, s)
               : launch_dense_stack<false>(meta, L, x, out, T, d, s);
+}
+
+// K1 as a wavefront (dense_stack_wave). meta: L rows of 4 int64 — din, n,
+// w_off (the layer's first entry in P), b (device pointer); P: E entries,
+// float4 (bf16 == 0) or four bf16 (fast mode), the layers' gate-interleaved
+// [W; U] one after another (ops/cuda_lstm.py: pack_wave). lanes: S; home:
+// 0 registers, 1 staged, 2 the global copy (ops/cuda_lstm.py: dense_plan),
+// checked here, not chosen.
+int dense_stack_wave_launch(const int64_t* meta, int L, const void* P, int E, const void* x,
+                            void* out, int T, int d, int lanes, int home, int bf16,
+                            void* stream) {
+  if (L < 1 || L > MAX_LAYERS || T < 1 || d < 1 || E < 1 || P == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)P) & 15) return (int)cudaErrorMisalignedAddress;
+  WaveArgs a;
+  a.L = L;
+  for (int i = 0; i < L; ++i) {
+    a.l[i].din = (int)meta[4 * i + 0];
+    a.l[i].n = (int)meta[4 * i + 1];
+    a.l[i].w_off = (int)meta[4 * i + 2];
+    a.l[i].b = reinterpret_cast<const float*>(meta[4 * i + 3]);
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  return bf16 ? launch_dense_wave<true>(a, P, E, (const float*)x, (float*)out, T, d, lanes, home, s)
+              : launch_dense_wave<false>(a, P, E, (const float*)x, (float*)out, T, d, lanes, home, s);
 }
 
 // bf16 != 0: fast mode, Bt and IC bf16.

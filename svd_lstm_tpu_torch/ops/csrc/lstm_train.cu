@@ -1,5 +1,5 @@
 // LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores, and
-// the batched fast-mode recurrence that shares their tiles.
+// the batched fast-mode recurrence (K5), bf16 on the tensor cores.
 //
 // Four forward/backward pairs, one per TPU train kernel pair on the
 // training path of svd_lstm_tpu/ops/pallas_train.py, one reduction that the
@@ -22,8 +22,9 @@
 //   weight_grad (+ sum_splits) — the dW/dU/db accumulation that the TPU
 //       backward kernels carried in VMEM scratch (K7, K8; K9 and K6 take
 //       gemm_f32's TN form).
-//   K5  batched_step — replaces svd_lstm_tpu/ops/pallas_batched.py:
-//       batched_lstm_recurrence_pallas (see its own note below).
+//   K5  batched_chain — replaces svd_lstm_tpu/ops/pallas_batched.py:
+//       batched_lstm_recurrence_pallas: one persistent cooperative launch
+//       on the tensor cores (see its own note below).
 //
 // What differs from the TPU, and what the design does about it:
 //  * The TPU grid walks T in order and carries dW/dU in VMEM across steps.
@@ -91,9 +92,6 @@ __device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v))
 // even, as torch's .bfloat16()).
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
@@ -750,14 +748,11 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// K9, K6 and K5, shared by their step kernels: for the CTA's tile (WIDE_BR
+// K9 and K6, shared by their step kernels: for the CTA's tile (WIDE_BR
 // rows from r0, WIDE_UJ units from j0) and this thread's 4 rows
 // (r0 + ty*4 + r) and unit j0 + tx, acc[r][g] += Σ_k in[row][k] · M[k][g*n + j]
-// for k < K. in has row stride ld; M is (K, 4n). With kBf16 the operands
-// are rounded to bf16 before the float32 multiply-add (K5; the products are
-// then exact, as the MXU's single-pass bf16 products are). Every thread of
-// the CTA must call it (it synchronises). With kBf16, units j ≥ n read
-// zeros, so K5's n need not be a multiple of WIDE_UJ.
+// for k < K. in has row stride ld; M is (K, 4n), n a multiple of WIDE_UJ.
+// Every thread of the CTA must call it (it synchronises).
 // ---------------------------------------------------------------------------
 struct WideSmem {
   float in[WIDE_KC][WIDE_BR + 1];   // +1: the transposed store is conflict-free
@@ -770,32 +765,20 @@ struct WideSmem {
 constexpr int WIDE_IN_PER = WIDE_KC * WIDE_BR / WIDE_THREADS;     // 4
 constexpr int WIDE_W_PER = WIDE_KC * 4 * WIDE_UJ / WIDE_THREADS;  // 32
 
-template <typename TI, typename TM, bool kBf16>
-__device__ __forceinline__ void gates_load(const TI* __restrict__ in, int ld, int K,
-                                           const TM* __restrict__ M, int n, int B, int r0,
+__device__ __forceinline__ void gates_load(const float* __restrict__ in, int ld, int K,
+                                           const float* __restrict__ M, int n, int B, int r0,
                                            int j0, int k0, float* vin, float* vw) {
 #pragma unroll
   for (int q = 0; q < WIDE_IN_PER; ++q) {
     const int e = threadIdx.x + q * WIDE_THREADS;
     const int row = r0 + e / WIDE_KC, k = k0 + e % WIDE_KC;
-    float v = 0.f;
-    if (row < B && k < K) {
-      v = to_f32(in[(size_t)row * ld + k]);
-      if (kBf16) v = bf16_round(v);
-    }
-    vin[q] = v;
+    vin[q] = row < B && k < K ? in[(size_t)row * ld + k] : 0.f;
   }
 #pragma unroll
   for (int q = 0; q < WIDE_W_PER; ++q) {
     const int e = threadIdx.x + q * WIDE_THREADS;
     const int u = e % WIDE_UJ, g = (e / WIDE_UJ) % 4, k = k0 + e / (4 * WIDE_UJ);
-    float v = 0.f;
-    // only K5 (kBf16) takes n % WIDE_UJ != 0; K9 and K6 skip the unit mask
-    if (k < K && (!kBf16 || j0 + u < n)) {
-      v = to_f32(__ldg(M + (size_t)k * 4 * n + g * n + j0 + u));
-      if (kBf16) v = bf16_round(v);
-    }
-    vw[q] = v;
+    vw[q] = k < K ? __ldg(M + (size_t)k * 4 * n + g * n + j0 + u) : 0.f;
   }
 }
 
@@ -812,18 +795,17 @@ __device__ __forceinline__ void gates_store(WideSmem& s, const float* vin, const
   }
 }
 
-template <typename TI, typename TM, bool kBf16>
-__device__ __forceinline__ void gates_tile(const TI* __restrict__ in, int ld, int K,
-                                           const TM* __restrict__ M, int n, int B, int r0,
+__device__ __forceinline__ void gates_tile(const float* __restrict__ in, int ld, int K,
+                                           const float* __restrict__ M, int n, int B, int r0,
                                            int j0, WideSmem& s, float acc[4][4]) {
   const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
   float vin[WIDE_IN_PER], vw[WIDE_W_PER];
-  gates_load<TI, TM, kBf16>(in, ld, K, M, n, B, r0, j0, 0, vin, vw);
+  gates_load(in, ld, K, M, n, B, r0, j0, 0, vin, vw);
   for (int k0 = 0; k0 < K; k0 += WIDE_KC) {
     gates_store(s, vin, vw);
     __syncthreads();
     if (k0 + WIDE_KC < K)
-      gates_load<TI, TM, kBf16>(in, ld, K, M, n, B, r0, j0, k0 + WIDE_KC, vin, vw);
+      gates_load(in, ld, K, M, n, B, r0, j0, k0 + WIDE_KC, vin, vw);
 #pragma unroll 8
     for (int kk = 0; kk < WIDE_KC; ++kk) {
       float v[4], w[4];
@@ -857,9 +839,9 @@ __device__ __forceinline__ void wide_z(const float* __restrict__ x, const float*
     for (int g = 0; g < 4; ++g) acc[r][g] = (!kXW && row < B) ? xr[g * n] : 0.f;
   }
   if (kXW)
-    gates_tile<float, float, false>(x + (size_t)t * B * din, din, din, W, n, B, r0, j0, s, acc);
+    gates_tile(x + (size_t)t * B * din, din, din, W, n, B, r0, j0, s, acc);
   if (t > 0)
-    gates_tile<float, float, false>(h + (size_t)(t - 1) * B * n, n, n, U, n, B, r0, j0, s, acc);
+    gates_tile(h + (size_t)(t - 1) * B * n, n, n, U, n, B, r0, j0, s, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -1327,57 +1309,215 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
 }
 
 // ---------------------------------------------------------------------------
-// K5 step — replaces pallas_batched.py:batched_lstm_recurrence_pallas at one
-// t, for the batched fast mode of predict:
+// K5 — batched_chain, replaces pallas_batched.py:batched_lstm_recurrence_pallas
+// for the batched fast mode of predict:
 //   z = bf16(h_{t-1}) · bf16(U) + xp_t, accumulated in float32;
-//   gate update in float32; c (B, n) kept in float32, updated in place
-//   (each element has one owner); h_t written in xp's dtype T.
-// h_{t-1} is read back from the output: rounded to bf16 it is the dot's
-// operand whether T is bf16 (exact already) or float32. U is bf16 (the
-// wrapper rounds it once).
+//   gate update in float32; h_t written in xp's dtype T.
+// h_{t-1} is read back from the output: rounded to bf16 it is the product's
+// operand whether T is bf16 (exact already) or float32. U arrives as
+// Ut = bf16(U)ᵀ (4n, n), rounded once by the wrapper.
 //
-// What bounds it, and what the design does about it: the TPU kernel kept U
-// resident in VMEM for the whole sequence. On the H100, U is 2 MB in bf16 at
-// n = 512, against 227 KB of shared memory a block, and every unit of h_t
-// needs all of h_{t-1}: each step is a grid-wide dependency. So, as K9, one
-// launch per step of a tiled kernel — a CTA owns WIDE_BR rows x WIDE_UJ units
-// and all four gate columns of them, U's tile comes from L2 each step, the
-// gate update stays in registers. At 3x512, B = 256, T = 128 the work is
-// 69 GFLOP a layer (0.07 ms at the 989 TFLOP/s bf16 tensor-core peak) and
-// 134 MB of bf16 xp (0.04 ms at 3.35 TB/s): operation-bound. This first
-// version multiplies on the CUDA cores in float32 (the products of bf16
-// operands are exact there too), so it runs far from that bound; mma/wgmma
-// tiles are the next step.
+// What bounds it: at 3x512, B = 256, T = 128 a layer is 69 GFLOP (0.07 ms
+// at the 989 TFLOP/s bf16 tensor-core peak) and 134 MB of bf16 xp (0.04 ms
+// at 3.35 TB/s), but every unit of h_t needs all of h_{t-1}: each step is a
+// grid-wide dependency, so the chain of T steps, each a barrier, the h
+// tile's load and a product of R x n by n x 4J on one SM, is what costs.
+// What the design does about it (the forward counterpart of the dh chain
+// of K9's backward, wide_bwd_chain):
+//  * One persistent cooperative launch for all T steps (a launch a step
+//    before), a grid.sync() between steps. The grid is sized from this
+//    kernel's occupancy and the SM count; a batch whose tiles cannot all be
+//    co-resident runs as consecutive launches over chunks of rows, each T
+//    steps (the pointers start at the chunk's first row, B is the chunk's
+//    rows, stride the whole batch's); a shape whose unit groups alone do
+//    not fit is refused, never run another way (ops/cuda_batched.py:
+//    batched_plan).
+//  * A CTA owns R rows x J units and all four gate columns of its units:
+//    their 4J columns of Ut are staged into shared memory once, as rows of
+//    k ([gate column][k], the mma's "col" operand), in the order unit group
+//    of 8, gate, unit; its cells' c stay in registers for all T steps.
+//  * Each step, after the barrier, its R rows of h_{t-1} (written by other
+//    CTAs) come through L2 (cp.async.cg, or ld.global.cg and a bf16
+//    rounding for a float32 h), never the non-coherent path, into an R x
+//    Kp tile (k past n zero).
+//  * z = h·U on the tensor cores: mma.sync m16n8k16 bf16 -> float32, the
+//    operands by ldmatrix; a warp owns a 16-row m tile and a group of 8
+//    units, and its four n tiles are the four gates of those units, so a
+//    thread ends with all four gates of its four cells (rows g, g + 8,
+//    units 2q, 2q + 1 of the tiles) and runs the gate update in registers.
+//    Rows of the shared tiles are padded by 16 bytes (Kp + 8 bf16), so the
+//    eight rows an ldmatrix reads fall in different banks.
+//  * xp_t is loaded before the barrier (it does not depend on it); units
+//    past n (their Ut columns staged as zeros) and rows past B are masked.
+// The tensor cores sum each 16-wide k group of products in an order of
+// their own, then into the float32 accumulator k group by k group: not the
+// CUDA cores' fmaf chain, within K5's limit (ops/cuda_batched.py).
+// Measured on the H100 (PERF.md §6) at 3x512, B = 256, T = 128 (32 x
+// 32 tiles, 128 CTAs, one an SM): ~8.5 us a step, a chain of latencies that
+// no one part dominates; taken out one at a time, the product saves ~1.8
+// us, the h tile's load ~1.1, the grid barrier ~1.0, xp's loads ~0.9, the
+// gate math ~0.3. The 32 x 32 tile ran faster than 32 x 16 (twice the CTAs
+// and the h traffic through L2) and 64 x 16; loading xp a step ahead, or
+// two units a load, ran slower.
 // ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(WIDE_THREADS)
-batched_step(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ U, T* __restrict__ h,
-             float* __restrict__ c, int t, int B, int n) {
-  __shared__ WideSmem s;
-  const int j0 = blockIdx.x * WIDE_UJ, r0 = blockIdx.y * WIDE_BR;
-  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
-  float acc[4][4];
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a (16 x 16, row) · b (16 x 8, col), bf16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 in one 32-bit word, lo at the lower address
+__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// Eight k of one row of h_{t-1} (k, ..., k + 7; those past n are zero) as
+// bf16 into the A tile, through L2 (written by other CTAs in this launch).
+__device__ __forceinline__ void load_h8(__nv_bfloat16* dst, const __nv_bfloat16* src, int left,
+                                        bool vec) {
+  if (vec) {
+    cp_async16(reinterpret_cast<float*>(dst), reinterpret_cast<const float*>(src), 16);
+    return;
+  }
+  unsigned short q[8];
 #pragma unroll
-  for (int r = 0; r < 4; ++r)
+  for (int i = 0; i < 8; ++i)
+    q[i] = i < left ? __ldcg(reinterpret_cast<const unsigned short*>(src) + i) : 0;
+  *reinterpret_cast<uint4*>(dst) =
+      make_uint4(pack2(q[0], q[1]), pack2(q[2], q[3]), pack2(q[4], q[5]), pack2(q[6], q[7]));
+}
+__device__ __forceinline__ void load_h8(__nv_bfloat16* dst, const float* src, int left, bool vec) {
+  float f[8];
+  if (vec) {
+    const float4 u = __ldcg(reinterpret_cast<const float4*>(src));
+    const float4 w = __ldcg(reinterpret_cast<const float4*>(src) + 1);
+    f[0] = u.x, f[1] = u.y, f[2] = u.z, f[3] = u.w, f[4] = w.x, f[5] = w.y, f[6] = w.z, f[7] = w.w;
+  } else {
 #pragma unroll
-    for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
-  if (t > 0)
-    gates_tile<T, __nv_bfloat16, true>(h + (size_t)(t - 1) * B * n, n, n, U, n, B, r0, j0, s,
-                                       acc);
-  const int j = j0 + tx;
-  if (j >= n) return;
+    for (int i = 0; i < 8; ++i) f[i] = i < left ? __ldcg(src + i) : 0.f;
+  }
+  uint32_t p[4];
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + ty * 4 + r;
-    if (row >= B) continue;
-    const T* zx = xp + ((size_t)t * B + row) * 4 * n + j;
-    const size_t o = (size_t)row * n + j;
-    const float cp = t > 0 ? c[o] : 0.f;
-    float hn, cn;
-    gate_fwd(acc[r][0] + to_f32(zx[0]), acc[r][1] + to_f32(zx[n]), acc[r][2] + to_f32(zx[2 * n]),
-             acc[r][3] + to_f32(zx[3 * n]), cp, hn, cn);
-    c[o] = cn;
-    h[(size_t)t * B * n + o] = from_f32<T>(hn);
+  for (int i = 0; i < 4; ++i) p[i] = pack2(bf16_bits(f[2 * i]), bf16_bits(f[2 * i + 1]));
+  *reinterpret_cast<uint4*>(dst) = make_uint4(p[0], p[1], p[2], p[3]);
+}
+
+template <int R, int J> struct BatchedTile {
+  static constexpr int kWarps = (R / 16) * (J / 8), kThreads = kWarps * 32, kCols = 4 * J;
+  static_assert(R % 16 == 0 && J % 8 == 0, "16-row m tiles, 8-unit groups");
+  // bf16 row stride of the shared tiles: Kp (n rounded up to 16) + 16 bytes
+  static int ld(int n) { return (n + 15) / 16 * 16 + 8; }
+  static size_t smem(int n) { return (size_t)(kCols + R) * ld(n) * sizeof(__nv_bfloat16); }
+};
+
+template <typename T, int R, int J>
+__global__ void __launch_bounds__(BatchedTile<R, J>::kThreads)
+batched_chain(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ Ut, T* h, int TT, int B,
+              int stride, int n) {
+  using Tile = BatchedTile<R, J>;
+  constexpr int MT = R / 16, WARPS = Tile::kWarps, THREADS = Tile::kThreads, COLS = Tile::kCols;
+  extern __shared__ uint4 batched_smem[];
+  const int Kp = (n + 15) / 16 * 16, ld = Kp + 8, chunks = ld / 8;
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(batched_smem);  // [COLS][ld]
+  __nv_bfloat16* As = Bs + (size_t)COLS * ld;                          // [R][ld]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int j0 = blockIdx.x * J, r0 = blockIdx.y * R;
+  const bool vec = n % 8 == 0;
+
+  // the CTA's 4J columns of Ut: row (unit group·4 + gate)·8 + unit
+  for (int e = tid; e < COLS * chunks; e += THREADS) {
+    const int row = e / chunks, k = (e - row * chunks) * 8;
+    const int j = j0 + (row >> 5) * 8 + (row & 7), gate = (row >> 3) & 3;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (j < n && k < n) {
+      const __nv_bfloat16* src = Ut + ((size_t)gate * n + j) * n + k;
+      if (vec) {
+        v = __ldg(reinterpret_cast<const uint4*>(src));
+      } else {
+        unsigned short q[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          q[i] = k + i < n ? __ldg(reinterpret_cast<const unsigned short*>(src) + i) : 0;
+        v = make_uint4(pack2(q[0], q[1]), pack2(q[2], q[3]), pack2(q[4], q[5]), pack2(q[6], q[7]));
+      }
+    }
+    *reinterpret_cast<uint4*>(Bs + (size_t)row * ld + k) = v;
+  }
+  for (int e = tid; e < R * chunks; e += THREADS)
+    reinterpret_cast<uint4*>(As)[e] = make_uint4(0u, 0u, 0u, 0u);
+  // first read after the first grid barrier
+
+  const int mt = warp % MT, ug = warp / MT;  // the warp's m tile and unit group
+  const int gid = lane >> 2, tig = lane & 3;
+  const __nv_bfloat16* a_ptr = As + (size_t)(mt * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
+  const __nv_bfloat16* b_ptr =
+      Bs + (size_t)(ug * 32 + (lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+  const int G4 = 4 * n;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};  // cell q: row g + 8·(q / 2), unit 2·tig + q % 2
+  for (int t = 0; t < TT; ++t) {
+    float xv[4][4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = r0 + mt * 16 + gid + (q >> 1) * 8, j = j0 + ug * 8 + 2 * tig + (q & 1);
+      const bool ok = row < B && j < n;
+      const T* px = xp + ((size_t)t * stride + row) * G4 + j;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) xv[q][g] = ok ? to_f32(__ldg(px + g * n)) : 0.f;
+    }
+    float acc[4][4];  // [gate][cell]
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[g][q] = 0.f;
+    if (t > 0) {
+      cooperative_groups::this_grid().sync();  // h_{t-1} complete
+      const T* hp = h + (size_t)(t - 1) * stride * n;
+      for (int r = warp; r < R; r += WARPS) {
+        const int row = r0 + r;
+        if (row >= B) break;  // warp-uniform; the rows past B stay zero
+        for (int k = lane * 8; k < n; k += 256)
+          load_h8(As + (size_t)r * ld + k, hp + (size_t)row * n + k, n - k, vec);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 2
+      for (int k0 = 0; k0 < Kp; k0 += 16) {
+        uint32_t a[4], b01[4], b23[4];
+        ldmatrix_x4(a, a_ptr + k0);
+        ldmatrix_x4(b01, b_ptr + k0);
+        ldmatrix_x4(b23, b_ptr + 16 * ld + k0);
+        mma_bf16(acc[0], a, b01[0], b01[1]);
+        mma_bf16(acc[1], a, b01[2], b01[3]);
+        mma_bf16(acc[2], a, b23[0], b23[1]);
+        mma_bf16(acc[3], a, b23[2], b23[3]);
+      }
+      // the A tile is rewritten only after the next grid barrier
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int row = r0 + mt * 16 + gid + (q >> 1) * 8, j = j0 + ug * 8 + 2 * tig + (q & 1);
+      float hn, cn;
+      gate_fwd(acc[0][q] + xv[q][0], acc[1][q] + xv[q][1], acc[2][q] + xv[q][2],
+               acc[3][q] + xv[q][3], c[q], hn, cn);
+      c[q] = cn;
+      if (row < B && j < n) h[((size_t)t * stride + row) * n + j] = from_f32<T>(hn);
+    }
   }
 }
 
@@ -1734,6 +1874,46 @@ int launch_chain(const float* z, const float* Ut, const float* c, const float* d
   return (int)cudaGetLastError();
 }
 
+// K5's tiles, rows x units a CTA (ops/cuda_batched.py: BATCHED_TILES)
+#define BATCHED_TILES(X) X(32, 32) X(32, 16) X(16, 8)
+
+template <typename T, int R, int J>
+int batched_occupancy(int n, int* per_sm) {
+  const auto kernel = batched_chain<T, R, J>;
+  const size_t smem = BatchedTile<R, J>::smem(n);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
+                                                            BatchedTile<R, J>::kThreads, smem);
+}
+
+// Checks co-residency (every CTA of the grid on the card at once, from the
+// occupancy of this kernel and the device's SM count), then the
+// cooperative launch.
+template <typename T, int R, int J>
+int launch_batched(const void* xp_, const void* Ut_, void* h_, int TT, int B, int stride, int n,
+                   cudaStream_t s) {
+  int per_sm = 0, dev = 0, sms = 0;
+  int err = batched_occupancy<T, R, J>(n, &per_sm);
+  if (err != (int)cudaSuccess) return err;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const dim3 grid((n + J - 1) / J, (B + R - 1) / R);
+  if (per_sm < 1 || (long long)grid.x * grid.y > (long long)per_sm * sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  const T* xp = (const T*)xp_;
+  const __nv_bfloat16* Ut = (const __nv_bfloat16*)Ut_;
+  T* h = (T*)h_;
+  void* args[] = {(void*)&xp, (void*)&Ut, (void*)&h, (void*)&TT, (void*)&B, (void*)&stride, (void*)&n};
+  e = cudaLaunchCooperativeKernel((const void*)batched_chain<T, R, J>, grid,
+                                  dim3(BatchedTile<R, J>::kThreads), args,
+                                  BatchedTile<R, J>::smem(n), s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1898,26 +2078,39 @@ int wide_bwd_chain_launch(const void* z, const void* Ut, const void* c, const vo
   return (int)cudaErrorInvalidValue;
 }
 
-// K5: T launches of batched_step in stream order. xp (T, B, 4n) and h
-// (T, B, n) are bf16 when bf16 != 0, else float32; U (n, 4n) bf16; c (B, n)
-// float32 scratch, needing no initial value.
-int batched_lstm_recurrence_launch(const void* xp, const void* U, void* h, void* c, int T, int B,
-                                   int n, int bf16, void* stream) {
-  if (T < 1 || B < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + WIDE_UJ - 1) / WIDE_UJ, (B + WIDE_BR - 1) / WIDE_BR);
+// K5 (batched_chain): one cooperative launch over B rows of a batch of
+// stride rows (the pointers at the chunk's first row): xp (T, stride, 4n)
+// and h (T, stride, n) bf16 when bf16 != 0, else float32; Ut = bf16(U)ᵀ
+// (4n, n). rows x units: the CTA's tile (ops/cuda_batched.py:
+// batched_plan), checked here, not chosen; a grid that cannot be
+// co-resident is refused.
+int batched_lstm_recurrence_launch(const void* xp, const void* Ut, void* h, int T, int B,
+                                   int stride, int n, int rows, int units, int bf16,
+                                   void* stream) {
+  if (T < 1 || B < 1 || n < 1 || stride < B || xp == nullptr || Ut == nullptr || h == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if ((((uintptr_t)Ut) | ((uintptr_t)h)) & 15) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-  const __nv_bfloat16* u = (const __nv_bfloat16*)U;
-  for (int t = 0; t < T; ++t) {
-    if (bf16)
-      batched_step<__nv_bfloat16><<<grid, WIDE_THREADS, 0, s>>>(
-          (const __nv_bfloat16*)xp, u, (__nv_bfloat16*)h, (float*)c, t, B, n);
-    else
-      batched_step<float><<<grid, WIDE_THREADS, 0, s>>>((const float*)xp, u, (float*)h, (float*)c,
-                                                        t, B, n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+#define BATCHED_CASE(R_, J_)                                                                   \
+  if (rows == R_ && units == J_)                                                               \
+    return bf16 ? launch_batched<__nv_bfloat16, R_, J_>(xp, Ut, h, T, B, stride, n, s)          \
+                : launch_batched<float, R_, J_>(xp, Ut, h, T, B, stride, n, s);
+  BATCHED_TILES(BATCHED_CASE)
+#undef BATCHED_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5's CTAs an SM at rows x units and width n (the occupancy of
+// batched_chain with its shared memory), into *per_sm.
+int batched_lstm_per_sm(int n, int rows, int units, int bf16, int* per_sm) {
+  if (n < 1 || per_sm == nullptr) return (int)cudaErrorInvalidValue;
+#define BATCHED_CASE(R_, J_)                                                                   \
+  if (rows == R_ && units == J_)                                                               \
+    return bf16 ? batched_occupancy<__nv_bfloat16, R_, J_>(n, per_sm)                           \
+                : batched_occupancy<float, R_, J_>(n, per_sm);
+  BATCHED_TILES(BATCHED_CASE)
+#undef BATCHED_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -39,6 +39,8 @@ so the products are exact) and their results are not rounded.
 
 from __future__ import annotations
 
+from typing import NamedTuple, Sequence
+
 import numpy as np
 import torch
 
@@ -66,6 +68,7 @@ REPLACES = {
 }
 LAUNCHES = dict.fromkeys(REPLACES, 0)  # launches of each kernel variant so far
 MAX_LAYERS = 8  # csrc MAX_LAYERS
+MAX_THREADS = 1024  # csrc MAX_THREADS: one block
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block can use
 _DOT_PRECISIONS = (None, "default", "highest")
 
@@ -314,10 +317,117 @@ def _check_layers(name: str, model, x: torch.Tensor) -> int:
     return T
 
 
+WAVE_LANES = (8, 4, 2, 1)  # lanes a unit that dense_stack_wave takes, most first
+WAVE_REG_KB = 16           # csrc WAVE_REG_KB: a lane's entries in registers
+WAVE_REG_THREADS = 512     # csrc WAVE_REG_THREADS: the block of the registers home
+WAVE_HOMES = ("registers", "staged", "global")  # csrc WaveHome, in its order
+
+
+class DensePlan(NamedTuple):
+    """K1's launch (csrc ``dense_stack_wave_launch`` checks it): ``route``
+    "registers", "staged" or "global" runs the wavefront kernel with the
+    weights there and ``lanes`` lanes a unit; "layers" runs the layer loop
+    (``fused_dense_stack_kernel``)."""
+
+    route: str
+    lanes: int
+    threads: int
+    smem_bytes: int
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def wave_threads(units: Sequence[int], d: int, lanes: int) -> int:
+    """Threads of the wavefront's block (csrc ``wave_threads``): ``lanes``
+    for every unit, and one for each input entry x_{s+1} stages."""
+    return max(_round_up(lanes * sum(units), 32), _round_up(d, 32))
+
+
+def wave_entries(units: Sequence[int], d: int) -> int:
+    """Entries (four gates each) of the packed weights P: Σ (din + n)·n."""
+    total, din = 0, d
+    for n in units:
+        total += (din + n) * n
+        din = n
+    return total
+
+
+def _wave_kb(units: Sequence[int], d: int, lanes: int) -> int:
+    """The most entries one lane of a unit reads a step: ⌈(din + n) / S⌉."""
+    dins = [d, *units[:-1]]
+    return max(-(-(din + n) // lanes) for din, n in zip(dins, units))
+
+
+def dense_plan(units: Sequence[int], d: int, fast: bool) -> DensePlan:
+    """K1's route for a stack of ``units`` on input width d: the wavefront
+    with the weights in registers at the most lanes S whose block of at most
+    WAVE_REG_THREADS holds every lane's ⌈(din + n) / S⌉ entries within
+    WAVE_REG_KB; else at the most lanes whose block has at most MAX_THREADS,
+    the weights staged in shared memory where they fit (16 bytes an entry,
+    8 in fast mode), else read from the global copy; a stack that no block
+    holds (more than 1024 units, or d > 1024) runs the layer loop."""
+    state = 2 * 4 * (d + sum(units))  # two parities of [x | h_0 | ... | h_{L-1}]
+    for lanes in WAVE_LANES:
+        threads = wave_threads(units, d, lanes)
+        if threads <= WAVE_REG_THREADS and _wave_kb(units, d, lanes) <= WAVE_REG_KB:
+            return DensePlan("registers", lanes, threads, state)
+    for lanes in WAVE_LANES:
+        threads = wave_threads(units, d, lanes)
+        if threads <= MAX_THREADS:
+            staged = state + wave_entries(units, d) * (8 if fast else 16)
+            if staged <= _SMEM_LIMIT:
+                return DensePlan("staged", lanes, threads, staged)
+            return DensePlan("global", lanes, threads, state)
+    return DensePlan("layers", 1, min(MAX_THREADS, _round_up(4 * max(units), 32)),
+                     4 * (2 * sum(units) + 4 * max(units) + d))
+
+
+def pack_wave(layers, fast: bool) -> torch.Tensor:
+    """The wavefront's weights P (Σ (din + n)·n, 4): each layer's [W; U]
+    gate-interleaved, P[w_off + k·n + j, g] = [W; U][k, g·n + j], the layers
+    one after another; bf16 in fast mode (rounded once here)."""
+    parts = []
+    for l in layers:
+        din, n = l.W.shape[0], l.U.shape[0]
+        parts.append(torch.cat([l.W.reshape(din, 4, n), l.U.reshape(n, 4, n)])
+                     .transpose(1, 2).reshape(-1, 4))
+    P = torch.cat(parts)
+    return (P.to(torch.bfloat16) if fast else P).contiguous()
+
+
+def _launch_dense(model: StackedLSTM, x: torch.Tensor, fast: bool, plan: DensePlan,
+                  out: torch.Tensor) -> None:
+    """One launch of K1 as ``plan`` says, into ``out`` (T, n_out)."""
+    T, d = x.shape
+    if plan.route == "layers":
+        _check_smem("fused_dense_stack", plan.smem_bytes // 4)
+        weights = [(_stored(l.W, fast), _stored(l.U, fast), l.b) for l in model.layers]
+        meta = np.array(
+            [[l.input_dim, l.units, W.data_ptr(), U.data_ptr(), b.data_ptr()]
+             for l, (W, U, b) in zip(model.layers, weights)],
+            dtype=np.int64,
+        )
+        _launch("fused_dense_stack", x.device,
+                meta.ctypes.data, len(weights), x.data_ptr(), out.data_ptr(), T, d, int(fast))
+        return
+    P = pack_wave(model.layers, fast)
+    rows, off = [], 0
+    for l in model.layers:
+        rows.append([l.input_dim, l.units, off, l.b.data_ptr()])
+        off += (l.input_dim + l.units) * l.units
+    meta = np.array(rows, dtype=np.int64)
+    _launch("dense_stack_wave", x.device, meta.ctypes.data, len(rows), P.data_ptr(), P.shape[0],
+            x.data_ptr(), out.data_ptr(), T, d, plan.lanes, WAVE_HOMES.index(plan.route),
+            int(fast))
+
+
 @torch.no_grad()
 def fused_dense_stack(model: StackedLSTM, x: torch.Tensor, dot_precision=None) -> torch.Tensor:
-    """Whole dense stack in one kernel; the head is applied to the last
-    layer's hidden sequence outside it. x (T, d) -> (T, out)."""
+    """Whole dense stack in one kernel (:func:`dense_plan` picks which and
+    how); the head is applied to the last layer's hidden sequence outside
+    it. x (T, d) -> (T, out)."""
     fast = _is_fast(dot_precision)
     T = _check_layers("fused_dense_stack", model, x)
     d = x.shape[1]
@@ -331,18 +441,8 @@ def fused_dense_stack(model: StackedLSTM, x: torch.Tensor, dot_precision=None) -
     if not _on_card(x, *(p for l in model.layers for p in (l.W, l.U, l.b))):
         return fused_dense_stack_plain(model, x, dot_precision)
     units = [l.units for l in model.layers]
-    _check_smem("fused_dense_stack", 2 * sum(units) + 4 * max(units) + d)
-    weights = [(_stored(l.W, fast), _stored(l.U, fast), l.b) for l in model.layers]
-    meta = np.array(
-        [[l.input_dim, l.units, W.data_ptr(), U.data_ptr(), b.data_ptr()]
-         for l, (W, U, b) in zip(model.layers, weights)],
-        dtype=np.int64,
-    )
     h = torch.empty((T, units[-1]), dtype=torch.float32, device=x.device)
-    _launch(
-        "fused_dense_stack", x.device,
-        meta.ctypes.data, len(units), x.data_ptr(), h.data_ptr(), T, d, int(fast),
-    )
+    _launch_dense(model, x, fast, dense_plan(units, d, fast), h)
     _count("fused_dense_stack", fast)
     return model.head(h)
 

@@ -357,7 +357,9 @@ def _k5_tol(xp, U, plain) -> float:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,B,dtype", [(512, 40, torch.bfloat16), (30, 33, torch.bfloat16),
-                                       (128, 20, torch.float32), (96, 16, torch.float32)])
+                                       (128, 20, torch.float32), (96, 16, torch.float32),
+                                       (512, 2048, torch.bfloat16), (136, 40, torch.bfloat16),
+                                       (512, 64, torch.float32), (30, 33, torch.float32)])
 def test_cuda_k5_matches_plain(cuda, n, B, dtype, monkeypatch):
     xp, U = _case(10, 16, B, n)
     xp, U = torch.tensor(xp, device=cuda).to(dtype), torch.tensor(U, device=cuda)
@@ -370,6 +372,23 @@ def test_cuda_k5_matches_plain(cuda, n, B, dtype, monkeypatch):
     assert cb.batched_lstm_recurrence.launches == before + 1
     assert got.dtype == dtype
     assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(512, 256), (512, 2048), (30, 256)])
+def test_cuda_k5_one_launch_per_row_chunk(cuda, n, B, monkeypatch):
+    """One K5 call issues one cooperative launch for each chunk of rows of
+    its plan (one at B = 256), each for all T steps: not T launches."""
+    xp, U = _case(13, 128, B, n)
+    xp, U = torch.tensor(xp, device=cuda).bfloat16(), torch.tensor(U, device=cuda)
+    calls = []
+    launch = cb._launch
+    monkeypatch.setattr(cb, "_launch", lambda name, *a: calls.append(name) or launch(name, *a))
+    cb.batched_lstm_recurrence(xp, U)
+    torch.cuda.synchronize()
+    plan = cb._card_plan(cuda, B, n, True)
+    assert calls == ["batched_lstm_recurrence"] * plan.chunks(B)
+    assert (len(calls) == 1) == (B == 256)
 
 
 @pytest.mark.cuda

@@ -304,7 +304,8 @@ def test_cuda_reduced_recurrence_matches_plain(cuda, n, merged, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("units", [(24, 40), (40, 40, 40, 40), (30, 30, 30, 30), (128,), (8, 128, 16)])
+@pytest.mark.parametrize("units", [(24, 40), (40, 40, 40, 40), (30, 30, 30, 30), (128,), (8, 128, 16),
+                                   (128, 128, 128, 128), (512, 512, 512)])
 def test_cuda_fused_dense_stack_matches_plain(cuda, units, monkeypatch):
     model = from_numpy_tree(_stack_tree(10, units), cuda)
     x = _t(_normal(np.random.default_rng(11), (64, 16)), cuda)
@@ -340,7 +341,8 @@ def test_cuda_reduced_recurrence_fast_matches_plain(cuda, n, merged, monkeypatch
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("units", [(24, 40), (30, 30, 30, 30), (128,), (8, 128, 16)])
+@pytest.mark.parametrize("units", [(24, 40), (30, 30, 30, 30), (128,), (8, 128, 16),
+                                   (128, 128, 128, 128), (512, 512, 512)])
 def test_cuda_fused_dense_stack_fast_matches_plain(cuda, units, monkeypatch):
     import copy
 
@@ -353,6 +355,43 @@ def test_cuda_fused_dense_stack_fast_matches_plain(cuda, units, monkeypatch):
     got = _launched("fused_dense_stack_fast",
                     lambda: ck.fused_dense_stack(model, x, dot_precision="default"))
     _fast_close(got, want, want64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("route,lanes", [("registers", 8), ("registers", 4), ("staged", 8),
+                                         ("staged", 2), ("global", 8), ("global", 1)])
+def test_cuda_dense_wave_every_home_and_lane_count(cuda, route, lanes, fast):
+    """K1's wavefront with the weights in each home and at each lane count,
+    forced past the wrapper's rule, on a stack that admits them all."""
+    import copy
+
+    model = from_numpy_tree(_stack_tree(16, (24, 40)), cuda)
+    x = _t(_normal(np.random.default_rng(17), (64, 16)), cuda)
+    dp = "default" if fast else None
+    want = ck.fused_dense_stack_plain(model, x, dp)
+    threads = ck.wave_threads((24, 40), 16, lanes)
+    plan = ck.DensePlan(route, lanes, threads, 0)
+    h = torch.empty((64, 40), dtype=torch.float32, device=cuda)
+    ck._launch_dense(model, x, fast, plan, h)
+    got = model.head(h)
+    if fast:
+        want64 = ck.fused_dense_stack_plain(copy.deepcopy(model).double(), x.double(), dp)
+        _fast_close(got, want, want64)
+    else:
+        _close(got, want.cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_dense_wave_refuses_what_its_block_cannot_hold(cuda):
+    """The launcher checks the wrapper's choice: more lanes than the block
+    holds, or a lane's entries past the registers' bound, are refused."""
+    model = from_numpy_tree(_stack_tree(18, (40, 40, 40, 40)), cuda)
+    x = _t(_normal(np.random.default_rng(19), (8, 16)), cuda)
+    h = torch.empty((8, 40), dtype=torch.float32, device=cuda)
+    for plan in (ck.DensePlan("staged", 8, 1280, 0), ck.DensePlan("registers", 4, 640, 0)):
+        with pytest.raises(RuntimeError, match="cudaError"):
+            ck._launch_dense(model, x, False, plan, h)
 
 
 @pytest.mark.cuda
