@@ -17,7 +17,9 @@ Phases, each of which raises on failure (no phase is caught):
    build time and the compiler's resource report;
 3. check each batch-1 kernel against its plain PyTorch version on the card
    at the main path's shapes (T = 6656, d = 16, TF32 off; K1's route, the
-   weights' home and lanes of ``cuda_lstm.dense_plan``, is printed): max abs
+   weights' home and lanes of ``cuda_lstm.dense_plan``, and K3's plan, its
+   units a CTA, CTAs and the weights' home of
+   ``cuda_lstm.recurrence_plan``, are printed): max abs
    difference at most 5e-4 (the layout-exactness bound of ``bench.py``: the
    sum order differs from the plain version and the error grows over 6656
    steps), and time both;
@@ -49,8 +51,8 @@ Phases, each of which raises on failure (no phase is caught):
    one (split, r=15), with ``impl="auto"``; check the outputs (finite, of
    shape (T, 1), and on the first 256 steps within twice the CPU's own
    float32 error of the float64 plain scan), that
-   every kernel's launch count rose during this run, and time dense and
-   reduced ``predict``;
+   every kernel's launch count rose during this run (K3 once a layer of
+   the 3×512 dense ``predict``), and time dense and reduced ``predict``;
 4b. drive batched inference through ``predict(model, x (B, T, d),
    precision=...)`` at B = 256, T = 128: ``"fast"`` on the 3×512 checkpoint,
    on ``wide_r24_progressive`` (reconstructed to dense) and on the 4×30
@@ -110,9 +112,12 @@ Phases, each of which raises on failure (no phase is caught):
    C: parent, change); in the same processes the inference side: K1 exact
    at 4×30 (the checkpoint) and 4×40 (run A's fresh stack) and K1f at 4×30
    over T = 6656, K5 on 3×512's layer 1 at B = 256, T = 128 alone and with
-   its x-side product, cuDNN's LSTM beside each, batch-1 ``predict`` of
-   4×30 dense and split r = 15 (full_ms, reduced_ms) and batched fast
-   ``predict`` on 3×512;
+   its x-side product, K3 on 3×512's layer 0 over T = 6656 alone and with
+   its x-side product and K3f alone, cuDNN's LSTM beside each (float32 and
+   bf16 beside K3 and K3f), batch-1 ``predict`` of 4×30 dense and split
+   r = 15 (full_ms, reduced_ms) and of 3×512 dense and merged r = 24
+   (``wide_r24_progressive``), exact and fast, with their ratios, and
+   batched fast ``predict`` on 3×512;
 6. (continued) drive the post-truncation recovery through its public entry
    points, on the same windows: run E ``recover_reduced_gated`` of the 4×30
    split r = 15 truncation at B = 128 (K8 both ways), run F
@@ -394,6 +399,8 @@ def kernel_checks(dev, x):
 
     # K3: each layer of the 3x512 dense checkpoint
     m512 = P.load_params(DENSE_512, device=dev)
+    log(f"[info] K3 plan, n = 512: exact {ck.card_recurrence_plan(dev, 512, False)}, "
+        f"fast {ck.card_recurrence_plan(dev, 512, True)}")
     runs = layer_runs(m512, x, lambda l, h: torch.matmul(h, l.W), ck.lstm_recurrence_plain)
     err = max(check_close(f"K3 lstm_recurrence 3x512 layer {i}", ck.lstm_recurrence(xp, l.U), h, TOL)
               for i, (l, xp, h) in enumerate(runs))
@@ -769,7 +776,11 @@ def main_path(dev, x):
     runs = []
     for name, path, merged, rank in configs:
         dense = P.load_params(path, device=dev)
+        k3 = ck.LAUNCHES["lstm_recurrence"]
         y_full = P.predict(dense, x)
+        if path == DENSE_512 and ck.LAUNCHES["lstm_recurrence"] - k3 != len(dense.layers):
+            fail(f"{name}: dense predict launched K3 {ck.LAUNCHES['lstm_recurrence'] - k3} times, "
+                 f"not once a layer")
         reduced = P.make_reduced_model(P.make_singular_model(dense, merged_kernel=merged), rank=rank)
         y_red = P.predict(reduced, x)
         runs.append((name, path, merged, rank, dense, reduced, y_full, y_red))
@@ -1422,8 +1433,12 @@ def inference_times(dev) -> dict:
     K1f at 4x30 over T = 6656; K5 on 3x512's layer 1 at B = 256, T = 128,
     alone and with its x-side product; cuDNN's LSTM beside each (the whole
     stack, or the layer with its x-side, as in phases 3, 3b, 3c); batch-1
-    predict of 4x30 dense and split r = 15; batched fast predict on 3x512:
-    ms of each, in the package this process imported."""
+    predict of 4x30 dense and split r = 15; batched fast predict on 3x512;
+    K3 on 3x512's layer 0 over T = 6656 alone and with its x-side product,
+    K3f alone, cuDNN's float32 and bf16 LSTM (with the x-side) beside them;
+    batch-1 predict of 3x512 dense (full_ms) and of merged r = 24
+    (``wide_r24_progressive``, reduced_ms), exact and fast, with their
+    ratio: ms of each, in the package this process imported."""
     out = {}
     x = torch.tensor(np.random.default_rng(0).normal(size=(T, D)), dtype=torch.float32, device=dev)
     m30 = P.load_params(DENSE_30, device=dev)
@@ -1448,6 +1463,26 @@ def inference_times(dev) -> dict:
     timing = time_full_vs_reduced(m30, red30, x)
     out["predict 4x30 dense (full_ms)"] = timing.full_ms
     out["predict 4x30 split r=15 (reduced_ms)"] = timing.reduced_ms
+    l0 = m512.layers[0]
+    xp = (torch.matmul(x, l0.W) + l0.b).contiguous()
+    out["K3 3x512 layer 0"] = device_time_ms(ck.lstm_recurrence, xp, l0.U)
+    out["K3 3x512 layer 0 with its x-side"] = device_time_ms(
+        lambda: ck.lstm_recurrence((torch.matmul(x, l0.W) + l0.b).contiguous(), l0.U))
+    xpf = (torch.matmul(bf16_round(x), bf16_round(l0.W)) + l0.b).contiguous()
+    out["K3f 3x512 layer 0"] = device_time_ms(
+        lambda: ck.lstm_recurrence(xpf, l0.U, dot_precision="default"))
+    for name, dtype in (("cuDNN beside K3 (with its x-side)", torch.float32),
+                        ("cuDNN bf16 beside K3f (with its x-side)", torch.bfloat16)):
+        lstm = cudnn_lstm([(l0.W, l0.U, l0.b)], dev, dtype)
+        xs = x[:, None].to(dtype)
+        with cudnn_exact():
+            out[name] = device_time_ms(lambda: lstm(xs))
+    wide = P.load_params(WIDE_R24, device=dev)
+    for precision in ("exact", "fast"):
+        timing = time_full_vs_reduced(m512, wide, x, precision=precision)
+        out[f"predict 3x512 dense {precision} (full_ms)"] = timing.full_ms
+        out[f"predict 3x512 merged r=24 {precision} (reduced_ms)"] = timing.reduced_ms
+        out[f"ratio 3x512 merged r=24 {precision} (reduced / full)"] = timing.ratio
     xb3 = torch.tensor(np.random.default_rng(3).normal(size=(BATCH_B, BATCH_T, D)),
                        dtype=torch.float32, device=dev)
     out["batched fast predict 3x512"] = device_time_ms(lambda: P.predict(m512, xb3, precision="fast"))
@@ -1495,7 +1530,8 @@ def tree_turns(parent: str) -> None:
         ms = [r[key] for r in runs]
         p = np.median([m for m, tree in zip(ms, order) if tree == parent])
         c = np.median([m for m, tree in zip(ms, order) if tree != parent])
-        log(f"[turns] {key} (ms), {sides} (P parent, C change): "
+        unit = "" if key.startswith("ratio") else " (ms)"
+        log(f"[turns] {key}{unit}, {sides} (P parent, C change): "
             + ", ".join(f"{m:.3f}" for m in ms) + f"; medians P {p:.3f}, C {c:.3f}")
 
 

@@ -44,8 +44,10 @@ _SIGNATURES = {
     "dense_stack_wave_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
     # xp, Bt, IC, h0, c0, out, T, n, R, bf16, stream
     "reduced_recurrence_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # xp, U, h0, c0, out, T, n, bf16, stream
-    "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # xp, P, h0, c0, out, T, n, units, home, bf16, stream
+    "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # n, units, home, bf16, per_sm (int*)
+    "lstm_recurrence_per_sm": [_I, _I, _I, _I, _P],
     # meta, L, x, out, T, d, bf16, stream
     "fused_reduced_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
     # meta, L, x, T, B, d, lanes, stream

@@ -9,25 +9,30 @@
 //  * The time loop is sequential, so the work per step is tiny (a GEMV of a
 //    few hundred to a few thousand columns) and the chain of dependent steps
 //    is the bound: launch latency, barrier latency and the latency of the
-//    weight reads inside one step. One persistent CTA per launch runs all T
-//    steps inside the kernel, which replaces the TPU's sequential grid and
-//    its CT-step chunking (no time padding). One launch per sequence, no
-//    per-step launch.
+//    weight reads inside one step. Each kernel is one persistent launch per
+//    sequence that runs all T steps inside it, which replaces the TPU's
+//    sequential grid and its CT-step chunking (no time padding, no
+//    per-step launch).
 //  * K1 (dense_stack_wave, every stack of at most 1024 units) runs the
-//    layers as a one-row wavefront: one barrier a step, a group of S lanes a
-//    unit splitting its dot, the gate update and c in the owning lane's
-//    registers, the weights gate-interleaved in registers, in shared memory
-//    or read from a global copy (see its note). A wider stack (3x512) runs
-//    fused_dense_stack_kernel, the time-outer, layer-inner loop below.
-//  * K2, K3, K4 and K1's layer loop: h, c and z live in shared memory; every
-//    phase of a step ends with a __syncthreads(). Thread k owns gate column
-//    k of (., 4n) (strided by blockDim when 4n is wider than the block).
-//    Weights are row-major (Keras layout), so a warp reads 32 neighbouring
-//    columns of one row: the reads coalesce. They are read through __ldg
-//    from global memory: a narrow stack stays L1-resident, the wide ones
-//    come from L2 every step. Each thread's dot runs four independent
-//    accumulators, so the FMA chain does not serialise on its own latency.
-//    Splitting the wide layers over CTAs is later work (ROADMAP).
+//    layers as a one-row wavefront in one CTA: one barrier a step, a group
+//    of S lanes a unit splitting its dot, the gate update and c in the
+//    owning lane's registers, the weights gate-interleaved in registers, in
+//    shared memory or read from a global copy (see its note). A wider stack
+//    (3x512) runs fused_dense_stack_kernel, the time-outer, layer-inner
+//    loop below.
+//  * K3 (recurrence_chain) splits one layer over the SMs: a CTA owns J
+//    units, a warp each, with their columns of U on chip, in one
+//    cooperative launch with a grid barrier a step (see its note).
+//  * K2, K4 and K1's layer loop run in one CTA: h, c and z live in shared
+//    memory; every phase of a step ends with a __syncthreads(). Thread k
+//    owns gate column k of (., 4n) (strided by blockDim when 4n is wider
+//    than the block). Weights are row-major (Keras layout), so a warp reads
+//    32 neighbouring columns of one row: the reads coalesce. They are read
+//    through __ldg from global memory: a narrow stack stays L1-resident,
+//    the wide ones come from L2 every step. Each thread's dot runs four
+//    independent accumulators, so the FMA chain does not serialise on its
+//    own latency. Splitting K2 and K4 over CTAs as K3 is split is later
+//    work (ROADMAP).
 //  * The gate update is one __device__ function (the counterpart of
 //    models/lstm.py:gate_update), with expf/tanhf in f32. No fast math.
 //
@@ -38,18 +43,19 @@
 // The weights arrive rounded already, stored as __nv_bfloat16: rounding them
 // once on the host is the same arithmetic as rounding them every step, and
 // it halves the bytes each step reads. The vector operands are rounded where
-// they are written into shared memory (h by the gate update, x_t when it is
-// staged, h·B and x·B when they are reduced), while the h that goes out, c,
-// the bias and xp stay float32 and unrounded. In K2–K4 on a wide layer a
-// thread owns two neighbouring columns of z and reads both bf16 weights of a
-// row in one 32-bit load (columns_bf16): the column phase issues half the
-// loads of the exact kernels. With BF16 false every rounding is the
+// they are written into shared memory (h by the gate update or, in K3, as it
+// is read back, x_t when it is staged, h·B and x·B when they are reduced),
+// while the h that goes out, c, the bias and xp stay float32 and unrounded.
+// In K2 and K4 on a wide layer a thread owns two neighbouring columns of z
+// and reads both bf16 weights of a row in one 32-bit load (columns_bf16):
+// the column phase issues half the loads of the exact kernels. With BF16 false every rounding is the
 // identity at compile time and the column loops are the exact-mode code as
 // before.
 //
 // Every launcher runs on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() for the Python wrapper to check.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,8 +132,8 @@ __device__ __forceinline__ float dot_col(const float* v, const WT* __restrict__ 
 // one 32-bit load brings both bf16 weights of a row (exact conversion by
 // shifting the bits into the high half of a float), so a thread issues one
 // load per row for two columns, half as many as two dot_col calls. Two rows
-// an iteration (four FMA chains): on the H100 that ran K3's fast variant
-// faster than four rows did (PERF.md).
+// an iteration (four FMA chains): on the H100 that ran the single-CTA fast
+// recurrence faster than four rows did (PERF.md).
 __device__ __forceinline__ float2 dot_col2(const float* v, const __nv_bfloat16* __restrict__ M,
                                            int ld, int col, int len, float2 acc) {
   const unsigned int* P = reinterpret_cast<const unsigned int*>(M + col);
@@ -524,7 +530,7 @@ dense_stack_wave(WaveArgs a, const typename WaveEntry<BF16>::E* __restrict__ P,
 // Bound: two dependent phases per step; at 3x512 r=24 the operands are
 // 48 KB + 192 KB (half that in bf16), read from L1/L2 each step.
 // Design: phase 1 gives one warp per output of hb with a shuffle
-// reduction over n; phase 2 is one thread per column of z, as in K3.
+// reduction over n; phase 2 is one thread per column of z.
 // Shared memory: h, c (n each), hb (R), z (4n).
 // ---------------------------------------------------------------------------
 template <bool BF16>
@@ -565,41 +571,176 @@ reduced_recurrence_kernel(const float* __restrict__ xp,
 }
 
 // ---------------------------------------------------------------------------
-// K3. lstm_recurrence — replaces svd_lstm_tpu/ops/pallas_lstm.py:
-// lstm_recurrence_pallas. Dense h-side recurrence from the hoisted input
-// projection: z = xp_t + h·U, gate update.
-// Bound: U is (n, 4n); at n = 512 that is 4 MB of f32 (2 MB in bf16, fast
-// mode), which one SM reads from L2 every step — this single-CTA form is
-// bound by that one SM's load path and slow at that width (half the bytes
-// in fast mode took a quarter off its time, not half: PERF.md). A
-// multi-CTA split with U resident in shared memory across a cluster is
-// later work.
-// Design: one thread per column of z (strided), four-accumulator dots.
-// Shared memory: h, c (n each), z (4n).
+// K3. recurrence_chain — replaces svd_lstm_tpu/ops/pallas_lstm.py:
+// lstm_recurrence_pallas. Dense h-side recurrence of one layer, batch 1,
+// from the hoisted input projection: z_t = xp_t + h_{t-1}·U, the gate
+// update; h_t goes out unrounded (T, n).
+//
+// What bounds it: U is (n, 4n), 4 MB of f32 at n = 512 (2 MB bf16), and
+// every unit of h_t needs all of h_{t-1}, so each step is a grid-wide
+// dependency of n·4n multiply-adds (2.1 MFLOP at n = 512: 31 ns at 67
+// TFLOP/s). The chain of T steps is the bound: per step one exchange of h
+// between the SMs, the dot's latency, the gate math. One CTA reading all of
+// U from L2 every step (the design before) took 34.0 us a step.
+// What the design does about it:
+//  * U stays on chip, split over the SMs: a CTA owns J units (one warp a
+//    unit) and all four gate columns of them, so the gate update and c stay
+//    in the owning lane's registers for all T steps. The wrapper packs U
+//    unit-major as P[j][k] = (U[k, j], U[k, n + j], U[k, 2n + j],
+//    U[k, 3n + j]) (ops/cuda_lstm.py: pack_recurrence); lane l of unit j's
+//    warp takes k = l, l + 32, ... < n, and its entries live where HOME
+//    says (the wrapper's rule, ops/cuda_lstm.py: recurrence_plan):
+//      kRegs   — loaded once into registers (at most REC_REG_KB entries a
+//                lane, n <= 512; REC_REG_THREADS threads at most);
+//      kStaged — the CTA's J rows of P staged in shared memory once;
+//      kGlobal — read through __ldg from L1/L2 every step (past what fits).
+//  * One persistent cooperative launch for all T steps, one grid.sync() a
+//    step. The owning lane publishes h_t to out[t] (float32, unrounded);
+//    after the barrier every CTA reads all of h_t back through L2
+//    (ld.global.cg, never the non-coherent path) into shared memory,
+//    rounded to bf16 in fast mode, as the next step's operand. Step 0
+//    reads h0 (zeros when absent); c0 seeds the registers. xp_t is loaded
+//    before the barrier, as it does not depend on it. The grid, ceil(n / J)
+//    CTAs, is checked against the occupancy API and the SM count, and
+//    refused when it cannot be co-resident, never run another way.
+//  * The dot runs on the CUDA cores in float32 (exact mode keeps TF32 off;
+//    one row gains nothing from mma): each lane one FMA chain a gate, the
+//    32 lanes' partial sums added by shuffles in a fixed tree over the lane
+//    index, the highest bit first (a reduce-scatter that leaves gate g on
+//    lanes 8g..8g+7, which add its xp_t and take its activation; lane 0
+//    gathers the four and updates c and h). Units past n are masked
+//    (their warps only load h and meet the barrier).
+// Measured on the H100 (PERF.md §6) at n = 512, T = 6656 (J = 4, 128
+// CTAs of 128 threads, the weights in 108 registers a thread): ~2.0 us a
+// step, 13.1–13.7 ms a layer against cuDNN's ~76 and 231 before. Taken out
+// one at a time: the grid barrier, with the wait for the slowest CTA,
+// ~0.96 us; the gate math ~0.28 (on lane 0 alone: over four lanes it ran
+// 3–4 % faster); h's load through L2 ~0.25; the dot ~0.07.
+// J = 8 ran 2–3 % slower, J = 2 23 %; the staged weights 12 %, the global
+// copy 1.7x (exact) to 2.1x (fast). Two other exchanges ran slower and
+// were dropped: a 16-CTA cluster for the fast variant (U's bf16 rows
+// staged, h pushed into every CTA through distributed shared memory, one
+// cluster barrier a step: 1.5x), and h sent with its step's tag in one
+// 64-bit word, each CTA waiting only for the values it reads, no grid
+// barrier (as fast in exact mode, 8 % slower fast): the step waits on the
+// exchange's latency, not on the barrier's bookkeeping.
 // ---------------------------------------------------------------------------
-template <bool BF16>
-__global__ void __launch_bounds__(MAX_THREADS)
-lstm_recurrence_kernel(const float* __restrict__ xp, const typename Mode<BF16>::W* __restrict__ U,
-                       const float* __restrict__ h0, const float* __restrict__ c0,
-                       float* __restrict__ out, int T, int n) {
-  extern __shared__ float smem[];
-  float* h = smem;
-  float* c = h + n;
-  float* z = c + n;
-  const int G = 4 * n;
-  load_state<BF16>(h, c, h0, c0, n);
+#define REC_REG_KB 16         // entries a lane holds in registers (kRegs): n <= 512
+#define REC_REG_THREADS 256   // the block of kRegs (J <= 8 units)
+#define REC_MAX_UNITS 32      // a warp a unit, at most 1024 threads
+
+// Sums the four partial gate sums v[0..3] of a warp's 32 lanes by a
+// reduce-scatter (the pair across the highest lane bit first, so every sum
+// is the same tree over the lane index): lanes 8g..8g+7 return gate g's.
+__device__ __forceinline__ float sum_warp_gate(float (&v)[4], int lane) {
+  keep_half<2>(v, (lane >> 4) & 1, 16, 0xffffffffu);  // bit 4: gates {0, 1} or {2, 3}
+  keep_half<1>(v, (lane >> 3) & 1, 8, 0xffffffffu);   // bit 3: one gate of the pair
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 4);
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 2);
+  v[0] += __shfl_xor_sync(0xffffffffu, v[0], 1);
+  return v[0];
+}
+
+// floats of h in shared memory: n rounded up to the 32 lanes, zeros past n
+__host__ __device__ __forceinline__ int rec_kp(int n) { return (n + 31) / 32 * 32; }
+
+template <bool BF16, int HOME>
+__global__ void __launch_bounds__(HOME == kRegs ? REC_REG_THREADS : MAX_THREADS)
+recurrence_chain(const float* __restrict__ xp, const typename WaveEntry<BF16>::E* __restrict__ P,
+                 const float* __restrict__ h0, const float* __restrict__ c0, float* out, int T,
+                 int n) {
+  using Ent = typename WaveEntry<BF16>::E;
+  extern __shared__ float4 rec_smem[];
+  const int J = blockDim.x >> 5;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int j = blockIdx.x * J + (tid >> 5);  // this warp's unit
+  const int Kp = rec_kp(n);
+  const bool unit = j < n;
+  const int KL = (n - lane + 31) / 32;  // this lane's k = lane + 32·kb < n
+  float* hs = reinterpret_cast<float*>(rec_smem);  // h_{t-1}: Kp floats
+  Ent* ws = reinterpret_cast<Ent*>(hs + Kp);        // kStaged: J rows of Kp entries
+
+  const Ent* wp = P + (size_t)(unit ? j : 0) * n + lane;
+  if constexpr (HOME == kStaged) {
+    for (int e = tid; e < J * Kp; e += blockDim.x) {
+      const int r = e / Kp, k = e - r * Kp, jr = blockIdx.x * J + r;
+      Ent w{};
+      if (jr < n && k < n) w = __ldg(P + (size_t)jr * n + k);
+      ws[e] = w;
+    }
+    wp = ws + (tid >> 5) * Kp + lane;
+  }
+  float4 wr[HOME == kRegs ? REC_REG_KB : 1];
+  if constexpr (HOME == kRegs) {
+#pragma unroll
+    for (int kb = 0; kb < REC_REG_KB; ++kb)
+      wr[kb] = unit && kb < KL ? WaveEntry<BF16>::unpack(__ldg(wp + 32 * kb))
+                               : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  for (int k = tid; k < Kp; k += blockDim.x)
+    hs[k] = h0 != nullptr && k < n ? Mode<BF16>::round(h0[k]) : 0.f;
+  float c = unit && c0 != nullptr ? c0[j] : 0.f;  // the owning lane's (lane 0)
+  const bool vec = (n & 3) == 0;
   __syncthreads();
 
   for (int t = 0; t < T; ++t) {
-    const float* xpt = xp + (size_t)t * G;
-    if constexpr (BF16) {
-      columns_bf16(z, xpt, G, h, U, n, nullptr, nullptr, 0);
-    } else {
-      for (int k = threadIdx.x; k < G; k += blockDim.x) z[k] = dot_col(h, U, G, k, n, __ldg(xpt + k));
+    float xg = 0.f;  // lane 8g: gate g's xp_t
+    if (unit && (lane & 7) == 0) xg = __ldg(xp + (size_t)t * 4 * n + (lane >> 3) * n + j);
+    if (t > 0) {
+      cooperative_groups::this_grid().sync();  // h_{t-1} complete
+      const float* hp = out + (size_t)(t - 1) * n;
+      if (vec) {
+        for (int k = 4 * tid; k < n; k += 4 * blockDim.x) {
+          const float4 v = __ldcg(reinterpret_cast<const float4*>(hp + k));
+          hs[k] = Mode<BF16>::round(v.x);
+          hs[k + 1] = Mode<BF16>::round(v.y);
+          hs[k + 2] = Mode<BF16>::round(v.z);
+          hs[k + 3] = Mode<BF16>::round(v.w);
+        }
+      } else {
+        for (int k = tid; k < n; k += blockDim.x) hs[k] = Mode<BF16>::round(__ldcg(hp + k));
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    gate_update<BF16>(z, h, c, n, out + (size_t)t * n);
-    __syncthreads();
+    if (!unit) continue;  // warp-uniform
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    const float* sp = hs + lane;
+    if constexpr (HOME == kRegs) {
+#pragma unroll
+      for (int kb = 0; kb < REC_REG_KB; ++kb) {
+        if (kb < KL) {
+          const float hv = sp[32 * kb];
+          v[0] = fmaf(hv, wr[kb].x, v[0]);
+          v[1] = fmaf(hv, wr[kb].y, v[1]);
+          v[2] = fmaf(hv, wr[kb].z, v[2]);
+          v[3] = fmaf(hv, wr[kb].w, v[3]);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int kb = 0; kb < KL; ++kb) {
+        const float hv = sp[32 * kb];
+        float4 w;
+        if constexpr (HOME == kStaged) {
+          w = WaveEntry<BF16>::unpack(wp[32 * kb]);
+        } else {
+          w = WaveEntry<BF16>::unpack(__ldg(wp + 32 * kb));
+        }
+        v[0] = fmaf(hv, w.x, v[0]);
+        v[1] = fmaf(hv, w.y, v[1]);
+        v[2] = fmaf(hv, w.z, v[2]);
+        v[3] = fmaf(hv, w.w, v[3]);
+      }
+    }
+    // gate_cell's arithmetic, each gate's activation on its own lanes
+    const float z = sum_warp_gate(v, lane) + xg;
+    const float a = (lane >> 3) == 2 ? tanhf(z) : sigmoid_f32(z);
+    const float ai = __shfl_sync(0xffffffffu, a, 0), af = __shfl_sync(0xffffffffu, a, 8);
+    const float ag = __shfl_sync(0xffffffffu, a, 16), ao = __shfl_sync(0xffffffffu, a, 24);
+    if (lane == 0) {
+      c = af * c + ai * ag;
+      out[(size_t)t * n + j] = ao * tanhf(c);
+    }
   }
 }
 
@@ -801,16 +942,58 @@ int launch_reduced_recurrence(const void* xp, const void* Bt, const void* IC, co
   return (int)cudaGetLastError();
 }
 
-template <bool BF16>
-int launch_lstm_recurrence(const void* xp, const void* U, const void* h0, const void* c0,
-                           void* out, int T, int n, cudaStream_t stream) {
-  using WT = typename Mode<BF16>::W;
-  const size_t smem = (size_t)(6 * n) * sizeof(float);
-  cudaError_t err = prepare_smem(lstm_recurrence_kernel<BF16>, smem);
+// shared memory of recurrence_chain: h (Kp floats) and, staged, the CTA's
+// J rows of Kp entries (16 bytes, 8 in fast mode; ops/cuda_lstm.py:
+// recurrence_smem_bytes)
+size_t rec_smem_bytes(int n, int units, int home, bool bf16) {
+  const size_t kp = (size_t)rec_kp(n);
+  return kp * sizeof(float) + (home == kStaged ? (size_t)units * kp * (bf16 ? 8 : 16) : 0);
+}
+
+template <bool BF16, int HOME>
+int rec_occupancy(int n, int units, int* per_sm) {
+  const auto kernel = recurrence_chain<BF16, HOME>;
+  const size_t smem = rec_smem_bytes(n, units, HOME, BF16);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  lstm_recurrence_kernel<BF16><<<1, block_threads(4 * n), smem, stream>>>(
-      (const float*)xp, (const WT*)U, (const float*)h0, (const float*)c0, (float*)out, T, n);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, 32 * units, smem);
+}
+
+// Checks co-residency (every CTA of the grid on the card at once, from the
+// occupancy of this kernel and the device's SM count), then the
+// cooperative launch.
+template <bool BF16, int HOME>
+int launch_chain(const float* xp, const void* P_, const float* h0, const float* c0, float* out,
+                 int T, int n, int units, cudaStream_t s) {
+  using Ent = typename WaveEntry<BF16>::E;
+  int per_sm = 0, dev = 0, sms = 0;
+  int err = rec_occupancy<BF16, HOME>(n, units, &per_sm);
+  if (err != (int)cudaSuccess) return err;
+  cudaError_t e;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)e;
+  const int ctas = (n + units - 1) / units;
+  if (per_sm < 1 || (long long)ctas > (long long)per_sm * sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  const Ent* P = (const Ent*)P_;
+  void* args[] = {(void*)&xp, (void*)&P, (void*)&h0, (void*)&c0, (void*)&out, (void*)&T, (void*)&n};
+  e = cudaLaunchCooperativeKernel((const void*)recurrence_chain<BF16, HOME>, dim3(ctas),
+                                  dim3(32 * units), args, rec_smem_bytes(n, units, HOME, BF16), s);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Checks what the wrapper's plan chose (units J, the weights' home)
+// against the kernel: a warp a unit within the block (REC_REG_THREADS for
+// the registers home), a lane's entries within REC_REG_KB in registers,
+// the shared memory within a block's 227 KB.
+int rec_plan_ok(int n, int units, int home, bool bf16) {
+  const int threads = 32 * units;
+  return n >= 1 && units >= 1 && units <= REC_MAX_UNITS &&
+         (home == kRegs || home == kStaged || home == kGlobal) &&
+         (home != kRegs || (threads <= REC_REG_THREADS && rec_kp(n) / 32 <= REC_REG_KB)) &&
+         rec_smem_bytes(n, units, home, bf16) <= 232448;
 }
 
 template <bool BF16>
@@ -893,12 +1076,37 @@ int reduced_recurrence_launch(const void* xp, const void* Bt, const void* IC, co
               : launch_reduced_recurrence<false>(xp, Bt, IC, h0, c0, out, T, n, R, s);
 }
 
-// bf16 != 0: fast mode, U bf16.
-int lstm_recurrence_launch(const void* xp, const void* U, const void* h0, const void* c0,
-                           void* out, int T, int n, int bf16, void* stream) {
+// K3 (recurrence_chain). P: U packed unit-major, n·n entries, float4
+// (bf16 == 0) or four bf16 (fast mode) (ops/cuda_lstm.py:
+// pack_recurrence); h0, c0: (n) or null. units: J a CTA; home: 0
+// registers, 1 staged, 2 the global copy (ops/cuda_lstm.py:
+// recurrence_plan), checked here, not chosen.
+int lstm_recurrence_launch(const void* xp, const void* P, const void* h0, const void* c0,
+                           void* out, int T, int n, int units, int home, int bf16, void* stream) {
+  if (T < 1 || P == nullptr || !rec_plan_ok(n, units, home, bf16 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)P) & (bf16 ? 7 : 15)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch_lstm_recurrence<true>(xp, U, h0, c0, out, T, n, s)
-              : launch_lstm_recurrence<false>(xp, U, h0, c0, out, T, n, s);
+  const float *x = (const float*)xp, *h = (const float*)h0, *c = (const float*)c0;
+  float* o = (float*)out;
+#define CHAIN_CASE(B_, H_) \
+  if ((bf16 != 0) == B_ && home == H_) return launch_chain<B_, H_>(x, P, h, c, o, T, n, units, s);
+  CHAIN_CASE(false, kRegs) CHAIN_CASE(false, kStaged) CHAIN_CASE(false, kGlobal)
+  CHAIN_CASE(true, kRegs) CHAIN_CASE(true, kStaged) CHAIN_CASE(true, kGlobal)
+#undef CHAIN_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K3's CTAs an SM at this width, J and home (the occupancy API), into
+// *per_sm.
+int lstm_recurrence_per_sm(int n, int units, int home, int bf16, int* per_sm) {
+  if (!rec_plan_ok(n, units, home, bf16 != 0)) return (int)cudaErrorInvalidValue;
+#define OCC_CASE(B_, H_) \
+  if ((bf16 != 0) == B_ && home == H_) return rec_occupancy<B_, H_>(n, units, per_sm);
+  OCC_CASE(false, kRegs) OCC_CASE(false, kStaged) OCC_CASE(false, kGlobal)
+  OCC_CASE(true, kRegs) OCC_CASE(true, kStaged) OCC_CASE(true, kGlobal)
+#undef OCC_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // meta: L rows of 9 int64 — din, units, rw, ru, wBt, wIC, uBt, uIC, b (device

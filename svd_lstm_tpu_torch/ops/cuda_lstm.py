@@ -39,6 +39,8 @@ so the products are exact) and their results are not rounded.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -71,6 +73,7 @@ MAX_LAYERS = 8  # csrc MAX_LAYERS
 MAX_THREADS = 1024  # csrc MAX_THREADS: one block
 _SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block can use
 _DOT_PRECISIONS = (None, "default", "highest")
+WAVE_HOMES = ("registers", "staged", "global")  # csrc WaveHome (K1's and K3's), in its order
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +131,10 @@ def _check_smem(name: str, floats: int) -> None:
         raise ValueError(f"{name}: needs {4 * floats} B of shared memory, over {_SMEM_LIMIT}")
 
 
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
 def _check_T(name: str, T: int) -> None:
     if T < 1:
         raise ValueError(f"{name}: empty sequence")
@@ -176,10 +183,90 @@ def lstm_recurrence_plain(xp, U, h0=None, c0=None, dot_precision=None) -> torch.
     return scan_recurrence(xp[None], lambda h: torch.matmul(operand(h), U), h0, c0)[0][0]
 
 
+REC_UNITS = (4, 8, 16, 32)  # units a CTA (a warp each) that recurrence_plan tries, fewest first
+REC_REG_KB = 16             # csrc REC_REG_KB: a lane's entries in registers (n <= 512)
+REC_REG_THREADS = 256       # csrc REC_REG_THREADS: the block of the registers home
+REC_MAX_UNITS = 32          # csrc REC_MAX_UNITS: 1024 threads
+
+
+class RecurrencePlan(NamedTuple):
+    """K3's launch (csrc ``lstm_recurrence_launch`` checks it): one
+    cooperative launch of ``ctas`` = ⌈n / units⌉ CTAs, each ``units`` units
+    (a warp each, all four gate columns of them), the packed U where
+    ``home`` says, all CTAs co-resident."""
+
+    units: int
+    home: str
+    ctas: int
+    threads: int
+    smem_bytes: int
+
+
+def recurrence_smem_bytes(n: int, units: int, home: str, fast: bool) -> int:
+    """Shared memory of a CTA (csrc ``rec_smem_bytes``): h_{t-1} as Kp =
+    ⌈n / 32⌉·32 floats and, staged, its units' Kp entries of the packed U
+    each (16 bytes, 8 in fast mode)."""
+    kp = _round_up(n, 32)
+    return 4 * kp + (units * kp * (8 if fast else 16) if home == "staged" else 0)
+
+
+def recurrence_plan(n: int, fast: bool, sm_count: int, per_sm) -> RecurrencePlan:
+    """K3's units a CTA and the weights' home for n units on a card of
+    ``sm_count`` SMs, ``per_sm(units, home)`` being the kernel's CTAs an SM
+    there (the occupancy API's, on the card): the registers where a lane's
+    ⌈n / 32⌉ entries fit REC_REG_KB (n <= 512), else shared memory, else the
+    global copy; in each home the fewest units of REC_UNITS whose block the
+    home admits, whose shared memory fits and whose ⌈n / units⌉ CTAs the
+    card holds at once. Raises ``ValueError`` where none does: the kernel is
+    never run another way."""
+    homes = (("registers",) if -(-n // 32) <= REC_REG_KB else ()) + ("staged", "global")
+    for home in homes:
+        for units in REC_UNITS:
+            threads = 32 * units
+            if threads > (REC_REG_THREADS if home == "registers" else MAX_THREADS):
+                continue
+            smem = recurrence_smem_bytes(n, units, home, fast)
+            ctas = -(-n // units)
+            if smem <= _SMEM_LIMIT and ctas <= per_sm(units, home) * sm_count:
+                return RecurrencePlan(units, home, ctas, threads, smem)
+    raise ValueError(f"lstm_recurrence: n = {n} fits no launch (shared memory, or the CTAs "
+                     f"co-resident on {sm_count} SMs)")
+
+
+def card_recurrence_plan(dev: torch.device, n: int, fast: bool) -> RecurrencePlan:
+    """:func:`recurrence_plan` on the card of ``dev``: its SM count and the
+    kernel's occupancy there."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return recurrence_plan(n, fast, torch.cuda.get_device_properties(idx).multi_processor_count,
+                           lambda units, home: _recurrence_per_sm(idx, n, fast, units, home))
+
+
+@functools.cache
+def _recurrence_per_sm(device_index: int, n: int, fast: bool, units: int, home: str) -> int:
+    """The kernel's CTAs an SM at this width, units and home (the occupancy
+    API)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = _build.library().lstm_recurrence_per_sm(n, units, WAVE_HOMES.index(home), int(fast),
+                                                      ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"lstm_recurrence: occupancy query failed with cudaError {err}")
+    return out.value
+
+
+def pack_recurrence(U: torch.Tensor, fast: bool) -> torch.Tensor:
+    """The chain's U, unit-major (n·n, 4): P[j·n + k, g] = U[k, g·n + j];
+    bf16 in fast mode (rounded once here)."""
+    n = U.shape[0]
+    P = U.reshape(n, 4, n).permute(2, 0, 1).reshape(n * n, 4)
+    return (P.to(torch.bfloat16) if fast else P).contiguous()
+
+
 @torch.no_grad()
 def lstm_recurrence(xp, U, h0=None, c0=None, dot_precision=None) -> torch.Tensor:
     """Dense h-side recurrence from the hoisted input projection (bias
-    included). xp (T, 4n), U (n, 4n), optional h0/c0 (n,) -> (T, n)."""
+    included). xp (T, 4n), U (n, 4n), optional h0/c0 (n,) -> (T, n). On the
+    card one launch of the chain :func:`recurrence_plan` picks."""
     fast = _is_fast(dot_precision)
     T, n = xp.shape[0], U.shape[0]
     _check_T("lstm_recurrence", T)
@@ -188,12 +275,13 @@ def lstm_recurrence(xp, U, h0=None, c0=None, dot_precision=None) -> torch.Tensor
     h0, c0 = _state("h0", h0, n), _state("c0", c0, n)
     if not _on_card(xp, U, *(s for s in (h0, c0) if s is not None)):
         return lstm_recurrence_plain(xp, U, h0, c0, dot_precision)
-    _check_smem("lstm_recurrence", 6 * n)
+    plan = card_recurrence_plan(xp.device, n, fast)
+    P = pack_recurrence(U, fast)
     out = torch.empty((T, n), dtype=torch.float32, device=xp.device)
     _launch(
         "lstm_recurrence", xp.device,
-        xp.data_ptr(), _stored(U, fast).data_ptr(), _ptr(h0), _ptr(c0), out.data_ptr(), T, n,
-        int(fast),
+        xp.data_ptr(), P.data_ptr(), _ptr(h0), _ptr(c0), out.data_ptr(), T, n, plan.units,
+        WAVE_HOMES.index(plan.home), int(fast),
     )
     _count("lstm_recurrence", fast)
     return out
@@ -320,7 +408,6 @@ def _check_layers(name: str, model, x: torch.Tensor) -> int:
 WAVE_LANES = (8, 4, 2, 1)  # lanes a unit that dense_stack_wave takes, most first
 WAVE_REG_KB = 16           # csrc WAVE_REG_KB: a lane's entries in registers
 WAVE_REG_THREADS = 512     # csrc WAVE_REG_THREADS: the block of the registers home
-WAVE_HOMES = ("registers", "staged", "global")  # csrc WaveHome, in its order
 
 
 class DensePlan(NamedTuple):
@@ -333,10 +420,6 @@ class DensePlan(NamedTuple):
     lanes: int
     threads: int
     smem_bytes: int
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
 
 
 def wave_threads(units: Sequence[int], d: int, lanes: int) -> int:

@@ -328,6 +328,47 @@ def test_cuda_lstm_recurrence_fast_matches_plain(cuda, n, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+def test_cuda_lstm_recurrence_3x512_length_from_state(cuda, fast, monkeypatch):
+    """K3 and K3f at a 3x512 layer's width over the main path's T = 6656,
+    from h0 and c0: the chain's 6656 grid barriers, within 5e-4 (exact, the
+    limit of chip_smoke.py over T = 6656) or K3f's limit."""
+    args = _t(_dense_case(12, 512, T=6656), cuda)
+    dp = "default" if fast else None
+    want = ck.lstm_recurrence_plain(*args, dot_precision=dp)
+    want64 = ck.lstm_recurrence_plain(*_double(args), dot_precision=dp) if fast else None
+    monkeypatch.setattr(ck, "lstm_recurrence_plain", None)  # no fallback on the card
+    got = _launched("lstm_recurrence_fast" if fast else "lstm_recurrence",
+                    lambda: ck.lstm_recurrence(*args, dot_precision=dp))
+    if fast:
+        _fast_close(got, want, want64)
+    else:
+        assert float((got - want).abs().max()) <= 5e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("n", [130, 1030, 2048])
+def test_cuda_lstm_recurrence_every_home_and_masked_units(cuda, n, fast, monkeypatch):
+    """n = 130 (registers, 4 units a CTA: 2 masked), 1030 (staged, 6
+    masked) and 2048 (the global copy), as the plan picks on this card."""
+    args = _t(_dense_case(13, n), cuda)
+    dp = "default" if fast else None
+    plan = ck.card_recurrence_plan(cuda, n, fast)
+    assert plan.home == ("registers" if n <= 512 else "staged" if n < 2048 else "global")
+    assert (n % plan.units != 0) == (n != 2048)
+    want = ck.lstm_recurrence_plain(*args, dot_precision=dp)
+    want64 = ck.lstm_recurrence_plain(*_double(args), dot_precision=dp) if fast else None
+    monkeypatch.setattr(ck, "lstm_recurrence_plain", None)
+    got = _launched("lstm_recurrence_fast" if fast else "lstm_recurrence",
+                    lambda: ck.lstm_recurrence(*args, dot_precision=dp))
+    if fast:
+        _fast_close(got, want, want64)
+    else:
+        _close(got, want.cpu())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("merged", [True, False], ids=["merged", "split"])
 @pytest.mark.parametrize("n", [24, 136, 512])
 def test_cuda_reduced_recurrence_fast_matches_plain(cuda, n, merged, monkeypatch):
