@@ -17,9 +17,12 @@ Phases, each of which raises on failure (no phase is caught):
    build time and the compiler's resource report;
 3. check each batch-1 kernel against its plain PyTorch version on the card
    at the main path's shapes (T = 6656, d = 16, TF32 off; K1's route, the
-   weights' home and lanes of ``cuda_lstm.dense_plan``, and K3's plan, its
+   weights' home and lanes of ``cuda_lstm.dense_plan``, K3's plan, its
    units a CTA, CTAs and the weights' home of
-   ``cuda_lstm.recurrence_plan``, are printed): max abs
+   ``cuda_lstm.recurrence_plan``, and K2's, its cluster of CTAs, warps a
+   CTA, the weights' home and bytes a CTA of ``cuda_lstm.reduced_plan``,
+   are printed; K2 on every layer of ``wide_r24_progressive`` and of the
+   direct merged and split r = 24 truncations of 3×512): max abs
    difference at most 5e-4 (the layout-exactness bound of ``bench.py``: the
    sum order differs from the plain version and the error grows over 6656
    steps), and time both;
@@ -70,6 +73,9 @@ Phases, each of which raises on failure (no phase is caught):
    ``bench.timing.time_all_impls`` with impls "auto", "pallas" (K1 for the
    dense model, K4 for the reduced one) and "hybrid", exact and fast, on
    4×30 r = 15 and 3×512 r = 24, and check that K4 ran in both modes;
+   then print the reduced/full ratios of phases 4 and 4c (3×512 merged r =
+   24 and 4×30 split r = 15, exact and fast) beside the card's name and
+   power limit;
 5. check the train kernels against their plain versions on the card at the
    training path's shapes (K7 at 4×40, B = 32; K9 on a 512-unit layer and on
    the first layer, d = 16, B = 128; T = 200): h and c within 1e-4 or twice
@@ -85,9 +91,13 @@ Phases, each of which raises on failure (no phase is caught):
    ``wide_bwd_chain``, one persistent cooperative launch; X: dx; G: the
    weight gradients): each phase is timed alone beside its bound, and the
    kernels one call launches are listed at T and T/2 (as many either way,
-   the chain kernel among them);
-5b. the same for K6 (the recurrence-only train pair, K9's backward without
-   X) at run D's shapes (n = 512, B = 128, T = 200);
+   the chain kernel among them). K9's forward runs two parts (the x-side,
+   ``gemm_f32`` over all T·B rows; the recurrence, ``wide_fwd_chain``, one
+   persistent cooperative launch): each is timed alone beside its bound,
+   and its launches are listed at T and T/2 the same way;
+5b. the same for K6 (the recurrence-only train pair, K9's forward without
+   the x-side and its backward without X) at run D's shapes (n = 512, B =
+   128, T = 200);
 6. drive the training path through the public entry points, on windows of
    the package's deterministic DROPBEAR surrogate: run A ``fit`` of a fresh
    4×40 stack (K7), run B ``finetune`` of σ under the Hoyer penalty on the
@@ -114,10 +124,13 @@ Phases, each of which raises on failure (no phase is caught):
    over T = 6656, K5 on 3×512's layer 1 at B = 256, T = 128 alone and with
    its x-side product, K3 on 3×512's layer 0 over T = 6656 alone and with
    its x-side product and K3f alone, cuDNN's LSTM beside each (float32 and
-   bf16 beside K3 and K3f), batch-1 ``predict`` of 4×30 dense and split
-   r = 15 (full_ms, reduced_ms) and of 3×512 dense and merged r = 24
-   (``wide_r24_progressive``), exact and fast, with their ratios, and
-   batched fast ``predict`` on 3×512;
+   bf16 beside K3 and K3f), K2 and K2f on layer 0 of the direct merged r =
+   24 truncation of 3×512 and of ``wide_r24_progressive``, with cuDNN's
+   float32 and bf16 LSTM on the layer's exact dense reconstruction (with
+   its x-side) beside them, batch-1 ``predict`` of 4×30 dense and split r =
+   15 and of 3×512 dense and merged r = 24 (``wide_r24_progressive``;
+   full_ms, reduced_ms), exact and fast, with their ratios, and batched
+   fast ``predict`` on 3×512;
 6. (continued) drive the post-truncation recovery through its public entry
    points, on the same windows: run E ``recover_reduced_gated`` of the 4×30
    split r = 15 truncation at B = 128 (K8 both ways), run F
@@ -141,7 +154,9 @@ Phases, each of which raises on failure (no phase is caught):
 
 Beside each kernel the script times one PyTorch library call that computes
 the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
-the port never calls it) as the kernel's yardstick, ``library_ms``, and
+for K2, K2f, K4 and K4f on the reduced layer's or stack's exact dense
+reconstruction; the port never calls it) as the kernel's yardstick,
+``library_ms``, and
 computes the kernel's bound: the larger of its operations over the H100's
 peak (67 TFLOP/s float32 on the CUDA cores, 989 TFLOP/s bf16) and its bytes
 (each input read once, each output written once) over 3.35 TB/s.
@@ -344,6 +359,18 @@ def library_train(layers, x: torch.Tensor, dh: torch.Tensor) -> tuple:
     return fwd_ms, bwd_ms
 
 
+def reduced_library_ms(model, x: torch.Tensor, dtype, layers: int = 1) -> float:
+    """cuDNN's LSTM (TF32 off) on the first ``layers`` layers of a reduced
+    model's exact dense reconstruction, with the x-side product: one
+    PyTorch call computing the function of K2 (one layer from xp) or K4 (the
+    stack; its head left out), the yardstick of both."""
+    dense = P.reconstruct_dense_model(model)
+    lstm = cudnn_lstm([(l.W, l.U, l.b) for l in dense.layers[:layers]], x.device, dtype)
+    xs = x[:, None].to(dtype)
+    with cudnn_exact():
+        return device_time_ms(lambda: lstm(xs))
+
+
 def report(name: str, r: dict) -> None:
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
     log(f"[time] {name} ({r['shape']}): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
@@ -418,13 +445,21 @@ def kernel_checks(dev, x):
         "shape": "one 512-unit layer, T=6656",
     }
 
-    # K2: merged r=24 checkpoint, and a split r=24 truncation of 3x512
+    # K2: merged r=24 checkpoint, the direct merged r=24 truncation of 3x512
+    # (|C| ~ 1.1e4, ROADMAP fault 3.1) and its split r=24 truncation
     wide = P.load_params(WIDE_R24, device=dev)
+    direct = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=24)
     red512 = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=False), rank=24)
     proj = lambda l, h: reduced_projection(l, h, "w")
     err = 0.0
     timed = None
-    for name, m in (("merged r=24 (wide_r24_progressive)", wide), ("split r=24 (3x512)", red512)):
+    for name, m in (("merged r=24 (wide_r24_progressive)", wide), ("direct merged r=24 (3x512)", direct),
+                    ("split r=24 (3x512)", red512)):
+        l0 = m.layers[0]
+        for fast in (False, True):
+            plan = ck.card_reduced_plan(dev, l0.units, ck.reduced_ranks(recurrence_args(l0)[0]), fast)
+            log(f"[info] K2 plan, {name}, {'fast' if fast else 'exact'}: {plan} (a CTA's weights "
+                f"{plan.weight_bytes} B)")
         for i, (l, xp, h) in enumerate(layer_runs(m, x, proj, ck.reduced_recurrence_plain)):
             args = (xp, *recurrence_args(l))
             err = max(err, check_close(f"K2 reduced_recurrence {name} layer {i}",
@@ -436,7 +471,8 @@ def kernel_checks(dev, x):
         "max_abs_err": err,
         "ms": device_time_ms(ck.reduced_recurrence, *args),
         "plain_ms": device_time_ms(ck.reduced_recurrence_plain, *args),
-        "library_ms": None,  # no single PyTorch call runs the two-step recurrence (h·B)·[I|C]
+        # cuDNN on the layer's exact dense reconstruction, with its x-side product
+        "library_ms": reduced_library_ms(wide, x, torch.float32),
         **bound(2 * Tx * (n * r + r * (4 * n - r)), nbytes(*args, h)),
         "shape": "one 512-unit layer, merged r=24, T=6656",
     }
@@ -678,7 +714,8 @@ def fast_kernel_checks(dev, x) -> dict:
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.reduced_recurrence(*args, dot_precision=fast)),
         "plain_ms": plain_ms(lambda: ck.reduced_recurrence_plain(*args, dot_precision=fast)),
-        "library_ms": None,  # no single PyTorch call runs the two-step recurrence (h·B)·[I|C]
+        # cuDNN's bf16 LSTM on the layer's exact dense reconstruction, with its x-side
+        "library_ms": reduced_library_ms(wide, x, torch.bfloat16),
         **bound(2 * Tx * (n * r + r * (4 * n - r)), nbytes(args[0], h) + bf16_bytes(args[1:]),
                 torch.bfloat16),
         "shape": "one 512-unit layer, merged r=24, T=6656, bf16 operands",
@@ -700,7 +737,8 @@ def fast_kernel_checks(dev, x) -> dict:
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(red512, x)),
         "plain_ms": plain_ms(lambda: ck.fused_reduced_stack_plain(red512, x)),
-        "library_ms": None,  # no single PyTorch call runs a factored LSTM stack
+        # cuDNN on the stack's exact dense reconstruction (the head left out)
+        "library_ms": reduced_library_ms(red512, x, torch.float32, len(red512.layers)),
         **bound(reduced_flops(Tx, red512, d) + 2 * Tx * n,
                 nbytes(x, list(red512.parameters())) + 4 * Tx),
         "shape": "3x512 merged r=24 (direct truncation), T=6656, d=16",
@@ -730,7 +768,8 @@ def fast_kernel_checks(dev, x) -> dict:
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(wide, x, dot_precision=fast)),
         "plain_ms": plain_ms(lambda: ck.fused_reduced_stack_plain(wide, x, fast)),
-        "library_ms": None,  # no single PyTorch call runs a factored LSTM stack
+        # cuDNN's bf16 LSTM on the stack's exact dense reconstruction (the head left out)
+        "library_ms": reduced_library_ms(wide, x, torch.bfloat16, len(wide.layers)),
         **bound(reduced_flops(Tx, wide, d) + 2 * Tx * n,
                 nbytes(x, [l.b for l in wide.layers], list(wide.head.parameters())) + 4 * Tx
                 + bf16_bytes([p for l in wide.layers for p in (l.wB, l.wC, l.uB, l.uC)]),
@@ -767,7 +806,8 @@ def weights(model) -> int:
 
 def main_path(dev, x):
     """Phase 4: the compress-and-predict path through the public entry
-    points, counted, checked and timed."""
+    points, counted, checked and timed. Returns the launches and each
+    model's reduced / full time ratio."""
     configs = (
         ("3x512 merged r=24", DENSE_512, True, 24),
         ("4x30 split r=15", DENSE_30, False, 15),
@@ -792,6 +832,7 @@ def main_path(dev, x):
             fail(f"kernel {k} was not launched on the main path")
 
     x_cpu = x[:REF_STEPS].cpu()
+    ratios = {}
     for name, path, merged, rank, dense, reduced, y_full, y_red in runs:
         # The same surgery on the CPU. The reference is its float64 plain
         # scan; the tolerance is twice the float32 error of the same impl on
@@ -802,6 +843,7 @@ def main_path(dev, x):
         for label, y, m in (("dense", y_full, dense_cpu), ("reduced", y_red, red_cpu)):
             check_vs_cpu_reference(f"{name} {label}", y, m, x_cpu)
         timing = time_full_vs_reduced(dense, reduced, x)
+        ratios[f"{name} exact"] = timing.ratio
         err = P.rmse(y_full.cpu().numpy(), y_red.cpu().numpy())
         log(f"[main] {name}: full_ms {timing.full_ms:.3f}  reduced_ms {timing.reduced_ms:.3f}  "
             f"ratio {timing.ratio:.4f}  rmse(reduced vs dense) {err:.6f}  "
@@ -809,7 +851,7 @@ def main_path(dev, x):
         if merged:
             scan_ms = device_time_ms(lambda: P.predict(dense, x, impl="scan"))
             log(f"[main] {name}: dense impl='scan' {scan_ms:.3f} ms")
-    return launches
+    return launches, ratios
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -856,10 +898,11 @@ def batched_path(dev) -> dict:
     return launches
 
 
-def fast_path(dev, x) -> dict:
+def fast_path(dev, x) -> tuple:
     """Phase 4c: batch-1 predict(precision="fast") through the public entry
     points, counted, checked against exact mode on the card and timed; then
-    the timing harness over its impls, which reaches K4 through "pallas"."""
+    the timing harness over its impls, which reaches K4 through "pallas".
+    Returns the launches and the fast reduced / full time ratios."""
     m512, m30 = P.load_params(DENSE_512, device=dev), P.load_params(DENSE_30, device=dev)
     red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
     red512 = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=24)
@@ -896,8 +939,11 @@ def fast_path(dev, x) -> dict:
                        for p in ("fast", "exact")}
         log(f"[fast] {name} T={T}: fast {times[name]['fast']:.3f} ms, exact "
             f"{times[name]['exact']:.3f} ms")
-    for full, red in (("3x512 dense", "3x512 direct merged r=24"), ("4x30 dense", "4x30 split r=15")):
-        log(f"[fast] reduced/full fast ratio, {red}: {times[red]['fast'] / times[full]['fast']:.4f}")
+    ratios = {}
+    for full, red, key in (("3x512 dense", "3x512 direct merged r=24", "3x512 merged r=24"),
+                           ("4x30 dense", "4x30 split r=15", "4x30 split r=15")):
+        ratios[f"{key} fast"] = times[red]["fast"] / times[full]["fast"]
+        log(f"[fast] reduced/full fast ratio, {red}: {ratios[key + ' fast']:.4f}")
 
     for name, dense, reduced in (("4x30 split r=15", m30, red30), ("3x512 merged r=24", m512, red512)):
         for precision in ("exact", "fast"):
@@ -912,7 +958,7 @@ def fast_path(dev, x) -> dict:
     for k in K4_NAMES:
         if launches[k] < 1:
             fail(f"kernel {k} was not launched by the timing harness")
-    return launches
+    return launches, ratios
 
 
 # ---------------------------------------------------------------------------
@@ -1115,21 +1161,61 @@ def wide_bwd_phases(name: str, x, W, U, b, h, c, dh) -> None:
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     log(f"[phase] {name} chain: {plan}")
     del z, dz
-    counts = {}
-    for steps in (T, T // 2):
+
+    def call(steps):
         part = [t[:steps].contiguous() for t in (x, h, c, dh)]
         if W is None:
-            call = lambda: ct.lstm_recurrence_train_bwd(part[0], U, *part[1:])  # noqa: E731
-        else:
-            call = lambda: ct.wide_layer_bwd(part[0], W, U, b, *part[1:])  # noqa: E731
-        names = entry_launches(call)
+            return ct.lstm_recurrence_train_bwd(part[0], U, *part[1:])
+        return ct.wide_layer_bwd(part[0], W, U, b, *part[1:])
+
+    launches_at_two_lengths(name, call, T, "wide_bwd_chain", "one copy of U's transpose")
+
+
+def launches_at_two_lengths(name: str, call, T: int, chain: str, extra: str) -> None:
+    """The kernels one wrapper call launches at T and at T/2 steps
+    (``call(steps)``): as many either way, the chain kernel among them."""
+    counts = {}
+    for steps in (T, T // 2):
+        names = entry_launches(lambda: call(steps))
         counts[steps] = len(names)
-        log(f"[launches] {name} at T={steps}: {len(names)} kernels and one copy of U's transpose: "
-            + ", ".join(names))
-        if "wide_bwd_chain" not in names:
+        log(f"[launches] {name} at T={steps}: {len(names)} kernels and {extra}: " + ", ".join(names))
+        if chain not in names:
             fail(f"{name}: the chain kernel did not run")
     if counts[T] != counts[T // 2]:
         fail(f"{name}: launches grow with T: {counts}")
+
+
+def wide_fwd_phases(name: str, x, W, U, b) -> None:
+    """K9's forward (W given) or K6's (W None, x the projection xp) by part,
+    each alone beside its bound: the x-side GEMM (K9) and the chain; then
+    the kernels one wrapper call launches at T and at T/2: as many either
+    way, the chain kernel among them."""
+    T, B, din = x.shape
+    n = U.shape[0]
+    G, M = 4 * n, T * B
+    plan = ct.fwd_chain_plan(B, n, ct.sm_count(x.device))
+    xz = x if W is None else ct.phase_x_side(x, W, b)
+    Ui = ct.pack_gates_interleaved(U)
+    h = torch.empty((T, B, n), dtype=torch.float32, device=x.device)
+    c = torch.empty_like(h)
+    parts = [] if W is None else [("x-side", lambda: ct.phase_x_side(x, W, b), 2 * M * din * G,
+                                   nbytes(x, W, b, xz))]
+    parts.append(("chain", lambda: ct.phase_chain_fwd(xz, Ui, h, c, plan), 2 * (T - 1) * B * n * G,
+                  nbytes(xz, U, h, c)))
+    for part, fn, flops, moved in parts:
+        ms = device_time_ms(fn)
+        r = bound(flops, moved)
+        log(f"[phase] {name} {part}: {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    log(f"[phase] {name} chain: {plan}")
+
+    def call(steps):
+        part = x[:steps].contiguous()
+        if W is None:
+            return ct.lstm_recurrence_train_fwd(part, U)
+        return ct.wide_layer_fwd(part, W, U, b)
+
+    launches_at_two_lengths(name, call, T, "wide_fwd_chain", "one packing of U")
 
 
 @torch.no_grad()
@@ -1209,6 +1295,7 @@ def train_kernel_checks(dev, data) -> dict:
         **time_pair("K9 bwd", shape, ct.wide_layer_bwd, ct.wide_layer_bwd_plain, *args,
                     library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
     }
+    wide_fwd_phases("K9 fwd", *args[:4])
     wide_bwd_phases("K9 bwd", *args)
     time_pair("K9 fwd+bwd", shape,
               lambda: ct.wide_layer_bwd(*args[:4], *ct.wide_layer_fwd(*args[:4]), dh),
@@ -1250,6 +1337,7 @@ def recurrence_train_checks(dev, data, rng) -> dict:
                         *args, library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
         },
     }
+    wide_fwd_phases("K6 fwd", xp, None, U, None)
     wide_bwd_phases("K6 bwd", xp, None, U, None, h_p, c_p, dh)
     time_pair("K6 fwd+bwd", shape,
               lambda: ct.lstm_recurrence_train_bwd(xp, U, *ct.lstm_recurrence_train_fwd(xp, U), dh),
@@ -1364,9 +1452,10 @@ def narrow_times(dev, data) -> dict:
 
 
 NARROW_PARTS = {"narrow fwd": ("narrow_fwd",), "narrow bwd": ("narrow_bwd",)}
-# the wide pair's kernels in this checkout and in the parent's (the per-step
-# backward: wide_bwd_gates, matmul_nt, weight_grad)
-WIDE_PARTS = {"wide fwd": ("wide_fwd_step",),
+# the wide pair's kernels in this checkout and in the parent's (the parent's
+# forward: a wide_fwd_step a step; this checkout's forward chain, its x-side
+# GEMM counted with the backward's gemm_f32)
+WIDE_PARTS = {"wide fwd": ("wide_fwd_step", "wide_fwd_chain"),
               "wide bwd": ("gemm_f32", "wide_bwd_chain", "wide_bwd_gates", "matmul_nt",
                            "weight_grad", "sum_splits")}
 
@@ -1460,9 +1549,12 @@ def inference_times(dev) -> dict:
     lstm = cudnn_lstm([(l.W, l.U, l.b)], dev, torch.bfloat16)
     out["cuDNN bf16 beside K5 (with its x-side)"] = device_time_ms(lambda: lstm(h_in))
     red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
-    timing = time_full_vs_reduced(m30, red30, x)
-    out["predict 4x30 dense (full_ms)"] = timing.full_ms
-    out["predict 4x30 split r=15 (reduced_ms)"] = timing.reduced_ms
+    for precision in ("exact", "fast"):
+        timing = time_full_vs_reduced(m30, red30, x, precision=precision)
+        tag = "" if precision == "exact" else " fast"
+        out[f"predict 4x30 dense{tag} (full_ms)"] = timing.full_ms
+        out[f"predict 4x30 split r=15{tag} (reduced_ms)"] = timing.reduced_ms
+        out[f"ratio 4x30 split r=15 {precision} (reduced / full)"] = timing.ratio
     l0 = m512.layers[0]
     xp = (torch.matmul(x, l0.W) + l0.b).contiguous()
     out["K3 3x512 layer 0"] = device_time_ms(ck.lstm_recurrence, xp, l0.U)
@@ -1478,6 +1570,17 @@ def inference_times(dev) -> dict:
         with cudnn_exact():
             out[name] = device_time_ms(lambda: lstm(xs))
     wide = P.load_params(WIDE_R24, device=dev)
+    direct = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=24)
+    for mname, model in (("direct r=24", direct), ("wide_r24_progressive", wide)):
+        l = model.layers[0]
+        for kname, fast in (("K2", False), ("K2f", True)):
+            xpr = (reduced_projection(l, x, "w", bf16=fast) + l.b).contiguous()
+            dp = "default" if fast else None
+            out[f"{kname} 3x512 {mname} layer 0"] = device_time_ms(
+                lambda: ck.reduced_recurrence(xpr, l.uB, l.uC, dot_precision=dp))
+    for name, dtype in (("cuDNN beside K2 (dense reconstruction, with its x-side)", torch.float32),
+                        ("cuDNN bf16 beside K2f (dense reconstruction, with its x-side)", torch.bfloat16)):
+        out[name] = reduced_library_ms(wide, x, dtype)
     for precision in ("exact", "fast"):
         timing = time_full_vs_reduced(m512, wide, x, precision=precision)
         out[f"predict 3x512 dense {precision} (full_ms)"] = timing.full_ms
@@ -1731,9 +1834,12 @@ def main() -> int:
         checks = kernel_checks(dev, x)
         checks.update(batched_kernel_checks(dev))
         checks.update(fast_kernel_checks(dev, x))
-        launches = main_path(dev, x)
+        launches, ratios = main_path(dev, x)
         launches.update(batched_path(dev))
-        launches.update(fast_path(dev, x))
+        fast_launches, fast_ratios = fast_path(dev, x)
+        launches.update(fast_launches)
+    log(f"[ratio] reduced / full batch-1 predict on {card_line()}: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in {**ratios, **fast_ratios}.items()))
 
     data = train_data()
     with exact_matmul():

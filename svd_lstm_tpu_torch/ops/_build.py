@@ -42,8 +42,8 @@ _SIGNATURES = {
     "fused_dense_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
     # meta, L, P, E, x, out, T, d, lanes, home, bf16, stream
     "dense_stack_wave_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    # xp, Bt, IC, h0, c0, out, T, n, R, bf16, stream
-    "reduced_recurrence_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xp, P, ranks (int*), blocks, h0, c0, out, T, n, cluster, warps, home, bf16, stream
+    "reduced_recurrence_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # xp, P, h0, c0, out, T, n, units, home, bf16, stream
     "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # n, units, home, bf16, per_sm (int*)
@@ -59,8 +59,8 @@ _SIGNATURES = {
     "fused_narrow_train_compact_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # A, shift, dz, out, partial, M, p, G, splits, stream
     "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, W, U, b, h, c, T, B, din, n, stream
-    "wide_layer_fwd_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # xz, Ui, h, c, T, B, stride, n, rows, units, staged, row_groups, stream
+    "wide_fwd_chain_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # meta (int64: see csrc wide_gemm_launch), stream
     "wide_gemm_launch": [_P, _P],
     # partial, out, size, splits, stream

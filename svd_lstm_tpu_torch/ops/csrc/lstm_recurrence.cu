@@ -23,7 +23,11 @@
 //  * K3 (recurrence_chain) splits one layer over the SMs: a CTA owns J
 //    units, a warp each, with their columns of U on chip, in one
 //    cooperative launch with a grid barrier a step (see its note).
-//  * K2, K4 and K1's layer loop run in one CTA: h, c and z live in shared
+//  * K2 (reduced_chain) splits one reduced layer over a thread-block
+//    cluster: a warp owns 8 units with their rows of B and columns of
+//    [I|C] on chip, and only the R partial sums of h·B cross CTAs, through
+//    distributed shared memory, one cluster barrier a step (see its note).
+//  * K4 and K1's layer loop run in one CTA: h, c and z live in shared
 //    memory; every phase of a step ends with a __syncthreads(). Thread k
 //    owns gate column k of (., 4n) (strided by blockDim when 4n is wider
 //    than the block). Weights are row-major (Keras layout), so a warp reads
@@ -31,7 +35,7 @@
 //    through __ldg from global memory: a narrow stack stays L1-resident,
 //    the wide ones come from L2 every step. Each thread's dot runs four
 //    independent accumulators, so the FMA chain does not serialise on its
-//    own latency. Splitting K2 and K4 over CTAs as K3 is split is later
+//    own latency. Splitting K4 over a cluster as K2 is split is later
 //    work (ROADMAP).
 //  * The gate update is one __device__ function (the counterpart of
 //    models/lstm.py:gate_update), with expf/tanhf in f32. No fast math.
@@ -46,7 +50,7 @@
 // they are written into shared memory (h by the gate update or, in K3, as it
 // is read back, x_t when it is staged, h·B and x·B when they are reduced),
 // while the h that goes out, c, the bias and xp stay float32 and unrounded.
-// In K2 and K4 on a wide layer a thread owns two neighbouring columns of z
+// In K4 on a wide layer a thread owns two neighbouring columns of z
 // and reads both bf16 weights of a row in one 32-bit load (columns_bf16):
 // the column phase issues half the loads of the exact kernels. With BF16 false every rounding is the
 // identity at compile time and the column loops are the exact-mode code as
@@ -187,15 +191,6 @@ __device__ __forceinline__ float dot_row_warp(const float* v, const WT* __restri
   for (int j = lane; j < len; j += 32) acc = fmaf(v[j], ldw(row + j), acc);
   for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
   return acc;
-}
-
-template <bool BF16>
-__device__ __forceinline__ void load_state(float* h, float* c, const float* h0, const float* c0,
-                                           int n) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    h[j] = h0 != nullptr ? Mode<BF16>::round(h0[j]) : 0.f;
-    c[j] = c0 != nullptr ? c0[j] : 0.f;
-  }
 }
 
 template <typename WT>
@@ -517,56 +512,198 @@ dense_stack_wave(WaveArgs a, const typename WaveEntry<BF16>::E* __restrict__ P,
 }
 
 // ---------------------------------------------------------------------------
-// K2. reduced_recurrence — replaces svd_lstm_tpu/ops/pallas_lstm.py:
-// reduced_recurrence_pallas. Low-rank h-side recurrence, batch 1:
-//   hb = h·B (R outputs), z = xp_t + hb·IC, gate update.
-// Merged: B (n, r), IC = [I|C] (r, 4n). Split: the wrapper packs
-// B = [B_i|B_f|B_g|B_o] (n, sum r_g) and a block-diagonal IC (sum r_g, 4n)
-// holding fold_IC(B_g, C_g) in gate g's rows and columns; the zero blocks
-// add exact zeros, so one body serves both forms.
-// B arrives transposed, Bt (R, n), so that a warp reads one contiguous row.
-// In fast mode hb is rounded to bf16 before the second product: on the TPU
-// it is the operand of the second single-pass dot.
-// Bound: two dependent phases per step; at 3x512 r=24 the operands are
-// 48 KB + 192 KB (half that in bf16), read from L1/L2 each step.
-// Design: phase 1 gives one warp per output of hb with a shuffle
-// reduction over n; phase 2 is one thread per column of z.
-// Shared memory: h, c (n each), hb (R), z (4n).
+// K2. reduced_chain — replaces svd_lstm_tpu/ops/pallas_lstm.py:
+// reduced_recurrence_pallas. Low-rank h-side recurrence of one layer,
+// batch 1, from the hoisted input projection:
+//   hb = h_{t-1}·B (R outputs), z_t = xp_t + hb·[I|C], the gate update;
+// h_t goes out unrounded (T, n). Merged: one B (n, r) and [I|C] (r, 4n),
+// hb shared by the four gates. Split: per gate B_g (n, r_g) and [I|C_g]
+// (r_g, n), gate g's columns reading only its own block of hb (R = Σ r_g).
+//
+// What bounds it: a step is n·R + R·4n multiply-adds (61 440 at n = 512,
+// merged r = 24: 1/17 of K3's), but every unit of h_t needs all of hb, which
+// needs all of h_{t-1}: the chain of T dependent steps is the bound. One CTA
+// reading its 240 KB of weights from L1/L2 every step (the design before)
+// took ~4.4 us a step; K3's grid chain spends ~1 us a step on its exchange
+// of h alone.
+// What the design does about it:
+//  * The reduction is split, not only the columns. A thread-block cluster
+//    of CL CTAs (CL in 1..16, one launch for all T steps) splits the units:
+//    a warp owns RED_UNITS = 8 units, their rows of B and their 32 gate
+//    columns of [I|C], on chip for the whole run, where HOME says (the
+//    wrapper's rule, ops/cuda_lstm.py: reduced_plan):
+//      kRegs   — in registers (every block rank <= 32: lane c holds its
+//                column's 32 entries, lane q row q of the 8 units' B; at
+//                most RED_REG_THREADS threads);
+//      kStaged — the CTA's blocks staged in shared memory once.
+//    The wrapper packs a warp's block as [I|C] by rows q, a lane's column
+//    each (zero past the column's block rank), then B block by block, unit
+//    by unit, each block at its own rank (ops/cuda_lstm.py:
+//    pack_reduced_chain): a split layer's gate reads only [I|C_g], no zero
+//    blocks.
+//  * Only R partial sums cross CTAs in a step. h never leaves its warp: a
+//    step is
+//      1. each warp's partial hb over its 8 units (lane q: an FMA chain over
+//         u = 0..7 in order), into shared memory; one __syncthreads();
+//      2. the CTA's partial, the warps' partials added in warp order, stored
+//         into every CTA's shared memory (its own included) through
+//         distributed shared memory (cluster.map_shared_rank), in the slot
+//         of its rank, in parity t & 1;
+//      3. one cluster barrier (barrier.cluster arrive.release +
+//         wait.acquire): the only exchange of the step;
+//      4. every warp sums the CL partials in rank order (so every CTA holds
+//         the same hb; rounded to bf16 in fast mode) into its row of shared
+//         memory; lane 8g + u, gate g of unit u, forms its column's dot
+//         hb·[I|C][:, c] over its block's rank in four FMA chains (q mod 4,
+//         added as (0 + 1) + (2 + 3)), adds xp_t (loaded before the
+//         barrier), takes its gate's activation; the four are gathered by
+//         shuffles and every lane of unit u updates c (in registers for all
+//         T steps) and h; lanes 0..7 store h_t.
+//    The parity double buffer lets the one barrier a step serve both the
+//    exchange and the reuse of the slots.
+//  * Units past n are masked (zero weights, h and c held at 0, nothing
+//    stored), so any n runs; a CTA whose warps own no unit still joins the
+//    exchange with zero partials.
+// Fast mode: h, B, hb and [I|C] are the products' operands, rounded to bf16
+// where reduced_recurrence_plain rounds them (B and [I|C] once, by the
+// wrapper); sums, state, xp and the h that goes out stay float32.
 // ---------------------------------------------------------------------------
-template <bool BF16>
-__global__ void __launch_bounds__(MAX_THREADS)
-reduced_recurrence_kernel(const float* __restrict__ xp,
-                          const typename Mode<BF16>::W* __restrict__ Bt,
-                          const typename Mode<BF16>::W* __restrict__ IC,
-                          const float* __restrict__ h0, const float* __restrict__ c0,
-                          float* __restrict__ out, int T, int n, int R) {
-  extern __shared__ float smem[];
-  float* h = smem;
-  float* c = h + n;
-  float* hb = c + n;
-  float* z = hb + R;
-  const int G = 4 * n;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  load_state<BF16>(h, c, h0, c0, n);
-  __syncthreads();
+#define RED_UNITS 8           // units a warp: its 4 x 8 gate columns, a lane each
+#define RED_MAX_WARPS 32      // warps a CTA (1024 threads)
+#define RED_REG_THREADS 512   // the block of kRegs
+#define RED_MAX_CLUSTER 16
+
+struct RedArgs {
+  int n, R;        // units; entries of hb (merged r, split Σ r_g)
+  int rmax;        // the largest block rank
+  int warps;       // warps a CTA
+  int entries;     // entries of one warp's block of P: 32·rmax + 8·R
+  int rank[4];     // each block's rank (merged: rank[0] = r)
+  int off[4];      // each block's first entry of hb
+};
+
+// A warp's block of P: [I|C] as [q][lane] for q < rmax (lane = 8g + u:
+// gate g of unit u; zero past the lane's block rank), then B as [block][u][q]
+// (each block's rank entries; ops/cuda_lstm.py: pack_reduced_chain).
+__host__ __device__ __forceinline__ int red_b_off(const RedArgs& a, int b, int u) {
+  return 32 * a.rmax + RED_UNITS * a.off[b] + u * a.rank[b];
+}
+
+template <typename WT> __device__ __forceinline__ float ld_plain(const WT* p);
+template <> __device__ __forceinline__ float ld_plain<float>(const float* p) { return *p; }
+template <> __device__ __forceinline__ float ld_plain<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+
+template <bool BF16, bool SPLIT, int HOME, int CL>
+__global__ void __launch_bounds__(HOME == kRegs ? RED_REG_THREADS : MAX_THREADS)
+reduced_chain(const RedArgs a, const float* __restrict__ xp,
+              const typename Mode<BF16>::W* __restrict__ P, const float* __restrict__ h0,
+              const float* __restrict__ c0, float* __restrict__ out, int T) {
+  using WT = typename Mode<BF16>::W;
+  constexpr int NB = SPLIT ? 4 : 1;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  extern __shared__ float4 red_smem[];
+  float* part = reinterpret_cast<float*>(red_smem);  // [2][CL][R]: the CTAs' partial hb
+  float* wpart = part + 2 * CL * a.R;                 // [warps][R]: a warp's partial, then its hb
+  WT* ws = reinterpret_cast<WT*>(wpart + a.warps * a.R);  // kStaged: the CTA's blocks of P
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, u = lane & 7, g = lane >> 3;
+  const int n = a.n, R = a.R;
+  const int j = RED_UNITS * (rank * a.warps + w) + u;  // unit u of this warp
+  const bool unit = j < n;
+  const WT* pw = P + (size_t)(rank * a.warps + w) * a.entries;
+  if constexpr (HOME == kStaged) {
+    const WT* src = P + (size_t)rank * a.warps * a.entries;
+    for (int e = tid; e < a.warps * a.entries; e += blockDim.x) ws[e] = src[e];
+    pw = ws + (size_t)w * a.entries;
+  }
+  const int bl = SPLIT ? g : 0;  // the block of this lane's column
+  const int rl = a.rank[bl];
+  float wic[HOME == kRegs ? 32 : 1], wb[HOME == kRegs ? NB * RED_UNITS : 1];
+  if constexpr (HOME == kRegs) {  // every rank <= 32 (checked by the launcher)
+#pragma unroll
+    for (int q = 0; q < 32; ++q) wic[q] = q < a.rmax ? ld_plain(pw + 32 * q + lane) : 0.f;
+#pragma unroll
+    for (int b = 0; b < NB; ++b)
+#pragma unroll
+      for (int v = 0; v < RED_UNITS; ++v)
+        wb[b * RED_UNITS + v] = lane < a.rank[b] ? ld_plain(pw + red_b_off(a, b, v) + lane) : 0.f;
+  }
+  float hop = unit && h0 != nullptr ? Mode<BF16>::round(h0[j]) : 0.f;  // h_{t-1}, the operand
+  float c = unit && c0 != nullptr ? c0[j] : 0.f;
+  float* hbw = wpart + w * R;
+  cluster.sync();  // every CTA running (its shared memory a target) and staged
 
   for (int t = 0; t < T; ++t) {
-    for (int q = warp; q < R; q += nwarps) {  // warp-uniform loop
-      const float acc = dot_row_warp(h, Bt + (size_t)q * n, n, lane);
-      if (lane == 0) hb[q] = Mode<BF16>::round(acc);
+    const int par = t & 1;
+    const float xg = unit ? __ldg(xp + (size_t)t * 4 * n + g * n + j) : 0.f;
+    // 1. the warp's partial hb over its 8 units
+    float hu[RED_UNITS];
+#pragma unroll
+    for (int v = 0; v < RED_UNITS; ++v) hu[v] = __shfl_sync(0xffffffffu, hop, v);
+    for (int q = lane; q < a.rmax; q += 32) {
+#pragma unroll
+      for (int b = 0; b < NB; ++b) {
+        if (q >= a.rank[b]) continue;
+        float p = 0.f;
+#pragma unroll
+        for (int v = 0; v < RED_UNITS; ++v) {
+          float wv;
+          if constexpr (HOME == kRegs) {
+            wv = wb[b * RED_UNITS + v];
+          } else {
+            wv = ld_plain(pw + red_b_off(a, b, v) + q);
+          }
+          p = fmaf(hu[v], wv, p);
+        }
+        hbw[a.off[b] + q] = p;
+      }
     }
     __syncthreads();
-    const float* xpt = xp + (size_t)t * G;
-    if constexpr (BF16) {
-      columns_bf16(z, xpt, G, hb, IC, R, nullptr, nullptr, 0);
+    // 2. the CTA's partial, into every CTA's slot for this rank
+    for (int i = tid; i < R; i += blockDim.x) {
+      float s = 0.f;
+      for (int v = 0; v < a.warps; ++v) s += wpart[v * R + i];
+      float* slot = part + (par * CL + rank) * R + i;
+#pragma unroll
+      for (int peer = 0; peer < CL; ++peer) *cluster.map_shared_rank(slot, peer) = s;
+    }
+    // 3. the exchange
+    cluster.sync();
+    // 4. hb in rank order, into the warp's row; lane 8g + u: its column's dot
+    for (int q = lane; q < R; q += 32) {
+      float s = 0.f;
+#pragma unroll
+      for (int r = 0; r < CL; ++r) s += part[(par * CL + r) * R + q];
+      hbw[q] = Mode<BF16>::round(s);
+    }
+    __syncwarp();
+    const float* hq = hbw + a.off[bl];
+    float d[4] = {0.f, 0.f, 0.f, 0.f};  // four chains, over q mod 4
+    if constexpr (HOME == kRegs) {
+#pragma unroll
+      for (int q = 0; q < 32; ++q)
+        if (q < rl) d[q & 3] = fmaf(hq[q], wic[q], d[q & 3]);
     } else {
-      for (int k = threadIdx.x; k < G; k += blockDim.x) z[k] = dot_col(hb, IC, G, k, R, __ldg(xpt + k));
+      for (int q0 = 0; q0 < rl; q0 += 4) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (q0 + m < rl) d[m] = fmaf(hq[q0 + m], ld_plain(pw + 32 * (q0 + m) + lane), d[m]);
+      }
     }
-    __syncthreads();
-    gate_update<BF16>(z, h, c, n, out + (size_t)t * n);
-    __syncthreads();
+    const float z = ((d[0] + d[1]) + (d[2] + d[3])) + xg;
+    const float act = g == 2 ? tanhf(z) : sigmoid_f32(z);
+    const float ai = __shfl_sync(0xffffffffu, act, u), af = __shfl_sync(0xffffffffu, act, 8 + u);
+    const float ag = __shfl_sync(0xffffffffu, act, 16 + u), ao = __shfl_sync(0xffffffffu, act, 24 + u);
+    if (unit) {
+      c = af * c + ai * ag;
+      const float hn = ao * tanhf(c);
+      if (lane < RED_UNITS) out[(size_t)t * n + j] = hn;
+      hop = Mode<BF16>::round(hn);
+    }
+    __syncwarp();  // hbw is this warp's partial again
   }
 }
 
@@ -764,8 +901,9 @@ struct ReducedStackArgs {
 // on both sides: per step, per layer,
 //   z = (inp·wB)·[I|wC] + (h·uB)·[I|uC] + b
 // and the gate update; layer i's new h feeds layer i+1 within the step, the
-// head runs outside. Each side is packed as K2 packs its h-side (transposed
-// B, and for split layers the block-diagonal [I|C] of the four gates), so
+// head runs outside. Each side is packed by ops/cuda_lstm.py: _pack_reduced
+// (transposed B, and for split layers the block-diagonal [I|C] of the four
+// gates), so
 // one body serves merged and split layers.
 // Bound: the dependent chain. A layer-step has three barriers against K1's
 // two: phase 1 computes xb = inp·wB and hb = h·uB together (one warp per
@@ -928,17 +1066,47 @@ int launch_dense_wave(const WaveArgs& a, const void* P, int E, const float* x, f
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool BF16>
-int launch_reduced_recurrence(const void* xp, const void* Bt, const void* IC, const void* h0,
-                              const void* c0, void* out, int T, int n, int R,
-                              cudaStream_t stream) {
+// shared memory of reduced_chain: the partials (two parities of CL x R, and
+// the CTA's warps' R each) and, staged, the CTA's blocks of P
+// (ops/cuda_lstm.py: reduced_smem_bytes)
+size_t red_smem_bytes(const RedArgs& a, int CL, int home, bool bf16) {
+  return (size_t)(2 * CL + a.warps) * a.R * sizeof(float) +
+         (home == kStaged ? (size_t)a.warps * a.entries * (bf16 ? 2 : 4) : 0);
+}
+
+// Checks what the wrapper's plan chose (CL, warps a CTA, the weights' home)
+// against the kernel and the packing, then launches one cluster of CL CTAs
+// if the card can hold it (cudaOccupancyMaxActiveClusters); a cluster the
+// card cannot hold is refused, never run another way.
+template <bool BF16, bool SPLIT, int HOME, int CL>
+int launch_reduced_chain(const RedArgs& a, const float* xp, const void* P_, const float* h0,
+                         const float* c0, float* out, int T, cudaStream_t s) {
   using WT = typename Mode<BF16>::W;
-  const size_t smem = (size_t)(2 * n + R + 4 * n) * sizeof(float);
-  cudaError_t err = prepare_smem(reduced_recurrence_kernel<BF16>, smem);
-  if (err != cudaSuccess) return (int)err;
-  reduced_recurrence_kernel<BF16><<<1, block_threads(4 * n), smem, stream>>>(
-      (const float*)xp, (const WT*)Bt, (const WT*)IC, (const float*)h0, (const float*)c0,
-      (float*)out, T, n, R);
+  const auto kernel = reduced_chain<BF16, SPLIT, HOME, CL>;
+  const size_t smem = red_smem_bytes(a, CL, HOME, BF16);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (CL > 8 && (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                          1)) != cudaSuccess)
+    return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL);
+  cfg.blockDim = dim3(32 * a.warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg)) != cudaSuccess)
+    return (int)e;
+  if (clusters < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  const WT* P = (const WT*)P_;
+  if ((e = cudaLaunchKernelEx(&cfg, kernel, a, xp, P, h0, c0, out, T)) != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1067,13 +1235,51 @@ int dense_stack_wave_launch(const int64_t* meta, int L, const void* P, int E, co
               : launch_dense_wave<false>(a, P, E, (const float*)x, (float*)out, T, d, lanes, home, s);
 }
 
-// bf16 != 0: fast mode, Bt and IC bf16.
-int reduced_recurrence_launch(const void* xp, const void* Bt, const void* IC, const void* h0,
-                              const void* c0, void* out, int T, int n, int R, int bf16,
-                              void* stream) {
+// K2 (reduced_chain). P: the packed blocks of CL x warps warps, entries
+// each, float (bf16 == 0) or bf16 (fast mode) (ops/cuda_lstm.py:
+// pack_reduced_chain); h0, c0: (n) or null. ranks: 1 (merged) or 4 (split)
+// block ranks; cluster: CL; warps: warps a CTA; home: 0 registers, 1
+// staged (ops/cuda_lstm.py: reduced_plan), checked here, not chosen.
+int reduced_recurrence_launch(const void* xp, const void* P, const int* ranks, int blocks,
+                              const void* h0, const void* c0, void* out, int T, int n,
+                              int cluster, int warps, int home, int bf16, void* stream) {
+  if (T < 1 || n < 1 || P == nullptr || (blocks != 1 && blocks != 4) || warps < 1 ||
+      warps > RED_MAX_WARPS || cluster < 1 || cluster > RED_MAX_CLUSTER ||
+      (long long)cluster * warps * RED_UNITS < n || (home != kRegs && home != kStaged) ||
+      (home == kRegs && 32 * warps > RED_REG_THREADS))
+    return (int)cudaErrorInvalidValue;
+  RedArgs a;
+  a.n = n;
+  a.warps = warps;
+  a.R = 0;
+  for (int b = 0; b < 4; ++b) {
+    a.rank[b] = b < blocks ? ranks[b] : 0;
+    a.off[b] = b < blocks ? a.R : 0;
+    if (b < blocks) {
+      if (a.rank[b] < 1 || (home == kRegs && a.rank[b] > 32)) return (int)cudaErrorInvalidValue;
+      a.R += a.rank[b];
+    }
+  }
+  a.rmax = 0;
+  for (int b = 0; b < blocks; ++b) a.rmax = a.rank[b] > a.rmax ? a.rank[b] : a.rmax;
+  a.entries = 32 * a.rmax + RED_UNITS * a.R;
+  if (red_smem_bytes(a, cluster, home, bf16 != 0) > 232448) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? launch_reduced_recurrence<true>(xp, Bt, IC, h0, c0, out, T, n, R, s)
-              : launch_reduced_recurrence<false>(xp, Bt, IC, h0, c0, out, T, n, R, s);
+  const float *x = (const float*)xp, *h = (const float*)h0, *c = (const float*)c0;
+  float* o = (float*)out;
+#define RED_CASE(B_, S_, H_, CL_)                                                              \
+  if ((bf16 != 0) == B_ && (blocks == 4) == S_ && home == H_ && cluster == CL_)                \
+    return launch_reduced_chain<B_, S_, H_, CL_>(a, x, P, h, c, o, T, s);
+#define RED_CLUSTERS(B_, S_, H_) \
+  RED_CASE(B_, S_, H_, 1) RED_CASE(B_, S_, H_, 2) RED_CASE(B_, S_, H_, 4) RED_CASE(B_, S_, H_, 8) \
+  RED_CASE(B_, S_, H_, 16)
+  RED_CLUSTERS(false, false, kRegs) RED_CLUSTERS(false, false, kStaged)
+  RED_CLUSTERS(false, true, kRegs) RED_CLUSTERS(false, true, kStaged)
+  RED_CLUSTERS(true, false, kRegs) RED_CLUSTERS(true, false, kStaged)
+  RED_CLUSTERS(true, true, kRegs) RED_CLUSTERS(true, true, kStaged)
+#undef RED_CLUSTERS
+#undef RED_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // K3 (recurrence_chain). P: U packed unit-major, n·n entries, float4

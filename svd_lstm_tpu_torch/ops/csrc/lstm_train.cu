@@ -11,12 +11,12 @@
 //   K8  the same two kernels, the weights staged in shared memory wherever
 //       the stack fits — replace svd_lstm_tpu/ops/pallas_train_compact.py:
 //       _fused_fwd / _fused_bwd (see the note above the launchers).
-//   K9  wide_fwd_step / gemm_f32 + wide_bwd_chain — replace
+//   K9  gemm_f32 + wide_fwd_chain / gemm_f32 + wide_bwd_chain — replace
 //       svd_lstm_tpu/ops/pallas_train_wide.py: _wide_fwd / _wide_bwd (one
 //       layer, n % 128 == 0).
-//   K6  the same kernels with the x·W part left out (the forward step with
-//       kXW = false, chosen by the launcher when W is null: z = xp_t +
-//       h_{t-1}·U; the backward's GEMMs without x and W, and dxp = dz) —
+//   K6  the same kernels with the x·W part left out (the forward chain on
+//       z = xp_t + h_{t-1}·U with no x-side GEMM; the backward's GEMMs
+//       without x and W, and dxp = dz) —
 //       replace svd_lstm_tpu/ops/pallas_train.py: _pallas_fwd_hc /
 //       _pallas_bwd.
 //   weight_grad (+ sum_splits) — the dW/dU/db accumulation that the TPU
@@ -45,17 +45,13 @@
 //    the layers as a wavefront, T + L - 1 steps forward and T + L back
 //    (with dx as a layer of its own), one barrier a step, a lane group per
 //    unit, the gate math and the carries in registers.
-//  * K9 forward: at n = 512, W and U are 8 MB, against 227 KB of shared
-//    memory per block, and every unit's z at step t needs all of h_{t-1}:
-//    each step is a grid-wide dependency. So one launch per time step (the
-//    host loop runs in the C launcher; a CUDA graph is later work) of a
-//    tiled kernel: a CTA owns WIDE_BR rows x WIDE_UJ units and computes the
-//    four gate columns of its units, so the gate update stays in registers.
-//    Each K chunk of the tiles is read into registers before it is stored
-//    to shared memory, and the next chunk's reads are started before this
-//    one is multiplied, so the loads overlap (3.6x faster forward than
-//    loading straight into shared memory). Bound: ~52 us a step at n = 512,
-//    B = 128, against 0.5 GFLOP (~10 TFLOP/s): one CTA of 4 warps per SM.
+//  * K9 and K6 forward: at n = 512 U is 4 MB, against 227 KB of shared
+//    memory a block, and every unit's z at step t needs all of h_{t-1}: each
+//    step is a grid-wide dependency. Only h·U is recurrent, so x·W + b runs
+//    as one GEMM over all T·B rows (K9), and the recurrence is one
+//    persistent cooperative launch with its units' columns of U on chip and
+//    a grid barrier a step (wide_fwd_chain, the backward chain's layout; see
+//    its note). Before, a launch a step (~52 us a step at n = 512, B = 128).
 //  * K9 and K6 backward: only the dh carry is recurrent. z needs only x_t
 //    and the forward's h_{t-1}, dx only dz, and the weight gradients only
 //    dz and the forward's tensors, so they run as GEMMs over all T·B rows,
@@ -75,10 +71,6 @@
 
 #define MAX_LAYERS 8
 #define NARROW_ROWS 4
-#define WIDE_BR 16   // batch rows per CTA
-#define WIDE_UJ 32   // units per CTA (4 gate columns each)
-#define WIDE_KC 32   // reduction chunk
-#define WIDE_THREADS 128
 #define WG_TP 64     // rows of a weight-gradient tile
 #define WG_TG 64     // columns of a weight-gradient tile
 #define WG_KM 32     // M chunk of a weight-gradient tile
@@ -748,136 +740,6 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// K9 and K6, shared by their step kernels: for the CTA's tile (WIDE_BR
-// rows from r0, WIDE_UJ units from j0) and this thread's 4 rows
-// (r0 + ty*4 + r) and unit j0 + tx, acc[r][g] += Σ_k in[row][k] · M[k][g*n + j]
-// for k < K. in has row stride ld; M is (K, 4n), n a multiple of WIDE_UJ.
-// Every thread of the CTA must call it (it synchronises).
-// ---------------------------------------------------------------------------
-struct WideSmem {
-  float in[WIDE_KC][WIDE_BR + 1];   // +1: the transposed store is conflict-free
-  float w[WIDE_KC][4][WIDE_UJ];
-};
-
-// One K chunk of the CTA's operand tiles, read into registers: every load of
-// the chunk is started before any is used, and the next chunk's loads are in
-// flight while this one is multiplied (the loop of gates_tile).
-constexpr int WIDE_IN_PER = WIDE_KC * WIDE_BR / WIDE_THREADS;     // 4
-constexpr int WIDE_W_PER = WIDE_KC * 4 * WIDE_UJ / WIDE_THREADS;  // 32
-
-__device__ __forceinline__ void gates_load(const float* __restrict__ in, int ld, int K,
-                                           const float* __restrict__ M, int n, int B, int r0,
-                                           int j0, int k0, float* vin, float* vw) {
-#pragma unroll
-  for (int q = 0; q < WIDE_IN_PER; ++q) {
-    const int e = threadIdx.x + q * WIDE_THREADS;
-    const int row = r0 + e / WIDE_KC, k = k0 + e % WIDE_KC;
-    vin[q] = row < B && k < K ? in[(size_t)row * ld + k] : 0.f;
-  }
-#pragma unroll
-  for (int q = 0; q < WIDE_W_PER; ++q) {
-    const int e = threadIdx.x + q * WIDE_THREADS;
-    const int u = e % WIDE_UJ, g = (e / WIDE_UJ) % 4, k = k0 + e / (4 * WIDE_UJ);
-    vw[q] = k < K ? __ldg(M + (size_t)k * 4 * n + g * n + j0 + u) : 0.f;
-  }
-}
-
-__device__ __forceinline__ void gates_store(WideSmem& s, const float* vin, const float* vw) {
-#pragma unroll
-  for (int q = 0; q < WIDE_IN_PER; ++q) {
-    const int e = threadIdx.x + q * WIDE_THREADS;
-    s.in[e % WIDE_KC][e / WIDE_KC] = vin[q];
-  }
-#pragma unroll
-  for (int q = 0; q < WIDE_W_PER; ++q) {
-    const int e = threadIdx.x + q * WIDE_THREADS;
-    s.w[e / (4 * WIDE_UJ)][(e / WIDE_UJ) % 4][e % WIDE_UJ] = vw[q];
-  }
-}
-
-__device__ __forceinline__ void gates_tile(const float* __restrict__ in, int ld, int K,
-                                           const float* __restrict__ M, int n, int B, int r0,
-                                           int j0, WideSmem& s, float acc[4][4]) {
-  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
-  float vin[WIDE_IN_PER], vw[WIDE_W_PER];
-  gates_load(in, ld, K, M, n, B, r0, j0, 0, vin, vw);
-  for (int k0 = 0; k0 < K; k0 += WIDE_KC) {
-    gates_store(s, vin, vw);
-    __syncthreads();
-    if (k0 + WIDE_KC < K)
-      gates_load(in, ld, K, M, n, B, r0, j0, k0 + WIDE_KC, vin, vw);
-#pragma unroll 8
-    for (int kk = 0; kk < WIDE_KC; ++kk) {
-      float v[4], w[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) v[r] = s.in[kk][ty * 4 + r];
-#pragma unroll
-      for (int g = 0; g < 4; ++g) w[g] = s.w[kk][g][tx];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][g] = fmaf(v[r], w[g], acc[r][g]);
-    }
-    __syncthreads();
-  }
-}
-
-// z without the bias for the thread's 4 rows and unit: with kXW (K9) x_t·W +
-// h_{t-1}·U; without (K6) x is the hoisted projection xp (T, B, 4n), z =
-// xp_t + h_{t-1}·U, and W and b are unused: no x-side tile (of K = 0) runs.
-template <bool kXW>
-__device__ __forceinline__ void wide_z(const float* __restrict__ x, const float* __restrict__ W,
-                                       const float* __restrict__ U, const float* __restrict__ h,
-                                       int t, int B, int din, int n, int r0, int j0, WideSmem& s,
-                                       float acc[4][4]) {
-  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + ty * 4 + r;
-    const float* xr = x + ((size_t)t * B + row) * 4 * n + j0 + tx;
-#pragma unroll
-    for (int g = 0; g < 4; ++g) acc[r][g] = (!kXW && row < B) ? xr[g * n] : 0.f;
-  }
-  if (kXW)
-    gates_tile(x + (size_t)t * B * din, din, din, W, n, B, r0, j0, s, acc);
-  if (t > 0)
-    gates_tile(h + (size_t)(t - 1) * B * n, n, n, U, n, B, r0, j0, s, acc);
-}
-
-// ---------------------------------------------------------------------------
-// K9 forward step — replaces pallas_train_wide.py:_wide_fwd at one t:
-// z = x_t·W + h_{t-1}·U + b, gate update, h_t and c_t out. Without kXW,
-// K6's forward step (pallas_train.py:_pallas_fwd_hc): z = xp_t + h_{t-1}·U.
-// ---------------------------------------------------------------------------
-template <bool kXW>
-__global__ void __launch_bounds__(WIDE_THREADS)
-wide_fwd_step(const float* __restrict__ x, const float* __restrict__ W, const float* __restrict__ U,
-              const float* __restrict__ b, float* __restrict__ h, float* __restrict__ c, int t,
-              int B, int din, int n) {
-  __shared__ WideSmem s;
-  const int j0 = blockIdx.x * WIDE_UJ, r0 = blockIdx.y * WIDE_BR;
-  const int tx = threadIdx.x % WIDE_UJ, ty = threadIdx.x / WIDE_UJ;
-  float acc[4][4];
-  wide_z<kXW>(x, W, U, h, t, B, din, n, r0, j0, s, acc);
-  const int j = j0 + tx;
-  float bg[4];
-#pragma unroll
-  for (int g = 0; g < 4; ++g) bg[g] = kXW ? __ldg(b + g * n + j) : 0.f;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = r0 + ty * 4 + r;
-    if (row >= B) continue;
-    const float cp = t > 0 ? c[((size_t)(t - 1) * B + row) * n + j] : 0.f;
-    float hn, cn;
-    gate_fwd(acc[r][0] + bg[0], acc[r][1] + bg[1], acc[r][2] + bg[2], acc[r][3] + bg[3], cp, hn,
-             cn);
-    const size_t o = ((size_t)t * B + row) * n + j;
-    h[o] = hn;
-    c[o] = cn;
-  }
-}
-
-// ---------------------------------------------------------------------------
 // K9 and K6 backward — replace pallas_train_wide.py:_wide_bwd and
 // pallas_train.py:_pallas_bwd. Four phases, a launch each (the weight
 // gradients two GEMMs and their ordered sum, K6's one), none a launch per
@@ -1309,6 +1171,126 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
 }
 
 // ---------------------------------------------------------------------------
+// K9 and K6 forward — replace pallas_train_wide.py:_wide_fwd and
+// pallas_train.py:_pallas_fwd_hc. Two parts, neither a launch a step:
+//
+//   x-side (K9 only): xz = x·W + b over all M = T·B rows, gemm_f32 in its
+//      NN form with the bias (K6 takes its xp as xz);
+//   wide_fwd_chain: the recurrence, one persistent cooperative launch for
+//      all T steps (a launch for each chunk of the batch's rows, as
+//      wide_bwd_chain), z = xz_t + h_{t-1}·U, the gate update, h_t and c_t
+//      out, one grid barrier a step.
+//
+// A CTA owns J units (blockIdx.x, of n / J groups) and walks row tiles of R
+// rows (blockIdx.y, + gridDim.y, ...), the layout of wide_bwd_chain. Its
+// units' 4J gate columns of U, gate-interleaved ([k][unit][gate], one
+// 16-byte load for a unit's four gates at k; ops/cuda_train.py:
+// pack_gates_interleaved), are staged in shared memory once for all T steps
+// (kStaged), else read from the global copy through L1. Per step and row
+// tile: the tile's R rows of h_{t-1} (written by every CTA before the
+// barrier) come through L2 by cp.async.cg into shared memory, never by the
+// non-coherent path; a thread owns 4 rows x 1 unit, its four gates' sums
+// (16 FMA chains over k, 4 k at a time from 16-byte loads), adds xz_t,
+// runs gate_fwd with c_{t-1} carried in registers, and stores h_t and c_t.
+// Rows >= B are neither stored nor carried.
+//
+// What bounds it: the product, R·n·4J FMAs a CTA a step (1 M at n = 512, R
+// = 32, J = 16: ~4.7 us on one SM's 128 FMA lanes), then the step's chain
+// of latencies (h_{t-1}'s R·n floats from L2, the grid barrier). The x-side
+// is a plain GEMM at full occupancy, out of the time loop.
+// ---------------------------------------------------------------------------
+#define FWD_CHAIN_THREADS 128  // a thread 4 rows x 1 unit: R·J = 512 cells a CTA
+
+template <int R, int J, bool kStaged>
+__global__ void __launch_bounds__(FWD_CHAIN_THREADS, 1)
+wide_fwd_chain(const float* __restrict__ xz, const float4* __restrict__ Ui, float* h, float* c,
+               int T, int B, int stride, int n, int row_tiles) {
+  static_assert((R / 4) * J == FWD_CHAIN_THREADS, "a thread 4 rows x 1 unit");
+  extern __shared__ float4 fwd_smem[];
+  const int ld = n + 4;                                  // hs row stride (16-byte rows)
+  float* hs = reinterpret_cast<float*>(fwd_smem);        // [R][ld]: h_{t-1} of the tile's rows
+  float4* us = reinterpret_cast<float4*>(hs + R * ld);   // [n][J]: the CTA's units (kStaged)
+  const int tid = threadIdx.x, u = tid % J, rq = tid / J;
+  const int j0 = blockIdx.x * J, j = j0 + u;
+  const int G = 4 * n, n4 = n / 4;
+  if (kStaged) {
+    for (int e = tid; e < n * J; e += FWD_CHAIN_THREADS)
+      us[e] = __ldg(Ui + (size_t)(e / J) * n + j0 + e % J);
+    // first read after the first tile's barrier
+  }
+  float cs[CHAIN_MAX_ROW_TILES][4];
+#pragma unroll
+  for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) cs[q][r] = 0.f;
+  for (int t = 0; t < T; ++t) {
+    for (int tile = 0; tile < row_tiles; ++tile) {
+      const int r0 = (blockIdx.y + tile * gridDim.y) * R;
+      if (t > 0) {
+        const float* hp = h + (size_t)(t - 1) * stride * n;
+        for (int e = tid; e < R * n4; e += FWD_CHAIN_THREADS) {
+          const int r = e / n4, k4 = e - r * n4, row = r0 + r;
+          cp_async16(hs + r * ld + 4 * k4, row < B ? hp + (size_t)row * n + 4 * k4 : hp,
+                     row < B ? 16 : 0);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+      }
+      __syncthreads();  // hs complete (and the staged columns, at the first tile)
+      float acc[4][4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) acc[r][g] = 0.f;
+      if (t > 0) {
+        const float* hr = hs + (4 * rq) * ld;
+#pragma unroll 2
+        for (int k = 0; k < n; k += 4) {
+          float4 hv[4], w[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) hv[r] = *reinterpret_cast<const float4*>(hr + r * ld + k);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            w[kk] = kStaged ? us[(k + kk) * J + u] : __ldg(Ui + (size_t)(k + kk) * n + j);
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float hk[4] = {hv[r].x, hv[r].y, hv[r].z, hv[r].w};
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              acc[r][0] = fmaf(hk[kk], w[kk].x, acc[r][0]);
+              acc[r][1] = fmaf(hk[kk], w[kk].y, acc[r][1]);
+              acc[r][2] = fmaf(hk[kk], w[kk].z, acc[r][2]);
+              acc[r][3] = fmaf(hk[kk], w[kk].w, acc[r][3]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int row = r0 + 4 * rq + r;
+        if (row >= B) continue;
+        const size_t m = (size_t)t * stride + row;
+        const float* zr = xz + m * G + j;
+        float cp = 0.f;
+#pragma unroll
+        for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
+          if (q == tile) cp = cs[q][r];
+        float hn, cn;
+        gate_fwd(__ldg(zr) + acc[r][0], __ldg(zr + n) + acc[r][1], __ldg(zr + 2 * n) + acc[r][2],
+                 __ldg(zr + 3 * n) + acc[r][3], cp, hn, cn);
+#pragma unroll
+        for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
+          if (q == tile) cs[q][r] = cn;
+        h[m * n + j] = hn;
+        c[m * n + j] = cn;
+      }
+      __syncthreads();  // hs is rewritten by the next tile
+    }
+    if (t + 1 < T) cooperative_groups::this_grid().sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
 // K5 — batched_chain, replaces pallas_batched.py:batched_lstm_recurrence_pallas
 // for the batched fast mode of predict:
 //   z = bf16(h_{t-1}) · bf16(U) + xp_t, accumulated in float32;
@@ -1545,7 +1527,7 @@ weight_grad(const float* __restrict__ A, int shift, const float* __restrict__ dz
     for (int q = 0; q < 4; ++q) acc[i][q] = 0.f;
   constexpr int A_PER = WG_KM * WG_TP / WG_THREADS;  // 8
   constexpr int D_PER = WG_KM * WG_TG / WG_THREADS;  // 8
-  float va[A_PER], vd[D_PER];  // the next chunk, in flight (as in gates_tile)
+  float va[A_PER], vd[D_PER];  // the next chunk, in flight
   auto load = [&](int m0) {
 #pragma unroll
     for (int q = 0; q < A_PER; ++q) {
@@ -1914,6 +1896,38 @@ int launch_batched(const void* xp_, const void* Ut_, void* h_, int TT, int B, in
   return (int)cudaGetLastError();
 }
 
+// wide_fwd_chain at one (R, J, home): checks the shape, the shared memory
+// and co-residency, then the cooperative launch.
+template <int R, int J, bool kStaged>
+int launch_fwd_chain(const float* xz, const float4* Ui, float* h, float* c, int T, int B,
+                     int stride, int n, int row_groups, cudaStream_t s) {
+  const int tiles = (B + R - 1) / R;
+  if (n % J != 0 || n % 4 != 0 || row_groups < 1 || row_groups > tiles || stride < B)
+    return (int)cudaErrorInvalidValue;
+  int row_tiles = (tiles + row_groups - 1) / row_groups;
+  if (row_tiles > CHAIN_MAX_ROW_TILES) return (int)cudaErrorInvalidValue;
+  const size_t smem = ((size_t)R * (n + 4) + (kStaged ? (size_t)4 * J * n : 0)) * sizeof(float);
+  if (smem > 232448) return (int)cudaErrorInvalidValue;
+  const auto kernel = wide_fwd_chain<R, J, kStaged>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, FWD_CHAIN_THREADS,
+                                                           smem)) != cudaSuccess)
+    return (int)err;
+  const dim3 grid(n / J, row_groups);
+  if (per_sm < 1 || (long long)grid.x * grid.y > (long long)per_sm * sms)
+    return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {(void*)&xz, (void*)&Ui, (void*)&h,      (void*)&c, (void*)&T,
+                  (void*)&B,  (void*)&stride, (void*)&n, (void*)&row_tiles};
+  err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(FWD_CHAIN_THREADS), args, smem, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1972,22 +1986,33 @@ int weight_grad_launch(const void* A, int shift, const void* dz, void* out, void
   return (int)cudaGetLastError();
 }
 
-// One wide layer forward: T launches of wide_fwd_step in stream order. K6
-// calls it with W and b null, xp (T, B, 4n) in x's place and din = 0, which
-// selects the step kernels without the x·W part.
-int wide_layer_fwd_launch(const void* x, const void* W, const void* U, const void* b, void* h,
-                          void* c, int T, int B, int din, int n, void* stream) {
-  if (n % WIDE_UJ != 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(n / WIDE_UJ, (B + WIDE_BR - 1) / WIDE_BR);
-  const auto step = W != nullptr ? &wide_fwd_step<true> : &wide_fwd_step<false>;
-  for (int t = 0; t < T; ++t) {
-    step<<<grid, WIDE_THREADS, 0, (cudaStream_t)stream>>>(
-        (const float*)x, (const float*)W, (const float*)U, (const float*)b, (float*)h, (float*)c,
-        t, B, din, n);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return (int)cudaSuccess;
+// The forward chain of K9 and K6 (wide_fwd_chain) over B rows of a batch
+// of stride rows: xz (T, stride, 4n) the x-side (K9: x·W + b from
+// gemm_f32; K6: xp), h and c (T, stride, n) out, each pointer at the
+// chunk's first row; Ui: U gate-interleaved, (n, n, 4) (ops/cuda_train.py:
+// pack_gates_interleaved). rows x units: the CTA's tile R x J (32x16, U
+// staged or from the global copy; 16x32 and 8x64 from the global copy),
+// row_groups: gridDim.y (ops/cuda_train.py: fwd_chain_plan). Checked here,
+// not chosen; a grid that cannot be co-resident is refused.
+int wide_fwd_chain_launch(const void* xz, const void* Ui, void* h, void* c, int T, int B,
+                          int stride, int n, int rows, int units, int staged, int row_groups,
+                          void* stream) {
+  if (T < 1 || B < 1 || n < 1 || xz == nullptr || Ui == nullptr || h == nullptr || c == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)Ui) & 15) return (int)cudaErrorMisalignedAddress;
+  const float* x = (const float*)xz;
+  const float4* U4 = (const float4*)Ui;
+  float *hf = (float*)h, *cf = (float*)c;
+  cudaStream_t s = (cudaStream_t)stream;
+#define FWD_CASE(R_, J_, ST_)                                        \
+  if (rows == R_ && units == J_ && (staged != 0) == ST_)             \
+    return launch_fwd_chain<R_, J_, ST_>(x, U4, hf, cf, T, B, stride, n, row_groups, s);
+  FWD_CASE(32, 16, true)
+  FWD_CASE(32, 16, false)
+  FWD_CASE(16, 32, false)
+  FWD_CASE(8, 64, false)
+#undef FWD_CASE
+  return (int)cudaErrorInvalidValue;
 }
 
 // gemm_f32 (phases R, X, G of K9's and K6's backward), at its 128 x 128

@@ -326,10 +326,9 @@ def reduced_recurrence_plain(xp, uB, uC, h0=None, c0=None, dot_precision=None) -
 
 
 def _pack_reduced(uB, uC, n: int):
-    """(Bt (R, rows), IC (R, 4n)) for the kernels, of either side. Split: all
-    gates' B side by side, transposed, and a block-diagonal IC with
-    fold_IC(B_g, C_g) in gate g's rows and columns (the zero blocks add exact
-    zeros)."""
+    """(Bt (R, rows), IC (R, 4n)) for K4, of either side. Split: all gates'
+    B side by side, transposed, and a block-diagonal IC with fold_IC(B_g,
+    C_g) in gate g's rows and columns (the zero blocks add exact zeros)."""
     if not _is_split(uB):
         return uB.t().contiguous(), fold_IC(uB, uC).contiguous()
     ranks = [B.shape[1] for B in uB]
@@ -342,11 +341,137 @@ def _pack_reduced(uB, uC, n: int):
     return Bt, IC
 
 
+RED_UNITS = 8               # csrc RED_UNITS: units a warp (its 32 gate columns, a lane each)
+RED_MAX_WARPS = 32          # csrc RED_MAX_WARPS: warps a CTA
+RED_REG_THREADS = 512       # csrc RED_REG_THREADS: the block of the registers home
+RED_REG_RANK = 32           # the largest block rank the registers home holds (a lane an entry)
+RED_CLUSTERS = (1, 2, 4, 8, 16)  # CTAs a cluster that reduced_plan tries, fewest first
+RED_WARPS = 8               # warps a CTA the rule aims at: at 3x512 r = 24 the fastest cluster
+                            # (CL = 8, 8 warps) ran 13-41 % ahead of CL = 4 and 16 (PERF.md §6)
+RED_HOMES = WAVE_HOMES[:2]  # the homes K2 takes (csrc WaveHome's first two)
+
+
+class ReducedPlan(NamedTuple):
+    """K2's launch (csrc ``reduced_recurrence_launch`` checks it): one
+    cluster of ``cluster`` CTAs, each ``warps`` warps of RED_UNITS units,
+    the packed weights where ``home`` says."""
+
+    cluster: int
+    warps: int
+    home: str
+    threads: int
+    smem_bytes: int
+    weight_bytes: int  # of one CTA's blocks of the packed weights
+
+
+def reduced_ranks(uB) -> tuple:
+    """The block ranks of a recurrent side: (r,) merged, (r_i, r_f, r_g, r_o)
+    split."""
+    return tuple(B.shape[1] for B in uB) if _is_split(uB) else (uB.shape[1],)
+
+
+def reduced_entries(ranks) -> int:
+    """Entries of one warp's block of the packed weights: its 32 columns of
+    [I|C] at the largest rank, and its 8 rows of B at each block's rank
+    (40·r merged, 16·R split at equal ranks)."""
+    return 32 * max(ranks) + RED_UNITS * sum(ranks)
+
+
+def reduced_smem_bytes(ranks, cluster: int, warps: int, home: str, fast: bool) -> int:
+    """Shared memory of a CTA (csrc ``red_smem_bytes``): the partial sums of
+    hb (two parities of one slot a CTA, and one a warp) and, staged, the
+    CTA's blocks of the packed weights (4 bytes an entry, 2 in fast mode)."""
+    R = sum(ranks)
+    staged = warps * reduced_entries(ranks) * (2 if fast else 4) if home == "staged" else 0
+    return 4 * (2 * cluster + warps) * R + staged
+
+
+def reduced_plan(n: int, ranks, fast: bool, sm_count: int,
+                 smem_limit: int = _SMEM_LIMIT) -> ReducedPlan:
+    """K2's cluster for n units and the block ``ranks`` (one merged, four
+    split): the fewest CTAs of RED_CLUSTERS (at most ``sm_count``) whose
+    ⌈n / CL⌉ units take at most RED_WARPS warps of RED_UNITS and whose
+    weights fit on chip, else (past 16 · RED_WARPS · RED_UNITS units) the
+    fewest whose warps fit a block: the weights in registers where every
+    rank is at most RED_REG_RANK and the block at most RED_REG_THREADS,
+    else staged in shared memory within ``smem_limit``. Raises
+    ``ValueError`` naming the shape where no cluster of 16 holds them: the
+    kernel is never run another way."""
+    per_warp = reduced_entries(ranks) * (2 if fast else 4)
+    for most in (RED_WARPS, RED_MAX_WARPS):
+        for cluster in RED_CLUSTERS:
+            if cluster > sm_count:
+                break
+            warps = -(-(-(-n // cluster)) // RED_UNITS)
+            if warps > most:
+                continue
+            threads = 32 * warps
+            for home in RED_HOMES:
+                if home == "registers" and (max(ranks) > RED_REG_RANK or threads > RED_REG_THREADS):
+                    continue
+                smem = reduced_smem_bytes(ranks, cluster, warps, home, fast)
+                if smem <= smem_limit:
+                    return ReducedPlan(cluster, warps, home, threads, smem, warps * per_warp)
+    raise ValueError(f"reduced_recurrence: n = {n} at ranks {tuple(ranks)} fits no cluster of up "
+                     f"to {RED_CLUSTERS[-1]} CTAs on {sm_count} SMs")
+
+
+def card_reduced_plan(dev: torch.device, n: int, ranks, fast: bool) -> ReducedPlan:
+    """:func:`reduced_plan` on the card of ``dev`` (its SM count)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    return reduced_plan(n, ranks, fast, torch.cuda.get_device_properties(idx).multi_processor_count)
+
+
+def pack_reduced_chain(uB, uC, n: int, warps_total: int, fast: bool) -> torch.Tensor:
+    """K2's weights, a block of :func:`reduced_entries` a warp for
+    ``warps_total`` warps of RED_UNITS units (units past n zero): first the
+    warp's 32 columns of [I|C] by rows, [q][8g + u] (gate g of unit u) for q
+    below the largest rank, zero past the column's own block rank; then its
+    8 rows of B, block by block, unit by unit, each at its block's rank.
+    Merged: [I|C] = fold_IC(B, C), one block; split: gate g's columns read
+    [I|C_g], its own block. bf16 in fast mode (rounded once here)."""
+    W, units = warps_total, warps_total * RED_UNITS
+
+    def grouped(M):  # (rows, units) -> (W, 8, rows): a warp's units, each unit's rows
+        M = torch.nn.functional.pad(M, (0, units - M.shape[1]))
+        return M.reshape(M.shape[0], W, RED_UNITS).permute(1, 2, 0)
+
+    if _is_split(uB):
+        ICs = [fold_IC(B, C) for B, C in zip(uB, uC)]
+        Bs = list(uB)
+    else:
+        IC = fold_IC(uB, uC).reshape(-1, 4, n)
+        ICs = [IC[:, g] for g in range(4)]
+        Bs = [uB]
+    rmax = max(M.shape[0] for M in ICs)
+    cols = torch.cat([torch.nn.functional.pad(grouped(M), (0, rmax - M.shape[0])) for M in ICs],
+                     dim=1)  # (W, 32 columns, rmax)
+    b = [grouped(B.t()).reshape(W, -1) for B in Bs]
+    P = torch.cat([cols.transpose(1, 2).reshape(W, -1), *b], dim=1).reshape(-1)
+    return (P.to(torch.bfloat16) if fast else P).contiguous()
+
+
+def _launch_reduced(xp, uB, uC, h0, c0, fast: bool, plan: ReducedPlan) -> torch.Tensor:
+    """One launch of K2 as ``plan`` says, on checked card tensors."""
+    T, n = xp.shape[0], xp.shape[1] // 4
+    ranks = reduced_ranks(uB)
+    P = pack_reduced_chain(uB, uC, n, plan.cluster * plan.warps, fast)
+    rank_arr = np.array(ranks, dtype=np.int32)
+    out = torch.empty((T, n), dtype=torch.float32, device=xp.device)
+    _launch(
+        "reduced_recurrence", xp.device,
+        xp.data_ptr(), P.data_ptr(), rank_arr.ctypes.data, len(ranks), _ptr(h0), _ptr(c0),
+        out.data_ptr(), T, n, plan.cluster, plan.warps, RED_HOMES.index(plan.home), int(fast),
+    )
+    return out
+
+
 @torch.no_grad()
 def reduced_recurrence(xp, uB, uC, h0=None, c0=None, dot_precision=None) -> torch.Tensor:
     """Low-rank h-side recurrence in the folded form (h·B)·[I|C].
     xp (T, 4n); merged uB (n, r), uC (r, 4n−r); split: 4 each of
-    uB[g] (n, r_g), uC[g] (r_g, n−r_g). Optional h0/c0 (n,). -> (T, n)."""
+    uB[g] (n, r_g), uC[g] (r_g, n−r_g). Optional h0/c0 (n,). -> (T, n). On
+    the card one launch of the cluster :func:`reduced_plan` picks."""
     fast = _is_fast(dot_precision)
     T, g4 = xp.shape
     n = g4 // 4
@@ -356,15 +481,8 @@ def reduced_recurrence(xp, uB, uC, h0=None, c0=None, dot_precision=None) -> torc
     h0, c0 = _state("h0", h0, n), _state("c0", c0, n)
     if not _on_card(xp, *factors, *(s for s in (h0, c0) if s is not None)):
         return reduced_recurrence_plain(xp, uB, uC, h0, c0, dot_precision)
-    Bt, IC = (_stored(t, fast) for t in _pack_reduced(uB, uC, n))
-    R = Bt.shape[0]
-    _check_smem("reduced_recurrence", 6 * n + R)
-    out = torch.empty((T, n), dtype=torch.float32, device=xp.device)
-    _launch(
-        "reduced_recurrence", xp.device,
-        xp.data_ptr(), Bt.data_ptr(), IC.data_ptr(), _ptr(h0), _ptr(c0),
-        out.data_ptr(), T, n, R, int(fast),
-    )
+    plan = card_reduced_plan(xp.device, n, reduced_ranks(uB), fast)
+    out = _launch_reduced(xp, uB, uC, h0, c0, fast, plan)
     _count("reduced_recurrence", fast)
     return out
 

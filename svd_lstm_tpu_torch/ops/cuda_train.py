@@ -27,12 +27,13 @@ backwards another: a group of lanes (``narrow_fwd_lanes``,
 − 1 steps forward, T + L back), and the weights are read gate-interleaved,
 staged in shared memory wherever the stack fits (``narrow_fwd_smem_bytes``,
 ``narrow_bwd_staged``) or from the copy :func:`pack_gates` in global
-memory. K9's forward is a kernel a step; its backward runs four phases
-(:func:`wide_bwd`: GEMMs for z, dx and the weight gradients over all T·B
-rows, and one persistent launch for the dh chain). K6 runs K9's kernels
-with the x·W part taken out. All compute in float32 (exact mode). The JAX
-kernels' ``precision=DEFAULT`` dots are exact float32 on the CPU, where
-the tests compare.
+memory. K9's forward is one GEMM for x·W + b over all T·B rows and one
+persistent launch for the recurrence (:func:`wide_fwd`); its backward runs
+four phases (:func:`wide_bwd`: GEMMs for z, dx and the weight gradients
+over all T·B rows, and one persistent launch for the dh chain). K6 runs
+K9's kernels with the x·W part taken out. All compute in float32 (exact
+mode). The JAX kernels' ``precision=DEFAULT`` dots are exact float32 on
+the CPU, where the tests compare.
 
 Layouts are time-major, as the TPU kernels take them: x (T, B, d), every
 layer's h and c (T, B, n). The weights keep the Keras layout, unpadded: the
@@ -658,26 +659,36 @@ def chain_smem_bytes(n: int, rows: int, units: int, staged: bool) -> int:
     return 4 * 4 * units * (rows + (n if staged else 0))
 
 
-def chain_plan(B: int, n: int, sm_count: int) -> ChainPlan:
+def fwd_chain_smem_bytes(n: int, rows: int, units: int, staged: bool) -> int:
+    """Shared memory of the forward chain (csrc ``launch_fwd_chain``): the
+    tile's rows of h_{t-1} (n + 4 floats a row), and with ``staged`` the
+    CTA's 4·units gate columns of U for all n inputs."""
+    return 4 * rows * (n + 4) + (16 * n * units if staged else 0)
+
+
+def chain_plan(B: int, n: int, sm_count: int, smem_bytes=chain_smem_bytes,
+               name: str = "wide backward chain") -> ChainPlan:
     """Phase C's tile, weight home, grid and chunks for a batch of B rows
     and n units on a card of ``sm_count`` SMs: the first of CHAIN_TILES
     whose n / units groups the SMs hold; U staged where it fits a block's
     shared memory (at the first tile), else read from the global copy; as
     many row groups as the SMs left by the unit groups hold, at most one a
     row tile; the batch split into the fewest chunks of equal row tiles that
-    keep each CTA within CHAIN_MAX_ROW_TILES. Raises only where even the
-    widest unit groups outnumber the SMs (n > 64·sm_count)."""
+    keep each CTA within CHAIN_MAX_ROW_TILES. Raises where even the widest
+    unit groups outnumber the SMs (n > 64·sm_count) or the tile's shared
+    memory (``smem_bytes``; the forward chain's is
+    :func:`fwd_chain_smem_bytes`) exceeds a block's."""
     for rows, units in CHAIN_TILES:
         if n // units <= sm_count:
             break
     else:
-        raise ValueError(f"wide backward chain: n = {n} needs {-(-n // units)} unit groups of "
+        raise ValueError(f"{name}: n = {n} needs {-(-n // units)} unit groups of "
                          f"{units}, which cannot be co-resident on {sm_count} SMs")
     if n % units or n % 8:
-        raise ValueError(f"wide backward chain: n = {n} does not split into {units}-unit groups")
-    staged = (rows, units) == CHAIN_TILES[0] and chain_smem_bytes(n, rows, units, True) <= _SMEM_LIMIT
-    smem = chain_smem_bytes(n, rows, units, staged)
-    _check_smem("wide backward chain", smem // 4)
+        raise ValueError(f"{name}: n = {n} does not split into {units}-unit groups")
+    staged = (rows, units) == CHAIN_TILES[0] and smem_bytes(n, rows, units, True) <= _SMEM_LIMIT
+    smem = smem_bytes(n, rows, units, staged)
+    _check_smem(name, smem // 4)
     unit_groups = n // units
     most = sm_count // unit_groups  # row groups the SMs hold
     tiles = -(-B // rows)
@@ -816,6 +827,61 @@ def wide_bwd(x, W, U, b, h, c, dh_seq):
 
 
 # ---------------------------------------------------------------------------
+# K9's and K6's forward: the x-side GEMM and the chain (csrc wide_fwd_chain)
+# ---------------------------------------------------------------------------
+
+def fwd_chain_plan(B: int, n: int, sm_count: int) -> ChainPlan:
+    """The forward chain's tile, weight home, grid and chunks:
+    :func:`chain_plan`'s rule with the forward's shared memory."""
+    return chain_plan(B, n, sm_count, fwd_chain_smem_bytes, "wide forward chain")
+
+
+def pack_gates_interleaved(U: torch.Tensor) -> torch.Tensor:
+    """U (n, 4n) as (n, n, 4): P[k, j, g] = U[k, g·n + j], a unit's four
+    gates at input k in one 16-byte entry."""
+    n = U.shape[0]
+    return U.reshape(n, 4, n).transpose(1, 2).contiguous()
+
+
+def phase_x_side(x, W, b) -> torch.Tensor:
+    """xz (T, B, 4n) = x·W + b over all T·B rows (gemm_f32 NN, the bias
+    added to each row)."""
+    T, B, din = x.shape
+    G = W.shape[1]
+    xz = torch.empty((T, B, G), dtype=torch.float32, device=x.device)
+    _gemm(xz, T * B, G, [_seg(x, din, W, G, din)], bias=b)
+    return xz
+
+
+def phase_chain_fwd(xz, Ui, h, c, plan: ChainPlan) -> None:
+    """The forward chain (csrc wide_fwd_chain) from the x-side xz (T, B,
+    4n) and U gate-interleaved: h and c (T, B, n), one launch a chunk of
+    the batch's rows."""
+    T, B, n = h.shape
+    G = 4 * n
+    for b0 in range(0, B, plan.chunk_rows):
+        rows = min(plan.chunk_rows, B - b0)
+        row_groups = min(plan.row_groups, -(-rows // plan.rows))
+        _launch("wide_fwd_chain", h.device, xz.data_ptr() + 4 * b0 * G, Ui.data_ptr(),
+                h.data_ptr() + 4 * b0 * n, c.data_ptr() + 4 * b0 * n, T, rows, B, n, plan.rows,
+                plan.units, int(plan.staged), row_groups)
+
+
+def wide_fwd(x, W, U, b):
+    """K9's forward (W given: the x-side GEMM, then the chain) or K6's (W
+    and b None, x the projection xp: the chain alone) on checked card
+    tensors. Returns h, c (T, B, n)."""
+    T, B, _ = x.shape
+    n = U.shape[0]
+    plan = fwd_chain_plan(B, n, sm_count(x.device))
+    xz = x if W is None else phase_x_side(x, W, b)
+    h = torch.empty((T, B, n), dtype=torch.float32, device=x.device)
+    c = torch.empty_like(h)
+    phase_chain_fwd(xz, pack_gates_interleaved(U), h, c, plan)
+    return h, c
+
+
+# ---------------------------------------------------------------------------
 # K9: one wide layer, train pair
 # ---------------------------------------------------------------------------
 
@@ -824,10 +890,7 @@ def wide_layer_fwd(x, W, U, b):
     T, B, din, n = _check_wide(x, W, U, b)
     if not _card([x, W, U, b]):
         return wide_layer_fwd_plain(x, W, U, b)
-    h = torch.empty((T, B, n), dtype=torch.float32, device=x.device)
-    c = torch.empty_like(h)
-    _launch("wide_layer_fwd", x.device, x.data_ptr(), W.data_ptr(), U.data_ptr(), b.data_ptr(),
-            h.data_ptr(), c.data_ptr(), T, B, din, n)
+    h, c = wide_fwd(x, W, U, b)
     wide_layer_fwd.launches += 1
     return h, c
 
@@ -891,11 +954,7 @@ def lstm_recurrence_train_fwd(xp, U):
     T, B, n = _check_recurrence(xp, U)
     if not _card([xp, U]):
         return lstm_recurrence_train_fwd_plain(xp, U)
-    h = torch.empty((T, B, n), dtype=torch.float32, device=xp.device)
-    c = torch.empty_like(h)
-    # K9's launcher with no W and no b: xp in x's place, din = 0
-    _launch("wide_layer_fwd", xp.device, xp.data_ptr(), None, U.data_ptr(), None, h.data_ptr(),
-            c.data_ptr(), T, B, 0, n)
+    h, c = wide_fwd(xp, None, U, None)
     lstm_recurrence_train_fwd.launches += 1
     return h, c
 
