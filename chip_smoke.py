@@ -39,10 +39,13 @@ Phases, each of which raises on failure (no phase is caught):
    T = 6656, within K5's limit; K2f on each layer of ``wide_r24_progressive``
    (merged r = 24) and of the 4×30 split r = 15 truncation over 64 windows
    of 16 steps spread over T = 6656, each restarted from the plain
-   version's (h, c); K4 (the fused reduced stack) exact over T = 6656 on
-   4×30 split r = 15 and the direct 3×512 merged r = 24 truncation, within
-   5e-4 or twice the plain float32 version's distance from float64 (ROADMAP
-   fault 3.1), and fast over 64 windows of 8 steps of x from zero state on
+   version's (h, c); K4 (the fused reduced stack, its route, cluster, warps
+   a CTA and the weights' home of ``cuda_lstm.reduced_stack_plan`` printed)
+   exact over T = 6656 on 4×30 split r = 15 and the direct 3×512 merged r =
+   24 truncation, within 5e-4 or twice the plain float32 version's distance
+   from float64 (ROADMAP fault 3.1; the 4×30 stack's time, cuDNN's on its
+   dense reconstruction and its bound logged beside the 3×512 one's), and
+   fast over 64 windows of 8 steps of x from zero state on
    4×30 split r = 15 and ``wide_r24_progressive``. A windowed check holds
    the median window to 5e-4 and three quarters of the windows to 2 bf16
    ulps (``check_windows``: over a whole run, flipped bf16 roundings carry
@@ -127,7 +130,10 @@ Phases, each of which raises on failure (no phase is caught):
    bf16 beside K3 and K3f), K2 and K2f on layer 0 of the direct merged r =
    24 truncation of 3×512 and of ``wide_r24_progressive``, with cuDNN's
    float32 and bf16 LSTM on the layer's exact dense reconstruction (with
-   its x-side) beside them, batch-1 ``predict`` of 4×30 dense and split r =
+   its x-side) beside them, K4 and K4f on the whole direct r = 24
+   truncation, ``wide_r24_progressive`` and 4×30 split r = 15, cuDNN's
+   float32 and bf16 LSTM on the stack's dense reconstruction beside them,
+   batch-1 ``predict`` of 4×30 dense and split r =
    15 and of 3×512 dense and merged r = 24 (``wide_r24_progressive``;
    full_ms, reduced_ms), exact and fast, with their ratios, and batched
    fast ``predict`` on 3×512;
@@ -726,13 +732,21 @@ def fast_kernel_checks(dev, x) -> dict:
     red512 = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=24)
     err = 0.0
     for name, m in (("4x30 split r=15", red30), ("3x512 merged r=24", red512)):
+        log(f"[info] K4 plan, {name}: exact {ck.card_reduced_stack_plan(dev, m, d, False)}, "
+            f"fast {ck.card_reduced_stack_plan(dev, m, d, True)}")
         plain = ck.fused_reduced_stack_plain(m, x)
         drift = max_err(plain.double(), ck.fused_reduced_stack_plain(as_double(m), x.double()))
         log(f"[info] K4 {name} exact: plain float32 vs float64 {drift:.3e}")
         err = max(err, check_close(f"K4 fused_reduced_stack exact {name}",
                                    ck.fused_reduced_stack(m, x), plain, max(TOL, 2 * drift)))
-    log(f"[time] K4 exact 4x30 split r=15: kernel "
-        f"{device_time_ms(lambda: ck.fused_reduced_stack(red30, x)):.3f} ms")
+    k4_30 = {
+        "ms": device_time_ms(lambda: ck.fused_reduced_stack(red30, x)),
+        "library_ms": reduced_library_ms(red30, x, torch.float32, len(red30.layers)),
+        **bound(reduced_flops(Tx, red30, d) + 2 * Tx * 30, nbytes(x, list(red30.parameters())) + 4 * Tx),
+    }
+    log(f"[time] K4 exact 4x30 split r=15: kernel {k4_30['ms']:.3f} ms, library (cuDNN on the dense "
+        f"reconstruction) {k4_30['library_ms']:.3f} ms, bound {k4_30['bound_ms']:.4f} ms "
+        f"({k4_30['bound_by']})")
     results["fused_reduced_stack"] = {
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(red512, x)),
@@ -762,8 +776,17 @@ def fast_kernel_checks(dev, x) -> dict:
         err = max(err, check_windows(label, errs, drifts, 2 * bf16_ulp(largest)))
         got = ck.fused_reduced_stack(m, x, dot_precision=fast)
         check_finite(label, got, ck.fused_reduced_stack_plain(m, x, fast))
-    log(f"[time] K4 fast 4x30 split r=15: kernel "
-        f"{device_time_ms(lambda: ck.fused_reduced_stack(red30, x, dot_precision=fast)):.3f} ms")
+    k4f_30 = {
+        "ms": device_time_ms(lambda: ck.fused_reduced_stack(red30, x, dot_precision=fast)),
+        "library_ms": reduced_library_ms(red30, x, torch.bfloat16, len(red30.layers)),
+        **bound(reduced_flops(Tx, red30, d) + 2 * Tx * 30,
+                nbytes(x, [l.b for l in red30.layers], list(red30.head.parameters())) + 4 * Tx
+                + bf16_bytes([p for l in red30.layers for p in (*l.wB, *l.wC, *l.uB, *l.uC)]),
+                torch.bfloat16),
+    }
+    log(f"[time] K4 fast 4x30 split r=15: kernel {k4f_30['ms']:.3f} ms, library (cuDNN bf16 on the "
+        f"dense reconstruction) {k4f_30['library_ms']:.3f} ms, bound {k4f_30['bound_ms']:.4f} ms "
+        f"({k4f_30['bound_by']})")
     results["fused_reduced_stack_fast"] = {
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(wide, x, dot_precision=fast)),
@@ -1525,7 +1548,11 @@ def inference_times(dev) -> dict:
     predict of 4x30 dense and split r = 15; batched fast predict on 3x512;
     K3 on 3x512's layer 0 over T = 6656 alone and with its x-side product,
     K3f alone, cuDNN's float32 and bf16 LSTM (with the x-side) beside them;
-    batch-1 predict of 3x512 dense (full_ms) and of merged r = 24
+    K2 and K2f on layer 0 of the direct r = 24 truncation and of
+    ``wide_r24_progressive``, cuDNN beside them; K4 and K4f on the whole
+    direct r = 24 truncation, ``wide_r24_progressive`` and 4x30 split r = 15,
+    cuDNN's float32 and bf16 LSTM on the stack's dense reconstruction beside
+    them; batch-1 predict of 3x512 dense (full_ms) and of merged r = 24
     (``wide_r24_progressive``, reduced_ms), exact and fast, with their
     ratio: ms of each, in the package this process imported."""
     out = {}
@@ -1581,6 +1608,15 @@ def inference_times(dev) -> dict:
     for name, dtype in (("cuDNN beside K2 (dense reconstruction, with its x-side)", torch.float32),
                         ("cuDNN bf16 beside K2f (dense reconstruction, with its x-side)", torch.bfloat16)):
         out[name] = reduced_library_ms(wide, x, dtype)
+    for kname, dp in (("K4", None), ("K4f", "default")):
+        for mname, model in (("3x512 direct r=24", direct), ("3x512 wide_r24_progressive", wide),
+                             ("4x30 split r=15", red30)):
+            out[f"{kname} {mname}"] = device_time_ms(
+                lambda: ck.fused_reduced_stack(model, x, dot_precision=dp))
+    for mname, model in (("3x512 direct r=24", direct), ("4x30 split r=15", red30)):
+        for name, dtype in (("cuDNN beside K4", torch.float32), ("cuDNN bf16 beside K4f", torch.bfloat16)):
+            out[f"{name} {mname} (dense reconstruction)"] = reduced_library_ms(
+                model, x, dtype, len(model.layers))
     for precision in ("exact", "fast"):
         timing = time_full_vs_reduced(m512, wide, x, precision=precision)
         out[f"predict 3x512 dense {precision} (full_ms)"] = timing.full_ms

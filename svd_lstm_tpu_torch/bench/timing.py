@@ -16,8 +16,10 @@ Counterpart of ``svd_lstm_tpu/bench/timing.py``:
 The default is ``"auto"``, where the JAX package's is ``"pallas"``: there
 the fused kernels were the fast path the harness was written for, while on
 the H100 ``predict``'s routing is what a user runs (it takes K1 for narrow
-stacks and the hybrids for wide ones, where the single-CTA K1 and K4 read
-every wide weight matrix each step), and ``chip_smoke.py`` times it.
+stacks and the hybrids for wide ones, as the JAX package routes them; past
+1024 units K1 is a single-CTA layer loop that reads every wide weight
+matrix each step, while K4 runs any reduced stack that one cluster of 16
+CTAs holds as a layer wavefront), and ``chip_smoke.py`` times it.
 
 ``precision`` is ``predict``'s batch-1 mode: ``"exact"`` (the JAX harness's
 only mode) or ``"fast"``, which runs the kernels' bf16-operand variants

@@ -50,6 +50,8 @@ _SIGNATURES = {
     "lstm_recurrence_per_sm": [_I, _I, _I, _I, _P],
     # meta, L, x, out, T, d, bf16, stream
     "fused_reduced_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
+    # meta, L, P, entries, x, out, T, d, cluster, warps, home, bf16, stream
+    "reduced_stack_wave_launch": [_P, _I, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # meta, L, x, T, B, d, lanes, stream
     "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
     # meta, L, x, dh_last, dx, T, B, d, lanes, threads, stream

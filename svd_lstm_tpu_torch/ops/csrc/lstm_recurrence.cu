@@ -27,16 +27,20 @@
 //    cluster: a warp owns 8 units with their rows of B and columns of
 //    [I|C] on chip, and only the R partial sums of h·B cross CTAs, through
 //    distributed shared memory, one cluster barrier a step (see its note).
-//  * K4 and K1's layer loop run in one CTA: h, c and z live in shared
-//    memory; every phase of a step ends with a __syncthreads(). Thread k
-//    owns gate column k of (., 4n) (strided by blockDim when 4n is wider
-//    than the block). Weights are row-major (Keras layout), so a warp reads
-//    32 neighbouring columns of one row: the reads coalesce. They are read
-//    through __ldg from global memory: a narrow stack stays L1-resident,
-//    the wide ones come from L2 every step. Each thread's dot runs four
-//    independent accumulators, so the FMA chain does not serialise on its
-//    own latency. Splitting K4 over a cluster as K2 is split is later
-//    work (ROADMAP).
+//  * K4 (reduced_stack_wave) runs the whole reduced stack in one
+//    thread-block cluster: the layers as a wavefront, K2's split of the
+//    units over the CTAs, only partial sums of h·B crossing CTAs, one
+//    cluster barrier a wave step (see its note).
+//  * K1's and K4's layer loops (fused_dense_stack_kernel,
+//    fused_reduced_stack_kernel: the stacks the wavefronts cannot hold) run
+//    in one CTA: h, c and z live in shared memory; every phase of a step
+//    ends with a __syncthreads(). Thread k owns gate column k of (., 4n)
+//    (strided by blockDim when 4n is wider than the block). Weights are
+//    row-major (Keras layout), so a warp reads 32 neighbouring columns of
+//    one row: the reads coalesce. They are read through __ldg from global
+//    memory: a narrow stack stays L1-resident, the wide ones come from L2
+//    every step. Each thread's dot runs four independent accumulators, so
+//    the FMA chain does not serialise on its own latency.
 //  * The gate update is one __device__ function (the counterpart of
 //    models/lstm.py:gate_update), with expf/tanhf in f32. No fast math.
 //
@@ -50,9 +54,10 @@
 // they are written into shared memory (h by the gate update or, in K3, as it
 // is read back, x_t when it is staged, h·B and x·B when they are reduced),
 // while the h that goes out, c, the bias and xp stay float32 and unrounded.
-// In K4 on a wide layer a thread owns two neighbouring columns of z
-// and reads both bf16 weights of a row in one 32-bit load (columns_bf16):
-// the column phase issues half the loads of the exact kernels. With BF16 false every rounding is the
+// In K4's layer loop on a wide layer a thread owns two neighbouring columns
+// of z and reads both bf16 weights of a row in one 32-bit load
+// (columns_bf16): the column phase issues half the loads of the exact
+// kernels. With BF16 false every rounding is the
 // identity at compile time and the column loops are the exact-mode code as
 // before.
 //
@@ -896,24 +901,26 @@ struct ReducedStackArgs {
 };
 
 // ---------------------------------------------------------------------------
-// K4. fused_reduced_stack — replaces svd_lstm_tpu/ops/pallas_lstm.py:
-// fused_reduced_stack_pallas. The whole reduced stack for batch 1, factored
-// on both sides: per step, per layer,
+// K4's layer loop (fused_reduced_stack_kernel) — for the stacks that
+// reduced_stack_wave below cannot hold in a cluster of 16 CTAs (the
+// "layers" route of ops/cuda_lstm.py: reduced_stack_plan). Replaces, with
+// it, svd_lstm_tpu/ops/pallas_lstm.py: fused_reduced_stack_pallas. The
+// whole reduced stack for batch 1, factored on both sides: per step, per
+// layer,
 //   z = (inp·wB)·[I|wC] + (h·uB)·[I|uC] + b
 // and the gate update; layer i's new h feeds layer i+1 within the step, the
 // head runs outside. Each side is packed by ops/cuda_lstm.py: _pack_reduced
 // (transposed B, and for split layers the block-diagonal [I|C] of the four
-// gates), so
-// one body serves merged and split layers.
+// gates), so one body serves merged and split layers.
 // Bound: the dependent chain. A layer-step has three barriers against K1's
 // two: phase 1 computes xb = inp·wB and hb = h·uB together (one warp per
 // output, rw + ru of them), phase 2 the 4n columns of z from both (one
 // thread per column), phase 3 the gate update. At 3x512 r=24 the operands
 // of a layer-step are about 0.5 MB (f32), read from L2; narrow stacks stay
-// in L1.
-// Design: as K1, one CTA for all T and all layers; x_{t+1} is staged in the
-// last layer's gate phase. In fast mode xb and hb are rounded to bf16
-// before their second products, as the TPU's second dots take them.
+// in L1 (164.6 ms at 3x512 r = 24 on the H100, PERF.md).
+// Design: as K1's loop, one CTA for all T and all layers; x_{t+1} is staged
+// in the last layer's gate phase. In fast mode xb and hb are rounded to
+// bf16 before their second products, as the TPU's second dots take them.
 // Shared memory: per layer h and c (2n), one z buffer (max 4n), one buffer
 // for [xb|hb] (max rw + ru), x_t (d).
 // ---------------------------------------------------------------------------
@@ -974,6 +981,346 @@ fused_reduced_stack_kernel(ReducedStackArgs<typename Mode<BF16>::W> a,
       __syncthreads();
       inp = hs[i];
     }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K4. reduced_stack_wave — replaces svd_lstm_tpu/ops/pallas_lstm.py:
+// fused_reduced_stack_pallas for every stack that one cluster of at most 16
+// CTAs holds (the wrapper's rule, ops/cuda_lstm.py: reduced_stack_plan).
+// The whole reduced stack for batch 1, both sides factored: per step, per
+// layer i,
+//   z = (inp·wB)·[I|wC] + (h·uB)·[I|uC] + b
+// and the gate update, from zero state; inp is x_t for layer 0 and layer
+// i-1's h_t above it. Only the last layer's h goes out (T, n_out); the head
+// runs outside.
+//
+// What bounds it: a layer-step is (din + n)·R + R·4n multiply-adds per side
+// (~0.2 MFLOP a wave step at 3x512 r = 24), but every unit of a layer needs
+// all of its hb and xb, which need all of the h below and before: the
+// chain of dependent steps is the bound. The layer loop above (one CTA,
+// three barriers a layer-step, the weights from L2) took ~25 us a step.
+// What the design does about it:
+//  * The layers run as a wavefront: at wave step s layer i runs its step
+//    t = s - i, T + L - 1 wave steps in all. A layer outside its window
+//    (t < 0 or t >= T) holds its h and c (zeros before it starts), and
+//    still contributes the partials of the h it holds, which the layer
+//    above reads at the drain. Every lane is guarded to its own window.
+//  * K2's split of the units over one cluster of CL CTAs (CL in 1..16, one
+//    launch for all T): the warps are dealt to the layers in order, a warp
+//    RED_UNITS = 8 units of one layer, and it keeps on chip for the whole
+//    run its 8 rows of uB, its 8 rows of the next layer's wB (its units' h
+//    is that layer's input) and its 32 gate columns of [I|uC] and [I|wC]
+//    (lane 8g + u: gate g of unit u), where HOME says (the wrapper's rule):
+//      kRegs   — in registers (every block rank <= RQ, each side's h·B at
+//                most RSW_KB chunks of 32 entries; the block at most 512
+//                threads at RQ = 16, 384 at RQ = 32);
+//      kStaged — the CTA's blocks staged in shared memory once.
+//    A split layer's gate column reads only its own block of xb and hb
+//    (ops/cuda_lstm.py: pack_reduced_stack packs no zero blocks). Layer
+//    0's x-side x_t·wB_0 is computed in the kernel by every warp of layer
+//    0 (d <= 32 rows, x_t a lane an entry, wB_0 staged in shared memory),
+//    between the barrier's arrive and its wait.
+//  * One exchange a wave step. The exchange vector V holds, layer after
+//    layer, [xb_i | hb_i]; layer i's warps write hb_i and xb_{i+1}, one
+//    contiguous range. A wave step is
+//      1. each warp's partials of hb_i and xb_{i+1} over its 8 units, from
+//         the h it holds (lane e: entry e of each, an FMA chain over u =
+//         0..7), into its row of shared memory; one __syncthreads();
+//      2. the CTA's partial of the range its warps write (the warps' rows
+//         added in warp order, exact zeros outside a warp's range), stored
+//         through distributed shared memory (cluster.map_shared_rank) into
+//         the slot of its rank in every CTA, parity s & 1;
+//      3. one cluster barrier (barrier.cluster arrive, which releases, layer
+//         0's x-side, wait, which acquires; for a cluster of one CTA, the
+//         x-side and then a block barrier);
+//      4. every warp in its window adds the partials of [xb_i | hb_i] in
+//         rank order, from the ranks that hold the layer below's warps and
+//         its own (so every CTA holds the same values; rounded to bf16 in
+//         fast mode; no slot is read that was not written) into its row; lane 8g + u forms its column's two
+//         dots, over xb_i's block with [I|wC] and over hb_i's with [I|uC],
+//         each in four FMA chains (q mod 4, added (0 + 1) + (2 + 3)), adds
+//         them and b, takes its gate's activation; the four are gathered by
+//         shuffles and every lane of unit u updates c (in registers for all
+//         T) and h;
+//      5. the last layer's lanes 0..7 store h_t.
+//    The parity double buffer lets the one barrier a wave step serve both
+//    the exchange and the reuse of the slots.
+//  * Units past n are masked (zero weights, h and c held at 0, nothing
+//    stored); warps past the last layer's join the exchange with nothing.
+// Fast mode: x_t, h, xb, hb and the four factors are the products'
+// operands, rounded to bf16 where fused_reduced_stack_plain rounds them
+// (the factors once, by the wrapper); sums, state, b and the h that goes
+// out stay float32.
+// Measured on the H100 (PERF.md §6, scripts/probe_torch_reduced_stack.py,
+// T = 6656): 3x512 merged r = 24 (CL = 16 of 12 warps, the weights in 167
+// registers a thread) ~2.7 us a wave step, 17.9-18.6 ms against the layer
+// loop's ~164; 4x30 split r = 15 (CL = 1, 16 warps) ~2.6 us. Taken out one
+// at a time (3x512 / 4x30): the cluster barrier ~0.47 / ~0 us, the column
+// dots ~0.35 / ~0, the CTA's sums of its warps' rows ~0.24 / ~0.3, layer
+// 0's x-side ~0.12 / ~0.2, the gate math ~0.05 / ~0, the pushes through
+// distributed shared memory ~0. Slower, and dropped: pushing a slot only to
+// the CTAs that read it (a table), a split barrier for a cluster of one
+// CTA, x_t loaded a step ahead, summing only the writers' rows, and one
+// cluster a layer handing xb on through global memory (21.8 ms at 3x512).
+// ---------------------------------------------------------------------------
+#define RSW_KB 2  // chunks of 32 entries of a side's h·B a lane holds in registers (kRegs)
+
+struct RswLayer {
+  int n;                  // units
+  int warp0;              // the layer's first warp in the cluster
+  int Rw, Ru;             // entries of xb_i and hb_i (merged r, split Σ r_g)
+  int Rn;                 // entries of xb_{i+1} (0 for the last layer)
+  int xoff;               // xb_i's first entry of V; hb_i follows, then xb_{i+1}
+  int wrank[4], woff[4];  // gate g's block of xb_i: its rank, its first entry (merged: r, 0)
+  int urank[4], uoff[4];  // the same for hb_i
+  const float* b;         // (4n)
+};
+
+struct RswArgs {
+  int L, d;
+  int S;       // entries of V: Σ (Rw_i + Ru_i)
+  int warps;   // warps a CTA
+  int QW, QU;  // rows of a warp's columns of [I|wC] and of [I|uC]: the largest block ranks
+  int KU, KN;  // chunks of 32 entries of hb_i and of xb_{i+1}: the most of any layer
+  int KX;      // chunks of 32 entries of xb_0
+  int E;       // entries of a warp's block of P: 32·(QW + QU) + 256·(KU + KN)
+  int RO;      // floats of a warp's operand row: the largest Rw_i + Ru_i
+  RswLayer l[MAX_LAYERS];
+};
+
+// shared memory of reduced_stack_wave (ops/cuda_lstm.py:
+// reduced_stack_smem_bytes): floats first — the slots [2][CL][S], the warps'
+// partial rows [W][S], their operand rows [W][RO] — then, in the weights'
+// type, layer 0's x-side weights [d][32·KX] and, staged, the CTA's blocks
+// of P [W][E]
+size_t rsw_smem_bytes(const RswArgs& a, int CL, int home, bool bf16) {
+  const size_t wt = bf16 ? 2 : 4;
+  return ((size_t)2 * CL * a.S + (size_t)a.warps * (a.S + a.RO)) * sizeof(float) +
+         ((size_t)a.d * 32 * a.KX + (home == kStaged ? (size_t)a.warps * a.E : 0)) * wt;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");  // release semantics
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");  // acquire semantics
+}
+
+template <bool BF16, int HOME, int CL, int RQ>
+__global__ void __launch_bounds__(HOME == kRegs ? (RQ <= 16 ? 512 : 384) : MAX_THREADS)
+reduced_stack_wave(const RswArgs a, const typename Mode<BF16>::W* __restrict__ P,
+                   const float* __restrict__ x, float* __restrict__ out, int T) {
+  using WT = typename Mode<BF16>::W;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = CL == 1 ? 0 : (int)cluster.block_rank();
+  const int S = a.S, W = a.warps, d = a.d;
+  extern __shared__ float4 rsw_smem[];
+  float* part = reinterpret_cast<float*>(rsw_smem);  // [2][CL][S]: the CTAs' partials
+  float* wpart = part + 2 * CL * S;                   // [W][S]: a warp's partials
+  float* opw = wpart + W * S;                         // [W][RO]: a warp's [xb_i | hb_i]
+  WT* wx = reinterpret_cast<WT*>(opw + W * a.RO);     // [d][32·KX]: layer 0's wB, flattened
+  WT* ws = wx + d * 32 * a.KX;                        // kStaged: the CTA's blocks of P
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5, u = lane & 7, g = lane >> 3;
+  const int gw = rank * W + w;
+
+  // this warp's layer (-1: past the last layer's warps), read once
+  int li = -1;
+  for (int i = 0; i < a.L; ++i)
+    if (gw >= a.l[i].warp0 && gw < a.l[i].warp0 + (a.l[i].n + RED_UNITS - 1) / RED_UNITS) li = i;
+  int n = 0, Rw = 0, Ru = 0, Rn = 0, xoff = 0, rlw = 0, olw = 0, rlu = 0, olu = 0, j = 0;
+  float bias = 0.f;
+  if (li >= 0) {
+    const RswLayer& ly = a.l[li];
+    n = ly.n;
+    Rw = ly.Rw;
+    Ru = ly.Ru;
+    Rn = ly.Rn;
+    xoff = ly.xoff;
+    rlw = ly.wrank[g];
+    olw = ly.woff[g];
+    rlu = ly.urank[g];
+    olu = Rw + ly.uoff[g];
+    j = RED_UNITS * (gw - ly.warp0) + u;
+    if (j < n) bias = __ldg(ly.b + g * n + j);
+  }
+  const bool unit = li >= 0 && j < n;
+  const bool last = li == a.L - 1;
+  // the range of V this CTA's warps write; the ranks that write xb_i (the
+  // layer below's) and hb_i (this layer's), the only slots this warp reads
+  int s_lo = S, s_hi = 0, x_lo = 0, x_hi = -1, h_lo = 0, h_hi = -1;
+  for (int i = 0; i < a.L; ++i) {
+    const RswLayer& ly = a.l[i];
+    const int w0 = ly.warp0, w1 = ly.warp0 + (ly.n + RED_UNITS - 1) / RED_UNITS;
+    if (w0 < rank * W + W && w1 > rank * W) {
+      s_lo = min(s_lo, ly.xoff + ly.Rw);
+      s_hi = max(s_hi, ly.xoff + ly.Rw + ly.Ru + ly.Rn);
+    }
+    if (i == li - 1) {
+      x_lo = w0 / W;
+      x_hi = (w1 - 1) / W;
+    }
+    if (i == li) {
+      h_lo = w0 / W;
+      h_hi = (w1 - 1) / W;
+    }
+  }
+
+  // the warps' rows: exact zeros outside each warp's range
+  for (int e = tid; e < W * S; e += blockDim.x) wpart[e] = 0.f;
+  for (int e = tid; e < d * 32 * a.KX; e += blockDim.x) wx[e] = P[(size_t)CL * W * a.E + e];
+  const WT* pw = P + (size_t)gw * a.E;
+  if constexpr (HOME == kStaged) {
+    const WT* src = P + (size_t)rank * W * a.E;
+    for (int e = tid; e < W * a.E; e += blockDim.x) ws[e] = src[e];
+    pw = ws + (size_t)w * a.E;
+  }
+  const int o_uic = 32 * a.QW, o_ub = 32 * (a.QW + a.QU), o_wn = o_ub + 256 * a.KU;
+  float wic[HOME == kRegs ? RQ : 1], uic[HOME == kRegs ? RQ : 1];
+  float ub[HOME == kRegs ? RSW_KB * RED_UNITS : 1], wn[HOME == kRegs ? RSW_KB * RED_UNITS : 1];
+  if constexpr (HOME == kRegs) {  // every rank <= RQ, KU and KN <= RSW_KB (checked by the launcher)
+#pragma unroll
+    for (int q = 0; q < RQ; ++q) {
+      wic[q] = li >= 0 && q < a.QW ? ld_plain(pw + 32 * q + lane) : 0.f;
+      uic[q] = li >= 0 && q < a.QU ? ld_plain(pw + o_uic + 32 * q + lane) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < RSW_KB; ++k)
+#pragma unroll
+      for (int v = 0; v < RED_UNITS; ++v) {
+        ub[k * RED_UNITS + v] = li >= 0 && k < a.KU ? ld_plain(pw + o_ub + 256 * k + 32 * v + lane) : 0.f;
+        wn[k * RED_UNITS + v] = li >= 0 && k < a.KN ? ld_plain(pw + o_wn + 256 * k + 32 * v + lane) : 0.f;
+      }
+  }
+  float hop = 0.f, c = 0.f;  // unit u's h (the products' operand) and c
+  float* wrow = wpart + w * S + xoff + Rw;  // this warp's partials: [hb_i | xb_{i+1}]
+  float* op = opw + w * a.RO;               // this warp's [xb_i | hb_i]
+  if constexpr (CL == 1) {
+    __syncthreads();
+  } else {
+    cluster.sync();  // every CTA running (its shared memory a target), zeroed and staged
+  }
+
+  const int steps = T + a.L - 1;
+  for (int s = 0; s < steps; ++s) {
+    const int par = s & 1;
+    const int t = s - li;
+    const bool live = li >= 0 && t >= 0 && t < T;  // warp-uniform
+    float xv = 0.f;
+    if (li == 0 && live && lane < d) xv = Mode<BF16>::round(__ldg(x + (size_t)t * d + lane));
+    // 1. the warp's partials of hb_i and xb_{i+1} from the h it holds
+    if (li >= 0) {
+      float hu[RED_UNITS];
+#pragma unroll
+      for (int v = 0; v < RED_UNITS; ++v) hu[v] = __shfl_sync(0xffffffffu, hop, v);
+      const int kb = HOME == kRegs ? RSW_KB : (a.KU > a.KN ? a.KU : a.KN);
+#pragma unroll
+      for (int k = 0; k < kb; ++k) {
+        const int e = 32 * k + lane;
+        if (e < Ru) {
+          float p = 0.f;
+#pragma unroll
+          for (int v = 0; v < RED_UNITS; ++v) {
+            float wv;
+            if constexpr (HOME == kRegs) {
+              wv = ub[k * RED_UNITS + v];
+            } else {
+              wv = ld_plain(pw + o_ub + 256 * k + 32 * v + lane);
+            }
+            p = fmaf(hu[v], wv, p);
+          }
+          wrow[e] = p;
+        }
+        if (e < Rn) {
+          float p = 0.f;
+#pragma unroll
+          for (int v = 0; v < RED_UNITS; ++v) {
+            float wv;
+            if constexpr (HOME == kRegs) {
+              wv = wn[k * RED_UNITS + v];
+            } else {
+              wv = ld_plain(pw + o_wn + 256 * k + 32 * v + lane);
+            }
+            p = fmaf(hu[v], wv, p);
+          }
+          wrow[Ru + e] = p;
+        }
+      }
+    }
+    __syncthreads();
+    // 2. the CTA's partial of its range, into every CTA's slot for this rank
+    for (int sl = s_lo + tid; sl < s_hi; sl += blockDim.x) {
+      float v = 0.f;
+      for (int ww = 0; ww < W; ++ww) v += wpart[ww * S + sl];
+      float* slot = part + (par * CL + rank) * S + sl;
+      if constexpr (CL == 1) {
+        *slot = v;
+      } else {
+#pragma unroll
+        for (int peer = 0; peer < CL; ++peer) *cluster.map_shared_rank(slot, peer) = v;
+      }
+    }
+    // 3. the exchange; layer 0's x-side meanwhile
+    if constexpr (CL > 1) cluster_arrive();
+    if (li == 0 && live) {
+      for (int k = 0; k < a.KX; ++k) {
+        const int e = 32 * k + lane;
+        float acc = 0.f;  // one FMA chain over the d inputs
+        for (int kk = 0; kk < d; ++kk)
+          acc = fmaf(__shfl_sync(0xffffffffu, xv, kk), ld_plain(wx + kk * 32 * a.KX + e), acc);
+        if (e < Rw) op[e] = Mode<BF16>::round(acc);
+      }
+    }
+    if constexpr (CL > 1) {
+      cluster_wait();
+    } else {
+      __syncthreads();
+    }
+    if (!live) continue;  // warp-uniform: a warp outside its window holds h and c
+    // 4. [xb_i | hb_i] in rank order (layer 0's xb_i is its own), the columns
+    for (int e = (li == 0 ? Rw : 0) + lane; e < Rw + Ru; e += 32) {
+      const int lo = e < Rw ? x_lo : h_lo, hi = e < Rw ? x_hi : h_hi;
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < CL; ++r)
+        if (r >= lo && r <= hi) sum += part[(par * CL + r) * S + xoff + e];
+      op[e] = Mode<BF16>::round(sum);
+    }
+    __syncwarp();
+    const float* xq = op + olw;
+    const float* hq = op + olu;
+    float dw[4] = {0.f, 0.f, 0.f, 0.f}, du[4] = {0.f, 0.f, 0.f, 0.f};  // over q mod 4
+    if constexpr (HOME == kRegs) {
+#pragma unroll
+      for (int q = 0; q < RQ; ++q) {
+        if (q < rlw) dw[q & 3] = fmaf(xq[q], wic[q], dw[q & 3]);
+        if (q < rlu) du[q & 3] = fmaf(hq[q], uic[q], du[q & 3]);
+      }
+    } else {
+      for (int q0 = 0; q0 < rlw; q0 += 4) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (q0 + m < rlw) dw[m] = fmaf(xq[q0 + m], ld_plain(pw + 32 * (q0 + m) + lane), dw[m]);
+      }
+      for (int q0 = 0; q0 < rlu; q0 += 4) {
+#pragma unroll
+        for (int m = 0; m < 4; ++m)
+          if (q0 + m < rlu) du[m] = fmaf(hq[q0 + m], ld_plain(pw + o_uic + 32 * (q0 + m) + lane), du[m]);
+      }
+    }
+    const float z = (((dw[0] + dw[1]) + (dw[2] + dw[3])) + ((du[0] + du[1]) + (du[2] + du[3]))) + bias;
+    const float act = g == 2 ? tanhf(z) : sigmoid_f32(z);
+    const float ai = __shfl_sync(0xffffffffu, act, u), af = __shfl_sync(0xffffffffu, act, 8 + u);
+    const float ag = __shfl_sync(0xffffffffu, act, 16 + u), ao = __shfl_sync(0xffffffffu, act, 24 + u);
+    if (unit) {
+      c = af * c + ai * ag;
+      const float hn = ao * tanhf(c);
+      // 5. the last layer's h_t
+      if (last && lane < RED_UNITS) out[(size_t)t * n + j] = hn;
+      hop = Mode<BF16>::round(hn);
+    }
+    __syncwarp();  // op is this warp's again
   }
 }
 
@@ -1196,6 +1543,90 @@ int launch_reduced_stack(const int64_t* meta, int L, const void* x, void* out, i
   return (int)cudaGetLastError();
 }
 
+// One cluster of CL CTAs of reduced_stack_wave, if the card can hold it
+// (cudaOccupancyMaxActiveClusters); a cluster the card cannot hold is
+// refused, never run another way.
+template <bool BF16, int HOME, int CL, int RQ>
+int launch_stack_wave(const RswArgs& a, const void* P, const float* x, float* out, int T,
+                      cudaStream_t s) {
+  using WT = typename Mode<BF16>::W;
+  const auto kernel = reduced_stack_wave<BF16, HOME, CL, RQ>;
+  const size_t smem = rsw_smem_bytes(a, CL, HOME, BF16);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  if (CL > 8 && (e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed,
+                                          1)) != cudaSuccess)
+    return (int)e;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL);
+  cfg.blockDim = dim3(32 * a.warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  if ((e = cudaOccupancyMaxActiveClusters(&clusters, (void*)kernel, &cfg)) != cudaSuccess)
+    return (int)e;
+  if (clusters < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  if ((e = cudaLaunchKernelEx(&cfg, kernel, a, (const WT*)P, x, out, T)) != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The geometry of the stack from the wrapper's meta (ops/cuda_lstm.py:
+// stack_geometry computes the same); false where a layer's shape is not
+// one the kernel takes.
+int imax(int p, int q) { return p > q ? p : q; }
+
+bool rsw_args(const int64_t* meta, int L, int d, int warps, RswArgs& a) {
+  a.L = L;
+  a.d = d;
+  a.warps = warps;
+  a.S = a.QW = a.QU = a.KU = a.KN = a.RO = 0;
+  int warp0 = 0;
+  for (int i = 0; i < L; ++i) {
+    const int64_t* m = meta + 11 * i;
+    RswLayer& ly = a.l[i];
+    ly.n = (int)m[0];
+    const int blocks = (int)m[1];
+    if (ly.n < 1 || (blocks != 1 && blocks != 4)) return false;
+    ly.warp0 = warp0;
+    warp0 += (ly.n + RED_UNITS - 1) / RED_UNITS;
+    ly.Rw = ly.Ru = 0;
+    for (int g = 0; g < 4; ++g) {
+      const int gb = blocks == 4 ? g : 0;  // merged: every gate reads the one block
+      ly.wrank[g] = (int)m[2 + gb];
+      ly.urank[g] = (int)m[6 + gb];
+      if (ly.wrank[g] < 1 || ly.urank[g] < 1) return false;
+      ly.woff[g] = blocks == 4 ? ly.Rw : 0;
+      ly.uoff[g] = blocks == 4 ? ly.Ru : 0;
+      if (blocks == 4 || g == 0) {
+        ly.Rw += ly.wrank[g];
+        ly.Ru += ly.urank[g];
+      }
+      a.QW = imax(a.QW, ly.wrank[g]);
+      a.QU = imax(a.QU, ly.urank[g]);
+    }
+    ly.b = reinterpret_cast<const float*>(m[10]);
+    ly.xoff = a.S;
+    a.S += ly.Rw + ly.Ru;
+    a.RO = imax(a.RO, ly.Rw + ly.Ru);
+    a.KU = imax(a.KU, (ly.Ru + 31) / 32);
+    if (i > 0) {
+      a.l[i - 1].Rn = ly.Rw;
+      a.KN = imax(a.KN, (ly.Rw + 31) / 32);
+    }
+  }
+  a.l[L - 1].Rn = 0;
+  a.KX = (a.l[0].Rw + 31) / 32;
+  a.E = 32 * (a.QW + a.QU) + 256 * (a.KU + a.KN);
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
@@ -1315,8 +1746,51 @@ int lstm_recurrence_per_sm(int n, int units, int home, int bf16, int* per_sm) {
   return (int)cudaErrorInvalidValue;
 }
 
-// meta: L rows of 9 int64 — din, units, rw, ru, wBt, wIC, uBt, uIC, b (device
-// pointers). bf16 != 0: fast mode, the four factors bf16.
+// K4 (reduced_stack_wave). meta: L rows of 11 int64 — n, blocks (1 merged,
+// 4 split), the input side's block ranks (4; merged: the first), the
+// recurrent side's (4), b (device pointer); P: `entries` entries, float
+// (bf16 == 0) or bf16 (fast mode), CL x warps warps' blocks and then layer
+// 0's x-side weights (ops/cuda_lstm.py: pack_reduced_stack). cluster: CL;
+// warps: warps a CTA; home: 0 registers, 1 staged (ops/cuda_lstm.py:
+// reduced_stack_plan), checked here, not chosen: the warps hold every
+// layer's, the registers hold every rank (at most 16, or 32 on at most 384
+// threads) and RSW_KB chunks of each side's h·B, the shared memory fits.
+int reduced_stack_wave_launch(const int64_t* meta, int L, const void* P, long long entries,
+                              const void* x, void* out, int T, int d, int cluster, int warps,
+                              int home, int bf16, void* stream) {
+  if (L < 1 || L > MAX_LAYERS || T < 1 || d < 1 || d > 32 || P == nullptr || warps < 1 ||
+      warps > RED_MAX_WARPS || (home != kRegs && home != kStaged))
+    return (int)cudaErrorInvalidValue;
+  RswArgs a;
+  if (!rsw_args(meta, L, d, warps, a)) return (int)cudaErrorInvalidValue;
+  const RswLayer& top = a.l[L - 1];
+  const int rq = a.QW > a.QU ? a.QW : a.QU;
+  const int rq_tmpl = rq <= 16 ? 16 : 32;
+  if ((long long)cluster * warps < top.warp0 + (top.n + RED_UNITS - 1) / RED_UNITS ||
+      entries != (long long)cluster * warps * a.E + (long long)d * 32 * a.KX ||
+      (home == kRegs && (rq > 32 || a.KU > RSW_KB || a.KN > RSW_KB ||
+                         32 * warps > (rq_tmpl == 16 ? 512 : 384))) ||
+      rsw_smem_bytes(a, cluster, home, bf16 != 0) > 232448)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const float* xs = (const float*)x;
+  float* o = (float*)out;
+#define RSW_CASE(B_, H_, CL_, RQ_)                                                       \
+  if ((bf16 != 0) == B_ && home == H_ && cluster == CL_ && (H_ != kRegs || rq_tmpl == RQ_)) \
+    return launch_stack_wave<B_, H_, CL_, RQ_>(a, P, xs, o, T, s);
+#define RSW_CLUSTERS(B_, H_, RQ_) \
+  RSW_CASE(B_, H_, 1, RQ_) RSW_CASE(B_, H_, 2, RQ_) RSW_CASE(B_, H_, 4, RQ_) RSW_CASE(B_, H_, 8, RQ_) \
+  RSW_CASE(B_, H_, 16, RQ_)
+  RSW_CLUSTERS(false, kRegs, 16) RSW_CLUSTERS(false, kRegs, 32) RSW_CLUSTERS(false, kStaged, 32)
+  RSW_CLUSTERS(true, kRegs, 16) RSW_CLUSTERS(true, kRegs, 32) RSW_CLUSTERS(true, kStaged, 32)
+#undef RSW_CLUSTERS
+#undef RSW_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// K4's layer loop (fused_reduced_stack_kernel). meta: L rows of 9 int64 —
+// din, units, rw, ru, wBt, wIC, uBt, uIC, b (device pointers). bf16 != 0:
+// fast mode, the four factors bf16.
 int fused_reduced_stack_launch(const int64_t* meta, int L, const void* x, void* out, int T, int d,
                                int bf16, void* stream) {
   if (L < 1 || L > MAX_LAYERS) return (int)cudaErrorInvalidValue;

@@ -682,11 +682,254 @@ def _sides(l):
     return l.wB, l.wC, l.uB, l.uC
 
 
+STACK_REG_KB = 2                # csrc RSW_KB: chunks of 32 entries of a side's h·B in registers
+STACK_REG_THREADS = {16: 512, 32: 384}  # csrc: the block of the registers home, by column length
+STACK_MAX_D = 32                # the widest input the wavefront takes (a lane an entry of x_t)
+
+
+class StackGeometry(NamedTuple):
+    """The exchange and the packing of reduced_stack_wave for one stack
+    (csrc ``rsw_args`` computes the same)."""
+
+    warps: int  # warps of all layers: Σ ⌈n_i / 8⌉
+    S: int      # entries of the exchange vector V: Σ (Rw_i + Ru_i)
+    QW: int     # rows of a warp's [I|wC] columns: the largest input-side block rank
+    QU: int     # the same for [I|uC]
+    KU: int     # chunks of 32 entries of hb_i, the most of any layer
+    KN: int     # chunks of 32 entries of xb_{i+1}, the most of any layer (0 for one layer)
+    KX: int     # chunks of 32 entries of xb_0
+    E: int      # entries of a warp's block of the packed weights
+    RO: int     # the largest Rw_i + Ru_i
+
+
+def stack_geometry(units: Sequence[int], w_ranks, u_ranks) -> StackGeometry:
+    """The geometry for layers of ``units`` with block ranks ``w_ranks[i]``
+    (input side) and ``u_ranks[i]`` (recurrent side): one rank merged, four
+    split."""
+    Rw = [sum(r) for r in w_ranks]
+    Ru = [sum(r) for r in u_ranks]
+    QW, QU = max(max(r) for r in w_ranks), max(max(r) for r in u_ranks)
+    KU = max(-(-r // 32) for r in Ru)
+    KN = max((-(-r // 32) for r in Rw[1:]), default=0)
+    return StackGeometry(
+        warps=sum(-(-n // RED_UNITS) for n in units), S=sum(Rw) + sum(Ru), QW=QW, QU=QU, KU=KU,
+        KN=KN, KX=-(-Rw[0] // 32), E=32 * (QW + QU) + 256 * (KU + KN),
+        RO=max(w + u for w, u in zip(Rw, Ru)))
+
+
+class ReducedStackPlan(NamedTuple):
+    """K4's launch: ``route`` "wave" runs ``reduced_stack_wave`` (csrc
+    ``reduced_stack_wave_launch`` checks it) as one cluster of ``cluster``
+    CTAs of ``warps`` warps with the weights where ``home`` says; "layers"
+    runs the layer loop (``fused_reduced_stack_kernel``: one CTA, the
+    weights read from their global copy)."""
+
+    route: str
+    cluster: int
+    warps: int
+    home: str
+    threads: int
+    smem_bytes: int
+
+
+def reduced_stack_smem_bytes(geom: StackGeometry, d: int, cluster: int, warps: int, home: str,
+                             fast: bool) -> int:
+    """Shared memory of a CTA (csrc ``rsw_smem_bytes``): the slots (two
+    parities of CL × S floats), each warp's partial row (S) and operand row
+    (RO), and in the weights' type (4 bytes, 2 in fast mode) layer 0's
+    x-side weights (d × 32·KX) and, staged, the CTA's blocks (warps × E)."""
+    wt = 2 if fast else 4
+    staged = warps * geom.E if home == "staged" else 0
+    return 4 * (2 * cluster * geom.S + warps * (geom.S + geom.RO)) + wt * (d * 32 * geom.KX + staged)
+
+
+def _stack_reg_threads(geom: StackGeometry) -> int:
+    """The most threads of the registers home, 0 where it cannot hold the
+    stack (a rank past 32, or a side's h·B past STACK_REG_KB chunks)."""
+    rq = max(geom.QW, geom.QU)
+    if rq > 32 or geom.KU > STACK_REG_KB or geom.KN > STACK_REG_KB:
+        return 0
+    return STACK_REG_THREADS[16 if rq <= 16 else 32]
+
+
+def reduced_stack_plan(units: Sequence[int], d: int, w_ranks, u_ranks, fast: bool,
+                       sm_count: int) -> ReducedStackPlan:
+    """K4's launch for a stack of ``units`` on input width d with block
+    ranks ``w_ranks``, ``u_ranks`` (per layer: one merged, four split): the
+    wavefront in the weights' first home of RED_HOMES that holds the stack
+    (registers: every rank at most 32 and each side's h·B at most
+    STACK_REG_KB chunks of 32, the block within STACK_REG_THREADS; staged:
+    the shared memory within a block's), at the fewest CTAs of
+    RED_CLUSTERS (at most ``sm_count``) whose ⌈warps / CL⌉ warps a CTA fit
+    a block; a stack that no cluster of 16 holds, or an input wider than
+    STACK_MAX_D, runs the layer loop (route "layers")."""
+    geom = stack_geometry(units, w_ranks, u_ranks)
+    for home in RED_HOMES if d <= STACK_MAX_D else ():
+        most = _stack_reg_threads(geom) if home == "registers" else MAX_THREADS
+        for cluster in RED_CLUSTERS:
+            if cluster > sm_count:
+                break
+            warps = -(-geom.warps // cluster)
+            if 32 * warps > most:
+                continue
+            smem = reduced_stack_smem_bytes(geom, d, cluster, warps, home, fast)
+            if smem <= _SMEM_LIMIT:
+                return ReducedStackPlan("wave", cluster, warps, home, 32 * warps, smem)
+    return layers_stack_plan(units, d, geom)
+
+
+def layers_stack_plan(units: Sequence[int], d: int, geom: StackGeometry) -> ReducedStackPlan:
+    """The layer loop's launch: one CTA, a thread a column of the widest
+    layer or a warp an entry of the widest [xb | hb] (at most MAX_THREADS),
+    per layer h and c, one z, one [xb | hb] and x_t in shared memory."""
+    threads = min(MAX_THREADS, _round_up(max(4 * max(units), 32 * geom.RO), 32))
+    return ReducedStackPlan("layers", 1, threads // 32, "global", threads,
+                            4 * (2 * sum(units) + 4 * max(units) + geom.RO + d))
+
+
+def _stack_ranks(model: ReducedLSTM):
+    """(units, w_ranks, u_ranks) of a reduced model, as reduced_stack_plan
+    takes them."""
+    units = [l.units for l in model.layers]
+    return units, [l.ranks[0] for l in model.layers], [l.ranks[1] for l in model.layers]
+
+
+def card_reduced_stack_plan(dev: torch.device, model: ReducedLSTM, d: int,
+                            fast: bool) -> ReducedStackPlan:
+    """:func:`reduced_stack_plan` for ``model`` on the card of ``dev`` (its
+    SM count)."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    units, w_ranks, u_ranks = _stack_ranks(model)
+    return reduced_stack_plan(units, d, w_ranks, u_ranks, fast,
+                              torch.cuda.get_device_properties(idx).multi_processor_count)
+
+
+def check_reduced_stack_plan(plan: ReducedStackPlan, units, d: int, w_ranks, u_ranks,
+                             fast: bool) -> None:
+    """Raises ``ValueError`` naming what the kernel cannot run, for a plan
+    given past the rule (csrc ``reduced_stack_wave_launch`` refuses the
+    same); "layers" takes any stack whose shared memory fits."""
+    geom = stack_geometry(units, w_ranks, u_ranks)
+    if plan.route == "layers":
+        if plan.smem_bytes > _SMEM_LIMIT:
+            raise ValueError(f"fused_reduced_stack: the layer loop needs {plan.smem_bytes} B of "
+                             f"shared memory, over {_SMEM_LIMIT}")
+        return
+    why = None
+    if plan.route != "wave" or plan.home not in RED_HOMES:
+        why = f"route {plan.route!r}, home {plan.home!r}"
+    elif d > STACK_MAX_D:
+        why = f"an input of {d} entries"
+    elif plan.cluster not in RED_CLUSTERS or not 1 <= plan.warps <= RED_MAX_WARPS:
+        why = f"{plan.cluster} CTAs of {plan.warps} warps"
+    elif plan.cluster * plan.warps < geom.warps:
+        why = f"{plan.cluster} x {plan.warps} warps for the stack's {geom.warps}"
+    elif plan.home == "registers" and plan.threads > _stack_reg_threads(geom):
+        why = f"the registers home at {plan.threads} threads"
+    elif plan.threads != 32 * plan.warps or plan.smem_bytes != reduced_stack_smem_bytes(
+            geom, d, plan.cluster, plan.warps, plan.home, fast) or plan.smem_bytes > _SMEM_LIMIT:
+        why = f"{plan.threads} threads, {plan.smem_bytes} B of shared memory"
+    if why is not None:
+        raise ValueError(f"fused_reduced_stack: the wavefront cannot run {why} "
+                         f"(units {tuple(units)}, ranks {tuple(map(tuple, u_ranks))})")
+
+
+def pack_reduced_stack(model: ReducedLSTM, warps_total: int, fast: bool) -> torch.Tensor:
+    """K4's weights, flat: a block of E entries for each of ``warps_total``
+    warps (the layers' warps in order, ⌈n / 8⌉ each, then zero blocks),
+    then layer 0's x-side weights. A warp's block: its 32 columns of [I|wC]
+    by rows, [q][8g + u] (gate g of unit u) for q < QW, zero past the
+    column's own block rank (merged: fold_IC(wB, wC)'s column g·n + j;
+    split: fold_IC(wB_g, wC_g)'s column j, its gate's block alone); the same
+    of [I|uC] for q < QU; then its 8 rows of uB as [k][u][lane] (entry 32k +
+    lane of the flattened hb_i: the split gates' B side by side) for k <
+    KU, and its 8 rows of the next layer's wB the same way for k < KN.
+    Layer 0's x-side weights: wB_0 flattened the same way, [k][e] for k < d,
+    e < 32·KX. Units past n and entries past a side's rank are zero. bf16
+    in fast mode (rounded once here)."""
+    F = torch.nn.functional
+    units, w_ranks, u_ranks = _stack_ranks(model)
+    geom = stack_geometry(units, w_ranks, u_ranks)
+    layers = model.layers
+
+    def flat_B(Bs):  # (rows, R): the split gates' B side by side
+        return torch.cat(list(Bs), dim=1) if not isinstance(Bs, torch.Tensor) else Bs
+
+    def columns(Bs, Cs, n, Q):  # (nw, Q·32): [q][8g + u]
+        if isinstance(Bs, torch.Tensor):
+            IC = fold_IC(Bs, Cs).reshape(-1, 4, n)
+            ICs = [IC[:, g] for g in range(4)]
+        else:
+            ICs = [fold_IC(B, C) for B, C in zip(Bs, Cs)]
+        nw = -(-n // RED_UNITS)
+        M = torch.stack([F.pad(M, (0, nw * RED_UNITS - n, 0, Q - M.shape[0])) for M in ICs])
+        return M.reshape(4, Q, nw, RED_UNITS).permute(2, 1, 0, 3).reshape(nw, Q * 32)
+
+    def rows(Bs, n, K):  # (nw, K·256): [k][u][lane]
+        nw = -(-n // RED_UNITS)
+        B = flat_B(Bs)
+        B = F.pad(B, (0, 32 * K - B.shape[1], 0, nw * RED_UNITS - n))
+        return B.reshape(nw, RED_UNITS, K, 32).permute(0, 2, 1, 3).reshape(nw, K * 256)
+
+    blocks = []
+    for i, l in enumerate(layers):
+        wB, wC, uB, uC = _sides(l)
+        parts = [columns(wB, wC, l.units, geom.QW), columns(uB, uC, l.units, geom.QU),
+                 rows(uB, l.units, geom.KU)]
+        if i + 1 < len(layers):
+            parts.append(rows(_sides(layers[i + 1])[0], l.units, geom.KN))
+        else:  # the last layer feeds no layer
+            parts.append(parts[-1].new_zeros((parts[-1].shape[0], geom.KN * 256)))
+        blocks.append(torch.cat(parts, dim=1))
+    P = torch.cat(blocks)
+    P = F.pad(P, (0, 0, 0, warps_total - P.shape[0]))
+    wB0 = flat_B(_sides(layers[0])[0])
+    wx = F.pad(wB0, (0, 32 * geom.KX - wB0.shape[1]))
+    flat = torch.cat([P.reshape(-1), wx.reshape(-1)])
+    return (flat.to(torch.bfloat16) if fast else flat).contiguous()
+
+
+def _launch_reduced_stack(model: ReducedLSTM, x: torch.Tensor, fast: bool, plan: ReducedStackPlan,
+                          out: torch.Tensor) -> None:
+    """One launch of K4 as ``plan`` says, into ``out`` (T, n_out), on
+    checked card tensors."""
+    T, d = x.shape
+    units, w_ranks, u_ranks = _stack_ranks(model)
+    check_reduced_stack_plan(plan, units, d, w_ranks, u_ranks, fast)
+    if plan.route == "layers":
+        packed = []
+        for l in model.layers:
+            wB, wC, uB, uC = _sides(l)
+            w_side = [_stored(t, fast) for t in _pack_reduced(wB, wC, l.units)]
+            u_side = [_stored(t, fast) for t in _pack_reduced(uB, uC, l.units)]
+            packed.append((*w_side, *u_side))
+        meta = np.array(
+            [[l.input_dim, l.units, wBt.shape[0], uBt.shape[0], wBt.data_ptr(), wIC.data_ptr(),
+              uBt.data_ptr(), uIC.data_ptr(), l.b.data_ptr()]
+             for l, (wBt, wIC, uBt, uIC) in zip(model.layers, packed)],
+            dtype=np.int64,
+        )
+        _launch("fused_reduced_stack", x.device,
+                meta.ctypes.data, len(units), x.data_ptr(), out.data_ptr(), T, d, int(fast))
+        return
+    P = pack_reduced_stack(model, plan.cluster * plan.warps, fast)
+    meta = np.array(
+        [[l.units, len(wr), *(wr + (0,) * (4 - len(wr))), *(ur + (0,) * (4 - len(ur))),
+          l.b.data_ptr()]
+         for l, wr, ur in zip(model.layers, w_ranks, u_ranks)],
+        dtype=np.int64,
+    )
+    _launch("reduced_stack_wave", x.device, meta.ctypes.data, len(units), P.data_ptr(), P.numel(),
+            x.data_ptr(), out.data_ptr(), T, d, plan.cluster, plan.warps,
+            RED_HOMES.index(plan.home), int(fast))
+
+
 @torch.no_grad()
 def fused_reduced_stack(model: ReducedLSTM, x: torch.Tensor, dot_precision=None) -> torch.Tensor:
     """Whole reduced stack in one kernel, both sides in the folded two-step
-    form; the head is applied to the last layer's hidden sequence outside
-    it. x (T, d) -> (T, out)."""
+    form (:func:`reduced_stack_plan` picks which and how); the head is
+    applied to the last layer's hidden sequence outside it. x (T, d) ->
+    (T, out)."""
     fast = _is_fast(dot_precision)
     T = _check_layers("fused_reduced_stack", model, x)
     d = x.shape[1]
@@ -701,26 +944,8 @@ def fused_reduced_stack(model: ReducedLSTM, x: torch.Tensor, dot_precision=None)
         din = n
     if not _on_card(*tensors):
         return fused_reduced_stack_plain(model, x, dot_precision)
-    packed = []
-    for l in model.layers:
-        wB, wC, uB, uC = _sides(l)
-        w_side = [_stored(t, fast) for t in _pack_reduced(wB, wC, l.units)]
-        u_side = [_stored(t, fast) for t in _pack_reduced(uB, uC, l.units)]
-        packed.append((*w_side, *u_side))
-    units = [l.units for l in model.layers]
-    rmax = max(wBt.shape[0] + uBt.shape[0] for wBt, _, uBt, _ in packed)
-    _check_smem("fused_reduced_stack", 2 * sum(units) + 4 * max(units) + rmax + d)
-    meta = np.array(
-        [[l.input_dim, l.units, wBt.shape[0], uBt.shape[0], wBt.data_ptr(), wIC.data_ptr(),
-          uBt.data_ptr(), uIC.data_ptr(), l.b.data_ptr()]
-         for l, (wBt, wIC, uBt, uIC) in zip(model.layers, packed)],
-        dtype=np.int64,
-    )
-    h = torch.empty((T, units[-1]), dtype=torch.float32, device=x.device)
-    _launch(
-        "fused_reduced_stack", x.device,
-        meta.ctypes.data, len(units), x.data_ptr(), h.data_ptr(), T, d, int(fast),
-    )
+    h = torch.empty((T, model.layers[-1].units), dtype=torch.float32, device=x.device)
+    _launch_reduced_stack(model, x, fast, card_reduced_stack_plan(x.device, model, d, fast), h)
     _count("fused_reduced_stack", fast)
     return model.head(h)
 

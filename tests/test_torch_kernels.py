@@ -463,6 +463,89 @@ def test_cuda_fused_reduced_stack_matches_plain(cuda, units, rank, merged, dot_p
         _fast_close(got, want, want64)
 
 
+def _reduced_on_card(cuda, units, rank, merged, d, seed=3):
+    """A fresh stack truncated to ``rank`` on the card, with biases drawn
+    from ``seed``, its head the identity (the output is the last layer's h,
+    which the kernel writes)."""
+    import svd_lstm_tpu_torch as P
+    from svd_lstm_tpu_torch.models.lstm import DenseHead
+
+    dense = P.init_stacked_lstm(torch.Generator().manual_seed(seed), input_dim=d, units=units,
+                                device=cuda)
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for l in dense.layers:
+            l.b.copy_(_t(_normal(rng, tuple(l.b.shape), 0.5), cuda))
+    model = P.make_reduced_model(P.make_singular_model(dense, merged_kernel=merged), rank=rank)
+    model.head = DenseHead(torch.eye(units[-1], device=cuda), torch.zeros(units[-1], device=cuda))
+    return model
+
+
+def _stack_close(got, model, x, fast):
+    """K4 on h: exact within 2e-5 or twice the plain float32 version's
+    distance from float64; fast as the other fast variants."""
+    import copy
+
+    dp = "default" if fast else None
+    want = ck.fused_reduced_stack_plain(model, x, dp)
+    want64 = ck.fused_reduced_stack_plain(copy.deepcopy(model).double(), x.double(), dp)
+    assert bool(torch.isfinite(got).all())
+    if fast:
+        _fast_close(got, want, want64)
+    else:
+        drift = float((want.double() - want64).abs().max())
+        assert float((got - want).abs().max()) <= max(2e-5, 2 * drift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+@pytest.mark.parametrize("units,rank,merged,plan", [
+    ((30, 30, 30, 30), 15, False, ("wave", 1, 16, "registers")),
+    ((30, 30, 30, 30), 15, True, ("wave", 1, 16, "registers")),
+    ((512, 512, 512), 24, True, ("wave", 16, 12, "registers")),
+])
+def test_cuda_reduced_stack_wave_matches_plain(cuda, units, rank, merged, plan, fast):
+    """K4 as the rule launches it at 4x30 (r = 15) and 3x512 (r = 24), d =
+    16, T = 64, on the last layer's h."""
+    model = _reduced_on_card(cuda, units, rank, merged, 16)
+    x = _t(_normal(np.random.default_rng(20), (64, 16)), cuda)
+    got_plan = ck.card_reduced_stack_plan(cuda, model, 16, fast)
+    assert (got_plan.route, got_plan.cluster, got_plan.warps, got_plan.home) == plan
+    variant = "fused_reduced_stack_fast" if fast else "fused_reduced_stack"
+    got = _launched(variant, lambda: ck.fused_reduced_stack(
+        model, x, dot_precision="default" if fast else None))
+    _stack_close(got, model, x, fast)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster,home", [(1, "registers"), (1, "staged"), (2, "registers"),
+                                          (2, "staged"), (4, "registers"), (4, "staged"),
+                                          (8, "registers"), (8, "staged"), (16, "registers"),
+                                          (16, "staged"), (1, "layers")])
+@pytest.mark.parametrize("units,rank,merged", [((24, 40), 6, True), ((24, 40), 6, False),
+                                               ((30, 30, 30, 30), 15, False)])
+def test_cuda_reduced_stack_every_plan(cuda, units, rank, merged, cluster, home):
+    """K4 forced to each cluster size and home of its rule, and to the layer
+    loop, exact and fast, T = 32: CTAs that hold two layers' warps, CTAs
+    that hold none."""
+    d = 8
+    model = _reduced_on_card(cuda, units, rank, merged, d, seed=4)
+    x = _t(_normal(np.random.default_rng(21), (32, d)), cuda)
+    stack = ck._stack_ranks(model)
+    geom = ck.stack_geometry(*stack)
+    for fast in (False, True):
+        if home == "layers":
+            plan = ck.layers_stack_plan(stack[0], d, geom)
+        else:
+            warps = -(-geom.warps // cluster)
+            plan = ck.ReducedStackPlan("wave", cluster, warps, home, 32 * warps,
+                                       ck.reduced_stack_smem_bytes(geom, d, cluster, warps, home, fast))
+        h = torch.empty((32, units[-1]), dtype=torch.float32, device=cuda)
+        ck._launch_reduced_stack(model, x, fast, plan, h)
+        torch.cuda.synchronize()
+        _stack_close(model.head(h), model, x, fast)
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_rejects_bad_arguments(cuda):
     xp, U, _, _ = _t(_dense_case(12, 8, T=5), cuda)
