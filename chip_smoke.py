@@ -156,7 +156,32 @@ Phases, each of which raises on failure (no phase is caught):
    largest plain value or twice the plain float32 gradient's distance from
    float64, whichever is larger (the truncations' C factors amplify the
    float32 sum order: ROADMAP fault 3.1), and the history is one epoch of
-   ``finetune_reduced``.
+   ``finetune_reduced``;
+8. drive the deployment slice, under exact matmuls, each part counted and
+   checked: (8a) ``quantize_params`` on the card of ``wide_r24_progressive``
+   (3×512 merged r = 24) and of the 4×30 checkpoint, their ``param_bytes``
+   against a count of the tree's leaves and at most 0.35 × the float32
+   bytes, ``quantized_apply(predict)`` over T = 6656 exact and fast (K2 and
+   K2f, K1 and K1f launched, the launch counts set to 0 just before), exact
+   against the CPU float64 scan of the dequantized model as in 4, the int8
+   error against float32 reported, both predicts timed, and the tree saved
+   and loaded back with ``q`` bit-equal; (8b) those two models and 4×30
+   split r = 15 written from the card as CSVs and as the int8 ``.bin``, run
+   by the native C++ runtime on the host over 2048 frames against the
+   card's ``predict`` (of the float32 model, and of ``dequantized_params``
+   for the ``.bin``) within 1e-4 on the first 256 frames
+   (tests/test_native.py's limit), the maximum over all frames reported;
+   (8c) ``make_stream_fn``'s CUDA-graph step on ``wide_r24_progressive``
+   and 4×30 split r = 15 one frame at a time over 2048 frames against
+   ``predict`` within 5e-4 (3's limit), against the eager ``stream_step``
+   within 1e-6 (the same products in the same order), ``stream_many`` in
+   chunks of 512 against the same run, and the per-frame wall clock (a host
+   frame in, its host result out) of the graph step, the eager step and
+   the native runtime, p50 and p99 over 2048 frames after 64, beside the
+   500 µs frame period; (8d) ``python -m svd_lstm_tpu_torch export
+   model_saves/wide_r24_progressive.npz DIR --int8`` and ``stream`` of
+   ``DIR/model_int8.bin`` and of the checkpoint over 512 frames, each in a
+   subprocess, against ``predict`` to the limits of 8b and 8c.
 
 Beside each kernel the script times one PyTorch library call that computes
 the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
@@ -178,6 +203,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1847,6 +1873,268 @@ def train_comparisons(dev, data, histories: dict) -> None:
             f"T={run.cfg.window_len}): kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
 
 
+# ---------------------------------------------------------------------------
+# deployment (phase 8)
+# ---------------------------------------------------------------------------
+
+STREAM_FRAMES = 2048   # 8b, 8c: frames streamed one at a time
+STREAM_CHUNK = 512     # 8c: stream_many's chunk; 8d: frames of the commands' input
+STREAM_WARMUP = 64     # 8c: frames before the latency is taken
+NATIVE_TOL = 1e-4      # native runtime vs the card's predict (tests/test_native.py)
+GRAPH_TOL = 1e-6       # graph step vs the eager step: the same products in the same order
+INT8_BYTES_MAX = 0.35  # int8 tree bytes / float32 bytes
+FRAME_PERIOD_US = 16 * 500 / 16  # 16 samples a frame, one every 500/16 µs (config.py)
+
+
+def int8_bytes(tree) -> int:
+    """The int8 tree's bytes counted leaf by leaf: one a q entry, four a
+    per-column scale, four a float32 entry (the 1-D leaves)."""
+    # imported here: --time-tree runs this script on trees without the module
+    from svd_lstm_tpu_torch.io.checkpoint import map_tree
+
+    total = []
+    map_tree(lambda t: total.append(t.q.numel() + 4 * t.scale.numel()
+                                    if isinstance(t, P.QuantizedTensor) else 4 * t.numel()), tree)
+    return sum(total)
+
+
+def require_launched(name: str, before: dict, kernels) -> None:
+    """Fail unless each wrapper in ``kernels`` launched since ``before``."""
+    torch.cuda.synchronize()
+    for k in kernels:
+        if ck.LAUNCHES[k] == before[k]:
+            fail(f"{name}: {k} was not launched")
+
+
+def int8_path(dev, x) -> dict:
+    """Phase 8a: the int8 trees of 3x512 merged r = 24 (wide_r24_progressive)
+    and 4x30 dense, quantized on the card, through quantized_apply(predict),
+    exact and fast, counted from zero; their bytes, error and time."""
+    configs = (  # name, checkpoint, the exact and fast wrappers predict must launch
+        ("3x512 merged r=24 (wide_r24_progressive)", WIDE_R24,
+         ("reduced_recurrence", "reduced_recurrence_fast")),
+        ("4x30 dense", DENSE_30, ("fused_dense_stack", "fused_dense_stack_fast")),
+    )
+    from svd_lstm_tpu_torch.io.checkpoint import map_tree
+
+    qpredict = P.quantized_apply(P.predict)
+    ck.reset_launch_counts()
+    runs = []
+    for name, path, kernels in configs:
+        model = P.load_params(path, device=dev)
+        q = P.quantize_params(model)
+        before = dict(ck.LAUNCHES)
+        y8 = qpredict(q, x)
+        require_launched(f"int8 {name} exact", before, kernels[:1])
+        before = dict(ck.LAUNCHES)
+        y8_fast = qpredict(q, x, precision="fast")
+        require_launched(f"int8 {name} fast", before, kernels[1:])
+        runs.append((name, path, model, q, y8, y8_fast))
+    torch.cuda.synchronize()
+    launches = {k: ck.LAUNCHES[k] for k in (*EXACT_NAMES[:2], *FAST_NAMES[:2])}
+    log(f"[int8] kernel launches during the int8 path: {launches}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path, model, q, y8, y8_fast in runs:
+            f32, i8, counted = P.param_bytes(model), P.param_bytes(q), int8_bytes(q)
+            log(f"[int8] {name}: param_bytes float32 {f32}, int8 {i8} (counted {counted}), "
+                f"ratio {i8 / f32:.4f} (limit {INT8_BYTES_MAX})")
+            if i8 != counted or not i8 <= INT8_BYTES_MAX * f32:
+                fail(f"int8 {name}: {i8} bytes, counted {counted}, float32 {f32}")
+            if tuple(y8.shape) != (T, 1) or not bool(torch.isfinite(y8_fast).all()):
+                fail(f"int8 {name}: bad output {tuple(y8.shape)}")
+            dq_cpu = P.from_numpy_tree(P.to_numpy_tree(P.dequantize_params(q)), device="cpu")
+            check_vs_cpu_reference(f"int8 {name} exact", y8, dq_cpu, x[:REF_STEPS].cpu())
+            y32 = P.predict(model, x)
+            log(f"[int8] {name}: int8 vs float32 predict: rel Frobenius {rel_err(y8, y32):.4e}, "
+                f"RMSE {P.rmse(y32.cpu().numpy(), y8.cpu().numpy()):.4e}; fast vs exact int8 "
+                f"rel Frobenius {rel_err(y8_fast, y8):.4e} (reported, not gated)")
+            ms32 = device_time_ms(lambda: P.predict(model, x))
+            ms8 = device_time_ms(lambda: qpredict(q, x))
+            log(f"[int8] {name} T={T}: predict float32 {ms32:.3f} ms, int8 (dequantization "
+                f"included) {ms8:.3f} ms on {card_line()}")
+            qpath = os.path.join(tmp, "q.npz")
+            P.save_params(qpath, q)
+            back = P.load_params(qpath, device=dev)
+            pairs, loaded = [], []
+            map_tree(pairs.append, q)
+            map_tree(loaded.append, back)
+            for a, b in zip(pairs, loaded):
+                a, b = (a.q, b.q) if isinstance(a, P.QuantizedTensor) else (a, b)
+                if b.device.type != dev.type or not torch.equal(a, b):
+                    fail(f"int8 {name}: the saved tree does not load back bit-equal on the card")
+            log(f"[check] int8 {name}: saved and loaded back, q bit-equal ({len(pairs)} leaves)")
+    return launches
+
+
+def deploy_models(dev) -> dict:
+    m30 = P.load_params(DENSE_30, device=dev)
+    return {
+        "3x512 merged r=24 (wide_r24_progressive)": P.load_params(WIDE_R24, device=dev),
+        "4x30 split r=15": P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15),
+        "4x30 dense": m30,
+    }
+
+
+def check_prefix(name: str, got: np.ndarray, want: torch.Tensor, tol: float) -> None:
+    """got (N,) against want (N, 1) on the first REF_STEPS frames within tol;
+    the max over all N reported."""
+    want = want[:, 0].cpu().numpy()
+    if got.shape != want.shape or not np.isfinite(got).all():
+        fail(f"{name}: bad output {got.shape}")
+    log(f"[check] {name}: max abs diff over {len(got)} frames {np.abs(got - want).max():.3e}")
+    check_close(f"{name} first {REF_STEPS} frames", torch.tensor(got[:REF_STEPS]),
+                torch.tensor(want[:REF_STEPS]), tol)
+
+
+def export_path(dev, x, models: dict) -> None:
+    """Phase 8b: each model written from the card as CSVs (per-gate for dense,
+    two-step for reduced) and as the int8 .bin, run by the native runtime on
+    the host over STREAM_FRAMES frames, against the card's predict."""
+    from svd_lstm_tpu_torch.io import csv_weights, int8_export, native
+
+    frames = x[:STREAM_FRAMES]
+    frames_np = frames.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, model) in enumerate(models.items()):
+            d = os.path.join(tmp, f"model{i}")
+            if isinstance(model, P.ReducedLSTM):
+                native.save_reduced_weights_as_csv(model, d)
+            else:
+                csv_weights.save_model_weights_as_csv(model, d)
+            binpath = d + ".bin"
+            nbytes = int8_export.save_model_int8_bin(model, binpath)
+            t0 = time.perf_counter()
+            y_csv = native.NativeModel.from_export_dir(d).run(frames_np)
+            y_bin = native.NativeModel.from_int8(binpath).run(frames_np)
+            host_s = time.perf_counter() - t0
+            log(f"[native] {name}: int8 .bin {nbytes} bytes; both runs of {STREAM_FRAMES} "
+                f"frames (load included) {host_s:.3f} s on the host")
+            check_prefix(f"native CSV {name} vs card predict", y_csv, P.predict(model, frames),
+                         NATIVE_TOL)
+            dq = int8_export.dequantized_params(model)
+            check_prefix(f"native int8 .bin {name} vs card predict of the artifact's model",
+                         y_bin, P.predict(dq, frames), NATIVE_TOL)
+
+
+def percentiles(name: str, lat_s: list) -> str:
+    us = np.asarray(lat_s) * 1e6
+    return f"{name} p50 {np.percentile(us, 50):.1f} us, p99 {np.percentile(us, 99):.1f} us"
+
+
+def stream_latency(step, state, frames_np, dev) -> list:
+    """Per-frame wall clock of ``step`` from a host frame to its host result,
+    STREAM_WARMUP frames first, then STREAM_FRAMES."""
+    lat = []
+    for t in range(STREAM_WARMUP + len(frames_np)):
+        frame = frames_np[t % len(frames_np)][None]
+        t0 = time.perf_counter()
+        y, state = step(state, torch.as_tensor(frame, device=dev))
+        y = float(y[0, 0])
+        if t >= STREAM_WARMUP:
+            lat.append(time.perf_counter() - t0)
+    return lat
+
+
+def stream_path(dev, x, models: dict) -> None:
+    """Phase 8c: make_stream_fn's graph step one frame at a time against
+    predict, the eager stream_step and stream_many in chunks; then the
+    per-frame latency of the graph step, the eager step and the native
+    runtime."""
+    from svd_lstm_tpu_torch.io import int8_export, native
+
+    frames = x[:STREAM_FRAMES]
+    frames_np = frames.cpu().numpy()
+    for name in ("3x512 merged r=24 (wide_r24_progressive)", "4x30 split r=15"):
+        model = models[name]
+        fn, state0 = P.make_stream_fn(model)
+        state, ys = state0, []
+        for t in range(len(frames)):
+            y, state = fn(state, frames[t : t + 1])
+            ys.append(y)
+        graph = torch.cat(ys)
+        check_close(f"stream graph step {name} vs predict, {len(frames)} frames", graph,
+                    P.predict(model, frames), TOL)
+        state, ys = P.init_stream(model), []
+        for t in range(len(frames)):
+            y, state = P.stream_step(model, state, frames[t : t + 1])
+            ys.append(y)
+        eager = torch.cat(ys)
+        check_close(f"stream graph step {name} vs eager stream_step", graph, eager, GRAPH_TOL)
+        state, ys = P.init_stream(model), []
+        for k in range(0, len(frames), STREAM_CHUNK):
+            y, state = P.stream_many(model, state, frames[None, k : k + STREAM_CHUNK])
+            ys.append(y[0])
+        check_close(f"stream_many {name}, chunks of {STREAM_CHUNK}, vs eager stream_step",
+                    torch.cat(ys), eager, GRAPH_TOL)
+
+        lat_graph = stream_latency(fn, state0, frames_np, dev)
+        lat_eager = stream_latency(lambda s, f: P.stream_step(model, s, f), P.init_stream(model),
+                                   frames_np, dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            binpath = os.path.join(tmp, "model_int8.bin")
+            int8_export.save_model_int8_bin(model, binpath)
+            nm = native.NativeModel.from_int8(binpath)
+            for f in frames_np[:STREAM_WARMUP]:
+                nm.step(f)
+            lat_native = []
+            for f in frames_np:
+                t0 = time.perf_counter()
+                nm.step(f)
+                lat_native.append(time.perf_counter() - t0)
+        log(f"[stream] {name}, per-frame wall clock over {len(frames_np)} frames after "
+            f"{STREAM_WARMUP}: {percentiles('graph step', lat_graph)}; "
+            f"{percentiles('eager stream_step', lat_eager)}; "
+            f"{percentiles('native int8 (host)', lat_native)}; frame period "
+            f"{FRAME_PERIOD_US:.0f} us; {card_line()}")
+
+
+def command(*args) -> subprocess.CompletedProcess:
+    out = subprocess.run([sys.executable, "-m", "svd_lstm_tpu_torch", *args], capture_output=True,
+                         text=True, timeout=600, cwd=os.path.dirname(os.path.abspath(__file__)))
+    if out.returncode != 0:
+        fail(f"command {' '.join(args)} exited {out.returncode}: {out.stderr[-2000:]}")
+    return out
+
+
+def command_path(dev, x, models: dict) -> None:
+    """Phase 8d: ``export ... --int8`` of wide_r24_progressive, then ``stream``
+    of its .bin (native) and of the checkpoint (the card's graph step) over
+    STREAM_CHUNK frames, each in a subprocess, against predict."""
+    from svd_lstm_tpu_torch.io import int8_export
+
+    name = "3x512 merged r=24 (wide_r24_progressive)"
+    model = models[name]
+    frames = x[:STREAM_CHUNK]
+    device_args = [] if dev.type == "cuda" else ["--device", dev.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "deploy")
+        log("[command] " + command("export", WIDE_R24, out, "--int8", *device_args).stdout.strip()
+            .replace("\n", "; "))
+        fin = os.path.join(tmp, "frames.csv")
+        np.savetxt(fin, frames.cpu().numpy(), delimiter=",")
+        for artifact, want, tol in (
+            (os.path.join(out, "model_int8.bin"), int8_export.dequantized_params(model), NATIVE_TOL),
+            (WIDE_R24, model, TOL),
+        ):
+            run = command("stream", artifact, "--input", fin, "--stats", *device_args)
+            got = np.array([float(v) for v in run.stdout.split()], dtype=np.float32)
+            stats = run.stderr.strip().splitlines()[-1]  # --stats' line comes last
+            log(f"[command] stream {os.path.basename(artifact)}: {stats}")
+            check_prefix(f"stream command, {os.path.basename(artifact)}", got,
+                         P.predict(want, frames), tol)
+
+
+def deployment_path(dev, x) -> dict:
+    """Phase 8: the deployment slice (8a-8d). Returns 8a's launches."""
+    launches = int8_path(dev, x)
+    models = deploy_models(dev)
+    export_path(dev, x, models)
+    stream_path(dev, x, models)
+    command_path(dev, x, models)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only "
@@ -1887,6 +2175,8 @@ def main() -> int:
     # a train kernel's launches: phase 6's runs A-D and E-F, each counted from zero
     launches.update({k: train_launches[k] + recovery_launches[k] for k in train_launches})
     train_comparisons(dev, data, histories)
+    with exact_matmul(), torch.no_grad():
+        deployment_path(dev, x)
 
     print(json.dumps({"kernels": kernel_entries(checks, launches)}))
     print(json.dumps({

@@ -6,7 +6,12 @@ the exact two-step form ``(x·B)·[I|C]``, recover the truncated model's
 accuracy by training its factors (``finetune_reduced``, the gated
 ``recover_reduced_gated`` and ``truncate_recover_progressive``), and
 predict with the dense or the reduced model at batch 1 or batched
-(``precision="exact"``, ``"high"`` or ``"fast"``). The batch-1 recurrences (exact and bf16-operand), the batched fast-mode
+(``precision="exact"``, ``"high"`` or ``"fast"``), and deploy it: int8
+quantization (``quantize_params``, the QAT view ``qat_apply``), the per-gate
+and two-step CSV exports and the int8 ``.bin`` (``io/``), the native C++
+runtime (``io.native.NativeModel``), frame-at-a-time streaming
+(``make_stream_fn``, a CUDA graph a frame on the card) and the ``export`` /
+``stream`` commands (``python -m svd_lstm_tpu_torch``). The batch-1 recurrences (exact and bf16-operand), the batched fast-mode
 recurrence and the training recurrences (forward and backward) run in
 hand-written CUDA kernels (``ops/csrc``); everything else is plain PyTorch.
 Weights keep the JAX package's Keras layout and its ``.npz`` checkpoint
@@ -52,6 +57,12 @@ from svd_lstm_tpu_torch.models.singular import (
     SingularLSTM,
     singular_lstm_apply,
 )
+from svd_lstm_tpu_torch.models.streaming import (
+    init_stream,
+    make_stream_fn,
+    stream_many,
+    stream_step,
+)
 from svd_lstm_tpu_torch.ops.cuda_batched import batched_forward_fast
 from svd_lstm_tpu_torch.ops.layouts import reconstruct_dense_model
 from svd_lstm_tpu_torch.train.finetune import (
@@ -64,3 +75,12 @@ from svd_lstm_tpu_torch.train.finetune import (
 from svd_lstm_tpu_torch.train.loop import TrainResult, fit, predict_full_run
 from svd_lstm_tpu_torch.train.metrics import nrmse, rmse, signaltonoise
 from svd_lstm_tpu_torch.utils.precision import PRECISION_MODES, cast_params, matmul_scope
+from svd_lstm_tpu_torch.utils.quantize import (
+    QuantizedTensor,
+    dequantize_params,
+    fake_quantize_params,
+    param_bytes,
+    qat_apply,
+    quantize_params,
+    quantized_apply,
+)

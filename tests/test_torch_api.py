@@ -244,6 +244,9 @@ def test_import_loads_no_jax():
         "import svd_lstm_tpu_torch.ops.reduced_train\n"
         "from svd_lstm_tpu_torch import recover_reduced_gated, truncate_recover_progressive\n"
         "import svd_lstm_tpu_torch.ops.cuda_batched, svd_lstm_tpu_torch.utils.precision\n"
+        "import svd_lstm_tpu_torch.utils.quantize, svd_lstm_tpu_torch.models.streaming\n"
+        "import svd_lstm_tpu_torch.io.int8_export, svd_lstm_tpu_torch.io.csv_weights\n"
+        "import svd_lstm_tpu_torch.io.native, svd_lstm_tpu_torch.__main__\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'svd_lstm_tpu')]\n"
         "assert not bad, bad\n"
         "assert torch.get_float32_matmul_precision() == prec\n"
@@ -259,13 +262,18 @@ def test_import_loads_no_jax():
 
 def test_no_jax_import_in_the_port_sources():
     root = os.path.join(REPO, "svd_lstm_tpu_torch")
+    seen = set()
     for dirpath, _, files in os.walk(root):
         for name in files:
             if name.endswith(".py"):
+                seen.add(os.path.relpath(os.path.join(dirpath, name), root))
                 with open(os.path.join(dirpath, name)) as f:
                     src = f.read()
                 for banned in ("import jax", "from jax", "import optax", "from svd_lstm_tpu.", "import svd_lstm_tpu\n"):
                     assert banned not in src, (name, banned)
+    # the deployment slice's own copies of the JAX package's numpy-only modules
+    assert {"utils/quantize.py", "models/streaming.py", "io/int8_export.py", "io/csv_weights.py",
+            "io/native.py", "__main__.py"} <= seen
 
 
 def test_entry_points_default_to_the_card():
