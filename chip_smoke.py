@@ -181,16 +181,43 @@ Phases, each of which raises on failure (no phase is caught):
    500 µs frame period; (8d) ``python -m svd_lstm_tpu_torch export
    model_saves/wide_r24_progressive.npz DIR --int8`` and ``stream`` of
    ``DIR/model_int8.bin`` and of the checkpoint over 512 frames, each in a
-   subprocess, against ``predict`` to the limits of 8b and 8c.
+   subprocess, against ``predict`` to the limits of 8b and 8c;
+9. drive the evaluation slice. The script runs with an autotune cache of
+   its own, empty at the start (``XDG_CACHE_HOME``, set before any
+   ``predict``), so no winner stored on the machine redirects a phase.
+   (9a) ``bench.autotune.autotune`` of every valid ``predict`` route at T =
+   6656, exact, on the 3×512 dense checkpoint, ``wide_r24_progressive``, the
+   4×30 checkpoint and its split r = 15 truncation, and fast at B = 256, T
+   = 128 on 3×512: no candidate may fail; each winner is stored, and
+   ``predict(impl="auto")`` must then launch the winner's kernel (the launch
+   counters) and equal ``predict(impl=winner, consult_cache=False)`` bit for
+   bit; the 4×30 ``predict(impl="auto")`` timed with a cache hit, a miss and
+   the lookup off, and the lookup alone on the host; (9b)
+   ``bench.trace.summarize`` of one ``predict`` of 3×512 dense, of
+   ``wide_r24_progressive`` and of 4×30: the expected kernel
+   (``recurrence_chain``, ``reduced_chain``, ``dense_stack_wave``) leads the
+   breakdown, each batch-1 kernel's count in the trace equals its wrapper's
+   launch count, the rows add up to no more than ``device_ms`` (printed
+   beside ``device_time_ms`` of the same call), and the ``trace`` command
+   on ``wide_r24_progressive`` in a subprocess; (9c) each of those three
+   calls' floor a step from ``bench/roofline.py`` against its measured time
+   a step; (9d) ``bench.sweep.rank_sweep`` of the 4×30 checkpoint over the
+   DROPBEAR surrogate's test run, an evaluation every 8 reductions over the
+   whole order: K1 launched once an evaluation, the final RMSE equal to a
+   fresh ``predict``'s of the final model; the same sweep over 512 steps,
+   64 reductions, on the card and on the CPU's plain scan, the RMSE curves
+   within a relative 1e-3; and 16 reductions of 3×512 over the first 6656
+   steps of the training run, K3 once a layer an evaluation.
 
 Beside each kernel the script times one PyTorch library call that computes
 the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
 for K2, K2f, K4 and K4f on the reduced layer's or stack's exact dense
 reconstruction; the port never calls it) as the kernel's yardstick,
 ``library_ms``, and
-computes the kernel's bound: the larger of its operations over the H100's
-peak (67 TFLOP/s float32 on the CUDA cores, 989 TFLOP/s bf16) and its bytes
-(each input read once, each output written once) over 3.35 TB/s.
+takes the kernel's bound from ``bench/roofline.py``: the larger of its
+operations over the H100's peak (67 TFLOP/s float32 on the CUDA cores, 989
+TFLOP/s bf16) and its bytes (each input read once, each output written once)
+over 3.35 TB/s.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -215,6 +242,7 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--time-tree"]:
 
 import svd_lstm_tpu_torch as P
 from svd_lstm_tpu_torch.api import exact_matmul
+from svd_lstm_tpu_torch.bench import roofline
 from svd_lstm_tpu_torch.bench.devtime import device_time_ms
 from svd_lstm_tpu_torch.bench.timing import time_all_impls, time_full_vs_reduced
 from svd_lstm_tpu_torch.data import preprocess_raw, split_train_random, synthetic_dropbear_raw
@@ -250,8 +278,6 @@ IMPL_REPEATS = 3    # timed calls per model and impl in 4c (the JAX harness's de
 EXACT_NAMES = ("fused_dense_stack", "reduced_recurrence", "lstm_recurrence")
 FAST_NAMES = ("fused_dense_stack_fast", "reduced_recurrence_fast", "lstm_recurrence_fast")
 K4_NAMES = ("fused_reduced_stack", "fused_reduced_stack_fast")
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # H100 SXM, dense
-HBM_BYTES_PER_S = 3.35e12
 SAVES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "model_saves")
 DENSE_30 = os.path.join(SAVES, "pretrained_30units_v4_n1.5.npz")
 DENSE_512 = os.path.join(SAVES, "pretrained_3x512_n1.5.npz")
@@ -311,33 +337,6 @@ def nbytes(*tensors) -> int:
     for t in tensors:
         total += nbytes(*t) if isinstance(t, (list, tuple)) else t.numel() * t.element_size()
     return total
-
-
-def bound(flops: float, moved: int, dtype=torch.float32) -> dict:
-    """The least time the card could take: the larger of the operations over
-    the peak rate of their type and the bytes (each input read once, each
-    output written once) over the memory rate. The gate nonlinearities are
-    left out of the operations: a few per output element against the
-    hundreds to thousands of multiply-adds of each step's products."""
-    ops_ms = flops / PEAK_FLOPS[dtype] * 1e3
-    bytes_ms = moved / HBM_BYTES_PER_S * 1e3
-    return {"bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
-
-
-def lstm_flops(T: int, B: int, layers) -> int:
-    """Multiply-adds ×2 of a forward over T steps of B rows through layers
-    given as (input width, units): z = x·W + h·U. A backward does three
-    times as much (the recomputed z, the products into dh and dx, and the
-    weight-gradient sums)."""
-    return sum(2 * T * B * (din + n) * 4 * n for din, n in layers)
-
-
-def stack_shape(model, d: int):
-    out, din = [], d
-    for l in model.layers:
-        out.append((din, l.units))
-        din = l.units
-    return out
 
 
 def cudnn_lstm(layers, dev, dtype=torch.float32) -> torch.nn.LSTM:
@@ -451,8 +450,7 @@ def kernel_checks(dev, x):
         # cuDNN runs the stack without the head (one (T, 30)·(30, 1) product)
         "library_ms": library_forward("K1 4x30", [(l.W, l.U, l.b) for l in m30.layers], x[:, None],
                                       ck.fused_dense_stack(m30, x)[:, None], m30.head),
-        **bound(lstm_flops(Tx, 1, stack_shape(m30, d)) + 2 * Tx * 30,
-                nbytes(x, [p for p in m30.parameters()]) + 4 * Tx),
+        **roofline.dense_step_cost(d, units_of(m30)).call_bound(Tx),
         "shape": "4x30, T=6656, d=16",
     }
 
@@ -473,7 +471,7 @@ def kernel_checks(dev, x):
         "plain_ms": device_time_ms(ck.lstm_recurrence_plain, xp0, l0.U),
         # cuDNN also computes the x-side product x·W + b (d = 16)
         "library_ms": library_forward("K3 512", [(l0.W, l0.U, l0.b)], x[:, None], h0[:, None]),
-        **bound(lstm_flops(Tx, 1, [(0, n)]), nbytes(xp0, l0.U, h0)),
+        **roofline.recurrence_step_cost(n).call_bound(Tx),
         "shape": "one 512-unit layer, T=6656",
     }
 
@@ -505,7 +503,7 @@ def kernel_checks(dev, x):
         "plain_ms": device_time_ms(ck.reduced_recurrence_plain, *args),
         # cuDNN on the layer's exact dense reconstruction, with its x-side product
         "library_ms": reduced_library_ms(wide, x, torch.float32),
-        **bound(2 * Tx * (n * r + r * (4 * n - r)), nbytes(*args, h)),
+        **roofline.reduced_recurrence_step_cost(n, (r,)).call_bound(Tx),
         "shape": "one 512-unit layer, merged r=24, T=6656",
     }
     for name, r in results.items():
@@ -568,7 +566,7 @@ def batched_kernel_checks(dev) -> dict:
         "plain_ms": device_time_ms(cb.batched_lstm_recurrence_plain, xp, l.U),
         # cuDNN's bf16 LSTM also computes the x-side product h_in·W + b
         "library_ms": library_forward("K5 512 bf16", [(l.W, l.U, l.b)], h_in, h),
-        **bound(lstm_flops(BATCH_T, BATCH_B, [(0, n)]), nbytes(xp, l.U, h), torch.bfloat16),
+        **roofline.recurrence_step_cost(n, B=BATCH_B, dtype=torch.bfloat16).call_bound(BATCH_T),
         "shape": f"one 512-unit layer, B={BATCH_B}, T={BATCH_T}, bf16 xp",
     }
     log(f"[time] batched_lstm_recurrence ({r['shape']}): kernel {r['ms']:.3f} ms, plain "
@@ -593,22 +591,15 @@ def as_double(model):
     return copy.deepcopy(model).double()
 
 
-def bf16_bytes(*tensors) -> int:
-    """Bytes of the tensors stored as bf16 (the fast variants' weights)."""
-    return nbytes(*tensors) // 2
+def units_of(model) -> list:
+    return [l.units for l in model.layers]
 
 
-def reduced_flops(T: int, model, d: int) -> int:
-    """Multiply-adds ×2 of the folded two-step products of both sides over
-    T steps: per side v·B and (v·B)·C, per gate when split (the identity
-    part of [I|C] and the zero blocks of a packed split layer are no work)."""
-    total, din = 0, d
-    for l in model.layers:
-        for Bs, Cs, rows in ((l.wB, l.wC, din), (l.uB, l.uC, l.units)):
-            pairs = zip(Bs, Cs) if l.split else ((Bs, Cs),)
-            total += sum(rows * B.shape[1] + C.numel() for B, C in pairs)
-        din = l.units
-    return 2 * T * total
+def reduced_cost(model, d: int, dtype=torch.float32) -> roofline.StepCost:
+    """A batch-1 step of a reduced model's whole stack and head, its ranks
+    read from the model."""
+    return roofline.reduced_step_cost(d, units_of(model), roofline.layer_ranks(model),
+                                      merged=not model.layers[0].split, dtype=dtype)
 
 
 def window_starts(T: int, steps: int) -> list:
@@ -683,9 +674,7 @@ def fast_kernel_checks(dev, x) -> dict:
         "library_ms": library_forward("K1f 4x30 bf16", [(l.W, l.U, l.b) for l in m30.layers],
                                       x[:, None].bfloat16(), got[:, None],
                                       lambda o: m30.head(o.float())),
-        **bound(lstm_flops(Tx, 1, stack_shape(m30, d)) + 2 * Tx * 30,
-                nbytes(x, [(l.b,) for l in m30.layers], list(m30.head.parameters())) + 4 * Tx
-                + bf16_bytes([(l.W, l.U) for l in m30.layers]), torch.bfloat16),
+        **roofline.dense_step_cost(d, units_of(m30), dtype=torch.bfloat16).call_bound(Tx),
         "shape": "4x30, T=6656, d=16, bf16 operands",
     }
 
@@ -708,7 +697,7 @@ def fast_kernel_checks(dev, x) -> dict:
         # cuDNN's bf16 LSTM also computes the x-side product x·W + b (d = 16)
         "library_ms": library_forward("K3f 512 bf16", [(l0.W, l0.U, l0.b)], x[:, None].bfloat16(),
                                       h0[:, None]),
-        **bound(lstm_flops(Tx, 1, [(0, n)]), nbytes(xp0, h0) + bf16_bytes(l0.U), torch.bfloat16),
+        **roofline.recurrence_step_cost(n, dtype=torch.bfloat16).call_bound(Tx),
         "shape": "one 512-unit layer, T=6656, bf16 operands",
     }
 
@@ -748,8 +737,7 @@ def fast_kernel_checks(dev, x) -> dict:
         "plain_ms": plain_ms(lambda: ck.reduced_recurrence_plain(*args, dot_precision=fast)),
         # cuDNN's bf16 LSTM on the layer's exact dense reconstruction, with its x-side
         "library_ms": reduced_library_ms(wide, x, torch.bfloat16),
-        **bound(2 * Tx * (n * r + r * (4 * n - r)), nbytes(args[0], h) + bf16_bytes(args[1:]),
-                torch.bfloat16),
+        **roofline.reduced_recurrence_step_cost(n, (r,), dtype=torch.bfloat16).call_bound(Tx),
         "shape": "one 512-unit layer, merged r=24, T=6656, bf16 operands",
     }
 
@@ -768,7 +756,7 @@ def fast_kernel_checks(dev, x) -> dict:
     k4_30 = {
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(red30, x)),
         "library_ms": reduced_library_ms(red30, x, torch.float32, len(red30.layers)),
-        **bound(reduced_flops(Tx, red30, d) + 2 * Tx * 30, nbytes(x, list(red30.parameters())) + 4 * Tx),
+        **reduced_cost(red30, d).call_bound(Tx),
     }
     log(f"[time] K4 exact 4x30 split r=15: kernel {k4_30['ms']:.3f} ms, library (cuDNN on the dense "
         f"reconstruction) {k4_30['library_ms']:.3f} ms, bound {k4_30['bound_ms']:.4f} ms "
@@ -779,8 +767,7 @@ def fast_kernel_checks(dev, x) -> dict:
         "plain_ms": plain_ms(lambda: ck.fused_reduced_stack_plain(red512, x)),
         # cuDNN on the stack's exact dense reconstruction (the head left out)
         "library_ms": reduced_library_ms(red512, x, torch.float32, len(red512.layers)),
-        **bound(reduced_flops(Tx, red512, d) + 2 * Tx * n,
-                nbytes(x, list(red512.parameters())) + 4 * Tx),
+        **reduced_cost(red512, d).call_bound(Tx),
         "shape": "3x512 merged r=24 (direct truncation), T=6656, d=16",
     }
 
@@ -805,10 +792,7 @@ def fast_kernel_checks(dev, x) -> dict:
     k4f_30 = {
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(red30, x, dot_precision=fast)),
         "library_ms": reduced_library_ms(red30, x, torch.bfloat16, len(red30.layers)),
-        **bound(reduced_flops(Tx, red30, d) + 2 * Tx * 30,
-                nbytes(x, [l.b for l in red30.layers], list(red30.head.parameters())) + 4 * Tx
-                + bf16_bytes([p for l in red30.layers for p in (*l.wB, *l.wC, *l.uB, *l.uC)]),
-                torch.bfloat16),
+        **reduced_cost(red30, d, torch.bfloat16).call_bound(Tx),
     }
     log(f"[time] K4 fast 4x30 split r=15: kernel {k4f_30['ms']:.3f} ms, library (cuDNN bf16 on the "
         f"dense reconstruction) {k4f_30['library_ms']:.3f} ms, bound {k4f_30['bound_ms']:.4f} ms "
@@ -819,10 +803,7 @@ def fast_kernel_checks(dev, x) -> dict:
         "plain_ms": plain_ms(lambda: ck.fused_reduced_stack_plain(wide, x, fast)),
         # cuDNN's bf16 LSTM on the stack's exact dense reconstruction (the head left out)
         "library_ms": reduced_library_ms(wide, x, torch.bfloat16, len(wide.layers)),
-        **bound(reduced_flops(Tx, wide, d) + 2 * Tx * n,
-                nbytes(x, [l.b for l in wide.layers], list(wide.head.parameters())) + 4 * Tx
-                + bf16_bytes([p for l in wide.layers for p in (l.wB, l.wC, l.uB, l.uC)]),
-                torch.bfloat16),
+        **reduced_cost(wide, d, torch.bfloat16).call_bound(Tx),
         "shape": "3x512 merged r=24 (wide_r24_progressive), T=6656, d=16, bf16 operands",
     }
     for name, r in results.items():
@@ -1193,20 +1174,20 @@ def wide_bwd_phases(name: str, x, W, U, b, h, c, dh) -> None:
     dz = torch.empty_like(z)
     Ut = U.t().contiguous()
     ct.phase_c(z, Ut, c, dh, dz, plan)
-    phases = [("R", lambda: ct.phase_r(x, W, U, b, h), 2 * M * (din + n) * G,
+    phases = [("R", lambda: ct.phase_r(x, W, U, b, h), M * (din + n) * G,
                nbytes(x, h, U, z) + (0 if W is None else nbytes(W, b))),
-              ("C", lambda: ct.phase_c(z, Ut, c, dh, dz, plan), 2 * (T - 1) * B * G * n,
+              ("C", lambda: ct.phase_c(z, Ut, c, dh, dz, plan), (T - 1) * B * G * n,
                nbytes(z, U, c, dh, dz))]
     if W is None:
-        phases.append(("G", lambda: ct.phase_g(None, h, dz, sms), 2 * M * G * n, nbytes(dz, h, U)))
+        phases.append(("G", lambda: ct.phase_g(None, h, dz, sms), M * G * n, nbytes(dz, h, U)))
     else:
-        phases += [("X", lambda: ct.phase_x(dz, W), 2 * M * G * din, nbytes(dz, W, x)),
-                   ("G", lambda: ct.phase_g(x, h, dz, sms), 2 * M * G * (din + n + 1),
+        phases += [("X", lambda: ct.phase_x(dz, W), M * G * din, nbytes(dz, W, x)),
+                   ("G", lambda: ct.phase_g(x, h, dz, sms), M * G * (din + n + 1),
                     nbytes(dz, x, h, W, U, b))]
-    for phase, fn, flops, moved in phases:
+    for phase, fn, macs, moved in phases:
         ms = device_time_ms(fn)
-        r = bound(flops, moved)
-        log(f"[phase] {name} {phase}: {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound "
+        r = roofline.bound(macs, moved)
+        log(f"[phase] {name} {phase}: {ms:.3f} ms, {2 * macs / ms / 1e9:.1f} TFLOP/s, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     log(f"[phase] {name} chain: {plan}")
     del z, dz
@@ -1247,14 +1228,14 @@ def wide_fwd_phases(name: str, x, W, U, b) -> None:
     Ui = ct.pack_gates_interleaved(U)
     h = torch.empty((T, B, n), dtype=torch.float32, device=x.device)
     c = torch.empty_like(h)
-    parts = [] if W is None else [("x-side", lambda: ct.phase_x_side(x, W, b), 2 * M * din * G,
+    parts = [] if W is None else [("x-side", lambda: ct.phase_x_side(x, W, b), M * din * G,
                                    nbytes(x, W, b, xz))]
-    parts.append(("chain", lambda: ct.phase_chain_fwd(xz, Ui, h, c, plan), 2 * (T - 1) * B * n * G,
+    parts.append(("chain", lambda: ct.phase_chain_fwd(xz, Ui, h, c, plan), (T - 1) * B * n * G,
                   nbytes(xz, U, h, c)))
-    for part, fn, flops, moved in parts:
+    for part, fn, macs, moved in parts:
         ms = device_time_ms(fn)
-        r = bound(flops, moved)
-        log(f"[phase] {name} {part}: {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s, bound "
+        r = roofline.bound(macs, moved)
+        log(f"[phase] {name} {part}: {ms:.3f} ms, {2 * macs / ms / 1e9:.1f} TFLOP/s, bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     log(f"[phase] {name} chain: {plan}")
 
@@ -1289,12 +1270,12 @@ def train_kernel_checks(dev, data) -> dict:
               for i, (a, r, r64) in enumerate(zip(got, want, want64)))
     shape = "4x40, B=32, T=200, d=16"
     T7, B7, d7 = x.shape
-    flops = lstm_flops(T7, B7, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
+    macs = roofline.lstm_macs(T7, B7, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
     lib_fwd, lib_bwd = library_train(layers, x, dh)
     results["fused_narrow_train_fwd"] = {
         "max_abs_err": err,
         **time_pair("K7 fwd", shape, ct.fused_narrow_train_fwd, ct.fused_narrow_train_fwd_plain, layers, x,
-                    library_ms=lib_fwd, **bound(flops, nbytes(layers, x, hs, cs))),
+                    library_ms=lib_fwd, **roofline.bound(macs, nbytes(layers, x, hs, cs))),
     }
     args = (layers, x, hs_p, cs_p, dh)
     got, want = ct.fused_narrow_train_bwd(*args), ct.fused_narrow_train_bwd_plain(*args)
@@ -1305,7 +1286,7 @@ def train_kernel_checks(dev, data) -> dict:
     results["fused_narrow_train_bwd"] = {
         "max_abs_err": err,
         **time_pair("K7 bwd", shape, ct.fused_narrow_train_bwd, ct.fused_narrow_train_bwd_plain, *args,
-                    library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
+                    library_ms=lib_bwd, **roofline.bound(3 * macs, nbytes(args, got))),
     }
     time_pair("K7 fwd+bwd", shape,
               lambda: ct.fused_narrow_train_bwd(layers, x, *ct.fused_narrow_train_fwd(layers, x), dh),
@@ -1332,17 +1313,17 @@ def train_kernel_checks(dev, data) -> dict:
         x = h_p
     shape = "one 512-unit layer, d=512, B=128, T=200"
     T9, B9, d9 = args[0].shape
-    flops = lstm_flops(T9, B9, [(d9, args[2].shape[0])])
+    macs = roofline.lstm_macs(T9, B9, [(d9, args[2].shape[0])])
     lib_fwd, lib_bwd = library_train([args[1:4]], args[0], dh)
     results["wide_layer_fwd"] = {
         "max_abs_err": fwd_err,
         **time_pair("K9 fwd", shape, ct.wide_layer_fwd, ct.wide_layer_fwd_plain, *args[:4],
-                    library_ms=lib_fwd, **bound(flops, nbytes(args[:6]))),
+                    library_ms=lib_fwd, **roofline.bound(macs, nbytes(args[:6]))),
     }
     results["wide_layer_bwd"] = {
         "max_abs_err": bwd_err,
         **time_pair("K9 bwd", shape, ct.wide_layer_bwd, ct.wide_layer_bwd_plain, *args,
-                    library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
+                    library_ms=lib_bwd, **roofline.bound(3 * macs, nbytes(args, got))),
     }
     wide_fwd_phases("K9 fwd", *args[:4])
     wide_bwd_phases("K9 bwd", *args)
@@ -1372,18 +1353,18 @@ def recurrence_train_checks(dev, data, rng) -> dict:
     bwd_err = max(check_grad(f"K6 bwd {k}", a, r) for k, a, r in zip(("dxp", "dU"), got, want))
     shape = "one 512-unit layer, B=128, T=200, xp from d=16"
     T6, B6, _ = xp.shape
-    flops = lstm_flops(T6, B6, [(0, U.shape[0])])
+    macs = roofline.lstm_macs(T6, B6, [(0, U.shape[0])])
     lib_fwd, lib_bwd = library_train([(W, U, b)], x, dh)
     results = {
         "lstm_recurrence_train_fwd": {
             "max_abs_err": fwd_err,
             **time_pair("K6 fwd", shape, ct.lstm_recurrence_train_fwd, ct.lstm_recurrence_train_fwd_plain,
-                        xp, U, library_ms=lib_fwd, **bound(flops, nbytes(xp, U, h, c))),
+                        xp, U, library_ms=lib_fwd, **roofline.bound(macs, nbytes(xp, U, h, c))),
         },
         "lstm_recurrence_train_bwd": {
             "max_abs_err": bwd_err,
             **time_pair("K6 bwd", shape, ct.lstm_recurrence_train_bwd, ct.lstm_recurrence_train_bwd_plain,
-                        *args, library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
+                        *args, library_ms=lib_bwd, **roofline.bound(3 * macs, nbytes(args, got))),
         },
     }
     wide_fwd_phases("K6 fwd", xp, None, U, None)
@@ -1456,20 +1437,20 @@ def compact_kernel_checks(dev, data, rng) -> dict:
              layers, xa, hs_a, cs_a, dh_a)
     shape, layers, hs, cs, args, got = timed
     T8, B8, _ = x.shape
-    flops = lstm_flops(T8, B8, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
+    macs = roofline.lstm_macs(T8, B8, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
     lib_fwd, lib_bwd = library_train(layers, x, args[-1])
     results = {
         "fused_narrow_train_compact_fwd": {
             "max_abs_err": fwd_err,
             **time_pair("K8 fwd", shape, ct.fused_narrow_train_compact_fwd,
                         ct.fused_narrow_train_compact_fwd_plain, layers, x,
-                        library_ms=lib_fwd, **bound(flops, nbytes(layers, x, hs, cs))),
+                        library_ms=lib_fwd, **roofline.bound(macs, nbytes(layers, x, hs, cs))),
         },
         "fused_narrow_train_compact_bwd": {
             "max_abs_err": bwd_err,
             **time_pair("K8 bwd", shape, ct.fused_narrow_train_compact_bwd,
                         ct.fused_narrow_train_compact_bwd_plain, *args,
-                        library_ms=lib_bwd, **bound(3 * flops, nbytes(args, got))),
+                        library_ms=lib_bwd, **roofline.bound(3 * macs, nbytes(args, got))),
         },
     }
     dh = args[-1]
@@ -1511,9 +1492,13 @@ WIDE_PARTS = {"wide fwd": ("wide_fwd_step", "wide_fwd_chain"),
 
 def step_split(step, parts: dict) -> dict:
     """A train step's host time to issue it (the card idle at its start;
-    median of 5) and what it ran on the card (torch.profiler, mean of 3
-    steps): the summed duration of its kernels and copies, and of the
-    kernels whose names hold one of ``parts``' strings; ms each."""
+    median of 5) and what it ran on the card (``bench.trace``'s breakdown
+    of 3 steps, torch.profiler's device events, the mean a step): the
+    summed duration of its kernels and copies, and of the kernels whose
+    names hold one of ``parts``' strings; ms each."""
+    # imported here: --time-tree runs this function on trees without the module
+    from svd_lstm_tpu_torch.bench import trace
+
     issue = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -1521,16 +1506,12 @@ def step_split(step, parts: dict) -> dict:
         step()
         issue.append((time.perf_counter() - t0) * 1e3)
     torch.cuda.synchronize()
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = trace.op_breakdown(trace.capture_trace(lambda: [step() for _ in range(3)], out_dir=tmp,
+                                                       warmup=0))
 
     def busy(names=("",)) -> float:
-        return sum(e.time_range.elapsed_us() for e in on_card if any(nm in e.name for nm in names)) / 3e3
+        return sum(s.total_ms for s in stats if any(nm in s.name for nm in names)) / 3
 
     return {"host issue": sorted(issue)[2], "card busy": busy(),
             **{f"card busy in the {part}": busy(names) for part, names in parts.items()}}
@@ -2135,6 +2116,242 @@ def deployment_path(dev, x) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# the evaluation slice (phase 9)
+# ---------------------------------------------------------------------------
+
+TUNE_REPEATS = 2      # 9a: timed calls a candidate (the plain scan of 3x512 is a Python loop)
+SWEEP_EVERY = 8       # 9d: reductions between evaluations
+SWEEP_CPU_STEPS = 512  # 9d: the card's sweep against the CPU's over this many steps
+SWEEP_CPU_REDUCTIONS = 64
+SWEEP_WIDE_REDUCTIONS = 16
+SWEEP_RTOL = 1e-3     # 9d: card vs CPU RMSE curve, relative
+LOOKUPS = 2000        # 9a: host lookups timed
+# each batch-1 wrapper's kernels, as the profiler names them
+KERNEL_NAMES = {"fused_dense_stack": ("dense_stack_wave", "fused_dense_stack_kernel"),
+                "lstm_recurrence": ("recurrence_chain",), "reduced_recurrence": ("reduced_chain",)}
+
+
+def route_kernel(model, impl: str):
+    """The batch-1 exact wrapper predict's ``impl`` launches on a model, or
+    None (the scan launches none)."""
+    if impl == "fused":
+        return "fused_dense_stack"
+    if impl == "hybrid":
+        return "reduced_recurrence" if isinstance(model, P.ReducedLSTM) else "lstm_recurrence"
+    return None
+
+
+def autotune_path(dev, x, models: dict) -> None:
+    """Phase 9a: autotune every valid predict route of the 3x512 dense,
+    wide_r24_progressive, 4x30 dense and 4x30 split r=15 models at T = 6656
+    (exact) and of 3x512 at B = 256, T = 128 (fast), the winners stored in
+    the smoke's own cache; then predict(impl="auto") must launch the winner's
+    kernel and equal predict(impl=winner, consult_cache=False) bit for bit;
+    then the lookup's cost at 4x30, on the card and on the host."""
+    from svd_lstm_tpu_torch.bench import autotune as at
+
+    xb = torch.tensor(np.random.default_rng(3).normal(size=(BATCH_B, BATCH_T, D)),
+                      dtype=torch.float32, device=dev)
+    cases = [(name, m, x, "exact") for name, m in models.items()]
+    cases.append(("3x512 dense batched", models["3x512 dense"], xb, "fast"))
+    for name, m, xx, precision in cases:
+        t0 = time.perf_counter()
+        r = at.autotune(m, xx, precision=precision, repeats=TUNE_REPEATS)
+        log(f"[tune] {name} {tuple(xx.shape)} {precision}: winner {r.impl!r}, "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(r.table.items(), key=lambda kv: kv[1]))
+            + f" ({time.perf_counter() - t0:.1f} s with the warm-ups; {card_line()})")
+        if r.failed:
+            fail(f"autotune {name}: candidates failed: {r.failed}")
+        at.store_tuned(at.cache_key(m, xx, precision), r.impl)
+        before = dict(ck.LAUNCHES)
+        k5 = [k.launches for k in cb.KERNELS]
+        y = P.predict(m, xx, precision=precision)
+        torch.cuda.synchronize()
+        delta = {k: ck.LAUNCHES[k] - before[k] for k in ck.LAUNCHES if ck.LAUNCHES[k] != before[k]}
+        delta.update({k.__name__: k.launches - n for k, n in zip(cb.KERNELS, k5) if k.launches != n})
+        if xx.ndim == 3:
+            want = {"batched_lstm_recurrence"} if r.impl == "auto" else set()
+        else:
+            want = {route_kernel(m, r.impl)} - {None}
+        if set(delta) != want:
+            fail(f"autotune {name}: predict(impl='auto') launched {delta}, winner {r.impl!r} wants {want}")
+        same = P.predict(m, xx, impl=r.impl, precision=precision, consult_cache=False)
+        if not torch.equal(y, same):
+            fail(f"autotune {name}: predict(impl='auto') differs from impl={r.impl!r}")
+        log(f"[tune] {name}: predict(impl='auto') launched {delta or 'no kernel'}, bit-equal to "
+            f"impl={r.impl!r}")
+
+    m30 = models["4x30 dense"]
+    hit_dir = os.environ["XDG_CACHE_HOME"]
+    times = {}
+    with tempfile.TemporaryDirectory() as miss_dir:  # an empty cache: every lookup misses
+        try:
+            for label, env, consult in (("hit", hit_dir, True), ("miss", miss_dir, True),
+                                        ("off", hit_dir, False)):
+                os.environ["XDG_CACHE_HOME"] = env
+                times[label] = device_time_ms(lambda: P.predict(m30, x, consult_cache=consult))
+                lookup = ""
+                if consult:
+                    found = at.cached_impl(m30, x)
+                    t0 = time.perf_counter()
+                    for _ in range(LOOKUPS):
+                        at.cached_impl(m30, x)
+                    lookup = (f"; the lookup alone on the host {(time.perf_counter() - t0) / LOOKUPS * 1e6:.3f}"
+                              f" us (mean of {LOOKUPS}, finds {found!r})")
+                log(f"[tune] 4x30 predict(impl='auto'), cache {label}: {times[label]:.4f} ms (median of "
+                    f"5){lookup}")
+        finally:
+            os.environ["XDG_CACHE_HOME"] = hit_dir
+    log(f"[tune] 4x30 predict(impl='auto') hit - off {times['hit'] - times['off']:+.4f} ms, miss - off "
+        f"{times['miss'] - times['off']:+.4f} ms; {card_line()}")
+
+
+def kernel_counts(stats, names) -> int:
+    return sum(s.count for s in stats if any(nm in s.name for nm in names))
+
+
+def trace_path(dev, x, models: dict) -> None:
+    """Phase 9b: bench.trace.summarize of one predict of the 3x512 dense,
+    wide_r24_progressive and 4x30 dense models: the expected kernel leads
+    the table, each batch-1 kernel's count in the trace equals its wrapper's
+    launch count, the rows add up to no more than device_ms; device_ms
+    beside device_time_ms of the same call. Then the trace command on
+    wide_r24_progressive in a subprocess."""
+    from svd_lstm_tpu_torch.bench import trace
+
+    cases = (("3x512 dense", "lstm_recurrence"), ("wide_r24_progressive", "reduced_recurrence"),
+             ("4x30 dense", "fused_dense_stack"))
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, lead in cases:
+            m = models[name]
+            fn = lambda mm, xx: P.predict(mm, xx)  # noqa: E731
+            fn(m, x)
+            torch.cuda.synchronize()
+            before = dict(ck.LAUNCHES)
+            s = trace.summarize(fn, m, x, out_dir=os.path.join(tmp, name), top=0, warmup=0)
+            launched = {k: ck.LAUNCHES[k] - before[k] for k in KERNEL_NAMES}
+            log(f"[trace] {name} predict: device_ms {s['device_ms']:.3f}, device_time_ms "
+                f"{device_time_ms(fn, m, x):.3f} (median of 5); launch counters {launched}\n"
+                + trace.format_breakdown(s["ops"][:8], total_ms=s["device_ms"]))
+            if not s["ops"] or not any(nm in s["ops"][0].name for nm in KERNEL_NAMES[lead]):
+                fail(f"trace {name}: {KERNEL_NAMES[lead]} does not lead the breakdown")
+            for k, names in KERNEL_NAMES.items():
+                if kernel_counts(s["ops"], names) != launched[k]:
+                    fail(f"trace {name}: {names} counted {kernel_counts(s['ops'], names)} times in the "
+                         f"trace, launched {launched[k]} times")
+            total = sum(o.total_ms for o in s["ops"])
+            if not total <= s["device_ms"] + 1e-6:  # 1 ns for the float sums of µs timestamps
+                fail(f"trace {name}: the rows add up to {total:.4f} ms, past device_ms {s['device_ms']:.4f}")
+        out = command("trace", os.path.join(tmp, "cmd"), "--checkpoint", WIDE_R24, "--steps", str(T))
+        lines = out.stdout.strip().splitlines()
+        log("[trace] trace command, wide_r24_progressive: " + "; ".join(lines[:4]))
+        if not lines[0].startswith("device total:") or "reduced_chain" not in out.stdout:
+            fail("trace command: no device total or no reduced_chain row")
+
+
+def roofline_path(dev, x, models: dict) -> None:
+    """Phase 9c: the per-step floor of the three main-path calls against
+    their measured time a step."""
+    costs = {"3x512 dense": roofline.dense_step_cost(D, units_of(models["3x512 dense"])),
+             "wide_r24_progressive": reduced_cost(models["wide_r24_progressive"], D),
+             "4x30 dense": roofline.dense_step_cost(D, units_of(models["4x30 dense"]))}
+    for name, cost in costs.items():
+        m = models[name]
+        us = device_time_ms(lambda: P.predict(m, x)) * 1e3 / T
+        call = cost.call_bound(T)
+        log(f"[roofline] {name} predict, T={T}: {us:.4f} us a step measured; floor {cost.floor_us() * 1e3:.3f} "
+            f"ns a step ({call['bound_ms'] * 1e6 / T:.3f} with the weights read once a call, "
+            f"{call['bound_by']}), {us / cost.floor_us():.0f}x; {cost.stages} dependent products a "
+            f"step; {card_line()}\n" + roofline.report(cost, us))
+
+
+def sweep_path(dev, data) -> None:
+    """Phase 9d: rank_sweep of the 4x30 checkpoint over the surrogate's test
+    run (every SWEEP_EVERY reductions, the whole order): K1 once an
+    evaluation, the final RMSE that of a fresh predict of the final model;
+    the same sweep over SWEEP_CPU_STEPS steps (SWEEP_CPU_REDUCTIONS) on the
+    card and on the CPU, the curves within SWEEP_RTOL; and 3x512 over T =
+    6656 of the training run (SWEEP_WIDE_REDUCTIONS) through K3's hybrid."""
+    from svd_lstm_tpu_torch.bench.sweep import rank_sweep, sorted_sigma_indices
+    from svd_lstm_tpu_torch.factor.svd import set_model_matrix_rank
+
+    from svd_lstm_tpu_torch.config import SweepConfig
+
+    inv = data.pin_scaler.inverse_transform
+    y_m = inv(data.y_test.reshape(-1, 1)).ravel()
+    cfg = SweepConfig(evaluate_every=SWEEP_EVERY)
+    m30 = P.load_params(DENSE_30, device=dev)
+
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = rank_sweep(m30, data.X_test, y_m, inv, cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1 = ck.LAUNCHES["fused_dense_stack"]
+    log(f"[sweep] 4x30, T={data.X_test.shape[1]}: {res.reductions_done} reductions, {len(res.rmse)} "
+        f"evaluations, {wall:.2f} s wall; K1 launches {k1}; RMSE {res.rmse[0]:.6f} -> {res.rmse[-1]:.6f}, "
+        f"ratio at 1/4, 1/2, 3/4, end of the order "
+        + ", ".join(f"{res.rmse_ratio[int(f * (len(res.rmse) - 1))]:.4f}" for f in (0.25, 0.5, 0.75, 1.0))
+        + f"; weights eliminated {res.weights_eliminated[-1]}")
+    if k1 != len(res.rmse):
+        fail(f"sweep 4x30: K1 launched {k1} times for {len(res.rmse)} evaluations")
+    final, ranks = m30, {}
+    for li, wj, g, _ in sorted_sigma_indices(m30):
+        key = (int(li), int(wj), int(g))
+        layer = m30.layers[key[0]]
+        ranks.setdefault(key, min(layer.input_dim, layer.units) if wj == 0 else layer.units)
+        if ranks[key] > 1:
+            ranks[key] -= 1
+            final = set_model_matrix_rank(final, key, ranks[key])
+    fresh = P.from_numpy_tree(P.to_numpy_tree(final), device=dev)
+    x_test = torch.tensor(data.X_test[0], device=dev)
+    want = P.rmse(y_m, inv(P.predict(fresh, x_test)[:, 0].cpu().numpy().reshape(-1, 1)).ravel())
+    log(f"[check] sweep 4x30: final RMSE {float(res.rmse[-1])!r}, a fresh predict of the final model "
+        f"{want!r}")
+    if res.rmse[-1] != want:
+        fail("sweep 4x30: the final evaluation differs from a fresh model's")
+
+    X, y = data.X_test[:, :SWEEP_CPU_STEPS], y_m[:SWEEP_CPU_STEPS]
+    card = rank_sweep(m30, X, y, inv, cfg, max_reductions=SWEEP_CPU_REDUCTIONS)
+    cpu = rank_sweep(P.load_params(DENSE_30, device="cpu"), X, y, inv, cfg,
+                     max_reductions=SWEEP_CPU_REDUCTIONS)
+    rel = float(np.max(np.abs(card.rmse - cpu.rmse) / cpu.rmse))
+    log(f"[check] sweep 4x30, first {SWEEP_CPU_STEPS} steps, {SWEEP_CPU_REDUCTIONS} reductions: card vs "
+        f"CPU plain scan RMSE, max relative diff {rel:.3e} over {len(cpu.rmse)} evaluations "
+        f"(rtol {SWEEP_RTOL:g})")
+    if not (np.array_equal(card.order, cpu.order) and card.rmse.shape == cpu.rmse.shape and rel <= SWEEP_RTOL):
+        fail("sweep 4x30: the card's curve disagrees with the CPU's")
+
+    m512 = P.load_params(DENSE_512, device=dev)
+    before = ck.LAUNCHES["lstm_recurrence"]
+    t0 = time.perf_counter()
+    # the training run's first T steps: the test run is shorter than T
+    y_train = inv(data.y_train[:T].reshape(-1, 1)).ravel()
+    wide = rank_sweep(m512, data.X_train[:, :T], y_train, inv, cfg, max_reductions=SWEEP_WIDE_REDUCTIONS)
+    torch.cuda.synchronize()
+    k3 = ck.LAUNCHES["lstm_recurrence"] - before
+    log(f"[sweep] 3x512, T={T}, {wide.reductions_done} reductions: RMSE {', '.join(f'{v:.6f}' for v in wide.rmse)}, "
+        f"{time.perf_counter() - t0:.2f} s wall, K3 launches {k3}; {card_line()}")
+    if k3 != len(m512.layers) * len(wide.rmse) or not np.isfinite(wide.rmse).all():
+        fail(f"sweep 3x512: K3 launched {k3} times for {len(wide.rmse)} evaluations")
+
+
+def evaluation_path(dev, x, data) -> None:
+    """Phase 9: the evaluation slice (9a-9d)."""
+    m30 = P.load_params(DENSE_30, device=dev)
+    models = {
+        "3x512 dense": P.load_params(DENSE_512, device=dev),
+        "wide_r24_progressive": P.load_params(WIDE_R24, device=dev),
+        "4x30 dense": m30,
+        "4x30 split r=15": P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15),
+    }
+    autotune_path(dev, x, models)
+    trace_path(dev, x, models)
+    roofline_path(dev, x, models)
+    sweep_path(dev, data)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only "
@@ -2147,6 +2364,15 @@ def main() -> int:
     if args and (args[0] != "--parent" or len(args) != 2 or not os.path.isdir(args[1])):
         print(f"usage: {sys.argv[0]} [--parent DIR]", file=sys.stderr)
         return 2
+    # the smoke's own autotune cache, empty, before any predict: no winner
+    # stored on the machine redirects a phase, and 9a's winners go nowhere else
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cache_") as cache:
+        os.environ["XDG_CACHE_HOME"] = cache
+        return smoke(args)
+
+
+def smoke(args) -> int:
+    """Phases 1-9 (see the module docstring)."""
     log(card_line())  # the card's name and power limit, as nvidia-smi prints them
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
@@ -2177,6 +2403,7 @@ def main() -> int:
     train_comparisons(dev, data, histories)
     with exact_matmul(), torch.no_grad():
         deployment_path(dev, x)
+        evaluation_path(dev, x, data)
 
     print(json.dumps({"kernels": kernel_entries(checks, launches)}))
     print(json.dumps({

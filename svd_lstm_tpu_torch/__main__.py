@@ -11,6 +11,13 @@ Counterpart of ``svd_lstm_tpu/__main__.py``'s deployment commands:
              .bin), on the card, on the CPU or through the native C++ runtime:
              the reference's LabVIEW consumer loop
              (code/old_versions/svd_classes.py:104-119) as a pipe-able command
+    trace  — capture a torch.profiler trace of one whole-run ``predict`` and
+             print its per-op time breakdown (``bench/trace.py``): the
+             device's kernels on the card, the host's ops on the CPU
+    tune   — time every valid ``predict`` impl of a checkpoint on this
+             device, print the table and store the winner in the autotune
+             cache that ``predict(impl="auto")`` consults
+             (``bench/autotune.py``)
 
 The JAX package's other commands are not ported yet:
 ROADMAP queue 1, item 5 (the CLI).
@@ -19,7 +26,7 @@ ROADMAP queue 1, item 5 (the CLI).
 import os
 import sys
 
-_COMMANDS = ("export", "stream")
+_COMMANDS = ("export", "stream", "trace", "tune")
 
 
 def _load_checkpoint_f32(path, device):
@@ -254,13 +261,103 @@ def _stream(argv):
         )
 
 
+def _model_and_input(args, shape):
+    """The checkpoint (or a random 4x40 stack, seed 0) on ``args.device``
+    and a standard normal input of ``shape + (d,)`` from numpy's seed 1."""
+    import numpy as np
+    import torch
+
+    from svd_lstm_tpu_torch.api import model_input_dim
+
+    device = torch.device(args.device)
+    if args.checkpoint:
+        model = _load_checkpoint_f32(args.checkpoint, device)
+    else:
+        from svd_lstm_tpu_torch.models.lstm import init_stacked_lstm
+
+        model = init_stacked_lstm(torch.Generator().manual_seed(0), device=device)
+    shape = (*shape, model_input_dim(model))
+    x = torch.tensor(np.random.default_rng(1).normal(size=shape), dtype=torch.float32, device=device)
+    return model, x
+
+
+def _trace(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m svd_lstm_tpu_torch trace",
+        description="Capture a profiler trace of whole-run inference and print "
+        "the per-op time breakdown (the card's kernels; on the CPU the host's ops).",
+    )
+    ap.add_argument("outdir", help="trace output directory (trace.json: ui.perfetto.dev)")
+    ap.add_argument("--checkpoint", default=None, help="model checkpoint (default: random 4x40)")
+    ap.add_argument("--steps", type=int, default=2048, help="run length T")
+    ap.add_argument("--impl", default="auto", choices=("auto", "scan", "fused", "hybrid"),
+                    help="predict impl")
+    ap.add_argument("--precision", default="exact", choices=("exact", "high", "fast"))
+    ap.add_argument("--top", type=int, default=15, help="rows in the op table")
+    ap.add_argument("--device", default="cuda", help="where the model runs (default: the card)")
+    args = ap.parse_args(argv)
+
+    from svd_lstm_tpu_torch.api import predict
+    from svd_lstm_tpu_torch.bench.trace import format_breakdown, summarize
+
+    model, x = _model_and_input(args, (args.steps,))
+    fn = lambda m, xx: predict(m, xx, impl=args.impl, precision=args.precision)  # noqa: E731
+    s = summarize(fn, model, x, out_dir=args.outdir, top=args.top)
+    total = "device total" if x.is_cuda else "call total (CPU, host ops)"
+    print(f"{total}: {s['device_ms']:.3f} ms  (T={args.steps}, impl={args.impl}, "
+          f"precision={args.precision})")
+    print(format_breakdown(s["ops"], total_ms=s["device_ms"]))
+    print(f"\ntrace -> {args.outdir}  (view: load trace.json in ui.perfetto.dev)")
+
+
+def _tune(argv):
+    import argparse
+
+    ap = argparse.ArgumentParser(
+        prog="python -m svd_lstm_tpu_torch tune",
+        description="Measure every valid predict() implementation of a model and "
+        "input shape on this device, print the table and the winner, and store "
+        "the winner in the autotune cache that predict(impl='auto') consults.",
+    )
+    ap.add_argument("--checkpoint", default=None, help="model checkpoint (default: random 4x40)")
+    ap.add_argument("--steps", type=int, default=2048, help="run length T")
+    ap.add_argument("--batch", type=int, default=0, help="0 = batch-1 (T, d) input")
+    ap.add_argument("--precision", default="exact", choices=("exact", "high", "fast"))
+    ap.add_argument("--repeats", type=int, default=2, help="timing repeats per impl")
+    ap.add_argument("--no-cache", action="store_true", help="measure only; skip the cache")
+    ap.add_argument("--train", action="store_true",
+                    help="tune the training step (not ported: it waits for training precision)")
+    ap.add_argument("--device", default="cuda", help="where the model runs (default: the card)")
+    args = ap.parse_args(argv)
+    if args.train:
+        raise NotImplementedError(
+            "tune --train is not ported yet: its regimes are TF32 and bf16 training "
+            "(ROADMAP queue 1, item 5: training precision)"
+        )
+
+    from svd_lstm_tpu_torch.bench import autotune as at
+
+    shape = (args.batch, args.steps) if args.batch else (args.steps,)
+    model, x = _model_and_input(args, shape)
+    r = at.autotune(model, x, precision=args.precision, repeats=args.repeats)
+    clock = "CUDA events" if x.is_cuda else "host clock"
+    print(f"device: {at.device_kind(x)}   input {tuple(x.shape)}  precision={args.precision}  ({clock})")
+    for impl, ms in sorted(r.table.items(), key=lambda kv: kv[1]):
+        mark = " <- winner" if impl == r.impl else ""
+        print(f"  {impl:<8} {ms:10.3f} ms{mark}")
+    for impl, err in r.failed.items():
+        print(f"  {impl:<8} FAILED: {err.splitlines()[0][:90]}")
+    if not args.no_cache:
+        print(f"cached -> {at.store_tuned(at.cache_key(model, x, args.precision), r.impl)}")
+
+
 def main():
     cmd = sys.argv[1] if len(sys.argv) >= 2 else None
-    if cmd == "export":
-        _export(sys.argv[2:])
-        return
-    if cmd == "stream":
-        _stream(sys.argv[2:])
+    commands = {"export": _export, "stream": _stream, "trace": _trace, "tune": _tune}
+    if cmd in commands:
+        commands[cmd](sys.argv[2:])
         return
     print(__doc__)
     print("commands:", ", ".join(_COMMANDS))

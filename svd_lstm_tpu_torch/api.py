@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import torch
 
+from svd_lstm_tpu_torch.bench.autotune import cached_impl
 from svd_lstm_tpu_torch.factor.svd import singular_to_dense
 from svd_lstm_tpu_torch.models.lstm import StackedLSTM, stacked_lstm_apply
 from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
@@ -102,7 +103,8 @@ def _dense(model) -> StackedLSTM:
     return model
 
 
-def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"):
+def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact",
+            consult_cache: bool = True):
     """Whole-run inference on the device of ``model`` and ``x``. x: (T, d)
     for batch-1 or (B, T, d) batched. Returns (T, out) / (B, T, out).
     impl: 'auto' | 'scan' | 'fused' | 'hybrid'; precision: 'exact' |
@@ -112,7 +114,15 @@ def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"
     CUDA input and their plain versions on a CPU input: one mode has one
     meaning on both devices (the JAX package's off-TPU fallbacks, the exact
     scan for batch-1 and an all-bf16 scan for batched input, are not
-    carried over). impl='scan' is the exact float32 loop in every mode."""
+    carried over). impl='scan' is the exact float32 loop in every mode.
+
+    impl='auto' first consults the autotune cache
+    (``bench.autotune.cached_impl``, keyed by the card's name): where this
+    (model shape, input shape, precision) was measured on this device (the
+    ``tune`` command, ``tuned_impl``), the measured winner runs in place of
+    the table above. A winner no longer in ``valid_impls`` is ignored, and
+    with no cache entry the routing is the table's. ``consult_cache=False``
+    skips the lookup (``autotune`` measures with it off)."""
     if precision not in PRECISION_MODES:
         raise ValueError(f"unknown precision: {precision!r}")
     if impl not in IMPLS:
@@ -122,6 +132,11 @@ def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"
         )
     if not isinstance(model, (StackedLSTM, SingularLSTM, ReducedLSTM)):
         raise TypeError(f"unknown model params: {type(model)}")
+    if impl == "auto" and consult_cache:
+        hit = cached_impl(model, x, precision)
+        # 'auto' as the winner means the table's route is the measured best
+        if hit is not None and hit != "auto" and hit in valid_impls(model, x, precision):
+            impl = hit
     batched = x.ndim == 3
     if batched and impl in ("fused", "hybrid"):
         raise ValueError(

@@ -1,0 +1,307 @@
+"""Measured-best ``predict`` route, with a persistent cache.
+
+Counterpart of the inference half of ``svd_lstm_tpu/bench/autotune.py``.
+``predict(impl="auto")`` routes by a table carried over from the JAX
+package, which fitted it on a TPU. This module measures the choice on the
+device that is present: it times every implementation that is valid for the
+model and input (``api.valid_impls``; on the card with CUDA events,
+``bench.devtime.device_time_ms``, on the CPU with the host's clock) and
+returns the winner, and it remembers winners in a JSON file keyed by the
+model family, every leaf's shape, the parameter and input dtypes, the input
+shape, the precision and the device (``"cuda:" + the card's name``, or
+``"cpu"``). Every field but ``device`` is the JAX package's key for the same
+model. ``predict(impl="auto")`` consults the file (:func:`cached_impl`), so
+one ``tune`` run redirects every later ``predict`` of that shape on that
+card.
+
+The cache file is ``$XDG_CACHE_HOME/svd_lstm_tpu_torch/autotune.json``
+(``~/.cache`` without the variable); delete it to forget every winner.
+
+The training half (``autotune_train`` and the ``auto_flags`` of ``fit``)
+is not ported: its regimes are TF32 and bf16 training, which wait for
+training precision (ROADMAP queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import time
+import weakref
+from typing import NamedTuple, Sequence
+
+import torch
+
+from svd_lstm_tpu_torch.io.checkpoint import to_tensor_tree
+from svd_lstm_tpu_torch.models.lstm import StackedLSTM
+from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
+from svd_lstm_tpu_torch.models.singular import SingularLSTM
+
+DISK_RECHECK_S = 1.0  # a process sees another's new cache entries after at most this long
+
+
+class TuneResult(NamedTuple):
+    impl: str                      # winning impl for api.predict
+    ms: float                      # its measured time
+    table: dict                    # impl -> ms for every valid candidate
+    failed: dict                   # impl -> error for candidates that raised
+
+
+def _family(model) -> str:
+    if isinstance(model, StackedLSTM):
+        return "dense"
+    if isinstance(model, SingularLSTM):
+        return "singular"
+    if isinstance(model, ReducedLSTM):
+        return "reduced"
+    if hasattr(model, "conv"):
+        raise NotImplementedError("conv hybrids are not ported yet (ROADMAP queue 1, item 7: conv hybrids)")
+    raise TypeError(f"unknown model params: {type(model)}")
+
+
+def _leaves(node) -> list:
+    if isinstance(node, tuple):
+        return [leaf for kid in node for leaf in _leaves(kid)]
+    return [node]
+
+
+def _dims(model) -> list:
+    """Per layer (units, every leaf's shape in the JAX package's leaf
+    order), then the head's leaf shapes: the units pin the width rules, the
+    shapes the input width, per-gate ranks, split or merged and the head."""
+    tree = to_tensor_tree(model)
+    shapes = lambda node: [tuple(int(s) for s in leaf.shape) for leaf in _leaves(node)]  # noqa: E731
+    return [(int(l.units), shapes(t)) for l, t in zip(model.layers, tree.layers)] + [shapes(tree.head)]
+
+
+def _dtype(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def device_kind(x: torch.Tensor) -> str:
+    """The device key of a winner: "cuda:" + the card's name, or "cpu"."""
+    return f"cuda:{torch.cuda.get_device_name(x.device)}" if x.is_cuda else x.device.type
+
+
+def cache_key(model, x: torch.Tensor, precision: str) -> str:
+    """Stable string key: family, per-layer leaf shapes, parameter dtypes,
+    input shape and dtype, precision, and the device of ``x`` (the card's
+    name: a winner must not outlive the card it was measured on)."""
+    return json.dumps(
+        {
+            "family": _family(model),
+            "dims": _dims(model),
+            "pdtype": sorted({_dtype(p) for p in model.parameters()}),
+            "x": tuple(int(s) for s in x.shape),
+            "dtype": _dtype(x),
+            "precision": precision,
+            "device": device_kind(x),
+        },
+        sort_keys=True,
+    )
+
+
+def candidates(model, x: torch.Tensor, precision: str = "exact") -> list:
+    """The implementations with distinct execution paths for this (model,
+    input, precision): ``api.valid_impls``, next to ``predict``'s dispatch,
+    so the two cannot drift."""
+    from svd_lstm_tpu_torch.api import valid_impls
+
+    return valid_impls(model, x, precision)
+
+
+def _host_time_ms(fn, repeats: int) -> float:
+    fn()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def autotune(model, x: torch.Tensor, precision: str = "exact", impls: Sequence[str] | None = None,
+             repeats: int = 2) -> TuneResult:
+    """Time every valid ``predict`` implementation (or ``impls``) on ``x``'s
+    device and pick the fastest: CUDA events for an input on the card, the
+    host's clock for a CPU input, the median of ``repeats`` after a warm-up
+    call. A candidate that raises goes into ``failed`` and the others are
+    still timed. Each candidate runs with ``consult_cache=False``, so no
+    cached winner redirects ``"auto"`` while it is measured."""
+    from svd_lstm_tpu_torch.api import predict
+    from svd_lstm_tpu_torch.bench.devtime import device_time_ms
+
+    table, failed = {}, {}
+    for impl in impls if impls is not None else candidates(model, x, precision):
+        fn = lambda i=impl: predict(model, x, impl=i, precision=precision, consult_cache=False)  # noqa: E731
+        try:
+            table[impl] = (device_time_ms(fn, repeats=repeats) if x.is_cuda
+                           else _host_time_ms(fn, repeats))
+        except Exception as e:  # noqa: BLE001 — per-candidate isolation
+            failed[impl] = f"{type(e).__name__}: {e}"
+    if not table:
+        raise RuntimeError(f"every candidate failed: {failed}")
+    best = min(table, key=table.get)
+    return TuneResult(impl=best, ms=table[best], table=table, failed=failed)
+
+
+# ---------------------------------------------------------------- cache --
+
+_MEM_CACHE: dict = {}   # key -> impl: this process's stores and disk reads
+_DISK_MEMO: dict = {}   # path -> [time checked, mtime, contents]
+# predict's per-call lookup: model -> [generation, its first and last
+# parameter, their data pointers, {(path, x's shape, dtype, device,
+# precision): impl or None}]
+_FAST: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+_GENERATION = [0]       # bumped by every store, disk change and module edit
+_HOOKS: list = []       # torch's registration hooks, once installed (_watch_modules)
+_PATHS: dict = {}       # ($XDG_CACHE_HOME, $HOME) -> the cache file's path
+
+
+def default_cache_path() -> str:
+    env = (os.environ.get("XDG_CACHE_HOME"), os.environ.get("HOME"))
+    path = _PATHS.get(env)
+    if path is None:
+        base = env[0] or os.path.expanduser("~/.cache")
+        path = _PATHS[env] = os.path.join(base, "svd_lstm_tpu_torch", "autotune.json")
+    return path
+
+
+def _load_disk(path: str) -> dict:
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def _store_disk(path: str, key: str, impl: str) -> None:
+    """Add one entry to the shared file: an exclusive lock across the
+    read-modify-write (two processes tuning other models keep each other's
+    entries), ``os.replace`` so a reader never sees half a file."""
+    import fcntl
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path + ".lock", "w") as lf:
+        fcntl.flock(lf, fcntl.LOCK_EX)
+        data = _load_disk(path)
+        data[key] = impl
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(data, f, indent=1, sort_keys=True)
+        os.replace(tmp, path)
+        _DISK_MEMO[path] = [time.monotonic(), os.path.getmtime(path), data]
+    _GENERATION[0] += 1
+
+
+def _read_disk_cached(path: str) -> dict:
+    """The file's contents, read again when its mtime moved; the mtime is
+    looked at no more than once each ``DISK_RECHECK_S``."""
+    now = time.monotonic()
+    hit = _DISK_MEMO.get(path)
+    if hit is not None and now - hit[0] < DISK_RECHECK_S:
+        return hit[2]
+    try:
+        mtime = os.path.getmtime(path)
+    except OSError:
+        mtime = None
+    if hit is not None and hit[1] == mtime:
+        hit[0] = now
+        return hit[2]
+    data = {} if mtime is None else _load_disk(path)
+    if hit is not None:
+        _GENERATION[0] += 1  # the file changed: every per-model memo is stale
+    _DISK_MEMO[path] = [now, mtime, data]
+    return data
+
+
+def _cached_value(key: str, cache_path: str | None) -> str | None:
+    """Read-only lookup (memory, then disk); never measures."""
+    if cache_path is None:
+        cache_path = default_cache_path()
+    val = _MEM_CACHE.get(key)
+    if val is None and cache_path:
+        val = _read_disk_cached(cache_path).get(key)
+        if val is not None:
+            _MEM_CACHE[key] = val
+    return val
+
+
+def _bump(*_) -> None:
+    _GENERATION[0] += 1
+
+
+def _watch_modules() -> None:
+    """Forget every per-model memo whenever a module anywhere gains or
+    replaces a parameter or a submodule (a new shape under an old model):
+    torch's global registration hooks, installed at the first lookup."""
+    if not _HOOKS:
+        from torch.nn.modules import module as nn_module
+
+        _HOOKS.append(nn_module.register_module_parameter_registration_hook(_bump))
+        _HOOKS.append(nn_module.register_module_module_registration_hook(_bump))
+
+
+def cached_impl(model, x: torch.Tensor, precision: str = "exact",
+                cache_path: str | None = None) -> str | None:
+    """The measured-best impl for this (model, input, precision, device) if
+    one was ever stored (``tune``, :func:`tuned_impl`, :func:`store_tuned`),
+    else None: the read-only lookup ``predict(impl="auto")`` makes before
+    its first launch, on the host inside the call's time. A repeated lookup
+    costs a few dict lookups: the full key (every leaf's shape as JSON) is
+    built once a model and input shape, and again only after a module
+    anywhere gains or replaces a parameter or a submodule, the model's first
+    or last parameter moved to other storage (``.to(dtype)`` moves them
+    all), a winner was stored, or the file changed. A lone parameter whose
+    ``.data`` is swapped for another shape or dtype is not seen."""
+    path = default_cache_path() if cache_path is None else cache_path
+    if not _HOOKS:
+        _watch_modules()
+    if path:
+        _read_disk_cached(path)  # bumps the generation when the file changed
+    memo = _FAST.get(model)
+    if (memo is None or memo[0] != _GENERATION[0] or memo[1].data_ptr() != memo[3]
+            or memo[2].data_ptr() != memo[4]):
+        params = list(model.parameters())
+        memo = [_GENERATION[0], params[0], params[-1], params[0].data_ptr(),
+                params[-1].data_ptr(), {}]
+        _FAST[model] = memo
+    table = memo[5]
+    small = (path, tuple(x.shape), x.dtype, x.device, precision)
+    if small not in table:
+        table[small] = _cached_value(cache_key(model, x, precision), path)
+    return table[small]
+
+
+def store_tuned(key: str, value: str, cache_path: str | None = None) -> str:
+    """Store a winner in memory and in the file (``cache_path=""``: memory
+    only). Returns the path used."""
+    if cache_path is None:
+        cache_path = default_cache_path()
+    _MEM_CACHE[key] = value
+    _GENERATION[0] += 1
+    if cache_path:
+        _store_disk(cache_path, key, value)
+    return cache_path
+
+
+def tuned_impl(model, x: torch.Tensor, precision: str = "exact", cache_path: str | None = None) -> str:
+    """The best impl for this (model, input, precision, device): measured
+    once (:func:`autotune`), then served from memory and the file
+    (``cache_path=""``: memory only)."""
+    if cache_path is None:
+        cache_path = default_cache_path()
+    key = cache_key(model, x, precision)
+    impl = _cached_value(key, cache_path)
+    if impl is None:
+        impl = autotune(model, x, precision=precision).impl
+        store_tuned(key, impl, cache_path)
+    return impl
+
+
+def predict_tuned(model, x: torch.Tensor, precision: str = "exact", cache_path: str | None = None):
+    """``api.predict`` through the measured-best implementation."""
+    from svd_lstm_tpu_torch.api import predict
+
+    return predict(model, x, impl=tuned_impl(model, x, precision, cache_path), precision=precision)

@@ -1,6 +1,6 @@
 """Configuration dataclasses.
 
-Counterpart of ``svd_lstm_tpu/config.py``: the same four dataclasses with
+Counterpart of ``svd_lstm_tpu/config.py``: the same five dataclasses with
 the same fields and defaults, so a configuration carries across the two
 packages unchanged (the reference's constants: sampling period 500/16 µs,
 frame width 16, split at 30.7 s, units (40, 40, 40, 40), 20 000 windows ×
@@ -89,6 +89,15 @@ class FactorConfig:
     recurrent_dropout: float = 0.0  # not ported
 
 
+@dataclasses.dataclass(frozen=True)
+class SweepConfig:
+    """Rank-reduction sweep knobs (reference code/old_versions/svd_acceleration.py:61-88)."""
+
+    protect_first_layer_w: bool = True   # reference :67-68
+    evaluate_every: int = 1
+    threshold: float | None = None       # stop when the RMSE ratio exceeds this
+
+
 def check_train_config(cfg: TrainConfig) -> None:
     """Raise ``NotImplementedError`` for the knobs the port does not have."""
     if cfg.matmul_precision != "float32":
@@ -103,6 +112,7 @@ def check_train_config(cfg: TrainConfig) -> None:
         )
     if cfg.auto_flags:
         raise NotImplementedError(
-            "auto_flags (the autotune cache) is not ported yet (ROADMAP queue 1, "
-            "item 9); set the flags explicitly"
+            "auto_flags (the training half of the autotune cache) is not ported "
+            "yet: its regimes are TF32 and bf16 training (ROADMAP queue 1, item 5: "
+            "training precision); set the flags explicitly"
         )

@@ -196,3 +196,71 @@ def singular_to_dense(smodel: SingularLSTM, dtype=torch.float32) -> StackedLSTM:
         for p in smodel.layers
     ]
     return StackedLSTM(layers, _copy_head(smodel.head))
+
+
+# ---------------------------------------------------------------------------
+# v1 rank utilities (reference code/old_versions/svd_classes.py)
+# ---------------------------------------------------------------------------
+
+def reduce_matrix_rank(a: np.ndarray, rank: int) -> np.ndarray:
+    """Zero the trailing singular values of ``a`` and reconstruct, in
+    float64 (reference old_versions/svd_classes.py:9-12)."""
+    u, s, v = _svd(a)
+    s = s.copy()
+    s[rank:] = 0.0
+    return (u * s) @ v
+
+
+def two_step_factors(a: np.ndarray, rank: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Column-convention two-step factors of the rank-``rank``
+    approximation: x @ a ≈ concat(x @ B, (x @ B) @ C). Exact when
+    rank(a) ≤ rank."""
+    u, s, v = _svd(a)
+    return _truncate_factors(u, s, v, cutoff=None, rank=rank)
+
+
+def reduce_two_step(a: np.ndarray, rank: int) -> list:
+    """Row-convention (W @ x) two-step pair (reference
+    old_versions/svd_classes.py:14-21): [D, E] with (W @ x)[:r] = D @ x and
+    (W @ x)[r:] = E @ (D @ x)."""
+    B, C = two_step_factors(np.asarray(a).T, rank)
+    return [B.T, C.T]
+
+
+def get_model_singular_values(model: StackedLSTM) -> np.ndarray:
+    """Per-gate singular values of every W and U block: (layers, 2, 4,
+    units), the σ axis sized to the widest layer (a narrower layer's
+    trailing slots stay 0). Each block's σ come from the same numpy call on
+    the same float32 values as in the JAX package, so both order them
+    alike, ties included."""
+    units = max(layer.units for layer in model.layers)
+    out = np.zeros((len(model.layers), 2, 4, units))
+    for i, layer in enumerate(model.layers):
+        n = layer.units
+        for j, M in enumerate((layer.W, layer.U)):
+            M = M.detach().cpu().numpy()
+            for g in range(4):
+                s = np.linalg.svd(M[:, g * n : (g + 1) * n], compute_uv=False)
+                out[i, j, g, : s.size] = s
+    return out
+
+
+def set_model_matrix_rank(model: StackedLSTM, index: Tuple[int, int, int], rank: int) -> StackedLSTM:
+    """A new model with one gate block reduced to ``rank``, index = (layer,
+    0 for W / 1 for U, gate). The reconstruction runs in float64 and is cast
+    to the block's dtype. Only the reduced parameter is new: every other
+    parameter (and the head) is the source model's own."""
+    li, wj, g = index
+    layer = model.layers[li]
+    n = layer.units
+    old = layer.W if wj == 0 else layer.U
+    M = old.detach().cpu().numpy().copy()
+    M[:, g * n : (g + 1) * n] = reduce_matrix_rank(M[:, g * n : (g + 1) * n], rank)
+    new_layer = LSTMLayer(layer.W, layer.U, layer.b)
+    for name in ("W", "U", "b"):  # the source's parameter objects themselves
+        setattr(new_layer, name, getattr(layer, name))
+    setattr(new_layer, "W" if wj == 0 else "U",
+            torch.nn.Parameter(torch.tensor(M, dtype=old.dtype, device=old.device)))
+    layers = list(model.layers)
+    layers[li] = new_layer
+    return StackedLSTM(layers, model.head)

@@ -247,6 +247,8 @@ def test_import_loads_no_jax():
         "import svd_lstm_tpu_torch.utils.quantize, svd_lstm_tpu_torch.models.streaming\n"
         "import svd_lstm_tpu_torch.io.int8_export, svd_lstm_tpu_torch.io.csv_weights\n"
         "import svd_lstm_tpu_torch.io.native, svd_lstm_tpu_torch.__main__\n"
+        "import svd_lstm_tpu_torch.bench.sweep, svd_lstm_tpu_torch.bench.trace\n"
+        "import svd_lstm_tpu_torch.bench.roofline, svd_lstm_tpu_torch.bench.autotune\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'svd_lstm_tpu')]\n"
         "assert not bad, bad\n"
         "assert torch.get_float32_matmul_precision() == prec\n"
@@ -271,9 +273,10 @@ def test_no_jax_import_in_the_port_sources():
                     src = f.read()
                 for banned in ("import jax", "from jax", "import optax", "from svd_lstm_tpu.", "import svd_lstm_tpu\n"):
                     assert banned not in src, (name, banned)
-    # the deployment slice's own copies of the JAX package's numpy-only modules
+    # the deployment and evaluation slices' own copies of the JAX package's modules
     assert {"utils/quantize.py", "models/streaming.py", "io/int8_export.py", "io/csv_weights.py",
-            "io/native.py", "__main__.py"} <= seen
+            "io/native.py", "__main__.py", "bench/sweep.py", "bench/trace.py", "bench/roofline.py",
+            "bench/autotune.py"} <= seen
 
 
 def test_entry_points_default_to_the_card():

@@ -144,7 +144,7 @@ def test_commands_refuse_what_they_cannot_do(setup, tmp_path, monkeypatch, capsy
     with pytest.raises(SystemExit, match="expects 4"):
         cli._stream([paths["dense"], "--input", str(short), "--output", str(tmp_path / "o.csv"),
                      "--device", "cpu"])
-    for argv in (["svd_lstm_tpu_torch", "tune"], ["svd_lstm_tpu_torch"]):
+    for argv in (["svd_lstm_tpu_torch", "train"], ["svd_lstm_tpu_torch"]):
         monkeypatch.setattr(sys, "argv", argv)
         with pytest.raises(SystemExit) as e:
             cli.main()
