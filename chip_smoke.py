@@ -207,7 +207,33 @@ Phases, each of which raises on failure (no phase is caught):
    fresh ``predict``'s of the final model; the same sweep over 512 steps,
    64 reductions, on the card and on the CPU's plain scan, the RMSE curves
    within a relative 1e-3; and 16 reductions of 3×512 over the first 6656
-   steps of the training run, K3 once a layer an evaluation.
+   steps of the training run, K3 once a layer an evaluation;
+10. drive the training-precision slice. (10a) the bf16-operand train
+   kernels against their plain bf16 versions (each product's operands
+   rounded the same way): K7f at run A's shapes (4x40, B = 32, T = 200),
+   K8f at B = 128 on the same stack, K9f on run C's layer 1 (3x512, B =
+   128) and K6f at run D's shapes (1x512, B = 128): forward h and c and
+   every gradient within 2 bf16 ulps of the plain output's largest value
+   or twice the plain version's distance from the same arithmetic in
+   float64, whichever is larger (``fast_check``: a sum order that flips a
+   bf16 rounding carries on), each timed beside its plain version, cuDNN's
+   bf16 LSTM and its bound at 989 TFLOP/s bf16; (10b) runs A, C and D, 4
+   Adam steps of ``fit`` in each training regime (the JAX package's five:
+   f32_scan, tf32_scan, bf16_scan, fused_kernel, fused_kernel_compact where
+   K8 takes the stack; and the port's float32 kernels), the launch counts
+   set to 0 just before each main-path call and read just after: each
+   regime launches its own wrappers and no others (the ``_fast`` ones in
+   bf16), its trained model's exact whole-run ``predict`` on the test run
+   within the fast band of 4b of the f32_scan regime's (the untrained
+   model's outside it, or the band proves nothing; the parameters' change
+   against the exact regime's logged), and one step's span and card busy
+   time; run B's σ fine-tune and run E's gated recovery in
+   the bf16 kernel regime (K7f, K8f); (10c) ``autotune_train`` at runs A's
+   and C's shapes, the winner stored in the smoke's cache and served back
+   by ``tuned_train_flags``, ``fit`` with ``auto_flags=True`` from float32
+   scan flags launching the winner's kernels, then ``python -m
+   svd_lstm_tpu_torch tune --train``. The ``kernels`` line's launches of
+   the bf16 variants are those of these main-path calls only.
 
 Beside each kernel the script times one PyTorch library call that computes
 the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
@@ -242,6 +268,7 @@ if __name__ == "__main__" and sys.argv[1:2] == ["--time-tree"]:
 
 import svd_lstm_tpu_torch as P
 from svd_lstm_tpu_torch.api import exact_matmul
+from svd_lstm_tpu_torch.bench import autotune as at
 from svd_lstm_tpu_torch.bench import roofline
 from svd_lstm_tpu_torch.bench.devtime import device_time_ms
 from svd_lstm_tpu_torch.bench.timing import time_all_impls, time_full_vs_reduced
@@ -378,11 +405,13 @@ def library_forward(name: str, layers, x: torch.Tensor, want: torch.Tensor, head
         return device_time_ms(lambda: lstm(x))
 
 
-def library_train(layers, x: torch.Tensor, dh: torch.Tensor) -> tuple:
+def library_train(layers, x: torch.Tensor, dh: torch.Tensor, dtype=torch.float32) -> tuple:
     """Times of one cuDNN LSTM forward with autograd on, and of its backward
-    from dh (every gradient: weights and input), float32 with TF32 off."""
-    lstm = cudnn_lstm(layers, x.device)
-    x = x.detach().requires_grad_(True)
+    from dh (every gradient: weights and input), in ``dtype`` (float32 with
+    TF32 off, or bf16)."""
+    lstm = cudnn_lstm(layers, x.device, dtype)
+    x = x.detach().to(dtype).requires_grad_(True)
+    dh = dh.to(dtype)
     with cudnn_exact(), torch.enable_grad():
         fwd_ms = device_time_ms(lambda: lstm(x))
         out = lstm(x)[0]
@@ -1711,17 +1740,16 @@ def train_path(dev, data) -> tuple:
     """Phase 6: runs A to D through the public entry points, counted.
     Returns (launches, {run name: loss history})."""
     ck.reset_launch_counts()
-    for k in ct.KERNELS:
-        k.launches = 0
+    ct.reset_launch_counts()
     histories = {}
     for run in TRAIN_RUNS:
-        before = {k.__name__: k.launches for k in ct.KERNELS}
+        before = dict(ct.LAUNCHES)
         init = run.make(dev)
         t0 = time.perf_counter()
         res = train(run, init, data, kernel=True)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        delta = {k.__name__: k.launches - before[k.__name__] for k in ct.KERNELS}
+        delta = {k: v - before[k] for k, v in ct.LAUNCHES.items()}
         log(f"[train] run {run.name}: loss history {res.history}, rollbacks {res.rollbacks}, "
             f"{wall:.2f} s wall, train kernel launches {delta}")
         for k in run.kernels:
@@ -1733,7 +1761,7 @@ def train_path(dev, data) -> tuple:
             check_finetune(init, res.params, data, dev)
         histories[run.name] = res.history
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in ct.KERNELS}
+    launches = dict(ct.LAUNCHES)
     log(f"[train] kernel launches during the training path: {launches}")
     return launches, histories
 
@@ -1749,16 +1777,15 @@ def recovery_path(dev, data) -> dict:
     counted from zero just before and read just after. Returns the train
     kernels' launch counts of these runs."""
     ck.reset_launch_counts()
-    for k in ct.KERNELS:
-        k.launches = 0
+    ct.reset_launch_counts()
     x = torch.tensor(data.X_test[0], device=dev)
     for run in RECOVERY_RUNS:
-        before = {k.__name__: k.launches for k in ct.KERNELS}
+        before = dict(ct.LAUNCHES)
         t0 = time.perf_counter()
         model, infos = recover(run, data, dev)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        delta = {k.__name__: k.launches - before[k.__name__] for k in ct.KERNELS}
+        delta = {k: v - before[k] for k, v in ct.LAUNCHES.items()}
         log(f"[recover] run {run.name}: {wall:.2f} s wall, train kernel launches {delta}")
         for k in run.kernels:
             if delta[k.__name__] < 1:
@@ -1780,7 +1807,7 @@ def recovery_path(dev, data) -> dict:
         log(f"[recover] run {run.name}: RMSE of the recovered model vs the test targets "
             f"{P.rmse(y_pred[:, 0].cpu().numpy(), data.y_test):.6f}")
     torch.cuda.synchronize()
-    launches = {k.__name__: k.launches for k in ct.KERNELS}
+    launches = dict(ct.LAUNCHES)
     log(f"[recover] kernel launches during the recovery path: {launches}")
     return launches
 
@@ -2149,8 +2176,6 @@ def autotune_path(dev, x, models: dict) -> None:
     the smoke's own cache; then predict(impl="auto") must launch the winner's
     kernel and equal predict(impl=winner, consult_cache=False) bit for bit;
     then the lookup's cost at 4x30, on the card and on the host."""
-    from svd_lstm_tpu_torch.bench import autotune as at
-
     xb = torch.tensor(np.random.default_rng(3).normal(size=(BATCH_B, BATCH_T, D)),
                       dtype=torch.float32, device=dev)
     cases = [(name, m, x, "exact") for name, m in models.items()]
@@ -2352,6 +2377,324 @@ def evaluation_path(dev, x, data) -> None:
     sweep_path(dev, data)
 
 
+# ---------------------------------------------------------------------------
+# training precision (phase 10)
+# ---------------------------------------------------------------------------
+
+PRECISION_STEPS = 4   # 10b, 10c: Adam steps of each regime's fit
+# 10b's runs: the fast band, and the regimes (None: every one; D, there for
+# K6f, takes its two kernel regimes, the float32 one as the exact reference)
+PRECISION_RUNS = {"A 4x40 fit": ("narrow", None), "C 3x512 fit": ("wide", None),
+                  "D 1x512 fit": ("wide", ("f32_kernel", "fused_kernel"))}
+
+
+def fast_check(name: str, got: torch.Tensor, plain: torch.Tensor, plain64: torch.Tensor) -> float:
+    """A bf16 variant's output against its plain bf16 version, within
+    ``fast_limit`` (PERF.md §2: K3f's and K5's rule)."""
+    return check_close(name, got, plain, fast_limit(name, plain, plain64))
+
+
+def bf16_variant(fn):
+    """A wrapper or plain version called with bf16=True."""
+    return lambda *args: fn(*args, True)
+
+
+@torch.no_grad()
+def precision_kernel_checks(dev, data) -> dict:
+    """Phase 10a: K7f at run A's shapes, K8f at B = 128 (4x40), K9f on run
+    C's layer 1 and K6f at run D's shapes against their plain bf16 versions
+    (forward h and c, every gradient), timed beside cuDNN's bf16 LSTM and
+    the bf16 bound."""
+    rng = np.random.default_rng(5)
+    results = {}
+    layers = [tuple(p.detach() for p in (l.W, l.U, l.b)) for l in TRAIN_RUNS[0].make(dev).layers]
+    for tag, key, run in (("K7f", "fused_narrow_train", TRAIN_RUNS[0]),
+                          ("K8f", "fused_narrow_train_compact", RECOVERY_RUNS[0])):
+        fwd, bwd = getattr(ct, f"{key}_fwd"), getattr(ct, f"{key}_bwd")
+        fwd_p, bwd_p = getattr(ct, f"{key}_fwd_plain"), getattr(ct, f"{key}_bwd_plain")
+        x = first_batch(run, data, dev)[0].transpose(0, 1).contiguous()  # (T, B, d)
+        T_, B_, d_ = x.shape
+        dh = torch.tensor(rng.normal(size=(T_, B_, layers[-1][1].shape[0])), dtype=torch.float32,
+                          device=dev)
+        hs_p, cs_p = fwd_p(layers, x, True)
+        hs64, cs64 = fwd_p(double(layers), x.double(), True)
+        hs, cs = fwd(layers, x, True)
+        err = max(fast_check(f"{tag} fwd {k}{i}", a, r, r64)
+                  for k, got, want, want64 in (("h", hs, hs_p, hs64), ("c", cs, cs_p, cs64))
+                  for i, (a, r, r64) in enumerate(zip(got, want, want64)))
+        shape = f"4x40, B={B_}, T={T_}, d={d_}"
+        macs = roofline.lstm_macs(T_, B_, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
+        lib_fwd, lib_bwd = library_train(layers, x, dh, torch.bfloat16)
+        results[f"{key}_fwd_fast"] = {
+            "max_abs_err": err,
+            **time_pair(f"{tag} fwd", shape, bf16_variant(fwd), bf16_variant(fwd_p), layers, x,
+                        library_ms=lib_fwd,
+                        **roofline.bound(macs, nbytes(layers, x, hs, cs), "bfloat16")),
+        }
+        args = (layers, x, hs_p, cs_p, dh)
+        got, want = bwd(*args, True), bwd_p(*args, True)
+        want64 = bwd_p(double(layers), x.double(), double(hs_p), double(cs_p), dh.double(), True)
+        err = max(fast_check(f"{tag} bwd {k}{i}", a, r, r64)
+                  for k, gs, ws, ws64 in zip(("dW", "dU", "db"), got[:3], want[:3], want64[:3])
+                  for i, (a, r, r64) in enumerate(zip(gs, ws, ws64)))
+        err = max(err, fast_check(f"{tag} bwd dx", got[3], want[3], want64[3]))
+        results[f"{key}_bwd_fast"] = {
+            "max_abs_err": err,
+            **time_pair(f"{tag} bwd", shape, bf16_variant(bwd), bf16_variant(bwd_p), *args,
+                        library_ms=lib_bwd,
+                        **roofline.bound(3 * macs, nbytes(args, got), "bfloat16")),
+        }
+
+    # K9f on run C's layer 1 (3x512, B = 128), its input layer 0's h
+    run = TRAIN_RUNS[2]
+    l0, l1 = ([p.detach() for p in (l.W, l.U, l.b)] for l in run.make(dev).layers[:2])
+    x = ct.wide_layer_fwd(first_batch(run, data, dev)[0].transpose(0, 1).contiguous(), *l0)[0]
+    W, U, b = l1
+    h_p, c_p = ct.wide_layer_fwd_plain(x, W, U, b, True)
+    h64, c64 = ct.wide_layer_fwd_plain(*double([x, W, U, b]), True)
+    h, c = ct.wide_layer_fwd(x, W, U, b, True)
+    fwd_err = max(fast_check("K9f fwd h", h, h_p, h64), fast_check("K9f fwd c", c, c_p, c64))
+    dh = torch.tensor(rng.normal(size=h_p.shape), dtype=torch.float32, device=dev)
+    args = (x, W, U, b, h_p, c_p, dh)
+    got, want = ct.wide_layer_bwd(*args, True), ct.wide_layer_bwd_plain(*args, True)
+    want64 = ct.wide_layer_bwd_plain(*double(args), True)
+    bwd_err = max(fast_check(f"K9f bwd {k}", a, r, r64)
+                  for k, a, r, r64 in zip(("dx", "dW", "dU", "db"), got, want, want64))
+    T9, B9, d9 = x.shape
+    shape = "run C's layer 1: 512 units, d=512, B=128, T=200"
+    macs = roofline.lstm_macs(T9, B9, [(d9, U.shape[0])])
+    lib_fwd, lib_bwd = library_train([(W, U, b)], x, dh, torch.bfloat16)
+    results["wide_layer_fwd_fast"] = {
+        "max_abs_err": fwd_err,
+        **time_pair("K9f fwd", shape, bf16_variant(ct.wide_layer_fwd), bf16_variant(ct.wide_layer_fwd_plain),
+                    x, W, U, b, library_ms=lib_fwd,
+                    **roofline.bound(macs, nbytes(args[:6]), "bfloat16")),
+    }
+    results["wide_layer_bwd_fast"] = {
+        "max_abs_err": bwd_err,
+        **time_pair("K9f bwd", shape, bf16_variant(ct.wide_layer_bwd), bf16_variant(ct.wide_layer_bwd_plain),
+                    *args, library_ms=lib_bwd,
+                    **roofline.bound(3 * macs, nbytes(args, got), "bfloat16")),
+    }
+
+    # K6f at run D's shapes: a fresh 512-unit layer's xp, B = 128
+    run = TRAIN_RUNS[3]
+    l = run.make(dev).layers[0]
+    W, U, b = (p.detach() for p in (l.W, l.U, l.b))
+    x = first_batch(run, data, dev)[0].transpose(0, 1).contiguous()
+    xp = (torch.matmul(x, W) + b).contiguous()
+    h_p, c_p = ct.lstm_recurrence_train_fwd_plain(xp, U, True)
+    h64, c64 = ct.lstm_recurrence_train_fwd_plain(xp.double(), U.double(), True)
+    h, c = ct.lstm_recurrence_train_fwd(xp, U, True)
+    fwd_err = max(fast_check("K6f fwd h", h, h_p, h64), fast_check("K6f fwd c", c, c_p, c64))
+    dh = torch.tensor(rng.normal(size=h_p.shape), dtype=torch.float32, device=dev)
+    args = (xp, U, h_p, c_p, dh)
+    got, want = ct.lstm_recurrence_train_bwd(*args, True), ct.lstm_recurrence_train_bwd_plain(*args, True)
+    want64 = ct.lstm_recurrence_train_bwd_plain(*double(args), True)
+    bwd_err = max(fast_check(f"K6f bwd {k}", a, r, r64) for k, a, r, r64 in zip(("dxp", "dU"), got, want, want64))
+    T6, B6, _ = xp.shape
+    shape = "run D: one 512-unit layer, B=128, T=200, xp from d=16"
+    macs = roofline.lstm_macs(T6, B6, [(0, U.shape[0])])
+    lib_fwd, lib_bwd = library_train([(W, U, b)], x, dh, torch.bfloat16)
+    results["lstm_recurrence_train_fwd_fast"] = {
+        "max_abs_err": fwd_err,
+        **time_pair("K6f fwd", shape, bf16_variant(ct.lstm_recurrence_train_fwd),
+                    bf16_variant(ct.lstm_recurrence_train_fwd_plain), xp, U, library_ms=lib_fwd,
+                    **roofline.bound(macs, nbytes(xp, U, h, c), "bfloat16")),
+    }
+    results["lstm_recurrence_train_bwd_fast"] = {
+        "max_abs_err": bwd_err,
+        **time_pair("K6f bwd", shape, bf16_variant(ct.lstm_recurrence_train_bwd),
+                    bf16_variant(ct.lstm_recurrence_train_bwd_plain), *args, library_ms=lib_bwd,
+                    **roofline.bound(3 * macs, nbytes(args, got), "bfloat16")),
+    }
+    return results
+
+
+def regime_kernels(run: TrainRun, matmul_precision: str, kernel: bool, compact: bool) -> set:
+    """The train wrappers a regime of ``run`` must launch, and no others:
+    the run's own pair (K8's for the compact regime), "_fast" in bf16;
+    none on the scan."""
+    if not kernel:
+        return set()
+    names = [k.__name__ for k in run.kernels]
+    if compact:
+        names = [n.replace("fused_narrow_train", "fused_narrow_train_compact") for n in names]
+    return {n + ("_fast" if matmul_precision == "bfloat16" else "") for n in names}
+
+
+def counted(total: dict, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, one call of the main path, with the train
+    kernels' counts set to 0 just before it and read just after; its
+    launches are added to ``total``. Returns (its result, its launches)."""
+    ct.reset_launch_counts()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in ct.LAUNCHES.items() if v}
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+    return out, launched
+
+
+def param_change(trained, init) -> torch.Tensor:
+    """The trained model's parameters less the initial model's, one float64
+    vector."""
+    return torch.cat([(a - b).detach().double().reshape(-1)
+                      for a, b in zip(trained.parameters(), init.parameters())])
+
+
+def card_busy_ms(step) -> float:
+    """The card's busy time in one train step (torch.profiler's kernels and
+    copies, ``bench.trace``), the card idle before it."""
+    from svd_lstm_tpu_torch.bench import trace
+
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = trace.op_breakdown(trace.capture_trace(step, out_dir=tmp, warmup=0))
+    return sum(s.total_ms for s in stats)
+
+
+def regime_cfg(run: TrainRun, matmul_precision: str, kernel: bool, compact: bool) -> P.TrainConfig:
+    return dataclasses.replace(run.cfg, matmul_precision=matmul_precision, recurrence_kernel=kernel,
+                               compact_gates=compact, num_windows=PRECISION_STEPS * run.cfg.batch_size,
+                               epochs=1)
+
+
+def regime_path(dev, data, launches: dict) -> None:
+    """Phase 10b: runs A and C (and D for K6f), PRECISION_STEPS Adam steps
+    of ``fit`` in each regime from the same model and windows; each
+    regime's launches (its own wrappers only), its whole-run prediction
+    (exact ``predict`` of the trained model on the test run) against the
+    exact regime's (the first: f32_scan, D's f32_kernel) within the fast
+    band, the untrained model's distance from it and the regime's change of
+    the parameters against the exact regime's change, and one train step's
+    span (CUDA events, the median of 2, the step warm from the fit) and card
+    busy time (torch.profiler); then run B's σ fine-tune and run E's gated
+    recovery in the bf16 kernel regime. The main-path calls' launches are
+    added to ``launches``."""
+    x_test = torch.tensor(data.X_test[0], device=dev)
+    # the JAX package's five training regimes, then the port's float32 kernels
+    regimes = at._TRAIN_REGIMES + (("f32_kernel", "float32", True, False),)
+    for run in TRAIN_RUNS:
+        if run.name not in PRECISION_RUNS:
+            continue
+        band, only = PRECISION_RUNS[run.name]
+        x, y = first_batch(run, data, dev)
+        base_apply, loss_extra, make_opt = at._train_apply_for(run.make(dev))
+        init = run.make(dev)
+        init_pred = P.predict(init, x_test)
+        exact_pred = exact_change = None
+        chosen = [r for name in only for r in regimes if r[0] == name] if only else regimes
+        for name, prec, kernel, compact in chosen:
+            if compact and not at._compact_candidate(run.make(dev), x):
+                continue
+            cfg = regime_cfg(run, prec, kernel, compact)
+            t0 = time.perf_counter()
+            res, delta = counted(launches, P.fit, run.make(dev), data.X_train, data.y_train, cfg)
+            wall = time.perf_counter() - t0
+            want = regime_kernels(run, prec, kernel, compact)
+            if set(delta) != want or not np.all(np.isfinite(res.history)) or res.rollbacks:
+                fail(f"run {run.name} {name}: launched {delta}, wants {sorted(want)}; history "
+                     f"{res.history}")
+            pred = P.predict(res.params, x_test)
+            change = param_change(res.params, init)
+            if exact_pred is None:
+                # the exact regime, the first: the band must tell its trained
+                # model from the untrained one (PERF.md §2)
+                exact_pred, exact_change = pred, change
+                init_err = rel_err(init_pred, pred)
+                log(f"[precision] run {run.name} {name}: the untrained model's prediction vs the "
+                    f"trained one's rel. Frobenius {init_err:.3e} (band {FAST_BAND[band]:g}); "
+                    f"parameter change {float(torch.linalg.norm(change)):.4e} over {change.numel()} "
+                    "parameters")
+                if not init_err > FAST_BAND[band]:
+                    fail(f"run {run.name}: the fast band holds the untrained model too")
+            err, change_err = rel_err(pred, exact_pred), rel_err(change, exact_change)
+            cos = float(change @ exact_change / (torch.linalg.norm(change) * torch.linalg.norm(exact_change)))
+            step = at._train_step(run.make(dev), resolve_train_apply_fn(cfg, base_apply)[0], loss_extra,
+                                  make_opt, prec, x, y)
+            span = device_time_ms(step, warmup=0, repeats=2)
+            busy = card_busy_ms(step)
+            log(f"[precision] run {run.name} {name}: {PRECISION_STEPS} steps {wall:.2f} s wall, loss "
+                f"{res.history}, launches {delta}; one step (B={run.cfg.batch_size}, T={run.cfg.window_len}) "
+                f"span {span:.3f} ms, card busy {busy:.3f} ms; whole-run prediction vs the exact regime's "
+                f"rel. Frobenius {err:.3e} (band {FAST_BAND[band]:g}); parameter change vs the exact "
+                f"regime's rel. {change_err:.3e}, cosine {cos:.6f}; {card_line()}")
+            if not err <= FAST_BAND[band]:
+                fail(f"run {run.name} {name}: the trained model's prediction left the fast band")
+
+    run = TRAIN_RUNS[1]
+    init = run.make(dev)
+    res, delta = counted(launches, P.finetune, init, data.X_train, data.y_train, run.factor_cfg,
+                         regime_cfg(run, "bfloat16", True, "auto"))
+    log(f"[precision] run {run.name} bf16 kernels: loss {res.history}, launches {delta}")
+    if set(delta) != regime_kernels(run, "bfloat16", True, False) or not np.all(np.isfinite(res.history)):
+        fail(f"run {run.name}: the bf16 fine-tune did not run through K7f")
+    check_finetune(init, res.params, data, dev)
+    run = RECOVERY_RUNS[0]
+    X, y = data.X_train, data.y_train
+    (_, info), delta = counted(launches, P.recover_reduced_gated, run.make(dev), X, y,
+                               train_cfg=regime_cfg(run, "bfloat16", True, "auto"), max_epochs=1,
+                               validation=(X[:, :GATE_STEPS], y[:GATE_STEPS]))
+    log(f"[precision] run {run.name} bf16 kernels: raw val MSE {info['raw_val_mse']:.6e}, best "
+        f"{info['best_val_mse']:.6e}, launches {delta}")
+    if (set(delta) != regime_kernels(run, "bfloat16", True, False)
+            or not info["best_val_mse"] <= info["raw_val_mse"]):
+        fail(f"run {run.name}: the bf16 recovery did not run through K8f or was not gated")
+
+
+def autotune_train_path(dev, data, launches: dict) -> None:
+    """Phase 10c: ``autotune_train`` at runs A's and C's shapes, the winner
+    stored in the smoke's cache and served back by ``tuned_train_flags``;
+    ``fit(auto_flags=True)`` from flags that say f32_scan must launch the
+    winner's kernels (its launches added to ``launches``; autotune's own
+    timing is not the main path's); then ``tune --train`` in a subprocess."""
+    for run in (TRAIN_RUNS[0], TRAIN_RUNS[2]):
+        x, y = first_batch(run, data, dev)
+        model = run.make(dev)
+        t0 = time.perf_counter()
+        r = at.autotune_train(model, x, y, repeats=2)
+        log(f"[tune-train] run {run.name} (B={x.shape[0]}, T={x.shape[1]}): winner "
+            f"{(r.matmul_precision, r.recurrence_kernel, r.compact_gates)}, "
+            + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(r.table.items(), key=lambda kv: kv[1]))
+            + f"; skipped {r.failed} ({time.perf_counter() - t0:.1f} s; {card_line()})")
+        if any(v != "compact layout ineligible for this model" for v in r.failed.values()):
+            fail(f"autotune_train {run.name}: regimes failed: {r.failed}")
+        flags = (r.matmul_precision, r.recurrence_kernel, r.compact_gates)
+        at.store_tuned(at.train_cache_key(model, x), at.encode_train_flags(*flags))
+        if at.tuned_train_flags(model, x, y) != flags:
+            fail(f"autotune_train {run.name}: the cache did not serve the winner back")
+        cfg = dataclasses.replace(regime_cfg(run, "float32", False, "auto"), auto_flags=True)
+        res, delta = counted(launches, P.fit, model, data.X_train, data.y_train, cfg)
+        want = regime_kernels(run, *flags)
+        log(f"[tune-train] run {run.name} fit(auto_flags=True): loss {res.history}, launches {delta}")
+        if set(delta) != want or not np.all(np.isfinite(res.history)):
+            fail(f"run {run.name}: fit(auto_flags=True) launched {delta}, the winner wants {sorted(want)}")
+    out = command("tune", "--train")
+    lines = out.stdout.strip().splitlines()
+    log("[tune-train] tune --train command: " + "; ".join(lines))
+    if "<- winner" not in out.stdout or "cached ->" not in out.stdout:
+        fail("tune --train: no winner stored")
+
+
+def precision_path(dev, data) -> tuple:
+    """Phase 10: the bf16 train kernels against their plain versions (10a),
+    then the regimes' runs and autotune's training half. The launches are
+    those of the main-path calls (``fit``, ``finetune``, the recovery and
+    ``fit(auto_flags=True)``), each counted from zero just before it and
+    read just after; the step timing, the profiler's capture and
+    autotune's measurements are not counted. Returns (checks, launches)."""
+    t0 = time.perf_counter()
+    with exact_matmul():
+        checks = precision_kernel_checks(dev, data)
+    launches = dict.fromkeys(ct.LAUNCHES, 0)
+    regime_path(dev, data, launches)
+    autotune_train_path(dev, data, launches)
+    log(f"[precision] train kernel launches of 10b-10c's main-path calls: {launches}; phase 10 "
+        f"took {time.perf_counter() - t0:.1f} s")
+    return checks, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only "
@@ -2372,7 +2715,7 @@ def main() -> int:
 
 
 def smoke(args) -> int:
-    """Phases 1-9 (see the module docstring)."""
+    """Phases 1-10 (see the module docstring)."""
     log(card_line())  # the card's name and power limit, as nvidia-smi prints them
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
@@ -2404,6 +2747,10 @@ def smoke(args) -> int:
     with exact_matmul(), torch.no_grad():
         deployment_path(dev, x)
         evaluation_path(dev, x, data)
+    precision_checks, precision_launches = precision_path(dev, data)
+    checks.update(precision_checks)
+    # the bf16 variants' launches: 10b-10c's main-path calls' (the float32 kernels' are phase 6's)
+    launches.update({k: v for k, v in precision_launches.items() if k.endswith("_fast")})
 
     print(json.dumps({"kernels": kernel_entries(checks, launches)}))
     print(json.dumps({

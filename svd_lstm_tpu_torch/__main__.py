@@ -17,7 +17,9 @@ Counterpart of ``svd_lstm_tpu/__main__.py``'s deployment commands:
     tune   — time every valid ``predict`` impl of a checkpoint on this
              device, print the table and store the winner in the autotune
              cache that ``predict(impl="auto")`` consults
-             (``bench/autotune.py``)
+             (``bench/autotune.py``); with ``--train`` every training
+             regime's whole train step instead, the winner's TrainConfig
+             flags stored for ``fit``'s ``auto_flags``
 
 The JAX package's other commands are not ported yet:
 ROADMAP queue 1, item 5 (the CLI).
@@ -322,24 +324,30 @@ def _tune(argv):
         "the winner in the autotune cache that predict(impl='auto') consults.",
     )
     ap.add_argument("--checkpoint", default=None, help="model checkpoint (default: random 4x40)")
-    ap.add_argument("--steps", type=int, default=2048, help="run length T")
-    ap.add_argument("--batch", type=int, default=0, help="0 = batch-1 (T, d) input")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="run length T (default: 2048 for inference, 200, the reference's "
+                    "window length, for --train)")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="0 = batch-1 (T, d) input; with --train the window batch (default 32)")
     ap.add_argument("--precision", default="exact", choices=("exact", "high", "fast"))
     ap.add_argument("--repeats", type=int, default=2, help="timing repeats per impl")
     ap.add_argument("--no-cache", action="store_true", help="measure only; skip the cache")
     ap.add_argument("--train", action="store_true",
-                    help="tune the training step (not ported: it waits for training precision)")
+                    help="tune the training step instead: one whole step (forward, backward, "
+                    "optimizer; the σ-masked Hoyer step for a singular checkpoint) in the "
+                    "f32, tf32 and bf16 scans and the bf16 kernels, and store the winner's "
+                    "TrainConfig flags (matmul_precision, recurrence_kernel, compact_gates) "
+                    "for fit's auto_flags")
     ap.add_argument("--device", default="cuda", help="where the model runs (default: the card)")
     args = ap.parse_args(argv)
-    if args.train:
-        raise NotImplementedError(
-            "tune --train is not ported yet: its regimes are TF32 and bf16 training "
-            "(ROADMAP queue 1, item 5: training precision)"
-        )
 
     from svd_lstm_tpu_torch.bench import autotune as at
 
-    shape = (args.batch, args.steps) if args.batch else (args.steps,)
+    if args.train:
+        _tune_train(args, at)
+        return
+    T = 2048 if args.steps is None else args.steps
+    shape = (args.batch, T) if args.batch else (T,)
     model, x = _model_and_input(args, shape)
     r = at.autotune(model, x, precision=args.precision, repeats=args.repeats)
     clock = "CUDA events" if x.is_cuda else "host clock"
@@ -351,6 +359,34 @@ def _tune(argv):
         print(f"  {impl:<8} FAILED: {err.splitlines()[0][:90]}")
     if not args.no_cache:
         print(f"cached -> {at.store_tuned(at.cache_key(model, x, args.precision), r.impl)}")
+
+
+def _tune_train(args, at):
+    """``tune --train``: every training regime's whole step on a window
+    batch (B = --batch or 32, T = --steps or 200) of standard normal x and
+    y from numpy's seeds 1 and 2."""
+    import numpy as np
+    import torch
+
+    B, T = args.batch or 32, 200 if args.steps is None else args.steps
+    model, x = _model_and_input(args, (B, T))
+    y = torch.tensor(np.random.default_rng(2).normal(size=(B,)), dtype=torch.float32,
+                     device=x.device)
+    r = at.autotune_train(model, x, y, repeats=args.repeats)
+    clock = "CUDA events" if x.is_cuda else "host clock"
+    print(f"device: {at.device_kind(x)}   windows (B={B}, T={T}, d={x.shape[-1]})  whole train "
+          f"step with the optimizer  ({clock})")
+    for name, ms in sorted(r.table.items(), key=lambda kv: kv[1]):
+        mark = ("  (exact regime: context, never the winner)" if name == "f32_scan"
+                else " <- winner" if ms == r.ms else "")
+        print(f"  {name:<20} {ms:10.3f} ms/step{mark}")
+    for name, err in r.failed.items():
+        print(f"  {name:<20} SKIPPED: {err.splitlines()[0][:90]}")
+    print(f"TrainConfig flags: matmul_precision={r.matmul_precision!r}, "
+          f"recurrence_kernel={r.recurrence_kernel}, compact_gates={r.compact_gates}")
+    if not args.no_cache:
+        flags = at.encode_train_flags(r.matmul_precision, r.recurrence_kernel, r.compact_gates)
+        print(f"cached -> {at.store_tuned(at.train_cache_key(model, x), flags)}")
 
 
 def main():

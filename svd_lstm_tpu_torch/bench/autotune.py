@@ -1,6 +1,7 @@
-"""Measured-best ``predict`` route, with a persistent cache.
+"""Measured-best ``predict`` route and training regime, with a persistent
+cache.
 
-Counterpart of the inference half of ``svd_lstm_tpu/bench/autotune.py``.
+Counterpart of ``svd_lstm_tpu/bench/autotune.py``.
 ``predict(impl="auto")`` routes by a table carried over from the JAX
 package, which fitted it on a TPU. This module measures the choice on the
 device that is present: it times every implementation that is valid for the
@@ -17,13 +18,20 @@ card.
 The cache file is ``$XDG_CACHE_HOME/svd_lstm_tpu_torch/autotune.json``
 (``~/.cache`` without the variable); delete it to forget every winner.
 
-The training half (``autotune_train`` and the ``auto_flags`` of ``fit``)
-is not ported: its regimes are TF32 and bf16 training, which wait for
-training precision (ROADMAP queue 1, item 5).
+The training half times one whole train step (forward, backward and the
+optimizer, the family's own: the σ-masked Hoyer fine-tune for a singular
+model) in each of the JAX package's five training regimes
+(``_TRAIN_REGIMES``) and picks the fastest relaxed one as ``TrainConfig``
+flags (:func:`autotune_train`); ``tune --train`` and
+:func:`tuned_train_flags` store them in the same file, under a key of the
+model, the window batch's shape and the device
+(:func:`train_cache_key`), and ``fit`` with ``TrainConfig.auto_flags``
+looks them up (:func:`cached_train_flags`).
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import statistics
@@ -111,6 +119,12 @@ def candidates(model, x: torch.Tensor, precision: str = "exact") -> list:
     return valid_impls(model, x, precision)
 
 
+# a candidate's refusal of its inputs (the wrappers' shape, limit and dtype
+# checks): the candidate is skipped. A kernel that fails to build or launch
+# raises anything else, which propagates: no plain version takes its place.
+_REFUSALS = (ValueError, TypeError)
+
+
 def _host_time_ms(fn, repeats: int) -> float:
     fn()
     times = []
@@ -126,8 +140,8 @@ def autotune(model, x: torch.Tensor, precision: str = "exact", impls: Sequence[s
     """Time every valid ``predict`` implementation (or ``impls``) on ``x``'s
     device and pick the fastest: CUDA events for an input on the card, the
     host's clock for a CPU input, the median of ``repeats`` after a warm-up
-    call. A candidate that raises goes into ``failed`` and the others are
-    still timed. Each candidate runs with ``consult_cache=False``, so no
+    call. A candidate that refuses its inputs (``_REFUSALS``) goes into
+    ``failed`` and the others are still timed; any other error propagates. Each candidate runs with ``consult_cache=False``, so no
     cached winner redirects ``"auto"`` while it is measured."""
     from svd_lstm_tpu_torch.api import predict
     from svd_lstm_tpu_torch.bench.devtime import device_time_ms
@@ -138,7 +152,7 @@ def autotune(model, x: torch.Tensor, precision: str = "exact", impls: Sequence[s
         try:
             table[impl] = (device_time_ms(fn, repeats=repeats) if x.is_cuda
                            else _host_time_ms(fn, repeats))
-        except Exception as e:  # noqa: BLE001 — per-candidate isolation
+        except _REFUSALS as e:
             failed[impl] = f"{type(e).__name__}: {e}"
     if not table:
         raise RuntimeError(f"every candidate failed: {failed}")
@@ -305,3 +319,191 @@ def predict_tuned(model, x: torch.Tensor, precision: str = "exact", cache_path: 
     from svd_lstm_tpu_torch.api import predict
 
     return predict(model, x, impl=tuned_impl(model, x, precision, cache_path), precision=precision)
+
+
+# ------------------------------------------------------------- training --
+
+
+class TrainTuneResult(NamedTuple):
+    matmul_precision: str          # winning TrainConfig.matmul_precision
+    recurrence_kernel: bool        # winning TrainConfig.recurrence_kernel
+    ms: float                      # its measured whole-step time
+    table: dict                    # regime -> ms for every candidate
+    failed: dict                   # regime -> why it was not measured, or its error
+    compact_gates: bool = False    # winning TrainConfig.compact_gates
+
+
+# (name, TrainConfig.matmul_precision, recurrence_kernel, compact_gates),
+# the JAX package's five. f32_scan is the exact regime, measured for context
+# and never the winner: exact training has one implementation. The others
+# relax the step's products and compete: the TF32 and bf16 scans, and the
+# bf16-operand kernels (K7f, K9f, K6f through the dispatch; K8f where
+# compact_gates picks it).
+_TRAIN_REGIMES = (
+    ("f32_scan", "float32", False, False),
+    ("tf32_scan", "tensorfloat32", False, False),
+    ("bf16_scan", "bfloat16", False, False),
+    ("fused_kernel", "bfloat16", True, False),
+    ("fused_kernel_compact", "bfloat16", True, True),
+)
+
+
+def _train_apply_for(model):
+    """The family's scan apply, loss extra and optimizer factory, as
+    ``fit`` and ``finetune`` train it, so the measured step is the step
+    that family runs. Conv hybrids raise (``_family``)."""
+    from svd_lstm_tpu_torch.models.lstm import stacked_lstm_apply
+
+    adam = lambda m: torch.optim.Adam(m.parameters(), lr=1e-3)  # noqa: E731
+    fam = _family(model)
+    if fam == "singular":
+        from svd_lstm_tpu_torch.config import FactorConfig
+        from svd_lstm_tpu_torch.models.singular import singular_lstm_apply
+        from svd_lstm_tpu_torch.train.finetune import make_finetune_optimizer, regularization_loss
+
+        fcfg = FactorConfig(hoyer=0.01)
+        return (singular_lstm_apply, lambda m: regularization_loss(m, fcfg),
+                lambda m: make_finetune_optimizer(m, fcfg))
+    if fam == "reduced":
+        from svd_lstm_tpu_torch.models.reduced import reduced_lstm_apply
+
+        return reduced_lstm_apply, None, adam
+    return stacked_lstm_apply, None, adam
+
+
+def _compact_candidate(model, x) -> bool:
+    """Whether the compact regime is a program of its own for this model:
+    the dense family (the singular and reduced views keep "auto"), and a
+    stack that K8 takes (``compact_eligible`` and ``compact_fits``)."""
+    from svd_lstm_tpu_torch.ops.cuda_train import compact_eligible, compact_fits
+
+    d = int(x.shape[-1])
+    return (_family(model) == "dense" and compact_eligible(model, d)
+            and compact_fits([l.units for l in model.layers], d))
+
+
+def _train_step(model, apply_fn, loss_extra, make_opt, matmul_precision: str, x, y):
+    """One whole train step of ``model`` (updated in place) on (x, y):
+    the window-end MSE (+ the loss extra), its backward and the optimizer,
+    under ``train_matmul_scope(matmul_precision)``."""
+    from svd_lstm_tpu_torch.train.loop import mse_last_step
+    from svd_lstm_tpu_torch.utils.precision import train_matmul_scope
+
+    opt = make_opt(model)
+
+    def step():
+        with train_matmul_scope(matmul_precision):
+            loss = mse_last_step(model, x, y, apply_fn)
+            if loss_extra is not None:
+                loss = loss + loss_extra(model)
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+            opt.step()
+
+    return step
+
+
+def autotune_train(model, x: torch.Tensor, y: torch.Tensor, repeats: int = 2,
+                   include_exact: bool = True) -> TrainTuneResult:
+    """Time one whole train step in every training regime valid for this
+    model (``_TRAIN_REGIMES``; ``include_exact=False`` leaves f32_scan out)
+    and pick the fastest relaxed one as ``TrainConfig`` flags. ``x`` (B, T,
+    d) and ``y`` (B,): a window batch on the model's device; each regime
+    trains its own copy of the model. Timed as ``autotune`` times: CUDA
+    events on the card, the host's clock on the CPU. The compact regime is
+    skipped (recorded in ``failed``) where it would run the same program as
+    fused_kernel, and a kernel regime where the family has no kernel path;
+    a regime that refuses its inputs (``_REFUSALS``) goes into ``failed``;
+    any other error, such as a kernel that fails to build or launch,
+    propagates."""
+    from svd_lstm_tpu_torch.bench.devtime import device_time_ms
+    from svd_lstm_tpu_torch.config import TrainConfig
+    from svd_lstm_tpu_torch.train.loop import resolve_train_apply_fn
+
+    base_apply, loss_extra, make_opt = _train_apply_for(model)
+    table, failed = {}, {}
+    for name, prec, kernel, compact in _TRAIN_REGIMES:
+        if name == "f32_scan" and not include_exact:
+            continue
+        apply_fn = base_apply
+        if kernel:
+            if compact and not _compact_candidate(model, x):
+                failed[name] = "compact layout ineligible for this model"
+                continue
+            apply_fn, using_kernel = resolve_train_apply_fn(
+                TrainConfig(matmul_precision=prec, recurrence_kernel=True, compact_gates=compact),
+                base_apply)
+            if not using_kernel:
+                failed[name] = "no training kernel for this model family"
+                continue
+        step = _train_step(copy.deepcopy(model), apply_fn, loss_extra, make_opt, prec, x, y)
+        try:
+            table[name] = (device_time_ms(step, repeats=repeats) if x.is_cuda
+                           else _host_time_ms(step, repeats))
+        except _REFUSALS as e:
+            failed[name] = f"{type(e).__name__}: {e}"
+    relaxed = {k: v for k, v in table.items() if k != "f32_scan"}
+    if not relaxed:
+        raise RuntimeError(f"every relaxed training regime failed: {failed}")
+    best = min(relaxed, key=relaxed.get)
+    prec, kernel, compact = {n: (p, k, c) for n, p, k, c in _TRAIN_REGIMES}[best]
+    return TrainTuneResult(matmul_precision=prec, recurrence_kernel=kernel, ms=relaxed[best],
+                           table=table, failed=failed, compact_gates=compact)
+
+
+def train_cache_key(model, x) -> str:
+    """The training regime's key: ``cache_key``'s family and leaf shapes,
+    the window batch's shape (``x`` a tensor or a shape) and the device the
+    model trains on, with the train marker; the precision is what is tuned,
+    so it is not in the key. Every field but ``device`` is the JAX
+    package's key for the same model."""
+    shape = tuple(int(s) for s in (x.shape if hasattr(x, "shape") else x))
+    return json.dumps(
+        {
+            "train": True,
+            "family": _family(model),
+            "dims": _dims(model),
+            "x": shape,
+            "device": device_kind(next(model.parameters())),
+        },
+        sort_keys=True,
+    )
+
+
+def encode_train_flags(prec: str, kernel: bool, compact: bool) -> str:
+    return f"{prec}|{int(kernel)}|{int(compact)}"
+
+
+def _decode_train_flags(val: str) -> tuple:
+    """``prec|kernel[|compact]`` (compact absent: False, as the JAX
+    package's older entries)."""
+    parts = val.split("|")
+    compact = bool(int(parts[2])) if len(parts) > 2 else False
+    return parts[0], bool(int(parts[1])), compact
+
+
+def cached_train_flags(model, x, cache_path: str | None = None) -> tuple | None:
+    """The stored ``(matmul_precision, recurrence_kernel, compact_gates)``
+    for this model, window batch (a tensor or a shape) and device, or None:
+    the read-only lookup of ``TrainConfig.auto_flags``; never measures."""
+    val = _cached_value(train_cache_key(model, x), cache_path)
+    return None if val is None else _decode_train_flags(val)
+
+
+def tuned_train_flags(model, x: torch.Tensor, y: torch.Tensor,
+                      cache_path: str | None = None) -> tuple:
+    """The best ``(matmul_precision, recurrence_kernel, compact_gates)``
+    for this model, window batch and device: measured once
+    (:func:`autotune_train`, relaxed regimes only), then served from memory
+    and the file (``cache_path=""``: memory only). Apply as
+    ``dataclasses.replace(cfg, matmul_precision=p, recurrence_kernel=k,
+    compact_gates=c)``."""
+    if cache_path is None:
+        cache_path = default_cache_path()
+    key = train_cache_key(model, x)
+    val = _cached_value(key, cache_path)
+    if val is None:
+        r = autotune_train(model, x, y, include_exact=False)
+        val = encode_train_flags(r.matmul_precision, r.recurrence_kernel, r.compact_gates)
+        store_tuned(key, val, cache_path)
+    return _decode_train_flags(val)

@@ -42,12 +42,32 @@ class ModelConfig:
 class TrainConfig:
     """Windowed-BPTT training knobs.
 
+    ``matmul_precision`` sets the products of the train step, forward and
+    backward (``utils.precision.train_matmul_scope``; validation always runs
+    exact): "float32" exact, "tensorfloat32" TF32 on the card (the JAX
+    package's 3-pass bf16 on the TPU), "bfloat16" the TPU's single-pass
+    DEFAULT dot (bf16 operands, float32 sums, a float32 result).
+
     ``recurrence_kernel=True`` runs the training recurrences through the
     hand-written CUDA train kernels (``ops/cuda_train.py``): narrow stacks
-    (every layer ≤ 128 units) through the whole-stack pair, uniform wide
-    stacks (n % 128 == 0) through the per-layer pair. Both compute in
-    float32, so unlike the JAX package's bf16-pass kernels they keep the
-    exact-mode numerics.
+    (every layer ≤ 128 units) through the whole-stack pair (K7, or K8 by
+    ``compact_gates``), uniform wide stacks (n % 128 == 0) through the
+    per-layer pair (K9), one aligned layer through the recurrence pair (K6).
+    Which kernels, by ``matmul_precision``:
+
+    * "float32": the float32 kernels, exact (the JAX package has no exact
+      train kernel: its kernels are always bf16-pass);
+    * "tensorfloat32": the float32 kernels, with the products outside them
+      (the head, K6's x-side) in TF32;
+    * "bfloat16": their bf16-operand variants (K7f, K8f, K9f, K6f: every
+      in-kernel product on bf16-rounded operands, float32 sums, state and
+      gate math), the JAX package's ``recurrence_kernel`` regime
+      (``fused_kernel`` in its training autotune).
+
+    ``auto_flags=True`` makes ``fit`` look up the autotune cache
+    (``bench/autotune.py``, written by ``tune --train``) for this model,
+    window batch and device, and on a hit train with the stored
+    ``(matmul_precision, recurrence_kernel, compact_gates)``.
 
     ``compact_gates`` picks the narrow whole-stack pair of the dense scan:
     True sends stacks of layers ≤ 64 units (input ≤ 128) whose weights fit
@@ -66,10 +86,10 @@ class TrainConfig:
     seed: int = 0
     nan_rollback: bool = True
     checkpoint_dir: str = "./model_saves"
-    matmul_precision: str = "float32"   # only "float32" is ported
+    matmul_precision: str = "float32"   # "float32", "tensorfloat32" or "bfloat16"
     recurrence_kernel: bool = False
     compact_gates: bool | str = "auto"
-    auto_flags: bool = False            # not ported
+    auto_flags: bool = False
     remat_chunk: int = 0                # not ported
 
 
@@ -98,21 +118,18 @@ class SweepConfig:
     threshold: float | None = None       # stop when the RMSE ratio exceeds this
 
 
+TRAIN_PRECISIONS = ("float32", "tensorfloat32", "bfloat16")  # TrainConfig.matmul_precision
+
+
 def check_train_config(cfg: TrainConfig) -> None:
-    """Raise ``NotImplementedError`` for the knobs the port does not have."""
-    if cfg.matmul_precision != "float32":
-        raise NotImplementedError(
-            f"matmul_precision={cfg.matmul_precision!r} is not ported yet (ROADMAP "
-            "queue 1, item 5: precision modes); use 'float32'"
+    """Raise ``ValueError`` for an unknown ``matmul_precision`` and
+    ``NotImplementedError`` for the knobs the port does not have."""
+    if cfg.matmul_precision not in TRAIN_PRECISIONS:
+        raise ValueError(
+            f"unknown matmul_precision {cfg.matmul_precision!r}; expected one of {TRAIN_PRECISIONS}"
         )
     if cfg.remat_chunk:
         raise NotImplementedError(
             "remat_chunk is not ported yet (ROADMAP queue 1, item 4: dropout and "
             "remat of the model applies); use remat_chunk=0"
-        )
-    if cfg.auto_flags:
-        raise NotImplementedError(
-            "auto_flags (the training half of the autotune cache) is not ported "
-            "yet: its regimes are TF32 and bf16 training (ROADMAP queue 1, item 5: "
-            "training precision); set the flags explicitly"
         )

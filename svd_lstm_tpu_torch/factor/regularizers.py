@@ -17,6 +17,8 @@ from __future__ import annotations
 
 import torch
 
+from svd_lstm_tpu_torch.utils.precision import dot
+
 
 def hoyer_penalty(x: torch.Tensor, coef: float = 1.0, eps: float = 1e-12) -> torch.Tensor:
     """coef * Σ|x| / (Σx² + eps)."""
@@ -47,7 +49,7 @@ def orthogonal_penalty(
         return torch.sum(m * 0.0) * factor
     norm = torch.sqrt(torch.sum(torch.square(m), dim=1, keepdim=True) + eps)
     mn = m / norm
-    gram = torch.matmul(mn, mn.t())
+    gram = dot(mn, mn.t())  # a product of the train step: it follows the regime
     off = torch.abs(gram - torch.diag(torch.diagonal(gram)))
     num_pairs = size * (size - 1.0) / 2.0
     return factor * 0.5 * torch.sum(off) / num_pairs

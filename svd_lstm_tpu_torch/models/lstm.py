@@ -18,7 +18,9 @@ The input projection ``x @ W + b`` of a whole sequence is hoisted out of the
 recurrence into one ``torch.matmul``; only ``h @ U`` runs inside the time
 loop. These plain loops are the port's own semantics (the ``scan`` impl of
 :func:`svd_lstm_tpu_torch.api.predict`); the batch-1 hot path runs the CUDA
-kernels in ``ops/cuda_lstm.py``.
+kernels in ``ops/cuda_lstm.py``. Every product goes through
+``utils.precision.dot``, so it follows the training regime of
+``train_matmul_scope`` (the plain ``torch.matmul`` outside one).
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ from typing import Callable, Sequence, Tuple
 
 import torch
 from torch import nn
+
+from svd_lstm_tpu_torch.utils.precision import dot
 
 
 class DenseHead(nn.Module):
@@ -39,7 +43,7 @@ class DenseHead(nn.Module):
         self.b = nn.Parameter(b)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(h, self.w) + self.b
+        return dot(h, self.w) + self.b
 
 
 class LSTMLayer(nn.Module):
@@ -137,9 +141,9 @@ def lstm_layer_apply(
 ):
     """Run one LSTM layer over a sequence. x_seq: (batch, T, d). Returns the
     (batch, T, units) hidden sequence (optionally plus final (h, c))."""
-    xp = torch.matmul(x_seq, layer.W) + layer.b  # (B, T, 4n): one hoisted matmul
+    xp = dot(x_seq, layer.W) + layer.b  # (B, T, 4n): one hoisted matmul
     U = layer.U
-    h_seq, state = scan_recurrence(xp, lambda h: torch.matmul(h, U), h0, c0)
+    h_seq, state = scan_recurrence(xp, lambda h: dot(h, U), h0, c0)
     return (h_seq, state) if return_state else h_seq
 
 

@@ -11,6 +11,9 @@ values, each rank-r factor triple is the exact two-step product
   the (n × 4n) recurrent kernel;
 * split kernel: per-gate (B, C) pairs with per-gate ranks, held in
   ``nn.ParameterList``s of 4 because the ranks differ.
+
+The products follow the training regime (``utils.precision.dot``,
+``einsum``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from torch import nn
 
 from svd_lstm_tpu_torch.models.lstm import DenseHead, scan_recurrence
 from svd_lstm_tpu_torch.utils.linalg import fold_IC
+from svd_lstm_tpu_torch.utils.precision import bf16_round, dot, einsum
 
 
 def _factor(v):
@@ -82,8 +86,8 @@ class ReducedLSTM(nn.Module):
 
 def two_step(x: torch.Tensor, B: torch.Tensor, C: torch.Tensor) -> torch.Tensor:
     """concat(x @ B, (x @ B) @ C) along the last axis — exact low-rank apply."""
-    xb = torch.matmul(x, B)
-    return torch.cat([xb, torch.matmul(xb, C)], dim=-1)
+    xb = dot(x, B)
+    return torch.cat([xb, dot(xb, C)], dim=-1)
 
 
 def pack_split_projection(Bs, Cs) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -102,12 +106,6 @@ def _same(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def bf16_round(t: torch.Tensor) -> torch.Tensor:
-    """``t`` rounded to bf16 (round to nearest even) and kept in its dtype:
-    the operand of a product in fast mode."""
-    return t.to(torch.bfloat16).to(t.dtype)
-
-
 def operand_map(bf16: bool):
     """The map applied to each operand of a product: ``bf16_round`` in fast
     mode, the identity in exact mode."""
@@ -119,8 +117,8 @@ def apply_split_projection(x, Bp, ICp, operand=_same) -> torch.Tensor:
     in two einsums, gate blocks concatenated -> (..., 4n). ``operand`` maps
     x and x @ B before their products (``bf16_round`` in fast mode, where the
     caller passes Bp and ICp rounded already)."""
-    xb = torch.einsum("...d,gdr->...gr", operand(x), Bp)
-    z = torch.einsum("...gr,grn->...gn", operand(xb), ICp)
+    xb = einsum("...d,gdr->...gr", operand(x), Bp)
+    z = einsum("...gr,grn->...gn", operand(xb), ICp)
     return z.reshape(*z.shape[:-2], -1)
 
 
@@ -137,7 +135,7 @@ def folded_projection(Bs, Cs, bf16: bool = False):
         Bp, ICp = operand(Bp), operand(ICp)
         return lambda v: apply_split_projection(v, Bp, ICp, operand)
     B, IC = operand(Bs), operand(fold_IC(Bs, Cs))
-    return lambda v: torch.matmul(operand(torch.matmul(operand(v), B)), IC)
+    return lambda v: dot(operand(dot(operand(v), B)), IC)
 
 
 def reduced_projection(p: ReducedLayer, x, which: str, bf16: bool = False) -> torch.Tensor:

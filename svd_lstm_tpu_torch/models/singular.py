@@ -9,7 +9,8 @@ three-step product with the singular-value vector as the bottleneck:
   leading gate axis so the 4-gate product is two batched einsums.
 
 The layout is read from ``wl.ndim`` (3 ⇒ split). The input product is hoisted
-out of the time loop; only the hidden-state product runs inside it.
+out of the time loop; only the hidden-state product runs inside it. The
+products follow the training regime (``utils.precision.dot``, ``einsum``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from torch import nn
 
 from svd_lstm_tpu_torch.models.lstm import DenseHead, scan_recurrence
+from svd_lstm_tpu_torch.utils.precision import dot, einsum
 
 
 class SingularLayer(nn.Module):
@@ -62,7 +64,7 @@ class SingularLSTM(nn.Module):
 
 def _three_step_merged(x, left, sigma, right):
     """((x @ left) * sigma) @ right."""
-    return torch.matmul(torch.matmul(x, left) * sigma, right)
+    return dot(dot(x, left) * sigma, right)
 
 
 def _three_step_split(x, left, sigma, right):
@@ -71,8 +73,8 @@ def _three_step_split(x, left, sigma, right):
     x: (..., d); left: (4, d, k); sigma: (4, k); right: (4, k, n).
     Returns (..., 4n) with gate blocks ordered [i|f|c|o].
     """
-    xg = torch.einsum("...d,gdk->...gk", x, left) * sigma
-    zg = torch.einsum("...gk,gkn->...gn", xg, right)
+    xg = einsum("...d,gdk->...gk", x, left) * sigma
+    zg = einsum("...gk,gkn->...gn", xg, right)
     return zg.reshape(*zg.shape[:-2], -1)
 
 

@@ -52,23 +52,23 @@ _SIGNATURES = {
     "fused_reduced_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
     # meta, L, P, entries, x, out, T, d, cluster, warps, home, bf16, stream
     "reduced_stack_wave_launch": [_P, _I, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # meta, L, x, T, B, d, lanes, stream
-    "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
-    # meta, L, x, dh_last, dx, T, B, d, lanes, threads, stream
-    "fused_narrow_train_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # meta, L, x, T, B, d, lanes, bf16, stream
+    "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P],
+    # meta, L, x, dh_last, dx, T, B, d, lanes, threads, bf16, stream
+    "fused_narrow_train_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # K8: as K7's
-    "fused_narrow_train_compact_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
-    "fused_narrow_train_compact_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # A, shift, dz, out, partial, M, p, G, splits, stream
-    "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # xz, Ui, h, c, T, B, stride, n, rows, units, staged, row_groups, stream
-    "wide_fwd_chain_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # meta (int64: see csrc wide_gemm_launch), stream
-    "wide_gemm_launch": [_P, _P],
+    "fused_narrow_train_compact_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "fused_narrow_train_compact_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # A, shift, dz, out, partial, M, p, G, splits, bf16, stream
+    "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xz, Ui, h, c, T, B, stride, n, rows, units, staged, row_groups, bf16, stream
+    "wide_fwd_chain_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # meta (int64: see csrc wide_gemm_launch), bf16, stream
+    "wide_gemm_launch": [_P, _I, _P],
     # partial, out, size, splits, stream
     "sum_splits_launch": [_P, _P, _I, _I, _P],
-    # z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups, stream
-    "wide_bwd_chain_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups, bf16, stream
+    "wide_bwd_chain_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # xp, Ut, h, T, B, stride, n, rows, units, bf16, stream
     "batched_lstm_recurrence_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # n, rows, units, bf16, per_sm (int*)

@@ -1,6 +1,27 @@
 // LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores, and
 // the batched fast-mode recurrence (K5), bf16 on the tensor cores.
 //
+// Every train kernel that computes a product (narrow_fwd_wave,
+// narrow_bwd_wave, weight_grad, gemm_f32, wide_bwd_chain, wide_fwd_chain)
+// has a template flag BF16: its bf16-operand variant (K7f, K8f, K9f, K6f),
+// the arithmetic of the TPU kernels' precision=DEFAULT dots. Each operand is
+// rounded to bf16 (__float2bfloat16_rn, round to nearest even) where it
+// enters a product: the narrow kernels' weights when they are staged from W
+// and U, the state vectors and dz when they are stored into shared memory
+// for the product, the wide forward chain's h tile and gemm_f32's tiles in
+// shared memory once they have landed (in place, before the barrier that
+// lets every thread read them); the copies of the
+// weights that a wrapper makes for a kernel (ops/cuda_train.py: pack_gates,
+// pack_gates_interleaved, Uᵀ) come rounded already, so a load from them
+// adds nothing to the inner loops. The product of two bf16 values is exact in
+// float32, so the sums, the cell state c, the bias, xp and the gate math
+// stay float32, and every output (h, c, dz, dx, the gradients) is float32
+// and unrounded; db sums dz unrounded, as the TPU kernels do. The rounding
+// runs on the CUDA cores, once an operand, outside the inner loops; the
+// products stay float32 FMAs, so these variants run at about the float32
+// ones' speed, not faster (the tensor cores' bf16 rate is for a later
+// redesign).
+//
 // Four forward/backward pairs, one per TPU train kernel pair on the
 // training path of svd_lstm_tpu/ops/pallas_train.py, one reduction that the
 // backward passes share, and one inference kernel:
@@ -88,6 +109,19 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// An operand of a product: rounded to bf16 and back in the BF16 variants
+// (the product of two is then exact in float32), as it is otherwise.
+template <bool BF16> __device__ __forceinline__ float opnd(float v) {
+  if constexpr (BF16) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else {
+    return v;
+  }
+}
+template <bool BF16> __device__ __forceinline__ float4 opnd4(float4 v) {
+  return make_float4(opnd<BF16>(v.x), opnd<BF16>(v.y), opnd<BF16>(v.z), opnd<BF16>(v.w));
 }
 
 // Forward cell of one (row, unit) from its four gate pre-activations.
@@ -222,7 +256,7 @@ template <int S> __device__ __forceinline__ int fwd_first_row(int l) {
   return S == 1 ? 0 : S == 2 ? 2 * l : S == 4 ? l : (l >> 1) & 3;
 }
 
-template <int S, bool kStaged>
+template <int S, bool kStaged, bool BF16>
 __global__ void __launch_bounds__(FWD_MAX_THREADS)
 narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int V) {
   extern __shared__ float4 fwd_smem[];
@@ -259,7 +293,8 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
       for (int e = tid; e < (din + n) * n; e += blockDim.x) {
         const int k = e / n, jj = e % n;
         const float* src = k < din ? ly.W + (size_t)k * 4 * n : ly.U + (size_t)(k - din) * 4 * n;
-        fwd_smem[w_entries + e] = make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]);
+        fwd_smem[w_entries + e] =
+            opnd4<BF16>(make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]));
       }
       w_entries += (din + n) * n;
     }
@@ -273,7 +308,7 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
     if (k >= 0 && k < d) {
       float r4[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) r4[r] = row0 + r < B ? x[(size_t)(row0 + r) * d + k] : 0.f;
+      for (int r = 0; r < R; ++r) r4[r] = row0 + r < B ? opnd<BF16>(x[(size_t)(row0 + r) * d + k]) : 0.f;
       v = make_float4(r4[0], r4[1], r4[2], r4[3]);
     }
     state[e] = v;
@@ -317,7 +352,8 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
   for (int s = 0; s < steps; ++s) {
     const int P = (s + 1) & 1, Q = s & 1;
     float xn = 0.f;
-    if (stager && s + 1 < T && row0 + xr < B) xn = x[((size_t)(s + 1) * B + row0 + xr) * d + xk];
+    if (stager && s + 1 < T && row0 + xr < B)
+      xn = opnd<BF16>(x[((size_t)(s + 1) * B + row0 + xr) * d + xk]);
     const int t = s - li;
     if (unit && t >= 0 && t < T) {
       float v[16];
@@ -331,7 +367,7 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
         if constexpr (kStaged) {
           w = wp[kb * w_stride];
         } else {
-          w = __ldg(wp + kb * w_stride);
+          w = __ldg(wp + kb * w_stride);  // the wrapper's copy, rounded in BF16
         }
         const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
@@ -351,7 +387,7 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
           gate_fwd(v[q * 4 + 0] + bias[0], v[q * 4 + 1] + bias[1], v[q * 4 + 2] + bias[2],
                    v[q * 4 + 3] + bias[3], c[q], hn, cn);
           c[q] = cn;
-          statef[(Q * V + h_off + j) * R + r] = hn;
+          statef[(Q * V + h_off + j) * R + r] = opnd<BF16>(hn);
           if (row0 + r < B) {
             const size_t o = ((size_t)t * B + row0 + r) * n + j;
             hout[o] = hn;
@@ -440,7 +476,7 @@ template <int S> __host__ __device__ constexpr int bwd_loads() {
   return S == 1 ? 5 : S == 2 ? 2 : 1;
 }
 
-template <int S, bool kStaged>
+template <int S, bool kStaged, bool BF16>
 __global__ void __launch_bounds__(BWD_MAX_THREADS)
 narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict__ dhl,
                 float* __restrict__ dx, int T, int B, int d, int V, int nsum) {
@@ -487,7 +523,7 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
         const int k = e / n, jj = e % n;
         const float* src = k < din ? ly.W + (size_t)k * 4 * n : ly.U + (size_t)(k - din) * 4 * n;
         bwd_smem[w_entries + k * ns + jj] =
-            make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]);
+            opnd4<BF16>(make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]));
       }
       w_entries += (din + n) * ns;
     }
@@ -545,7 +581,7 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
     if constexpr (kStaged) {
       return *p;
     } else {
-      return __ldg(p);
+      return __ldg(p);  // the wrapper's copy, rounded in BF16
     }
   };
 
@@ -600,7 +636,7 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
           }
         }
       }
-      buf[q] = v;
+      buf[q] = opnd<BF16>(v);  // an operand of the z dot only
     }
   };
   auto store_state = [&](int s, const float (&buf)[PF]) {
@@ -693,7 +729,7 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
           float gz[4];
           dc[q] = gate_bwd(v[q * 4 + 0] + bias[0], v[q * 4 + 1] + bias[1], v[q * 4 + 2] + bias[2],
                            v[q * 4 + 3] + bias[3], cp[q], ct[q], u[q] + dht[q], dc[q], gz);
-          dzs[(Q * R + r) * nsum + u_off + j] = make_float4(gz[0], gz[1], gz[2], gz[3]);
+          dzs[(Q * R + r) * nsum + u_off + j] = opnd4<BF16>(make_float4(gz[0], gz[1], gz[2], gz[3]));
           if (row < B) {
             float* out = dz_out + ((size_t)t * B + row) * 4 * n + j;
 #pragma unroll
@@ -917,7 +953,7 @@ __device__ __forceinline__ void gemm_load_b(float (*Bs)[BN + 4], const GemmSeg& 
   }
 }
 
-template <int BM, int BN, bool kAT, bool kBT>
+template <int BM, int BN, bool kAT, bool kBT, bool BF16>
 __global__ void __launch_bounds__((BM / 8) * (BN / 8), 512 / ((BM / 8) * (BN / 8)))
 gemm_f32(const GemmArgs a) {
   constexpr int NT = (BM / 8) * (BN / 8);
@@ -960,6 +996,14 @@ gemm_f32(const GemmArgs a) {
     __syncthreads();     // ... for every thread; and chunk c - 1's buffer is free
     if (c + 1 < chunks) load(c + 1, (c + 1) & 1);  // in flight while chunk c is multiplied
     const int buf = c & 1;
+    if constexpr (BF16) {  // chunk c's tiles rounded in place, once, before any thread reads them
+      // 16 bytes at a time (a float at a time spilled more than the float32 twin)
+      float4* a = reinterpret_cast<float4*>(&As[buf][0][0]);
+      float4* b = reinterpret_cast<float4*>(&Bs[buf][0][0]);
+      for (int e = tid; e < GM_BK * (BM + 4) / 4; e += NT) a[e] = opnd4<true>(a[e]);
+      for (int e = tid; e < GM_BK * (BN + 4) / 4; e += NT) b[e] = opnd4<true>(b[e]);
+      __syncthreads();
+    }
     // the next k's fragments are read while this k's are multiplied
     float4 frag[2][4];
     auto read = [&](int kk, float4* f) {
@@ -1045,7 +1089,7 @@ gemm_f32(const GemmArgs a) {
 #define CHAIN_THREADS 256
 #define CHAIN_MAX_ROW_TILES 8 // row tiles a CTA may walk each step
 
-template <int R, int J, bool kStaged>
+template <int R, int J, bool kStaged, bool BF16>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1)
 wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
                const float* __restrict__ c, const float* __restrict__ dh_seq, float* dz, float* P,
@@ -1119,7 +1163,7 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           out[g * n] = g4[g];
-          dzs[(g * J + u) * R + r] = g4[g];
+          dzs[(g * J + u) * R + r] = opnd<BF16>(g4[g]);
         }
       }
       __syncthreads();  // dzs complete
@@ -1201,7 +1245,7 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
 // ---------------------------------------------------------------------------
 #define FWD_CHAIN_THREADS 128  // a thread 4 rows x 1 unit: R·J = 512 cells a CTA
 
-template <int R, int J, bool kStaged>
+template <int R, int J, bool kStaged, bool BF16>
 __global__ void __launch_bounds__(FWD_CHAIN_THREADS, 1)
 wide_fwd_chain(const float* __restrict__ xz, const float4* __restrict__ Ui, float* h, float* c,
                int T, int B, int stride, int n, int row_tiles) {
@@ -1235,6 +1279,12 @@ wide_fwd_chain(const float* __restrict__ xz, const float4* __restrict__ Ui, floa
         }
         cp_async_commit();
         cp_async_wait<0>();
+        if constexpr (BF16) {  // the thread's own copies, landed: rounded once, in place
+          for (int e = tid; e < R * n4; e += FWD_CHAIN_THREADS) {
+            float4* q = reinterpret_cast<float4*>(hs + (e / n4) * ld + 4 * (e % n4));
+            *q = opnd4<true>(*q);
+          }
+        }
       }
       __syncthreads();  // hs complete (and the staged columns, at the first tile)
       float acc[4][4];
@@ -1506,11 +1556,13 @@ batched_chain(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ Ut, T*
 // ---------------------------------------------------------------------------
 // Weight gradients, shared by K7, K9 and K6: out (p, G) = Σ_{m<M} a_m ⊗ dz_m,
 // where a_m = A[m - shift] (zero for m < shift: h_prev is h shifted by one
-// step of B rows) or, when A is null, the constant 1 with p = 1 (db). Split
+// step of B rows) or, when A is null, the constant 1 with p = 1 (db; BF16
+// rounds a_m and dz_m, but not the dz of db). Split
 // over M into gridDim.z contiguous ranges; each split sums its range in
 // order, and sum_splits adds the splits in order. A CTA owns a 64 x 64 tile
 // of out; a thread owns 4 x 4 entries (rows ty + 16p, columns tx + 16q).
 // ---------------------------------------------------------------------------
+template <bool BF16>
 __global__ void __launch_bounds__(WG_THREADS)
 weight_grad(const float* __restrict__ A, int shift, const float* __restrict__ dz,
             float* __restrict__ out, int M, int p, int G, int chunk) {
@@ -1538,7 +1590,7 @@ weight_grad(const float* __restrict__ A, int shift, const float* __restrict__ dz
         if (A == nullptr) {
           v = 1.f;
         } else if (m >= shift) {
-          v = A[(size_t)(m - shift) * p + a];
+          v = opnd<BF16>(A[(size_t)(m - shift) * p + a]);
         }
       }
       va[q] = v;
@@ -1547,7 +1599,8 @@ weight_grad(const float* __restrict__ A, int shift, const float* __restrict__ dz
     for (int q = 0; q < D_PER; ++q) {
       const int e = threadIdx.x + q * WG_THREADS;
       const int m = m0 + e / WG_TG, g = g0 + e % WG_TG;
-      vd[q] = (m < m_end && g < G) ? dz[(size_t)m * G + g] : 0.f;
+      const float v = (m < m_end && g < G) ? dz[(size_t)m * G + g] : 0.f;
+      vd[q] = A != nullptr ? opnd<BF16>(v) : v;  // db: the unrounded sum of dz
     }
   };
   load(m_begin);
@@ -1661,15 +1714,31 @@ int fwd_threads(int nsum, int d, int S) {
   return units > stagers ? units : stagers;
 }
 
-template <int S, bool kStaged>
+template <int S, bool kStaged, bool BF16>
 int launch_wave(const FwdArgs& a, const float* x, int T, int B, int d, int threads, size_t smem,
                 cudaStream_t stream) {
-  cudaError_t err = prepare_smem(narrow_fwd_wave<S, kStaged>, smem);
+  cudaError_t err = prepare_smem(narrow_fwd_wave<S, kStaged, BF16>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
-  narrow_fwd_wave<S, kStaged><<<grid, threads, smem, stream>>>(a, x, T, B, d,
-                                                               fwd_state_entries(a, d));
+  narrow_fwd_wave<S, kStaged, BF16><<<grid, threads, smem, stream>>>(a, x, T, B, d,
+                                                                     fwd_state_entries(a, d));
   return (int)cudaGetLastError();
+}
+
+// narrow_fwd_wave at S lanes a unit and the weights' home
+template <bool BF16>
+int switch_wave(int S, bool staged, const FwdArgs& a, const float* x, int T, int B, int d,
+                int threads, size_t smem, cudaStream_t s) {
+  switch (S * 2 + (staged ? 1 : 0)) {
+    case 2: return launch_wave<1, false, BF16>(a, x, T, B, d, threads, smem, s);
+    case 3: return launch_wave<1, true, BF16>(a, x, T, B, d, threads, smem, s);
+    case 4: return launch_wave<2, false, BF16>(a, x, T, B, d, threads, smem, s);
+    case 5: return launch_wave<2, true, BF16>(a, x, T, B, d, threads, smem, s);
+    case 8: return launch_wave<4, false, BF16>(a, x, T, B, d, threads, smem, s);
+    case 9: return launch_wave<4, true, BF16>(a, x, T, B, d, threads, smem, s);
+    case 16: return launch_wave<8, false, BF16>(a, x, T, B, d, threads, smem, s);
+    default: return launch_wave<8, true, BF16>(a, x, T, B, d, threads, smem, s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1709,7 +1778,7 @@ int launch_wave(const FwdArgs& a, const float* x, int T, int B, int d, int threa
 // K7 by a shape rule (ops/cuda_train.py: compact_fits).
 // ---------------------------------------------------------------------------
 int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
-                      int lanes, bool compact, void* stream) {
+                      int lanes, bool compact, int bf16, void* stream) {
   FwdArgs a;
   const int nsum = read_fwd_layers(meta, L, a);
   if (nsum < 1 || T < 1 || B < 1 || d < 1) return (int)cudaErrorInvalidValue;
@@ -1725,28 +1794,38 @@ int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, i
       sizeof(float4);
   const float* xs = (const float*)x;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (S * 2 + (staged ? 1 : 0)) {
-    case 2: return launch_wave<1, false>(a, xs, T, B, d, threads, smem, s);
-    case 3: return launch_wave<1, true>(a, xs, T, B, d, threads, smem, s);
-    case 4: return launch_wave<2, false>(a, xs, T, B, d, threads, smem, s);
-    case 5: return launch_wave<2, true>(a, xs, T, B, d, threads, smem, s);
-    case 8: return launch_wave<4, false>(a, xs, T, B, d, threads, smem, s);
-    case 9: return launch_wave<4, true>(a, xs, T, B, d, threads, smem, s);
-    case 16: return launch_wave<8, false>(a, xs, T, B, d, threads, smem, s);
-    default: return launch_wave<8, true>(a, xs, T, B, d, threads, smem, s);
-  }
+  return bf16 ? switch_wave<true>(S, staged, a, xs, T, B, d, threads, smem, s)
+              : switch_wave<false>(S, staged, a, xs, T, B, d, threads, smem, s);
 }
 
-template <int S, bool kStaged>
+template <int S, bool kStaged, bool BF16>
 int launch_bwd_wave(const BwdArgs& a, const float* x, const float* dhl, float* dx, int T, int B,
                     int d, int V, int nsum, int threads, size_t smem, cudaStream_t stream) {
   // the state vector's R·V floats over the loads each thread makes a step
   if (NARROW_ROWS * V > bwd_loads<S>() * threads) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_smem(narrow_bwd_wave<S, kStaged>, smem);
+  cudaError_t err = prepare_smem(narrow_bwd_wave<S, kStaged, BF16>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
-  narrow_bwd_wave<S, kStaged><<<grid, threads, smem, stream>>>(a, x, dhl, dx, T, B, d, V, nsum);
+  narrow_bwd_wave<S, kStaged, BF16><<<grid, threads, smem, stream>>>(a, x, dhl, dx, T, B, d, V,
+                                                                     nsum);
   return (int)cudaGetLastError();
+}
+
+// narrow_bwd_wave at S lanes a unit and the weights' home (S = 1 only from
+// the global copy)
+template <bool BF16>
+int switch_bwd_wave(int S, bool staged, const BwdArgs& a, const float* x, const float* dh,
+                    float* dx, int T, int B, int d, int V, int nsum, int threads, size_t smem,
+                    cudaStream_t s) {
+  switch (S * 2 + (staged ? 1 : 0)) {
+    case 2: return launch_bwd_wave<1, false, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 4: return launch_bwd_wave<2, false, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 5: return launch_bwd_wave<2, true, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 8: return launch_bwd_wave<4, false, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 9: return launch_bwd_wave<4, true, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 16: return launch_bwd_wave<8, false, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    default: return launch_bwd_wave<8, true, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1783,7 +1862,7 @@ int launch_bwd_wave(const BwdArgs& a, const float* x, const float* dhl, float* d
 // group for each of the d dx units within the block.
 // ---------------------------------------------------------------------------
 int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl, void* dx, int T,
-                      int B, int d, int lanes, int threads, void* stream) {
+                      int B, int d, int lanes, int threads, int bf16, void* stream) {
   BwdArgs a;
   const int nsum = read_bwd_layers(meta, L, a);
   if (nsum < 1 || T < 1 || B < 1 || d < 1) return (int)cudaErrorInvalidValue;
@@ -1803,22 +1882,25 @@ int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl
   const float* dh = (const float*)dhl;
   float* out = (float*)dx;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (S * 2 + (staged ? 1 : 0)) {
-    case 2: return launch_bwd_wave<1, false>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
-    case 4: return launch_bwd_wave<2, false>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
-    case 5: return launch_bwd_wave<2, true>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
-    case 8: return launch_bwd_wave<4, false>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
-    case 9: return launch_bwd_wave<4, true>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
-    case 16: return launch_bwd_wave<8, false>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
-    default: return launch_bwd_wave<8, true>(a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
-  }
+  return bf16 ? switch_bwd_wave<true>(S, staged, a, xs, dh, out, T, B, d, V, nsum, threads, smem, s)
+              : switch_bwd_wave<false>(S, staged, a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
 }
 
-template <int BM, int BN, bool kAT, bool kBT>
+template <int BM, int BN, bool kAT, bool kBT, bool BF16>
 int launch_gemm(const GemmArgs& a, int splits, cudaStream_t s) {
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, splits);
-  gemm_f32<BM, BN, kAT, kBT><<<grid, (BM / 8) * (BN / 8), 0, s>>>(a);
+  gemm_f32<BM, BN, kAT, kBT, BF16><<<grid, (BM / 8) * (BN / 8), 0, s>>>(a);
   return (int)cudaGetLastError();
+}
+
+// gemm_f32 in the operand form: NN (phase R), NT (X), TN (G)
+template <bool BF16>
+int switch_gemm(int form, const GemmArgs& a, int splits, cudaStream_t s) {
+  switch (form) {
+    case 0: return launch_gemm<GM_BM, GM_BN, false, false, BF16>(a, splits, s);
+    case 1: return launch_gemm<GM_BM, GM_BN, false, true, BF16>(a, splits, s);
+    default: return launch_gemm<GM_BM, GM_BN, true, false, BF16>(a, splits, s);
+  }
 }
 
 
@@ -1827,7 +1909,7 @@ int launch_gemm(const GemmArgs& a, int splits, cudaStream_t s) {
 // occupancy of this kernel and the device's SM count), then the cooperative
 // launch; a grid that cannot be co-resident is refused, never run another
 // way.
-template <int R, int J, bool kStaged>
+template <int R, int J, bool kStaged, bool BF16>
 int launch_chain(const float* z, const float* Ut, const float* c, const float* dh, float* dz,
                  float* P, int T, int B, int stride, int n, int row_groups, cudaStream_t s) {
   const int tiles = (B + R - 1) / R;
@@ -1836,7 +1918,7 @@ int launch_chain(const float* z, const float* Ut, const float* c, const float* d
   int row_tiles = (tiles + row_groups - 1) / row_groups;
   if (row_tiles > CHAIN_MAX_ROW_TILES) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)4 * J * R + (kStaged ? (size_t)4 * J * n : 0)) * sizeof(float);
-  const auto kernel = wide_bwd_chain<R, J, kStaged>;
+  const auto kernel = wide_bwd_chain<R, J, kStaged, BF16>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -1898,7 +1980,7 @@ int launch_batched(const void* xp_, const void* Ut_, void* h_, int TT, int B, in
 
 // wide_fwd_chain at one (R, J, home): checks the shape, the shared memory
 // and co-residency, then the cooperative launch.
-template <int R, int J, bool kStaged>
+template <int R, int J, bool kStaged, bool BF16>
 int launch_fwd_chain(const float* xz, const float4* Ui, float* h, float* c, int T, int B,
                      int stride, int n, int row_groups, cudaStream_t s) {
   const int tiles = (B + R - 1) / R;
@@ -1908,7 +1990,7 @@ int launch_fwd_chain(const float* xz, const float4* Ui, float* h, float* c, int 
   if (row_tiles > CHAIN_MAX_ROW_TILES) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)R * (n + 4) + (kStaged ? (size_t)4 * J * n : 0)) * sizeof(float);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  const auto kernel = wide_fwd_chain<R, J, kStaged>;
+  const auto kernel = wide_fwd_chain<R, J, kStaged, BF16>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -1938,8 +2020,8 @@ extern "C" {
 // lanes: S, 1, 2, 4 or 8 (the wrapper's rule, ops/cuda_train.py:
 // narrow_fwd_lanes), checked here against the 1024-thread block.
 int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
-                                  int lanes, void* stream) {
-  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, false, stream);
+                                  int lanes, int bf16, void* stream) {
+  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, false, bf16, stream);
 }
 
 // K7. meta: L rows of 9 int64 — din, n, W, U, b, P: the gate-interleaved
@@ -1948,35 +2030,37 @@ int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int
 // weight_grad. lanes and threads: the wrapper's rule (ops/cuda_train.py:
 // narrow_bwd_lanes, narrow_bwd_threads), checked here.
 int fused_narrow_train_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl,
-                                  void* dx, int T, int B, int d, int lanes, int threads,
+                                  void* dx, int T, int B, int d, int lanes, int threads, int bf16,
                                   void* stream) {
-  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, stream);
+  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, bf16, stream);
 }
 
 // K8, the forward: meta and lanes as K7's, P 0 (the weights are always
 // staged).
 int fused_narrow_train_compact_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B,
-                                          int d, int lanes, void* stream) {
-  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, true, stream);
+                                          int d, int lanes, int bf16, void* stream) {
+  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, true, bf16, stream);
 }
 
 // K8, the backward: as K7's (the same kernel).
 int fused_narrow_train_compact_bwd_launch(const int64_t* meta, int L, const void* x,
                                           const void* dhl, void* dx, int T, int B, int d,
-                                          int lanes, int threads, void* stream) {
-  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, stream);
+                                          int lanes, int threads, int bf16, void* stream) {
+  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, bf16, stream);
 }
 
 // out (p, G) = Σ_m a_m ⊗ dz_m (see weight_grad); partial holds
-// splits·p·G floats when splits > 1 and may be null otherwise.
+// splits·p·G floats when splits > 1 and may be null otherwise. bf16: the
+// operands rounded (not dz where A is null: db).
 int weight_grad_launch(const void* A, int shift, const void* dz, void* out, void* partial, int M,
-                       int p, int G, int splits, void* stream) {
+                       int p, int G, int splits, int bf16, void* stream) {
   if (splits < 1 || (splits > 1 && partial == nullptr)) return (int)cudaErrorInvalidValue;
   const int chunk = ((M + splits - 1) / splits + WG_KM - 1) / WG_KM * WG_KM;
   const dim3 grid((G + WG_TG - 1) / WG_TG, (p + WG_TP - 1) / WG_TP, splits);
   float* dst = splits > 1 ? (float*)partial : (float*)out;
-  weight_grad<<<grid, WG_THREADS, 0, (cudaStream_t)stream>>>((const float*)A, shift,
-                                                             (const float*)dz, dst, M, p, G, chunk);
+  const auto kernel = bf16 ? weight_grad<true> : weight_grad<false>;
+  kernel<<<grid, WG_THREADS, 0, (cudaStream_t)stream>>>((const float*)A, shift, (const float*)dz,
+                                                        dst, M, p, G, chunk);
   if (splits > 1) {
     const int size = p * G;
     const int blocks = (size + 255) / 256 < 1024 ? (size + 255) / 256 : 1024;
@@ -1996,7 +2080,7 @@ int weight_grad_launch(const void* A, int shift, const void* dz, void* out, void
 // not chosen; a grid that cannot be co-resident is refused.
 int wide_fwd_chain_launch(const void* xz, const void* Ui, void* h, void* c, int T, int B,
                           int stride, int n, int rows, int units, int staged, int row_groups,
-                          void* stream) {
+                          int bf16, void* stream) {
   if (T < 1 || B < 1 || n < 1 || xz == nullptr || Ui == nullptr || h == nullptr || c == nullptr)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)Ui) & 15) return (int)cudaErrorMisalignedAddress;
@@ -2004,9 +2088,10 @@ int wide_fwd_chain_launch(const void* xz, const void* Ui, void* h, void* c, int 
   const float4* U4 = (const float4*)Ui;
   float *hf = (float*)h, *cf = (float*)c;
   cudaStream_t s = (cudaStream_t)stream;
-#define FWD_CASE(R_, J_, ST_)                                        \
-  if (rows == R_ && units == J_ && (staged != 0) == ST_)             \
-    return launch_fwd_chain<R_, J_, ST_>(x, U4, hf, cf, T, B, stride, n, row_groups, s);
+#define FWD_CASE(R_, J_, ST_)                                                                 \
+  if (rows == R_ && units == J_ && (staged != 0) == ST_)                                      \
+    return bf16 ? launch_fwd_chain<R_, J_, ST_, true>(x, U4, hf, cf, T, B, stride, n, row_groups, s) \
+                : launch_fwd_chain<R_, J_, ST_, false>(x, U4, hf, cf, T, B, stride, n, row_groups, s);
   FWD_CASE(32, 16, true)
   FWD_CASE(32, 16, false)
   FWD_CASE(16, 32, false)
@@ -2021,7 +2106,7 @@ int wide_fwd_chain_launch(const void* xz, const void* Ui, void* h, void* c, int 
 // lda, ldb, a_t, b_t, shift, ones_row, K (see GemmSeg; a_t: A read
 // transposed, b_t: B read transposed, the same in every segment, not both).
 // Pointers are device pointers or 0.
-int wide_gemm_launch(const int64_t* meta, void* stream) {
+int wide_gemm_launch(const int64_t* meta, int bf16, void* stream) {
   GemmArgs a;
   a.nseg = (int)meta[0];
   a.M = (int)meta[1];
@@ -2057,11 +2142,7 @@ int wide_gemm_launch(const int64_t* meta, void* stream) {
     form = f;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  switch (form) {  // NN (phase R), NT (X), TN (G)
-    case 0: return launch_gemm<GM_BM, GM_BN, false, false>(a, splits, s);
-    case 1: return launch_gemm<GM_BM, GM_BN, false, true>(a, splits, s);
-    default: return launch_gemm<GM_BM, GM_BN, true, false>(a, splits, s);
-  }
+  return bf16 ? switch_gemm<true>(form, a, splits, s) : switch_gemm<false>(form, a, splits, s);
 }
 
 // out[i] = Σ_{s<splits} partial[s·size + i], in order of s.
@@ -2083,7 +2164,7 @@ int sum_splits_launch(const void* partial, void* out, int size, int splits, void
 // here, not chosen.
 int wide_bwd_chain_launch(const void* z, const void* Ut, const void* c, const void* dh, void* dz,
                           void* P, int T, int B, int stride, int n, int rows, int units, int staged,
-                          int row_groups, void* stream) {
+                          int row_groups, int bf16, void* stream) {
   if (T < 1 || B < 1 || n < 1 || z == nullptr || Ut == nullptr || c == nullptr || dh == nullptr ||
       dz == nullptr || P == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -2092,9 +2173,12 @@ int wide_bwd_chain_launch(const void* z, const void* Ut, const void* c, const vo
               *dhf = (const float*)dh;
   float *dzf = (float*)dz, *Pf = (float*)P;
   cudaStream_t s = (cudaStream_t)stream;
-#define CHAIN_CASE(R_, J_, ST_)                                         \
-  if (rows == R_ && units == J_ && (staged != 0) == ST_)                \
-    return launch_chain<R_, J_, ST_>(zf, Uf, cf, dhf, dzf, Pf, T, B, stride, n, row_groups, s);
+#define CHAIN_CASE(R_, J_, ST_)                                                                   \
+  if (rows == R_ && units == J_ && (staged != 0) == ST_)                                          \
+    return bf16 ? launch_chain<R_, J_, ST_, true>(zf, Uf, cf, dhf, dzf, Pf, T, B, stride, n,      \
+                                                  row_groups, s)                                 \
+                : launch_chain<R_, J_, ST_, false>(zf, Uf, cf, dhf, dzf, Pf, T, B, stride, n,     \
+                                                   row_groups, s);
   CHAIN_CASE(32, 16, true)
   CHAIN_CASE(32, 16, false)
   CHAIN_CASE(16, 32, false)

@@ -31,9 +31,23 @@ memory. K9's forward is one GEMM for x·W + b over all T·B rows and one
 persistent launch for the recurrence (:func:`wide_fwd`); its backward runs
 four phases (:func:`wide_bwd`: GEMMs for z, dx and the weight gradients
 over all T·B rows, and one persistent launch for the dh chain). K6 runs
-K9's kernels with the x·W part taken out. All compute in float32 (exact
-mode). The JAX kernels' ``precision=DEFAULT`` dots are exact float32 on
-the CPU, where the tests compare.
+K9's kernels with the x·W part taken out.
+
+Every wrapper, plain version and autograd Function takes ``bf16``. False
+(exact): everything in float32. True: the bf16-operand variant, the
+arithmetic of the JAX kernels' ``precision=DEFAULT`` dots on the TPU (K7f,
+K8f, K9f, K6f): each operand of an in-kernel product rounded to bf16
+(round to nearest even) where it enters the product, the products exact,
+the sums, the state c, the bias, xp and the gate math float32, every output
+float32 and unrounded; db is the unrounded sum of dz, as the JAX kernels
+take it. The kernels round where an operand enters a product
+(``csrc/lstm_train.cu``, template flag ``BF16``), and the copies of the
+weights a wrapper makes for them (:func:`pack_gates`,
+:func:`pack_gates_interleaved`, Uᵀ) are rounded once by the wrapper; the
+plain versions round with ``bf16_round``. (On the CPU the
+JAX package's DEFAULT dots are exact float32, so its CPU output cannot show
+bf16 numerics: the tests hold the bf16 plain versions to a float64
+emulation that rounds the same operands.)
 
 Layouts are time-major, as the TPU kernels take them: x (T, B, d), every
 layer's h and c (T, B, n). The weights keep the Keras layout, unpadded: the
@@ -44,9 +58,11 @@ to n.
 A wrapper checks shapes, contiguity and the kernel's limits, then routes on
 the device of its tensors: CPU tensors take the plain version (float32 or
 float64), CUDA tensors launch the kernel (float32 only) and raise if it
-fails; there is no fallback from the card to the plain version. Each
-wrapper counts its launches in ``<wrapper>.launches``. The kernels compute
-in float32 on the CUDA cores, as the JAX package's kernels do on the CPU.
+fails; there is no fallback from the card to the plain version.
+``LAUNCHES`` counts the launches of each kernel variant (``REPLACES``'
+keys: the wrapper's name, with ``_fast`` for its bf16-operand variant); a
+wrapper adds one where it launches its kernel. The kernels compute on the
+CUDA cores.
 """
 
 from __future__ import annotations
@@ -57,8 +73,15 @@ from typing import List, NamedTuple, Sequence, Tuple
 import numpy as np
 import torch
 
-from svd_lstm_tpu_torch.models.lstm import gate_update, gate_update_bwd, stacked_lstm_apply
+from svd_lstm_tpu_torch.models.lstm import (
+    gate_update,
+    gate_update_bwd,
+    lstm_layer_apply,
+    stacked_lstm_apply,
+)
+from svd_lstm_tpu_torch.models.reduced import operand_map
 from svd_lstm_tpu_torch.ops.cuda_lstm import _SMEM_LIMIT, _check_smem, _check_T, _launch, _on_card
+from svd_lstm_tpu_torch.utils.precision import dot
 
 SOURCE = "svd_lstm_tpu_torch/ops/csrc/lstm_train.cu"
 # the TPU kernel each wrapper replaces, as file:line of its definition
@@ -72,6 +95,10 @@ REPLACES = {
     "lstm_recurrence_train_fwd": "svd_lstm_tpu/ops/pallas_train.py:105",
     "lstm_recurrence_train_bwd": "svd_lstm_tpu/ops/pallas_train.py:165",
 }
+# the bf16-operand variants replace the same TPU kernels (whose dots are
+# DEFAULT, i.e. bf16-pass, on the TPU)
+REPLACES.update({f"{name}_fast": where for name, where in list(REPLACES.items())})
+LAUNCHES = dict.fromkeys(REPLACES, 0)  # launches of each kernel variant so far
 NARROW_MAX = 128      # largest layer width and input width of K7
 MAX_LAYERS = 8        # csrc MAX_LAYERS
 NARROW_ROWS = 4       # csrc NARROW_ROWS: batch rows per CTA of K7 and K8
@@ -148,69 +175,86 @@ def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+def _count(name: str, bf16: bool) -> None:
+    LAUNCHES[f"{name}_fast" if bf16 else name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
 # ---------------------------------------------------------------------------
 # plain versions (also the CPU path of every wrapper)
 # ---------------------------------------------------------------------------
 
-def lstm_recurrence_train_fwd_plain(xp, U):
+def lstm_recurrence_train_fwd_plain(xp, U, bf16: bool = False):
     """The recurrence over time (the port of pallas_train.py:_fwd_scan_hc):
-    h, c (T, B, n) from the hoisted projection xp (T, B, 4n)."""
+    h, c (T, B, n) from the hoisted projection xp (T, B, 4n). ``bf16``: h
+    and U rounded before each product."""
     T, B, _ = xp.shape
     n = U.shape[0]
+    op = operand_map(bf16)
     h = torch.zeros((B, n), dtype=xp.dtype, device=xp.device)
     c = torch.zeros_like(h)
+    Ur = op(U)
     hs, cs = [], []
     for t in range(T):
-        h, c = gate_update(xp[t] + torch.matmul(h, U), c)
+        h, c = gate_update(xp[t] + torch.matmul(op(h), Ur), c)
         hs.append(h)
         cs.append(c)
     return torch.stack(hs), torch.stack(cs)
 
 
-def lstm_recurrence_train_bwd_plain(xp, U, h, c, dh_seq):
+def lstm_recurrence_train_bwd_plain(xp, U, h, c, dh_seq, bf16: bool = False):
     """Reverse-time backward of the recurrence through gate_update_bwd (the
-    port of pallas_train.py:_trainable_bwd). Returns (dxp, dU)."""
+    port of pallas_train.py:_trainable_bwd). Returns (dxp, dU). ``bf16``:
+    every product's operands rounded (the z recompute as the forward's)."""
     T, B, _ = xp.shape
     n = U.shape[0]
+    op = operand_map(bf16)
     zeros = torch.zeros((B, n), dtype=xp.dtype, device=xp.device)
-    h_prev = torch.cat([zeros[None], h[:-1]])
+    h_prev = op(torch.cat([zeros[None], h[:-1]]))
     c_prev = torch.cat([zeros[None], c[:-1]])
-    Ut = U.t()
+    Ur = op(U)
+    Ut = Ur.t()
     dh_c, dc = zeros, zeros
     dzs = [None] * T
     for t in range(T - 1, -1, -1):
-        z = xp[t] + torch.matmul(h_prev[t], U)  # gate recompute (remat)
+        z = xp[t] + torch.matmul(h_prev[t], Ur)  # gate recompute (remat)
         dz, dc = gate_update_bwd(z, c_prev[t], c[t], dh_seq[t] + dh_c, dc)
-        dh_c = torch.matmul(dz, Ut)
+        dh_c = torch.matmul(op(dz), Ut)
         dzs[t] = dz
     dz = torch.stack(dzs)
-    return dz, torch.einsum("tbn,tbg->ng", h_prev, dz)
+    return dz, torch.einsum("tbn,tbg->ng", h_prev, op(dz))
 
 
-def _layer_fwd_plain(x, W, U, b):
+def _layer_fwd_plain(x, W, U, b, bf16: bool = False):
     """One layer over time: h, c (T, B, n) from x (T, B, d)."""
-    return lstm_recurrence_train_fwd_plain(torch.matmul(x, W) + b, U)
+    op = operand_map(bf16)
+    return lstm_recurrence_train_fwd_plain(torch.matmul(op(x), op(W)) + b, U, bf16)
 
 
-def _layer_bwd_plain(x, W, U, b, h, c, dh_seq):
+def _layer_bwd_plain(x, W, U, b, h, c, dh_seq, bf16: bool = False):
     """Reverse-time backward of one layer. Returns (dx, dW, dU, db)."""
-    dz, dU = lstm_recurrence_train_bwd_plain(torch.matmul(x, W) + b, U, h, c, dh_seq)
-    dW = torch.einsum("tbd,tbg->dg", x, dz)
-    return torch.matmul(dz, W.t()), dW, dU, dz.sum(dim=(0, 1))
+    op = operand_map(bf16)
+    dz, dU = lstm_recurrence_train_bwd_plain(torch.matmul(op(x), op(W)) + b, U, h, c, dh_seq, bf16)
+    dW = torch.einsum("tbd,tbg->dg", op(x), op(dz))
+    return torch.matmul(op(dz), op(W).t()), dW, dU, dz.sum(dim=(0, 1))
 
 
-def fused_narrow_train_fwd_plain(layers: Sequence[Layer], x: torch.Tensor):
+def fused_narrow_train_fwd_plain(layers: Sequence[Layer], x: torch.Tensor, bf16: bool = False):
     """x (T, B, d) -> (hs, cs): every layer's h and c, (T, B, n_l) each."""
     hs, cs, inp = [], [], x
     for W, U, b in layers:
-        h, c = _layer_fwd_plain(inp, W, U, b)
+        h, c = _layer_fwd_plain(inp, W, U, b, bf16)
         hs.append(h)
         cs.append(c)
         inp = h
     return hs, cs
 
 
-def fused_narrow_train_bwd_plain(layers: Sequence[Layer], x, hs, cs, dh_last):
+def fused_narrow_train_bwd_plain(layers: Sequence[Layer], x, hs, cs, dh_last, bf16: bool = False):
     """Top-down, layer by layer, each layer in reverse time. dh_last (T, B,
     n_last) is the cotangent on the last layer's h. Returns
     (dWs, dUs, dbs, dx), the lists in layer order."""
@@ -220,18 +264,18 @@ def fused_narrow_train_bwd_plain(layers: Sequence[Layer], x, hs, cs, dh_last):
     for i in range(L - 1, -1, -1):
         W, U, b = layers[i]
         inp = x if i == 0 else hs[i - 1]
-        dh, dWs[i], dUs[i], dbs[i] = _layer_bwd_plain(inp, W, U, b, hs[i], cs[i], dh)
+        dh, dWs[i], dUs[i], dbs[i] = _layer_bwd_plain(inp, W, U, b, hs[i], cs[i], dh, bf16)
     return dWs, dUs, dbs, dh
 
 
-def wide_layer_fwd_plain(x, W, U, b):
+def wide_layer_fwd_plain(x, W, U, b, bf16: bool = False):
     """x (T, B, d) -> h, c (T, B, n)."""
-    return _layer_fwd_plain(x, W, U, b)
+    return _layer_fwd_plain(x, W, U, b, bf16)
 
 
-def wide_layer_bwd_plain(x, W, U, b, h, c, dh_seq):
+def wide_layer_bwd_plain(x, W, U, b, h, c, dh_seq, bf16: bool = False):
     """Returns (dx, dW, dU, db)."""
-    return _layer_bwd_plain(x, W, U, b, h, c, dh_seq)
+    return _layer_bwd_plain(x, W, U, b, h, c, dh_seq, bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -245,26 +289,27 @@ def _splits(M: int, p: int, G: int) -> int:
     return max(1, min(math.ceil(M / 256), math.ceil(2 * _SM_COUNT / tiles)))
 
 
-def _weight_grad(A: torch.Tensor | None, shift: int, dz: torch.Tensor) -> torch.Tensor:
+def _weight_grad(A: torch.Tensor | None, shift: int, dz: torch.Tensor, bf16: bool = False) -> torch.Tensor:
     """Σ_m a_m ⊗ dz_m over the rows of dz (M, G): a_m = A[m - shift] (zero
-    for m < shift), or 1 when A is None (then the result is (G,))."""
+    for m < shift), or 1 when A is None (then the result is (G,)). ``bf16``:
+    a_m and dz_m rounded, except for the sum of dz (A None)."""
     M, G = dz.shape
     p = 1 if A is None else A.shape[1]
     S = _splits(M, p, G)
     out = torch.empty((p, G), dtype=torch.float32, device=dz.device)
     partial = torch.empty((S, p, G), dtype=torch.float32, device=dz.device) if S > 1 else None
     _launch("weight_grad", dz.device, _ptr(A), shift, dz.data_ptr(), out.data_ptr(),
-            _ptr(partial), M, p, G, S)
+            _ptr(partial), M, p, G, S, int(bf16))
     return out[0] if A is None else out
 
 
-def _layer_weight_grads(inp, h, dz):
+def _layer_weight_grads(inp, h, dz, bf16: bool = False):
     """dW = Σ inpᵀ·dz, dU = Σ h_prevᵀ·dz, db = Σ dz for one layer."""
     T, B, G = dz.shape
     dz2 = dz.view(T * B, G)
     return (
-        _weight_grad(inp.view(T * B, -1), 0, dz2),
-        _weight_grad(h.view(T * B, -1), B, dz2),
+        _weight_grad(inp.view(T * B, -1), 0, dz2, bf16),
+        _weight_grad(h.view(T * B, -1), B, dz2, bf16),
         _weight_grad(None, 0, dz2),
     )
 
@@ -407,7 +452,7 @@ def _check_compact(name: str, units: List[int], d: int) -> None:
         )
 
 
-def _narrow_fwd(wrapper, plain, layers: Sequence[Layer], x: torch.Tensor):
+def _narrow_fwd(wrapper, plain, layers: Sequence[Layer], x: torch.Tensor, bf16: bool):
     """The checks and the launch of K7's (``fused_narrow_train_fwd``) or
     K8's (``fused_narrow_train_compact_fwd``) forward; ``plain`` runs CPU
     tensors."""
@@ -420,20 +465,21 @@ def _narrow_fwd(wrapper, plain, layers: Sequence[Layer], x: torch.Tensor):
     if resident:
         _check_compact(name, units, d)
     if not _card([x, *(w for l in layers for w in l)]):
-        return plain(layers, x)
+        return plain(layers, x, bf16)
     # K8 always stages its weights: a stack compact_fits admits fits staged
     # (tests/test_torch_narrow_fwd.py)
     staged = resident or narrow_fwd_smem_bytes(units, d, True) <= _SMEM_LIMIT
-    hs, cs = _launch_narrow_fwd(name, layers, x, narrow_fwd_lanes(units, d), staged)
-    wrapper.launches += 1
+    hs, cs = _launch_narrow_fwd(name, layers, x, narrow_fwd_lanes(units, d), staged, bf16)
+    _count(name, bf16)
     return hs, cs
 
 
 def _launch_narrow_fwd(name: str, layers: Sequence[Layer], x: torch.Tensor, lanes: int,
-                       staged: bool):
+                       staged: bool, bf16: bool = False):
     """One launch of the narrow forward ``name`` (K7's or K8's launcher) on
     checked card tensors, at ``lanes`` a unit, the weights staged in shared
-    memory or read from :func:`pack_gates`' copy."""
+    memory (the bf16 variant rounds them as it stages them) or read from
+    :func:`pack_gates`' copy (rounded here for the bf16 variant)."""
     T, B, d = x.shape
     units = [U.shape[0] for _, U, _ in layers]
     if lanes not in (1, 2, 4, 8) or narrow_fwd_threads(units, d, lanes) > FWD_MAX_THREADS:
@@ -441,17 +487,18 @@ def _launch_narrow_fwd(name: str, layers: Sequence[Layer], x: torch.Tensor, lane
     _check_smem(name, narrow_fwd_smem_bytes(units, d, staged) // 4)
     hs = [torch.empty((T, B, n), dtype=torch.float32, device=x.device) for n in units]
     cs = [torch.empty_like(h) for h in hs]
-    packed = [None if staged else pack_gates(W, U) for W, U, _ in layers]
+    op = operand_map(bf16)
+    packed = [None if staged else op(pack_gates(W, U)) for W, U, _ in layers]
     meta = np.array(
         [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), h.data_ptr(),
           c.data_ptr(), _ptr(P) or 0] for (W, U, b), h, c, P in zip(layers, hs, cs, packed)],
         dtype=np.int64,
     )
-    _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d, lanes)
+    _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d, lanes, int(bf16))
     return hs, cs
 
 
-def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last):
+def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last, bf16: bool):
     """The checks and the launches of K7's or K8's backward (the reverse-time
     kernel, then ``weight_grad`` per layer); ``plain`` runs CPU tensors."""
     name = wrapper.__name__
@@ -468,22 +515,22 @@ def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last):
         _check(f"cs[{i}]", cs[i], (T, B, n))
     _check("dh_last", dh_last, (T, B, units[-1]))
     if not _card([x, dh_last, *hs, *cs, *(w for l in layers for w in l)]):
-        return plain(layers, x, hs, cs, dh_last)
+        return plain(layers, x, hs, cs, dh_last, bf16)
     dx, dzs = _launch_narrow_bwd(name, layers, x, hs, cs, dh_last, narrow_bwd_lanes(units, d),
-                                 narrow_bwd_staged(units, d))
-    grads = [_layer_weight_grads(x if i == 0 else hs[i - 1], hs[i], dzs[i])
+                                 narrow_bwd_staged(units, d), bf16)
+    grads = [_layer_weight_grads(x if i == 0 else hs[i - 1], hs[i], dzs[i], bf16)
              for i in range(len(layers))]
-    wrapper.launches += 1
+    _count(name, bf16)
     dWs, dUs, dbs = (list(g) for g in zip(*grads))
     return dWs, dUs, dbs, dx
 
 
 def _launch_narrow_bwd(name: str, layers: Sequence[Layer], x, hs, cs, dh_last, lanes: int,
-                       staged: bool):
+                       staged: bool, bf16: bool = False):
     """One launch of the narrow backward ``name`` (K7's or K8's launcher) on
     checked card tensors, at ``lanes`` a unit, the weights staged in shared
-    memory or read from :func:`pack_gates`' copy. Returns dx (T, B, d) and
-    every layer's dz (T, B, 4n)."""
+    memory or read from :func:`pack_gates`' copy (rounded here for the bf16
+    variant). Returns dx (T, B, d) and every layer's dz (T, B, 4n)."""
     T, B, d = x.shape
     units = [U.shape[0] for _, U, _ in layers]
     if not narrow_bwd_fits(units, d, lanes, staged):
@@ -492,7 +539,8 @@ def _launch_narrow_bwd(name: str, layers: Sequence[Layer], x, hs, cs, dh_last, l
     _check_smem(name, narrow_bwd_smem_bytes(units, d, staged) // 4)
     dx = torch.empty((T, B, d), dtype=torch.float32, device=x.device)
     dzs = [torch.empty((T, B, 4 * n), dtype=torch.float32, device=x.device) for n in units]
-    packed = [None if staged else pack_gates(W, U) for W, U, _ in layers]
+    op = operand_map(bf16)
+    packed = [None if staged else op(pack_gates(W, U)) for W, U, _ in layers]
     meta = np.array(
         [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), _ptr(P) or 0,
           h.data_ptr(), c.data_ptr(), dz.data_ptr()]
@@ -500,60 +548,58 @@ def _launch_narrow_bwd(name: str, layers: Sequence[Layer], x, hs, cs, dh_last, l
         dtype=np.int64,
     )
     _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), dh_last.data_ptr(),
-            dx.data_ptr(), T, B, d, lanes, narrow_bwd_threads(units, d, lanes))
+            dx.data_ptr(), T, B, d, lanes, narrow_bwd_threads(units, d, lanes), int(bf16))
     return dx, dzs
 
 
-def fused_narrow_train_fwd(layers: Sequence[Layer], x: torch.Tensor):
-    """K7, whole-stack forward for narrow stacks (every layer n ≤ 128,
-    d ≤ 128, at most 8 layers). x (T, B, d) -> (hs, cs), (T, B, n_l) per
-    layer."""
-    return _narrow_fwd(fused_narrow_train_fwd, fused_narrow_train_fwd_plain, layers, x)
+def fused_narrow_train_fwd(layers: Sequence[Layer], x: torch.Tensor, bf16: bool = False):
+    """K7 (K7f with ``bf16``), whole-stack forward for narrow stacks (every
+    layer n ≤ 128, d ≤ 128, at most 8 layers). x (T, B, d) -> (hs, cs),
+    (T, B, n_l) per layer."""
+    return _narrow_fwd(fused_narrow_train_fwd, fused_narrow_train_fwd_plain, layers, x, bf16)
 
 
-def fused_narrow_train_bwd(layers: Sequence[Layer], x, hs, cs, dh_last):
-    """K7, whole-stack reverse-time backward. dh_last (T, B, n_last) is the
-    cotangent on the last layer's h. Returns (dWs, dUs, dbs, dx)."""
+def fused_narrow_train_bwd(layers: Sequence[Layer], x, hs, cs, dh_last, bf16: bool = False):
+    """K7 (K7f), whole-stack reverse-time backward. dh_last (T, B, n_last)
+    is the cotangent on the last layer's h. Returns (dWs, dUs, dbs, dx)."""
     return _narrow_bwd(fused_narrow_train_bwd, fused_narrow_train_bwd_plain, layers, x, hs, cs,
-                       dh_last)
+                       dh_last, bf16)
 
 
-def fused_narrow_train_compact_fwd_plain(layers: Sequence[Layer], x: torch.Tensor):
+def fused_narrow_train_compact_fwd_plain(layers: Sequence[Layer], x: torch.Tensor,
+                                         bf16: bool = False):
     """K8's function is K7's: its plain version is K7's."""
-    return fused_narrow_train_fwd_plain(layers, x)
+    return fused_narrow_train_fwd_plain(layers, x, bf16)
 
 
-def fused_narrow_train_compact_bwd_plain(layers: Sequence[Layer], x, hs, cs, dh_last):
+def fused_narrow_train_compact_bwd_plain(layers: Sequence[Layer], x, hs, cs, dh_last,
+                                         bf16: bool = False):
     """K8's function is K7's: its plain version is K7's."""
-    return fused_narrow_train_bwd_plain(layers, x, hs, cs, dh_last)
+    return fused_narrow_train_bwd_plain(layers, x, hs, cs, dh_last, bf16)
 
 
-def fused_narrow_train_compact_fwd(layers: Sequence[Layer], x: torch.Tensor):
-    """K8, the whole-stack forward with the weights resident in shared
-    memory, for compact-eligible stacks (every layer n ≤ 64, d ≤ 128) that
-    fit (:func:`compact_fits`). x (T, B, d) -> (hs, cs)."""
+def fused_narrow_train_compact_fwd(layers: Sequence[Layer], x: torch.Tensor, bf16: bool = False):
+    """K8 (K8f with ``bf16``), the whole-stack forward with the weights
+    resident in shared memory, for compact-eligible stacks (every layer
+    n ≤ 64, d ≤ 128) that fit (:func:`compact_fits`). x (T, B, d) -> (hs,
+    cs)."""
     return _narrow_fwd(fused_narrow_train_compact_fwd, fused_narrow_train_compact_fwd_plain,
-                       layers, x)
+                       layers, x, bf16)
 
 
-def fused_narrow_train_compact_bwd(layers: Sequence[Layer], x, hs, cs, dh_last):
-    """K8, the whole-stack reverse-time backward. Returns (dWs, dUs, dbs,
-    dx)."""
+def fused_narrow_train_compact_bwd(layers: Sequence[Layer], x, hs, cs, dh_last,
+                                   bf16: bool = False):
+    """K8 (K8f), the whole-stack reverse-time backward. Returns (dWs, dUs,
+    dbs, dx)."""
     return _narrow_bwd(fused_narrow_train_compact_bwd, fused_narrow_train_compact_bwd_plain,
-                       layers, x, hs, cs, dh_last)
+                       layers, x, hs, cs, dh_last, bf16)
 
 
-fused_narrow_train_fwd.launches = 0
-fused_narrow_train_bwd.launches = 0
-fused_narrow_train_compact_fwd.launches = 0
-fused_narrow_train_compact_bwd.launches = 0
-
-
-def _stack_forward(ctx, fwd, x, weights):
+def _stack_forward(ctx, fwd, bf16, x, weights):
     layers = [tuple(weights[i : i + 3]) for i in range(0, len(weights), 3)]
-    hs, cs = fwd(layers, x)
+    hs, cs = fwd(layers, x, bf16)
     ctx.save_for_backward(x, *weights, *hs, *cs)
-    ctx.num_layers = len(layers)
+    ctx.num_layers, ctx.bf16 = len(layers), bf16
     return hs[-1]
 
 
@@ -563,18 +609,19 @@ def _stack_backward(ctx, bwd, dh_last):
     x, weights = saved[0], saved[1 : 1 + 3 * L]
     hs, cs = list(saved[1 + 3 * L : 1 + 4 * L]), list(saved[1 + 4 * L :])
     layers = [tuple(weights[i : i + 3]) for i in range(0, 3 * L, 3)]
-    dWs, dUs, dbs, dx = bwd(layers, x, hs, cs, dh_last.contiguous())
-    return (dx, *(g for tri in zip(dWs, dUs, dbs) for g in tri))
+    dWs, dUs, dbs, dx = bwd(layers, x, hs, cs, dh_last.contiguous(), ctx.bf16)
+    return (None, dx, *(g for tri in zip(dWs, dUs, dbs) for g in tri))
 
 
 class FusedNarrowTrain(torch.autograd.Function):
-    """Differentiable whole-stack recurrence through K7: (x (T, B, d), W0,
-    U0, b0, W1, ...) -> the last layer's h (T, B, n_last). The forward saves
-    every layer's h and c; the backward is the reverse-time kernel."""
+    """Differentiable whole-stack recurrence through K7 (K7f with
+    ``bf16``): (bf16, x (T, B, d), W0, U0, b0, W1, ...) -> the last layer's
+    h (T, B, n_last). The forward saves every layer's h and c; the backward
+    is the reverse-time kernel."""
 
     @staticmethod
-    def forward(ctx, x, *weights):
-        return _stack_forward(ctx, fused_narrow_train_fwd, x, weights)
+    def forward(ctx, bf16, x, *weights):
+        return _stack_forward(ctx, fused_narrow_train_fwd, bf16, x, weights)
 
     @staticmethod
     def backward(ctx, dh_last):
@@ -582,38 +629,41 @@ class FusedNarrowTrain(torch.autograd.Function):
 
 
 class FusedNarrowTrainCompact(torch.autograd.Function):
-    """:class:`FusedNarrowTrain` through K8 (the same function and kernels,
-    the weights staged in shared memory)."""
+    """:class:`FusedNarrowTrain` through K8 (K8f; the same function and
+    kernels, the weights staged in shared memory)."""
 
     @staticmethod
-    def forward(ctx, x, *weights):
-        return _stack_forward(ctx, fused_narrow_train_compact_fwd, x, weights)
+    def forward(ctx, bf16, x, *weights):
+        return _stack_forward(ctx, fused_narrow_train_compact_fwd, bf16, x, weights)
 
     @staticmethod
     def backward(ctx, dh_last):
         return _stack_backward(ctx, fused_narrow_train_compact_bwd, dh_last)
 
 
-def _stack_apply(fn, model, x_seq: torch.Tensor, return_sequences: bool):
+def _stack_apply(fn, model, x_seq: torch.Tensor, return_sequences: bool, bf16: bool):
     x = x_seq.transpose(0, 1).contiguous()  # (T, B, d)
     weights = [w.contiguous() for l in model.layers for w in (l.W, l.U, l.b)]
-    h = fn.apply(x, *weights)  # (T, B, n)
+    h = fn.apply(bf16, x, *weights)  # (T, B, n)
     if not return_sequences:
         return model.head(h[-1])
     return model.head(h).transpose(0, 1)
 
 
-def fused_narrow_train_apply(model, x_seq: torch.Tensor, return_sequences: bool = True):
-    """Whole-stack trainable forward for narrow models through K7. ``model``
-    has ``layers`` (each with W, U, b) and a ``head``. x_seq (B, T, d) ->
-    (B, T, out), or (B, out) for the last step."""
-    return _stack_apply(FusedNarrowTrain, model, x_seq, return_sequences)
+def fused_narrow_train_apply(model, x_seq: torch.Tensor, return_sequences: bool = True,
+                             bf16: bool = False):
+    """Whole-stack trainable forward for narrow models through K7 (K7f with
+    ``bf16``). ``model`` has ``layers`` (each with W, U, b) and a ``head``.
+    x_seq (B, T, d) -> (B, T, out), or (B, out) for the last step."""
+    return _stack_apply(FusedNarrowTrain, model, x_seq, return_sequences, bf16)
 
 
-def fused_narrow_train_apply_compact(model, x_seq: torch.Tensor, return_sequences: bool = True):
-    """:func:`fused_narrow_train_apply` through K8, for compact-eligible
-    stacks that fit (:func:`compact_eligible`, :func:`compact_fits`)."""
-    return _stack_apply(FusedNarrowTrainCompact, model, x_seq, return_sequences)
+def fused_narrow_train_apply_compact(model, x_seq: torch.Tensor, return_sequences: bool = True,
+                                     bf16: bool = False):
+    """:func:`fused_narrow_train_apply` through K8 (K8f), for
+    compact-eligible stacks that fit (:func:`compact_eligible`,
+    :func:`compact_fits`)."""
+    return _stack_apply(FusedNarrowTrainCompact, model, x_seq, return_sequences, bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -720,19 +770,20 @@ def _seg(A: torch.Tensor, lda: int, B: torch.Tensor, ldb: int, K: int, a_t: int 
 
 
 def _gemm(C: torch.Tensor, M: int, N: int, segs, offset: int = 0, bias=None, addend=None,
-          splits: int = 1, kchunk: int = 0, split_stride: int = 0) -> None:
+          splits: int = 1, kchunk: int = 0, split_stride: int = 0, bf16: bool = False) -> None:
     """C[offset:] (M, N), row stride N, = Σ of the products ``segs`` (+ bias)
     (+ addend), by csrc gemm_f32; with ``splits`` > 1 split s of the
-    reduction goes to C[offset + s·split_stride:]."""
+    reduction goes to C[offset + s·split_stride:]. ``bf16``: every operand
+    of the products rounded (not the bias or the addend)."""
     meta = np.zeros(10 + 9 * GEMM_MAX_SEGS, dtype=np.int64)
     meta[:10] = [len(segs), M, N, C.data_ptr() + 4 * offset, N, _ptr(bias) or 0,
                  _ptr(addend) or 0, splits, kchunk, split_stride]
     for i, seg in enumerate(segs):
         meta[10 + 9 * i : 19 + 9 * i] = seg
-    _launch("wide_gemm", C.device, meta.ctypes.data)
+    _launch("wide_gemm", C.device, meta.ctypes.data, int(bf16))
 
 
-def phase_r(x, W, U, b, h) -> torch.Tensor:
+def phase_r(x, W, U, b, h, bf16: bool = False) -> torch.Tensor:
     """z (T, B, 4n) = x·W + h_prev·U + b over all T·B rows, h_prev being h
     read B rows back (zero at t = 0); K6 (W None, x the projection xp): z =
     xp + h_prev·U."""
@@ -741,16 +792,17 @@ def phase_r(x, W, U, b, h) -> torch.Tensor:
     z = torch.empty((T, B, 4 * n), dtype=torch.float32, device=x.device)
     h_prev = _seg(h, n, U, 4 * n, n, shift=B)
     if W is None:
-        _gemm(z, T * B, 4 * n, [h_prev], addend=x)
+        _gemm(z, T * B, 4 * n, [h_prev], addend=x, bf16=bf16)
     else:
-        _gemm(z, T * B, 4 * n, [_seg(x, din, W, 4 * n, din), h_prev], bias=b)
+        _gemm(z, T * B, 4 * n, [_seg(x, din, W, 4 * n, din), h_prev], bias=b, bf16=bf16)
     return z
 
 
-def phase_c(z, Ut, c, dh_seq, dz, plan: ChainPlan) -> None:
+def phase_c(z, Ut, c, dh_seq, dz, plan: ChainPlan, bf16: bool = False) -> None:
     """The dh chain (csrc wide_bwd_chain) from z and Ut = Uᵀ (4n, n): every
     step's dz into ``dz`` (T, B, 4n), one launch a chunk of the batch's
-    rows."""
+    rows. ``bf16``: dz rounded before the product dz·Uᵀ (Ut comes
+    rounded)."""
     T, B, n = c.shape
     G = 4 * n
     # the partial sums of dh: two parities of unit_groups × chunk rows × n
@@ -762,29 +814,32 @@ def phase_c(z, Ut, c, dh_seq, dz, plan: ChainPlan) -> None:
         _launch("wide_bwd_chain", z.device, z.data_ptr() + 4 * b0 * G, Ut.data_ptr(),
                 c.data_ptr() + 4 * b0 * n, dh_seq.data_ptr() + 4 * b0 * n,
                 dz.data_ptr() + 4 * b0 * G, P.data_ptr(), T, rows, B, n, plan.rows, plan.units,
-                int(plan.staged), row_groups)
+                int(plan.staged), row_groups, int(bf16))
 
 
-def phase_x(dz, W) -> torch.Tensor:
+def phase_x(dz, W, bf16: bool = False) -> torch.Tensor:
     """dx (T, B, din) = dz·Wᵀ."""
     T, B, G = dz.shape
     dx = torch.empty((T, B, W.shape[0]), dtype=torch.float32, device=dz.device)
-    _gemm(dx, T * B, W.shape[0], [_seg(dz, G, W, G, G, b_t=1)])
+    _gemm(dx, T * B, W.shape[0], [_seg(dz, G, W, G, G, b_t=1)], bf16=bf16)
     return dx
 
 
-def phase_g(inp, h, dz, sm_count: int):
+def phase_g(inp, h, dz, sm_count: int, bf16: bool = False):
     """The weight gradients over all T·B rows, split over them in a fixed
     order (:func:`gemm_splits`) and summed in order: one output of rows [dW;
     db; dU] (K9, ``inp`` the layer's input; db is a row of ones beside inp's
     columns), or dU alone (K6, ``inp`` None). Returns (dW, dU, db), views of
-    that output, or dU."""
+    that output, or dU. ``bf16``: the products' operands rounded; db, the
+    unrounded sum of dz, then comes from ``weight_grad`` (its row of the
+    output is left out of the GEMM, which would round dz)."""
     T, B, G = dz.shape
     n, M = h.shape[2], T * B
     gemms = []  # (first output row, rows, product)
     if inp is not None:
         din = inp.shape[2]
-        gemms.append((0, din + 1, _seg(inp, din, dz, G, M, a_t=1, ones_row=din)))
+        ones = -1 if bf16 else din
+        gemms.append((0, din + int(not bf16), _seg(inp, din, dz, G, M, a_t=1, ones_row=ones)))
     first = 0 if inp is None else din + 1
     gemms.append((first, n, _seg(h, n, dz, G, M, a_t=1, shift=B)))
     rows = first + n
@@ -795,11 +850,13 @@ def phase_g(inp, h, dz, sm_count: int):
     kchunk = _round_up(-(-M // S), GEMM_BK)
     for r0, r, seg in gemms:
         _gemm(partial, r, G, [seg], offset=r0 * G, splits=S, kchunk=kchunk,
-              split_stride=rows * G)
+              split_stride=rows * G, bf16=bf16)
     if S > 1:
         _launch("sum_splits", dz.device, partial.data_ptr(), out.data_ptr(), rows * G, S)
     if inp is None:
         return out
+    if bf16:
+        out[din] = _weight_grad(None, 0, dz.view(M, G))
     return out[:din], out[din + 1 :], out[din]
 
 
@@ -808,7 +865,7 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def wide_bwd(x, W, U, b, h, c, dh_seq):
+def wide_bwd(x, W, U, b, h, c, dh_seq, bf16: bool = False):
     """K9's backward (W given) or K6's (W and b None, x the projection xp)
     on checked card tensors: phase R (z), C (the dh chain, writing dz; K6's
     dz is dxp), X (dx, K9) and G (the weight gradients). Returns (dx, dW,
@@ -817,13 +874,13 @@ def wide_bwd(x, W, U, b, h, c, dh_seq):
     n = U.shape[0]
     sms = sm_count(x.device)
     plan = chain_plan(B, n, sms)
-    z = phase_r(x, W, U, b, h)
+    z = phase_r(x, W, U, b, h, bf16)
     dz = torch.empty_like(z)
-    phase_c(z, U.t().contiguous(), c, dh_seq, dz, plan)
+    phase_c(z, operand_map(bf16)(U.t().contiguous()), c, dh_seq, dz, plan, bf16)
     del z  # 4·T·B·4n bytes: freed before phases X and G
     if W is None:
-        return dz, phase_g(None, h, dz, sms)
-    return (phase_x(dz, W), *phase_g(x, h, dz, sms))
+        return dz, phase_g(None, h, dz, sms, bf16)
+    return (phase_x(dz, W, bf16), *phase_g(x, h, dz, sms, bf16))
 
 
 # ---------------------------------------------------------------------------
@@ -843,20 +900,21 @@ def pack_gates_interleaved(U: torch.Tensor) -> torch.Tensor:
     return U.reshape(n, 4, n).transpose(1, 2).contiguous()
 
 
-def phase_x_side(x, W, b) -> torch.Tensor:
+def phase_x_side(x, W, b, bf16: bool = False) -> torch.Tensor:
     """xz (T, B, 4n) = x·W + b over all T·B rows (gemm_f32 NN, the bias
     added to each row)."""
     T, B, din = x.shape
     G = W.shape[1]
     xz = torch.empty((T, B, G), dtype=torch.float32, device=x.device)
-    _gemm(xz, T * B, G, [_seg(x, din, W, G, din)], bias=b)
+    _gemm(xz, T * B, G, [_seg(x, din, W, G, din)], bias=b, bf16=bf16)
     return xz
 
 
-def phase_chain_fwd(xz, Ui, h, c, plan: ChainPlan) -> None:
+def phase_chain_fwd(xz, Ui, h, c, plan: ChainPlan, bf16: bool = False) -> None:
     """The forward chain (csrc wide_fwd_chain) from the x-side xz (T, B,
     4n) and U gate-interleaved: h and c (T, B, n), one launch a chunk of
-    the batch's rows."""
+    the batch's rows. ``bf16``: h_{t-1} rounded before the product (Ui
+    comes rounded)."""
     T, B, n = h.shape
     G = 4 * n
     for b0 in range(0, B, plan.chunk_rows):
@@ -864,20 +922,20 @@ def phase_chain_fwd(xz, Ui, h, c, plan: ChainPlan) -> None:
         row_groups = min(plan.row_groups, -(-rows // plan.rows))
         _launch("wide_fwd_chain", h.device, xz.data_ptr() + 4 * b0 * G, Ui.data_ptr(),
                 h.data_ptr() + 4 * b0 * n, c.data_ptr() + 4 * b0 * n, T, rows, B, n, plan.rows,
-                plan.units, int(plan.staged), row_groups)
+                plan.units, int(plan.staged), row_groups, int(bf16))
 
 
-def wide_fwd(x, W, U, b):
+def wide_fwd(x, W, U, b, bf16: bool = False):
     """K9's forward (W given: the x-side GEMM, then the chain) or K6's (W
     and b None, x the projection xp: the chain alone) on checked card
     tensors. Returns h, c (T, B, n)."""
     T, B, _ = x.shape
     n = U.shape[0]
     plan = fwd_chain_plan(B, n, sm_count(x.device))
-    xz = x if W is None else phase_x_side(x, W, b)
+    xz = x if W is None else phase_x_side(x, W, b, bf16)
     h = torch.empty((T, B, n), dtype=torch.float32, device=x.device)
     c = torch.empty_like(h)
-    phase_chain_fwd(xz, pack_gates_interleaved(U), h, c, plan)
+    phase_chain_fwd(xz, operand_map(bf16)(pack_gates_interleaved(U)), h, c, plan, bf16)
     return h, c
 
 
@@ -885,52 +943,51 @@ def wide_fwd(x, W, U, b):
 # K9: one wide layer, train pair
 # ---------------------------------------------------------------------------
 
-def wide_layer_fwd(x, W, U, b):
-    """One wide layer (n % 128 == 0): x (T, B, d) -> h, c (T, B, n)."""
+def wide_layer_fwd(x, W, U, b, bf16: bool = False):
+    """K9 (K9f with ``bf16``), one wide layer (n % 128 == 0): x (T, B, d)
+    -> h, c (T, B, n)."""
     T, B, din, n = _check_wide(x, W, U, b)
     if not _card([x, W, U, b]):
-        return wide_layer_fwd_plain(x, W, U, b)
-    h, c = wide_fwd(x, W, U, b)
-    wide_layer_fwd.launches += 1
+        return wide_layer_fwd_plain(x, W, U, b, bf16)
+    h, c = wide_fwd(x, W, U, b, bf16)
+    _count("wide_layer_fwd", bf16)
     return h, c
 
 
-wide_layer_fwd.launches = 0
-
-
-def wide_layer_bwd(x, W, U, b, h, c, dh_seq):
-    """Reverse-time backward of one wide layer. Returns (dx, dW, dU, db)."""
+def wide_layer_bwd(x, W, U, b, h, c, dh_seq, bf16: bool = False):
+    """K9 (K9f), reverse-time backward of one wide layer. Returns (dx, dW,
+    dU, db)."""
     T, B, din, n = _check_wide(x, W, U, b)
     for name, t in (("h", h), ("c", c), ("dh_seq", dh_seq)):
         _check(name, t, (T, B, n))
     if not _card([x, W, U, b, h, c, dh_seq]):
-        return wide_layer_bwd_plain(x, W, U, b, h, c, dh_seq)
-    grads = wide_bwd(x, W, U, b, h, c, dh_seq)
-    wide_layer_bwd.launches += 1
+        return wide_layer_bwd_plain(x, W, U, b, h, c, dh_seq, bf16)
+    grads = wide_bwd(x, W, U, b, h, c, dh_seq, bf16)
+    _count("wide_layer_bwd", bf16)
     return grads
 
 
-wide_layer_bwd.launches = 0
-
-
 class WideLayerTrain(torch.autograd.Function):
-    """Differentiable wide layer: (x (T, B, d), W, U, b) -> h (T, B, n)."""
+    """Differentiable wide layer: (bf16, x (T, B, d), W, U, b) -> h (T, B,
+    n), through K9 (K9f with ``bf16``)."""
 
     @staticmethod
-    def forward(ctx, x, W, U, b):
-        h, c = wide_layer_fwd(x, W, U, b)
+    def forward(ctx, bf16, x, W, U, b):
+        h, c = wide_layer_fwd(x, W, U, b, bf16)
         ctx.save_for_backward(x, W, U, b, h, c)
+        ctx.bf16 = bf16
         return h
 
     @staticmethod
     def backward(ctx, dh):
-        return wide_layer_bwd(*ctx.saved_tensors, dh.contiguous())
+        return (None, *wide_layer_bwd(*ctx.saved_tensors, dh.contiguous(), ctx.bf16))
 
 
-def wide_layer_trainable(x, W, U, b):
+def wide_layer_trainable(x, W, U, b, bf16: bool = False):
     """Differentiable fused LSTM layer, n % 128 == 0: x (T, B, d) time-major
     -> h_seq (T, B, n); gradients flow to all four inputs."""
-    return WideLayerTrain.apply(x.contiguous(), W.contiguous(), U.contiguous(), b.contiguous())
+    return WideLayerTrain.apply(bf16, x.contiguous(), W.contiguous(), U.contiguous(),
+                                b.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -948,58 +1005,52 @@ def _check_recurrence(xp, U) -> Tuple[int, int, int]:
     return T, B, n
 
 
-def lstm_recurrence_train_fwd(xp, U):
-    """Recurrence from the hoisted projection (bias included), n % 128 ==
-    0: xp (T, B, 4n), U (n, 4n) -> h, c (T, B, n)."""
+def lstm_recurrence_train_fwd(xp, U, bf16: bool = False):
+    """K6 (K6f with ``bf16``), the recurrence from the hoisted projection
+    (bias included), n % 128 == 0: xp (T, B, 4n), U (n, 4n) -> h, c (T, B,
+    n)."""
     T, B, n = _check_recurrence(xp, U)
     if not _card([xp, U]):
-        return lstm_recurrence_train_fwd_plain(xp, U)
-    h, c = wide_fwd(xp, None, U, None)
-    lstm_recurrence_train_fwd.launches += 1
+        return lstm_recurrence_train_fwd_plain(xp, U, bf16)
+    h, c = wide_fwd(xp, None, U, None, bf16)
+    _count("lstm_recurrence_train_fwd", bf16)
     return h, c
 
 
-lstm_recurrence_train_fwd.launches = 0
-
-
-def lstm_recurrence_train_bwd(xp, U, h, c, dh_seq):
-    """Reverse-time backward of the recurrence. Returns (dxp, dU)."""
+def lstm_recurrence_train_bwd(xp, U, h, c, dh_seq, bf16: bool = False):
+    """K6 (K6f), reverse-time backward of the recurrence. Returns (dxp,
+    dU)."""
     T, B, n = _check_recurrence(xp, U)
     for name, t in (("h", h), ("c", c), ("dh_seq", dh_seq)):
         _check(name, t, (T, B, n))
     if not _card([xp, U, h, c, dh_seq]):
-        return lstm_recurrence_train_bwd_plain(xp, U, h, c, dh_seq)
-    grads = wide_bwd(xp, None, U, None, h, c, dh_seq)
-    lstm_recurrence_train_bwd.launches += 1
+        return lstm_recurrence_train_bwd_plain(xp, U, h, c, dh_seq, bf16)
+    grads = wide_bwd(xp, None, U, None, h, c, dh_seq, bf16)
+    _count("lstm_recurrence_train_bwd", bf16)
     return grads
 
 
-lstm_recurrence_train_bwd.launches = 0
-
-KERNELS = (fused_narrow_train_fwd, fused_narrow_train_bwd, fused_narrow_train_compact_fwd,
-           fused_narrow_train_compact_bwd, wide_layer_fwd, wide_layer_bwd,
-           lstm_recurrence_train_fwd, lstm_recurrence_train_bwd)
-
-
 class RecurrenceTrain(torch.autograd.Function):
-    """Differentiable recurrence: (xp (T, B, 4n), U) -> h (T, B, n). The
-    forward saves h and c; the backward is the reverse-time kernel."""
+    """Differentiable recurrence: (bf16, xp (T, B, 4n), U) -> h (T, B, n),
+    through K6 (K6f with ``bf16``). The forward saves h and c; the backward
+    is the reverse-time kernel."""
 
     @staticmethod
-    def forward(ctx, xp, U):
-        h, c = lstm_recurrence_train_fwd(xp, U)
+    def forward(ctx, bf16, xp, U):
+        h, c = lstm_recurrence_train_fwd(xp, U, bf16)
         ctx.save_for_backward(xp, U, h, c)
+        ctx.bf16 = bf16
         return h
 
     @staticmethod
     def backward(ctx, dh):
-        return lstm_recurrence_train_bwd(*ctx.saved_tensors, dh.contiguous())
+        return (None, *lstm_recurrence_train_bwd(*ctx.saved_tensors, dh.contiguous(), ctx.bf16))
 
 
-def lstm_recurrence_trainable(xp, U):
+def lstm_recurrence_trainable(xp, U, bf16: bool = False):
     """Differentiable batched recurrence, n % 128 == 0: xp (T, B, 4n)
     time-major, bias included -> h_seq (T, B, n); gradients flow to xp and U."""
-    return RecurrenceTrain.apply(xp.contiguous(), U.contiguous())
+    return RecurrenceTrain.apply(bf16, xp.contiguous(), U.contiguous())
 
 
 # ---------------------------------------------------------------------------
@@ -1031,9 +1082,13 @@ def is_narrow(model, d_in: int) -> bool:
 
 
 def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: bool = True,
-                                  compact: bool | str = "auto"):
+                                  compact: bool | str = "auto", bf16: bool = False):
     """Drop-in training apply for ``fit`` that runs the recurrences through
-    the train kernels. ``model`` is a ``StackedLSTM`` or a ``DenseView``.
+    the train kernels, their bf16-operand variants with ``bf16`` (K7f, K8f,
+    K9f, K6f). ``model`` is a ``StackedLSTM`` or a ``DenseView``. The
+    products outside the kernels (the head, K6's x-side and the plain scan
+    of the other layers) follow the training regime
+    (``utils.precision.train_matmul_scope``).
 
     * **compact narrow stack** (``compact`` true, every layer n ≤ 64, input
       ≤ 128, and :func:`compact_fits`): one whole-stack kernel per direction
@@ -1063,9 +1118,9 @@ def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: 
     if compact == "auto":
         compact = B >= COMPACT_MIN_BATCH
     if compact and narrow and compact_eligible(model, d_in) and compact_fits(units, d_in):
-        return fused_narrow_train_apply_compact(model, x_seq, return_sequences)
+        return fused_narrow_train_apply_compact(model, x_seq, return_sequences, bf16)
     if narrow:
-        return fused_narrow_train_apply(model, x_seq, return_sequences)
+        return fused_narrow_train_apply(model, x_seq, return_sequences, bf16)
     n0 = units[0]
     uniform = len(units) >= 2 and all(u == n0 for u in units) and n0 % WIDE_ALIGN == 0 and d_in <= n0
     n_aligned = sum(1 for u in units if u % WIDE_ALIGN == 0)
@@ -1074,11 +1129,11 @@ def stacked_lstm_apply_fast_train(model, x_seq: torch.Tensor, return_sequences: 
     h = x_seq.transpose(0, 1)  # (T, B, d)
     for l in model.layers:
         if uniform:
-            h = wide_layer_trainable(h, l.W, l.U, l.b)
+            h = wide_layer_trainable(h, l.W, l.U, l.b, bf16)
         elif l.units % WIDE_ALIGN == 0:
-            h = lstm_recurrence_trainable(torch.matmul(h, l.W) + l.b, l.U)
+            h = lstm_recurrence_trainable(dot(h, l.W) + l.b, l.U, bf16)
         else:
-            h = lstm_recurrence_train_fwd_plain(torch.matmul(h, l.W) + l.b, l.U)[0]
+            h = lstm_layer_apply(l, h.transpose(0, 1)).transpose(0, 1)
     if not return_sequences:
         return model.head(h[-1])
     return model.head(h).transpose(0, 1)

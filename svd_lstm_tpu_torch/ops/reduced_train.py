@@ -17,9 +17,11 @@ autograd of the reconstruction carries them on to the factors:
     dB = dW₁ + dW₂·Cᵀ ,   dC = Bᵀ·dW₂      (dW = [dW₁ | dW₂]).
 
 Training B and C keeps the two-step parameterization, so the recovered model
-runs through the same reduced inference paths unchanged. The training loop
-runs under ``exact_matmul`` (float32, TF32 off), the counterpart of the JAX
-view's HIGHEST-precision reconstruction.
+runs through the same reduced inference paths unchanged. The reconstruction
+runs in float32 with TF32 off, forward and backward, in every training
+regime (``utils.precision.exact_products``), the counterpart of the JAX
+view's HIGHEST-precision reconstruction; ``bf16`` picks the kernels'
+bf16-operand variants.
 """
 
 from __future__ import annotations
@@ -29,6 +31,15 @@ import torch
 from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
 from svd_lstm_tpu_torch.ops.cuda_train import DenseView, LayerView, stacked_lstm_apply_fast_train
 from svd_lstm_tpu_torch.ops.layouts import _two_step_dense
+from svd_lstm_tpu_torch.utils.precision import exact_products
+
+
+def _exact_two_step_dense(Bs, Cs, split: bool) -> torch.Tensor:
+    """``_two_step_dense`` with its products exact in every regime."""
+    if not split:
+        return exact_products(lambda B, C: _two_step_dense(B, C, False), Bs, Cs)
+    k = len(Bs)
+    return exact_products(lambda *f: _two_step_dense(f[:k], f[k:], True), *Bs, *Cs)
 
 
 def reduced_dense_view(model: ReducedLSTM) -> DenseView:
@@ -38,8 +49,8 @@ def reduced_dense_view(model: ReducedLSTM) -> DenseView:
     graph of the factors."""
     layers = tuple(
         LayerView(
-            W=_two_step_dense(l.wB, l.wC, l.split),
-            U=_two_step_dense(l.uB, l.uC, l.split),
+            W=_exact_two_step_dense(l.wB, l.wC, l.split),
+            U=_exact_two_step_dense(l.uB, l.uC, l.split),
             b=l.b,
         )
         for l in model.layers
@@ -48,8 +59,10 @@ def reduced_dense_view(model: ReducedLSTM) -> DenseView:
 
 
 def reduced_lstm_apply_fast_train(
-    model: ReducedLSTM, x_seq: torch.Tensor, return_sequences: bool = True
+    model: ReducedLSTM, x_seq: torch.Tensor, return_sequences: bool = True, bf16: bool = False
 ) -> torch.Tensor:
     """Drop-in training apply for the recovery fine-tune through the dense
-    train kernels. x_seq (B, T, d) -> (B, T, out) / (B, out)."""
-    return stacked_lstm_apply_fast_train(reduced_dense_view(model), x_seq, return_sequences)
+    train kernels (their bf16-operand variants with ``bf16``). x_seq (B, T,
+    d) -> (B, T, out) / (B, out)."""
+    return stacked_lstm_apply_fast_train(reduced_dense_view(model), x_seq, return_sequences,
+                                         bf16=bf16)

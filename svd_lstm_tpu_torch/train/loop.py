@@ -11,8 +11,12 @@ The epoch order is the JAX package's, in both of its modes:
 so the ``jit_epoch`` switch of the JAX ``fit`` has no counterpart.
 
 Adam is ``torch.optim.Adam(lr)``, whose update is optax's ``adam`` (b1 0.9,
-b2 0.999, eps 1e-8 outside the square root, bias-corrected moments). The
-train steps run under ``exact_matmul()``: float32 with TF32 off.
+b2 0.999, eps 1e-8 outside the square root, bias-corrected moments), on
+float32 parameters in every regime. The train steps (loss, forward and
+backward) run under ``train_matmul_scope(cfg.matmul_precision)``: the
+step's products in the regime (the dense-view reconstructions exact), as
+the JAX ``fit`` wraps its loss in ``jax.default_matmul_precision``.
+Validation always runs exact.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from svd_lstm_tpu_torch.data.batcher import split_train_random
 from svd_lstm_tpu_torch.models.lstm import stacked_lstm_apply
 from svd_lstm_tpu_torch.models.reduced import reduced_lstm_apply
 from svd_lstm_tpu_torch.models.singular import singular_lstm_apply
+from svd_lstm_tpu_torch.utils.precision import train_matmul_scope
 
 
 @dataclasses.dataclass
@@ -126,26 +131,54 @@ def resolve_train_apply_fn(cfg: TrainConfig, apply_fn: Callable) -> tuple:
     using_kernel)``. With ``cfg.recurrence_kernel`` the dense scan, the σ
     fine-tune and the reduced recovery run through the CUDA train kernels
     (``ops/cuda_train.py``, ``ops/singular_train.py``,
-    ``ops/reduced_train.py``; on CPU tensors through their plain versions).
-    As in the JAX package, the dense scan passes ``cfg.compact_gates`` to
-    the dispatch and the singular and reduced views keep its "auto". Conv
-    models have no kernel path in the port yet. Other applies keep their
-    scan."""
+    ``ops/reduced_train.py``; on CPU tensors through their plain versions):
+    the float32 kernels, or their bf16-operand variants under
+    ``matmul_precision="bfloat16"``. As in the JAX package, the dense scan
+    passes ``cfg.compact_gates`` to the dispatch and the singular and
+    reduced views keep its "auto". Conv models have no kernel path in the
+    port yet. Other applies keep their scan."""
     if not cfg.recurrence_kernel:
         return apply_fn, False
+    bf16 = cfg.matmul_precision == "bfloat16"
     if apply_fn is stacked_lstm_apply:
         from svd_lstm_tpu_torch.ops.cuda_train import stacked_lstm_apply_fast_train
 
-        return functools.partial(stacked_lstm_apply_fast_train, compact=cfg.compact_gates), True
+        return functools.partial(stacked_lstm_apply_fast_train, compact=cfg.compact_gates,
+                                 bf16=bf16), True
     if apply_fn is singular_lstm_apply:
         from svd_lstm_tpu_torch.ops.singular_train import singular_lstm_apply_fast_train
 
-        return singular_lstm_apply_fast_train, True
+        return functools.partial(singular_lstm_apply_fast_train, bf16=bf16), True
     if apply_fn is reduced_lstm_apply:
         from svd_lstm_tpu_torch.ops.reduced_train import reduced_lstm_apply_fast_train
 
-        return reduced_lstm_apply_fast_train, True
+        return functools.partial(reduced_lstm_apply_fast_train, bf16=bf16), True
     return apply_fn, False
+
+
+def apply_cached_train_flags(cfg: TrainConfig, model, X_train, windows,
+                             verbose: bool = False) -> TrainConfig:
+    """``TrainConfig.auto_flags``: the read-only lookup of the autotune
+    cache (``tune --train`` writes it) for the measured-best
+    ``(matmul_precision, recurrence_kernel, compact_gates)`` of this model,
+    window batch (batch_size, window_len or the windows' length, d) and
+    device. A hit replaces the config's three flags; a miss returns the
+    config unchanged and never measures."""
+    from svd_lstm_tpu_torch.bench.autotune import cached_train_flags
+
+    if windows is not None:
+        shape = (cfg.batch_size, *tuple(windows[0].shape)[1:])
+    else:
+        shape = (cfg.batch_size, cfg.window_len, int(np.shape(X_train)[-1]))
+    hit = cached_train_flags(model, shape)
+    if hit is None:
+        return cfg
+    prec, kernel, compact = hit
+    if verbose:
+        print(f"auto_flags: tuned regime hit — matmul_precision={prec} "
+              f"recurrence_kernel={kernel} compact_gates={compact}")
+    return dataclasses.replace(cfg, matmul_precision=prec, recurrence_kernel=kernel,
+                               compact_gates=compact)
 
 
 def default_apply_fn(model) -> Callable:
@@ -194,9 +227,13 @@ def fit(
     ``windows=(X_mini, y_mini)`` (arrays or tensors) replaces the random
     sampler.
     ``init_opt_state`` is an optimizer state_dict to start from (a
-    ``TrainResult.opt_state``)."""
+    ``TrainResult.opt_state``). ``cfg.auto_flags`` replaces the regime's
+    flags by the autotune cache's on a hit (:func:`apply_cached_train_flags`)."""
     check_train_config(cfg)
     model = copy.deepcopy(model)
+    if cfg.auto_flags:
+        cfg = apply_cached_train_flags(cfg, model, X_train, windows, verbose)
+        check_train_config(cfg)
     if apply_fn is None:
         apply_fn = default_apply_fn(model)
     exact_apply_fn = apply_fn  # validation always runs the exact forward
@@ -236,7 +273,7 @@ def fit(
         perm = np.random.default_rng(cfg.seed + epoch).permutation(n)[:n_full]
         idx = torch.as_tensor(perm, device=device)
         losses = []
-        with exact_matmul():
+        with train_matmul_scope(cfg.matmul_precision):
             for i in range(0, n_full, cfg.batch_size):
                 sel = idx[i : i + cfg.batch_size]
                 loss = data_loss(model, X_dev[sel], y_dev[sel], apply_fn)

@@ -70,15 +70,23 @@ def test_autotune_times_every_candidate_and_isolates_a_failure(model_x, monkeypa
     assert set(r.table) == {"scan", "fused", "hybrid"} and r.failed == {}
     assert r.table[r.impl] == min(r.table.values()) == r.ms > 0
 
-    def broken(*a, **k):
-        raise RuntimeError("kernel refused")
+    def refusing(*a, **k):
+        raise ValueError("kernel refused")
 
-    monkeypatch.setattr(cuda_lstm, "fused_dense_stack", broken)
+    monkeypatch.setattr(cuda_lstm, "fused_dense_stack", refusing)
     r = at.autotune(m, x, repeats=1)
     assert set(r.failed) == {"fused"} and "kernel refused" in r.failed["fused"]
     assert set(r.table) == {"scan", "hybrid"}
     with pytest.raises(RuntimeError, match="every candidate failed"):
         at.autotune(m, x, impls=["fused"], repeats=1)
+
+    def broken(*a, **k):
+        raise RuntimeError("fused_dense_stack: kernel launch failed")
+
+    # a kernel that fails to launch is an error, not a skipped candidate
+    monkeypatch.setattr(cuda_lstm, "fused_dense_stack", broken)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        at.autotune(m, x, repeats=1)
 
 
 def _without_device(key: str) -> dict:
@@ -296,5 +304,14 @@ def test_tune_command_writes_its_cache(tmp_path):
 
 
 def test_tune_train_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli._tune(["--train", "--device", "cpu"])
+    """The training half is ported (tests/test_torch_autotune_train.py);
+    what it cannot tune yet is a conv hybrid (ROADMAP queue 1, item 7)."""
+
+    class ConvHybrid(torch.nn.Module):
+        conv = None
+
+    x = torch.zeros((2, 3, 4))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        at.autotune_train(ConvHybrid(), x, torch.zeros(2))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        at.train_cache_key(ConvHybrid(), x)

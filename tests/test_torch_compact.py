@@ -30,6 +30,8 @@ without a card. On a machine with a card:
     python -m pytest tests/test_torch_compact.py -m cuda --noconftest -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -182,7 +184,7 @@ def test_compact_gradcheck_float64():
     layers = _t(_layers_np(6, (2, 3), 3), dtype=torch.float64)
     x = _t(_normal(np.random.default_rng(7), (3, 2, 3)), dtype=torch.float64)
     inputs = [t.requires_grad_(True) for t in (x, *(w for l in layers for w in l))]
-    assert torch.autograd.gradcheck(ct.FusedNarrowTrainCompact.apply, inputs)
+    assert torch.autograd.gradcheck(functools.partial(ct.FusedNarrowTrainCompact.apply, False), inputs)
 
 
 # ---------------------------------------------------------------------------
@@ -262,7 +264,7 @@ def test_resolve_passes_compact_gates(compact_gates):
     fn, used = resolve_train_apply_fn(
         P.TrainConfig(recurrence_kernel=True, compact_gates=compact_gates), P.stacked_lstm_apply)
     assert used and fn.func is ct.stacked_lstm_apply_fast_train
-    assert fn.keywords == {"compact": compact_gates}
+    assert fn.keywords == {"compact": compact_gates, "bf16": False}
 
 
 @pytest.mark.parametrize("compact_gates,want", [(False, "K7"), ("auto", "K8"), (True, "K8")])
@@ -300,13 +302,13 @@ def test_views_take_auto(routes, family, batch, want):
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_launch_nothing():
-    before = [k.launches for k in ct.KERNELS]
+    before = dict(ct.LAUNCHES)
     layers = _t(_layers_np(11, (6, 4), 3))
     x = _t(_normal(np.random.default_rng(11), (3, 2, 3)))
     hs, cs = ct.fused_narrow_train_compact_fwd(layers, x)
     ct.fused_narrow_train_compact_bwd(layers, x, hs, cs, torch.ones_like(hs[-1]))
     ct.fused_narrow_train_apply_compact(_model((6, 4), 3), x.transpose(0, 1)).sum().backward()
-    assert [k.launches for k in ct.KERNELS] == before
+    assert ct.LAUNCHES == before
 
 
 def test_compact_wrappers_reject_bad_arguments():
@@ -330,10 +332,10 @@ def test_compact_wrappers_reject_bad_arguments():
 # ---------------------------------------------------------------------------
 
 def _launched(wrapper, fn):
-    before = wrapper.launches
+    before = ct.LAUNCHES[wrapper.__name__]
     out = fn()
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert ct.LAUNCHES[wrapper.__name__] == before + 1
     return out
 
 
@@ -375,8 +377,9 @@ def test_cuda_compact_matches_plain(cuda, units, d, batch, steps, monkeypatch):
 def test_cuda_dispatch_launches_k8(cuda):
     m = from_numpy_tree(_tree(_layers_np(15, (40, 40), 16), 16), device=cuda)
     x = _t(_normal(np.random.default_rng(17), (128, 10, 16)), cuda)
-    before = (ct.fused_narrow_train_compact_fwd.launches, ct.fused_narrow_train_compact_bwd.launches)
+    names = ("fused_narrow_train_compact_fwd", "fused_narrow_train_compact_bwd")
+    before = tuple(ct.LAUNCHES[k] for k in names)
     ct.stacked_lstm_apply_fast_train(m, x, return_sequences=False).sum().backward()
     torch.cuda.synchronize()
-    after = (ct.fused_narrow_train_compact_fwd.launches, ct.fused_narrow_train_compact_bwd.launches)
+    after = tuple(ct.LAUNCHES[k] for k in names)
     assert after == (before[0] + 1, before[1] + 1)

@@ -136,7 +136,7 @@ def test_apply_routes_reduced_models():
     model = P.from_numpy_tree(_reduced_jax(True), device="cpu")
     assert default_apply_fn(model) is P.reduced_lstm_apply
     fn, used = resolve_train_apply_fn(pcfg.TrainConfig(recurrence_kernel=True), P.reduced_lstm_apply)
-    assert used and fn is reduced_lstm_apply_fast_train
+    assert used and fn.func is reduced_lstm_apply_fast_train and fn.keywords == {"bf16": False}
 
 
 # ---------------------------------------------------------------------------
@@ -278,8 +278,8 @@ def test_harvest_sigmas_matches_jax(tiny_dense):
 
 
 def test_recovery_launches_nothing_on_cpu(tiny_run):
-    before = [k.launches for k in ct.KERNELS]
+    before = dict(ct.LAUNCHES)
     X, y = tiny_run
     P.finetune_reduced(P.from_numpy_tree(_reduced_jax(True, units=(8,), d=4, rank=3), device="cpu"), X, y,
                        train_cfg=_gate_cfg(pcfg, recurrence_kernel=True))
-    assert [k.launches for k in ct.KERNELS] == before
+    assert ct.LAUNCHES == before

@@ -80,11 +80,15 @@ def test_config_defaults_match_jax(name):
 
 
 def test_unported_knobs_raise(data, windows):
+    """remat_chunk still raises, naming its ROADMAP item; an unknown
+    matmul_precision is refused (the three regimes and auto_flags are
+    ported: tests/test_torch_train_precision.py, test_torch_autotune_train.py)."""
     model = P.from_numpy_tree(jax_init(jax.random.PRNGKey(0), input_dim=16, units=(4,)), device="cpu")
-    for kw in (dict(matmul_precision="bfloat16"), dict(matmul_precision="tensorfloat32"),
-               dict(remat_chunk=4), dict(auto_flags=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            P.fit(model, data.X_train, data.y_train, _train_cfg(pcfg, **kw), windows=windows)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+        P.fit(model, data.X_train, data.y_train, _train_cfg(pcfg, remat_chunk=4), windows=windows)
+    with pytest.raises(ValueError, match="matmul_precision"):
+        P.fit(model, data.X_train, data.y_train, _train_cfg(pcfg, matmul_precision="float16"),
+              windows=windows)
     smodel = P.make_singular_model(model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.finetune(smodel, data.X_train, data.y_train, pcfg.FactorConfig(dropout=0.1),

@@ -26,6 +26,8 @@ and skip without a card. On a machine with a card:
     python -m pytest tests/test_torch_train_kernels.py -m cuda --noconftest -q
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -202,7 +204,7 @@ def test_recurrence_train_matches_jax(T, B):
         dxp, dU = bwd(*_t([xp, U]), h, c, _t(cot))
         _close(dxp, dxp_j, _scaled(dxp_j), "dxp")
         _close(dU, dU_j, _scaled(dU_j), "dU")
-    out, (dxp, dU) = _loss_and_grads(ct.RecurrenceTrain.apply, _t([xp, U]), _t(cot))
+    out, (dxp, dU) = _loss_and_grads(functools.partial(ct.RecurrenceTrain.apply, False), _t([xp, U]), _t(cot))
     _close(out, h_j, dict(atol=1e-5, rtol=0), "Function h")
     _close(dxp, dxp_j, _scaled(dxp_j), "Function dxp")
     _close(dU, dU_j, _scaled(dU_j), "Function dU")
@@ -229,7 +231,7 @@ def test_fused_narrow_function_matches_autograd_of_plain():
     def oracle(x, *w):
         return ct.fused_narrow_train_fwd_plain([w[i : i + 3] for i in range(0, len(w), 3)], x)[0][-1]
 
-    out_k, g_k = _loss_and_grads(ct.FusedNarrowTrain.apply, flat, cot)
+    out_k, g_k = _loss_and_grads(functools.partial(ct.FusedNarrowTrain.apply, False), flat, cot)
     out_r, g_r = _loss_and_grads(oracle, flat, cot)
     _close(out_k, out_r.numpy())
     for i, (a, r) in enumerate(zip(g_k, g_r)):
@@ -239,7 +241,7 @@ def test_fused_narrow_function_matches_autograd_of_plain():
 def test_wide_layer_function_matches_autograd_of_plain():
     x, W, U, b, cot = _wide_case(5, 24)
     flat = _t([x, W, U, b])
-    out_k, g_k = _loss_and_grads(ct.WideLayerTrain.apply, flat, _t(cot))
+    out_k, g_k = _loss_and_grads(functools.partial(ct.WideLayerTrain.apply, False), flat, _t(cot))
     out_r, g_r = _loss_and_grads(lambda *a: ct.wide_layer_fwd_plain(*a)[0], flat, _t(cot))
     _close(out_k, out_r.numpy())
     for name, a, r in zip("xWUb", g_k, g_r):
@@ -249,7 +251,7 @@ def test_wide_layer_function_matches_autograd_of_plain():
 def test_recurrence_function_matches_autograd_of_plain():
     xp, U, cot = _recurrence_case(24, 6, 5)
     flat = _t([xp, U])
-    out_k, g_k = _loss_and_grads(ct.RecurrenceTrain.apply, flat, _t(cot))
+    out_k, g_k = _loss_and_grads(functools.partial(ct.RecurrenceTrain.apply, False), flat, _t(cot))
     out_r, g_r = _loss_and_grads(lambda *a: ct.lstm_recurrence_train_fwd_plain(*a)[0], flat, _t(cot))
     _close(out_k, out_r.numpy())
     for name, a, r in zip(("xp", "U"), g_k, g_r):
@@ -259,14 +261,14 @@ def test_recurrence_function_matches_autograd_of_plain():
 def test_recurrence_gradcheck_float64():
     xp, U, _ = _recurrence_case(25, 2, 2)
     inputs = [t.requires_grad_(True) for t in _t([xp, U], dtype=torch.float64)]
-    assert torch.autograd.gradcheck(ct.RecurrenceTrain.apply, inputs, fast_mode=True)
+    assert torch.autograd.gradcheck(functools.partial(ct.RecurrenceTrain.apply, False), inputs, fast_mode=True)
 
 
 def test_fused_narrow_gradcheck_float64():
     layers = _t(_layers_np(6, (2, 3), 3), dtype=torch.float64)
     x = _t(_normal(np.random.default_rng(7), (3, 2, 3)), dtype=torch.float64)
     inputs = [t.requires_grad_(True) for t in (x, *(w for l in layers for w in l))]
-    assert torch.autograd.gradcheck(ct.FusedNarrowTrain.apply, inputs)
+    assert torch.autograd.gradcheck(functools.partial(ct.FusedNarrowTrain.apply, False), inputs)
 
 
 def test_wide_layer_gradcheck_float64():
@@ -274,7 +276,7 @@ def test_wide_layer_gradcheck_float64():
     W, U, b = _layers_np(8, (WIDE_N,), 3)[0]
     inputs = [t.requires_grad_(True)
               for t in _t([_normal(rng, (2, 2, 3)), W, U, b], dtype=torch.float64)]
-    assert torch.autograd.gradcheck(ct.WideLayerTrain.apply, inputs, fast_mode=True)
+    assert torch.autograd.gradcheck(functools.partial(ct.WideLayerTrain.apply, False), inputs, fast_mode=True)
 
 
 # ---------------------------------------------------------------------------
@@ -358,7 +360,7 @@ def test_dispatch_routes():
 # ---------------------------------------------------------------------------
 
 def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
-    before = [k.launches for k in ct.KERNELS]
+    before = dict(ct.LAUNCHES)
     layers = _t(_layers_np(15, (4,), 3))
     x = _t(_normal(np.random.default_rng(15), (3, 2, 3)))
     hs, cs = ct.fused_narrow_train_fwd(layers, x)
@@ -369,7 +371,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     xp = _t(_normal(np.random.default_rng(15), (3, 2, 4 * WIDE_N)))
     h, c = ct.lstm_recurrence_train_fwd(xp, U)
     ct.lstm_recurrence_train_bwd(xp, U, h, c, torch.ones_like(h))
-    assert [k.launches for k in ct.KERNELS] == before
+    assert ct.LAUNCHES == before
 
 
 def test_wrappers_reject_bad_arguments():
@@ -419,11 +421,12 @@ def test_wrappers_reject_other_devices():
 # on the card: each CUDA kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def _launched(wrapper, fn):
-    before = wrapper.launches
+def _launched(wrapper, fn, bf16=False):
+    name = wrapper.__name__ + ("_fast" if bf16 else "")
+    before = dict(ct.LAUNCHES)
     out = fn()
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
+    assert ct.LAUNCHES == {**before, name: before[name] + 1}
     return out
 
 
@@ -617,3 +620,118 @@ def test_cuda_wrapper_rejects_float64(cuda):
     layers = _t(_layers_np(22, (4,), 3), cuda, torch.float64)
     with pytest.raises(TypeError, match="float32"):
         ct.fused_narrow_train_fwd(layers, _t(np.zeros((3, 2, 3)), cuda, torch.float64))
+
+
+# ---------------------------------------------------------------------------
+# on the card: the bf16-operand variants (K7f, K8f, K9f, K6f) against their
+# plain bf16 versions
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (np.floor(np.log2(max(v, 1e-30))) - 7)
+
+
+def _close_fast(name, got, plain, plain64):
+    """A bf16 variant's output against its plain bf16 version: within 2 bf16
+    ulps of the plain output's largest value or twice the plain float32
+    version's distance from the same arithmetic in float64, whichever is
+    larger (the kernel sums in another order, which can flip a bf16
+    rounding of h or dz, and a flip carries on through the later steps)."""
+    drift = float((plain.double() - plain64).abs().max())
+    tol = max(2 * _bf16_ulp(float(plain.abs().max())), 2 * drift)
+    err = float((got.double() - plain.double()).abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= tol, (name, err, tol)
+
+
+def _double(tensors):
+    return [_double(t) if isinstance(t, (list, tuple)) else t.double() for t in tensors]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units,d,B,T,compact", [
+    # run A's stack (S = 4, staged), K8f's route at B = 128, the global copy
+    # (4x100, 128+30 with d = 128), S = 8 staged, one layer, B % 4 != 0
+    ((40, 40, 40, 40), 16, 32, 20, False), ((40, 40, 40, 40), 16, 128, 12, True),
+    ((100,) * 4, 16, 5, 6, False), ((128, 30), 128, 6, 10, False), ((8, 12, 5), 16, 8, 20, False),
+    ((24,), 16, 7, 9, False), ((30, 30, 30, 30), 16, 130, 8, True),
+])
+def test_cuda_fused_narrow_fast_matches_plain(cuda, units, d, B, T, compact, monkeypatch):
+    fwd = ct.fused_narrow_train_compact_fwd if compact else ct.fused_narrow_train_fwd
+    bwd = ct.fused_narrow_train_compact_bwd if compact else ct.fused_narrow_train_bwd
+    layers = _t(_layers_np(30, units, d), cuda)
+    rng = np.random.default_rng(31)
+    x = _t(_normal(rng, (T, B, d)), cuda)
+    dh = _t(_normal(rng, (T, B, units[-1])), cuda)
+    hs_p, cs_p = ct.fused_narrow_train_fwd_plain(layers, x, True)
+    hs64, cs64 = ct.fused_narrow_train_fwd_plain(_double(layers), x.double(), True)
+    grads_p = ct.fused_narrow_train_bwd_plain(layers, x, hs_p, cs_p, dh, True)
+    grads64 = ct.fused_narrow_train_bwd_plain(_double(layers), x.double(), _double(hs_p),
+                                              _double(cs_p), dh.double(), True)
+    for name in ("fused_narrow_train_fwd_plain", "fused_narrow_train_bwd_plain",
+                 "fused_narrow_train_compact_fwd_plain", "fused_narrow_train_compact_bwd_plain"):
+        monkeypatch.setattr(ct, name, None)  # no fallback on the card
+    hs, cs = _launched(fwd, lambda: fwd(layers, x, True), bf16=True)
+    for i, (a, r, r64) in enumerate(zip(hs + cs, hs_p + cs_p, hs64 + cs64)):
+        _close_fast(f"state {i}", a, r, r64)
+    grads = _launched(bwd, lambda: bwd(layers, x, hs_p, cs_p, dh, True), bf16=True)
+    for k, (got, want, want64) in enumerate(zip(grads[:3], grads_p[:3], grads64[:3])):
+        for i, (a, r, r64) in enumerate(zip(got, want, want64)):
+            _close_fast(f"{'dW dU db'.split()[k]}{i}", a, r, r64)
+    _close_fast("dx", grads[3], grads_p[3], grads64[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,din,B", [(128, 16, 20), (256, 256, 33), (512, 512, 128)])
+def test_cuda_wide_layer_fast_matches_plain(cuda, n, din, B, monkeypatch):
+    W, U, b = _t(_layers_np(32, (n,), din)[0], cuda)
+    rng = np.random.default_rng(33)
+    x = _t(_normal(rng, (12, B, din)), cuda)
+    dh = _t(_normal(rng, (12, B, n)), cuda)
+    h_p, c_p = ct.wide_layer_fwd_plain(x, W, U, b, True)
+    h64, c64 = ct.wide_layer_fwd_plain(*_double([x, W, U, b]), True)
+    grads_p = ct.wide_layer_bwd_plain(x, W, U, b, h_p, c_p, dh, True)
+    grads64 = ct.wide_layer_bwd_plain(*_double([x, W, U, b, h_p, c_p, dh]), True)
+    monkeypatch.setattr(ct, "wide_layer_fwd_plain", None)
+    monkeypatch.setattr(ct, "wide_layer_bwd_plain", None)
+    h, c = _launched(ct.wide_layer_fwd, lambda: ct.wide_layer_fwd(x, W, U, b, True), bf16=True)
+    _close_fast("h", h, h_p, h64)
+    _close_fast("c", c, c_p, c64)
+    grads = _launched(ct.wide_layer_bwd, lambda: ct.wide_layer_bwd(x, W, U, b, h_p, c_p, dh, True),
+                      bf16=True)
+    for name, a, r, r64 in zip(("dx", "dW", "dU", "db"), grads, grads_p, grads64):
+        _close_fast(name, a, r, r64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,B", [(128, 20), (512, 128)])
+def test_cuda_recurrence_train_fast_matches_plain(cuda, n, B, monkeypatch):
+    xp, U, dh = _t(_recurrence_case(34, 12, B, n), cuda)
+    h_p, c_p = ct.lstm_recurrence_train_fwd_plain(xp, U, True)
+    h64, c64 = ct.lstm_recurrence_train_fwd_plain(xp.double(), U.double(), True)
+    grads_p = ct.lstm_recurrence_train_bwd_plain(xp, U, h_p, c_p, dh, True)
+    grads64 = ct.lstm_recurrence_train_bwd_plain(*_double([xp, U, h_p, c_p, dh]), True)
+    monkeypatch.setattr(ct, "lstm_recurrence_train_fwd_plain", None)  # no fallback on the card
+    monkeypatch.setattr(ct, "lstm_recurrence_train_bwd_plain", None)
+    h, c = _launched(ct.lstm_recurrence_train_fwd, lambda: ct.lstm_recurrence_train_fwd(xp, U, True),
+                     bf16=True)
+    _close_fast("h", h, h_p, h64)
+    _close_fast("c", c, c_p, c64)
+    grads = _launched(ct.lstm_recurrence_train_bwd,
+                      lambda: ct.lstm_recurrence_train_bwd(xp, U, h_p, c_p, dh, True), bf16=True)
+    for name, a, r, r64 in zip(("dxp", "dU"), grads, grads_p, grads64):
+        _close_fast(name, a, r, r64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("units,kind", [((40, 40), "fused_narrow_train"), ((256, 256), "wide_layer"),
+                                        ((256,), "lstm_recurrence_train")])
+def test_cuda_dispatch_fast_launches_the_fast_kernels(cuda, units, kind):
+    """The dispatch with bf16 launches the _fast variants and no float32
+    kernel (K7f; K9f on a uniform wide stack; K6f on one aligned layer)."""
+    m = from_numpy_tree(_stack_tree(_layers_np(35, units, 16), 36), device=cuda)
+    x = _t(_normal(np.random.default_rng(37), (8, 10, 16)), cuda)
+    before = dict(ct.LAUNCHES)
+    ct.stacked_lstm_apply_fast_train(m, x, return_sequences=False, bf16=True).sum().backward()
+    torch.cuda.synchronize()
+    launched = {k for k, v in ct.LAUNCHES.items() if v != before[k]}
+    assert launched == {f"{kind}_fwd_fast", f"{kind}_bwd_fast"}, launched
