@@ -117,7 +117,8 @@ Phases, each of which raises on failure (no phase is caught):
    truncation, timed beside K7 on the same inputs (K8, K7, K7, K8 in turn),
    and in turns with K7 at run A's inputs (B = 32) too; with ``--parent
    DIR``, K7 forward and backward at run A's shapes, K8's at B = 128, K9's
-   at run C's (layer 1), K6's at run D's, cuDNN's on each, and one train
+   at run C's (layer 1), K6's at run D's, cuDNN's on each, K9f's and K6f's
+   backward on the same inputs beside cuDNN's bf16 backward, and one train
    step of runs A, B, E (narrow) and C, D, F (wide): its span, the host's
    time to issue it, the card's busy time from torch.profiler, in all and
    in the pair's forward and backward kernels; each measured in a fresh
@@ -217,7 +218,11 @@ Phases, each of which raises on failure (no phase is caught):
    or twice the plain version's distance from the same arithmetic in
    float64, whichever is larger (``fast_check``: a sum order that flips a
    bf16 rounding carries on), each timed beside its plain version, cuDNN's
-   bf16 LSTM and its bound at 989 TFLOP/s bf16; (10b) runs A, C and D, 4
+   bf16 LSTM and its bound at 989 TFLOP/s bf16 (K9f's and K6f's backward:
+   bf16 operand copies, ``gemm_bf16`` on ``wgmma`` for R, X and G, the dh
+   chain's product on ``mma.sync``), then the kernels one K9f and one K6f
+   backward launch at T and T/2, as many either way, the bf16 chain among
+   them; (10b) runs A, C and D, 4
    Adam steps of ``fit`` in each training regime (the JAX package's five:
    f32_scan, tf32_scan, bf16_scan, fused_kernel, fused_kernel_compact where
    K8 takes the stack; and the port's float32 kernels), the launch counts
@@ -1550,7 +1555,8 @@ def step_split(step, parts: dict) -> dict:
 def wide_times(dev, data) -> dict:
     """K9's pair at run C's shapes (the 3x512 checkpoint's layer 1, x its
     layer 0's h) and K6's at run D's (a fresh 512-unit layer's xp), cuDNN's
-    LSTM on both: ms of each, in the package this process imported."""
+    LSTM on both; K9f's and K6f's backward on the same inputs beside cuDNN's
+    bf16 LSTM backward: ms of each, in the package this process imported."""
     rng = np.random.default_rng(1)
     out = {}
     model = TRAIN_RUNS[2].make(dev)
@@ -1563,6 +1569,8 @@ def wide_times(dev, data) -> dict:
     out["K9 fwd (run C layer 1)"] = device_time_ms(ct.wide_layer_fwd, x, W, U, b)
     out["K9 bwd (run C layer 1)"] = device_time_ms(ct.wide_layer_bwd, x, W, U, b, h, c, dh)
     out["cuDNN fwd (run C layer 1)"], out["cuDNN bwd (run C layer 1)"] = library_train([(W, U, b)], x, dh)
+    out["K9f bwd (run C layer 1)"] = device_time_ms(ct.wide_layer_bwd, x, W, U, b, h, c, dh, True)
+    out["cuDNN bf16 bwd (run C layer 1)"] = library_train([(W, U, b)], x, dh, torch.bfloat16)[1]
     l = TRAIN_RUNS[3].make(dev).layers[0]
     W, U, b = (p.detach() for p in (l.W, l.U, l.b))
     x = first_batch(TRAIN_RUNS[3], data, dev)[0].transpose(0, 1).contiguous()
@@ -1572,6 +1580,8 @@ def wide_times(dev, data) -> dict:
     out["K6 fwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_fwd, xp, U)
     out["K6 bwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_bwd, xp, U, h, c, dh)
     out["cuDNN fwd (run D)"], out["cuDNN bwd (run D)"] = library_train([(W, U, b)], x, dh)
+    out["K6f bwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_bwd, xp, U, h, c, dh, True)
+    out["cuDNN bf16 bwd (run D)"] = library_train([(W, U, b)], x, dh, torch.bfloat16)[1]
     return out
 
 
@@ -2470,6 +2480,10 @@ def precision_kernel_checks(dev, data) -> dict:
                     x, W, U, b, library_ms=lib_fwd,
                     **roofline.bound(macs, nbytes(args[:6]), "bfloat16")),
     }
+    launches_at_two_lengths(
+        "K9f bwd", lambda steps: ct.wide_layer_bwd(*(a[:steps].contiguous() if a.dim() == 3 else a
+                                                     for a in args), True),
+        T9, "wide_bwd_chain_bf16", "no other copy")
     results["wide_layer_bwd_fast"] = {
         "max_abs_err": bwd_err,
         **time_pair("K9f bwd", shape, bf16_variant(ct.wide_layer_bwd), bf16_variant(ct.wide_layer_bwd_plain),
@@ -2502,6 +2516,10 @@ def precision_kernel_checks(dev, data) -> dict:
                     bf16_variant(ct.lstm_recurrence_train_fwd_plain), xp, U, library_ms=lib_fwd,
                     **roofline.bound(macs, nbytes(xp, U, h, c), "bfloat16")),
     }
+    launches_at_two_lengths(
+        "K6f bwd", lambda steps: ct.lstm_recurrence_train_bwd(*(a[:steps].contiguous() if a.dim() == 3 else a
+                                                              for a in args), True),
+        xp.shape[0], "wide_bwd_chain_bf16", "no other copy")
     results["lstm_recurrence_train_bwd_fast"] = {
         "max_abs_err": bwd_err,
         **time_pair("K6f bwd", shape, bf16_variant(ct.lstm_recurrence_train_bwd),

@@ -20,6 +20,13 @@ between calls), each variant checked against the plain gradients (within
   ordered sum of the splits; the rule) against ``weight_grad`` (the 64×64
   tile K7 and K8 use) for dW, dU and db.
 
+Then the bf16 backward (K9f at run C's shapes, K6f at run D's): each phase
+of ``wide_bwd_bf16`` alone (the operands' bf16 copies; R, X and G on
+``gemm_bf16``; C, the bf16 chain) beside its bf16 bound (989 TFLOP/s, or
+the bytes at 3.35 TB/s) and cuBLAS in bf16 on the same products, and the
+whole backward beside cuDNN's bf16 LSTM backward, each checked against the
+plain bf16 gradients (within chip_smoke.py's ``fast_limit``).
+
     python3 scripts/probe_torch_wide_bwd.py --tree DIR [DIR ...]
 
 times K9's backward at run C's shapes, each phase alone and whole (phase C
@@ -28,6 +35,9 @@ process, in turns (DIR1, DIR2, ..., ..., DIR2, DIR1), after checking its
 gradients: trial trees, copies of the package with a kernel edited (phase
 C's tile R × J, its grid barrier, its product or its reads of the partial
 sums taken out; the GEMM's tile), for the variants the rule does not take.
+On a tree with the bf16 backward (``wide_bwd_bf16``) it also times its
+chain at B = 128 and 32 and K9f's and K6f's whole backward, unchecked: a
+trial tree may take a part of the bf16 chain out.
 
 Prints the card's name and power limit first. Imports torch and the port,
 never JAX.
@@ -51,6 +61,7 @@ from svd_lstm_tpu_torch.ops import cuda_train as ct  # noqa: E402
 N, B, T = 512, 128, 200
 GRAD_RTOL = 1e-3  # chip_smoke.py's limit: 1e-3 × the largest plain value
 PEAK_FLOPS, HBM_BYTES_PER_S = 67e12, 3.35e12  # H100 SXM: float32 on the CUDA cores, HBM3
+PEAK_BF16_FLOPS = 989e12  # H100 SXM: dense bf16 on the tensor cores
 
 
 def layer(din, dev, seed):
@@ -81,9 +92,89 @@ def in_turns(name, variants, *args):
           + ", ".join(f"{label} {t:.3f}" for (label, _), t in zip(order, ms)) + " ms")
 
 
-def bound_ms(flops, nbytes):
-    ops, moved = flops / PEAK_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+def bound_ms(flops, nbytes, peak=PEAK_FLOPS):
+    ops, moved = flops / peak * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
     return f"bound {max(ops, moved):.4f} ms ({'operations' if ops >= moved else 'bytes'})"
+
+
+def bf16_ulp(v):
+    return 2.0 ** (np.floor(np.log2(max(v, 1e-30))) - 7)
+
+
+def check_fast(name, got, want, want64):
+    """chip_smoke.py's fast_limit: within max(2 bf16 ulps of the plain
+    output's largest value, 2 x the plain version's distance from float64)."""
+    for i, (a, r, r64) in enumerate(zip(got, want, want64)):
+        lim = max(2 * bf16_ulp(float(r.abs().max())), 2 * float((r.double() - r64).abs().max()))
+        err = float((a.double() - r.double()).abs().max())
+        if not err <= lim:
+            raise SystemExit(f"{name}: gradient {i}: max abs err {err:.3g} over {lim:.3g}")
+    print(f"[check] {name}: within fast_limit of each plain bf16 gradient")
+
+
+def phase_split_bf16(name, x, W, U, b, h, c, dh, sms):
+    """Each phase of the bf16 backward alone (``wide_bwd_bf16``), beside its
+    bf16 bound and cuBLAS in bf16 on the same products."""
+    M, G, n = T * B, 4 * N, N
+    din = 0 if W is None else x.shape[2]
+    plan = ct.chain_plan(B, n, sms, ct.chain_smem_bytes_bf16)
+    ops = ct.bf16_operands(x, W, U, h)
+    xp = x if W is None else None
+    z = ct.phase_r_bf16(ops, b, xp, B)
+    dz = torch.empty((T, B, G), dtype=torch.float32, device=x.device)
+    dzb = torch.empty((M, G), dtype=torch.bfloat16, device=x.device)
+    ct.phase_c_bf16(z, ops.U, c, dh, dz, dzb, plan)
+    f4, b2 = 4, 2  # bytes a float, a bf16
+    copied = h.numel() + U.numel() + (0 if W is None else x.numel() + W.numel())
+    rows = [("copies", lambda: ct.bf16_operands(x, W, U, h), 0, (f4 + b2) * copied),
+            ("R", lambda: ct.phase_r_bf16(ops, b, xp, B), 2 * M * (din + n) * G,
+             b2 * copied + f4 * z.numel() * (2 if W is None else 1)),
+            ("C", lambda: ct.phase_c_bf16(z, ops.U, c, dh, dz, dzb, plan), 2 * (T - 1) * B * G * n,
+             f4 * (z.numel() + c.numel() + dh.numel() + dz.numel()) + b2 * (U.numel() + dzb.numel()))]
+    if W is not None:
+        rows.append(("X", lambda: ct.phase_x_bf16(dzb, ops.W, din), 2 * M * G * din,
+                     b2 * (dzb.numel() + W.numel()) + f4 * x.numel()))
+        rows.append(("G", lambda: ct.phase_g_bf16(ops, dzb, dz, din, B, sms), 2 * M * G * (din + n),
+                     b2 * (dzb.numel() + x.numel() + h.numel()) + f4 * (dz.numel() + (din + n + 1) * G)))
+    else:
+        rows.append(("G", lambda: ct.phase_g_bf16(ops, dzb, dz, 0, B, sms), 2 * M * G * n,
+                     b2 * (dzb.numel() + h.numel()) + f4 * n * G))
+    hb, Ub, x2 = ops.h, ops.U, x.reshape(M, -1).bfloat16()
+    hp = torch.cat([torch.zeros((B, n), dtype=torch.bfloat16, device=h.device), hb[:-B]])
+    cublas = {"copies": lambda: (h.bfloat16(), U.bfloat16()) if W is None else
+              (h.bfloat16(), U.bfloat16(), x.bfloat16(), W.bfloat16()),
+              "C": lambda: [torch.mm(dzb[t * B:(t + 1) * B], Ub.t()) for t in range(T)]}
+    if W is None:
+        cublas["R"] = lambda: torch.mm(hp, Ub)
+        cublas["G"] = lambda: torch.mm(hp.t(), dzb)
+    else:
+        Wb = W.bfloat16()
+        cublas["R"] = lambda: torch.addmm(torch.mm(x2, Wb), hp, Ub)
+        cublas["X"] = lambda: torch.mm(dzb, Wb.t())
+        cublas["G"] = lambda: (torch.mm(x2.t(), dzb), torch.mm(hp.t(), dzb), dz.sum((0, 1)))
+    total = 0.0
+    for phase, fn, flops, nbytes in rows:
+        ms = device_time_ms(fn)
+        total += ms
+        rate = f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""
+        print(f"[phase] {name} {phase}: {ms:.3f} ms{rate}, {bound_ms(flops, nbytes, PEAK_BF16_FLOPS)}; "
+              f"cuBLAS bf16 {device_time_ms(cublas[phase]):.3f} ms")
+    print(f"[phase] {name}: phases sum {total:.3f} ms; plan {plan}")
+
+
+def cudnn_bwd_bf16(din, W, U, b, x, dh):
+    """cuDNN's bf16 LSTM backward from dh (every gradient) at the layer's
+    shapes: ms (TF32 off; a yardstick the port never calls)."""
+    lstm = torch.nn.LSTM(din, N).to(x.device, torch.bfloat16)
+    with torch.no_grad():
+        lstm.weight_ih_l0.copy_(W.t())
+        lstm.weight_hh_l0.copy_(U.t())
+        lstm.bias_ih_l0.copy_(b)
+        lstm.bias_hh_l0.zero_()
+    xs = x.detach().bfloat16().requires_grad_(True)
+    with torch.enable_grad():
+        out = lstm(xs)[0]
+        return device_time_ms(lambda: torch.autograd.backward(out, dh.bfloat16(), retain_graph=True))
 
 
 def phase_split(name, x, W, U, b, h, c, dh, sms):
@@ -156,6 +247,22 @@ def time_tree(dev):
         plan32 = ct.chain_plan(32, N, sms)
         ms = device_time_ms(lambda: ct.phase_c(b32[0], Ut, *b32[1:], plan32), repeats=9)
         print(f"[tree] {tree} B=32: C {ms:.3f} ms, {ms / T * 1e3:.2f} us a step", flush=True)
+        if not hasattr(ct, "wide_bwd_bf16"):
+            return
+        out = []
+        for rows in (B, 32):
+            xr, hr, cr, dhr = (a[:, :rows].contiguous() for a in (x, h, c, dh))
+            plan16 = ct.chain_plan(rows, N, sms, ct.chain_smem_bytes_bf16)
+            ops = ct.bf16_operands(xr, W, U, hr)
+            z16 = ct.phase_r_bf16(ops, b, None, rows)
+            dz16 = torch.empty((T, rows, 4 * N), device=dev)
+            dzb16 = torch.empty((T * rows, 4 * N), dtype=torch.bfloat16, device=dev)
+            ms = device_time_ms(lambda: ct.phase_c_bf16(z16, ops.U, cr, dhr, dz16, dzb16, plan16), repeats=9)
+            out.append(f"bf16 C B={rows} {ms:.3f} ms ({ms / T * 1e3:.2f} us a step)")
+        xp = (torch.matmul(x, W) + b).contiguous()
+        out.append(f"K9f {device_time_ms(lambda: ct.wide_bwd(*args, True), repeats=9):.3f}")
+        out.append(f"K6f {device_time_ms(lambda: ct.wide_bwd(xp, None, U, None, h, c, dh, True), repeats=9):.3f}")
+        print(f"[tree] {tree} (unchecked): " + ", ".join(out) + " ms", flush=True)
 
 
 def trees(dirs):
@@ -213,6 +320,25 @@ def main() -> int:
         in_turns(f"phase G dW, dU, db ({shape})",
                  [("gemm_f32", lambda: ct.phase_g(x, h, dz, sms)),
                   ("weight_grad", lambda: ct._layer_weight_grads(x, h, dz))])
+
+        # the bf16 backward (K9f, K6f): phases, whole, cuDNN bf16
+        hf, cf = ct.wide_layer_fwd_plain(x, W, U, b, True)
+        f_args = (x, W, U, b, hf, cf, dh)
+        x64 = [t.double() for t in f_args]
+        check_fast("K9f bwd", ct.wide_bwd(*f_args, True), ct.wide_layer_bwd_plain(*f_args, True),
+                   ct.wide_layer_bwd_plain(*x64, True))
+        phase_split_bf16(f"K9f ({shape})", *f_args, sms)
+        print(f"[time] K9f bwd ({shape}): {device_time_ms(lambda: ct.wide_bwd(*f_args, True)):.3f} ms, "
+              f"cuDNN bf16 {cudnn_bwd_bf16(N, W, U, b, x, dh):.3f} ms")
+        hr, cr = ct.lstm_recurrence_train_fwd_plain(xp, U, True)
+        r_args = (xp, None, U, None, hr, cr, dh)
+        rp_args = (xp, U, hr, cr, dh)
+        check_fast("K6f bwd", ct.wide_bwd(*r_args, True), ct.lstm_recurrence_train_bwd_plain(*rp_args, True),
+                   ct.lstm_recurrence_train_bwd_plain(*(t.double() for t in rp_args), True))
+        phase_split_bf16(f"K6f (n={N}, B={B}, T={T})", *r_args, sms)
+        print(f"[time] K6f bwd (n={N}, B={B}, T={T}): "
+              f"{device_time_ms(lambda: ct.wide_bwd(*r_args, True)):.3f} ms, cuDNN bf16 "
+              f"{cudnn_bwd_bf16(16, W[:16], U, b, x[:, :, :16], dh):.3f} ms")
     return 0
 
 

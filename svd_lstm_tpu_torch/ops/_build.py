@@ -67,8 +67,14 @@ _SIGNATURES = {
     "wide_gemm_launch": [_P, _I, _P],
     # partial, out, size, splits, stream
     "sum_splits_launch": [_P, _P, _I, _I, _P],
-    # z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups, bf16, stream
-    "wide_bwd_chain_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups, stream
+    "wide_bwd_chain_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # z, Ub, c, dh, dz, dzb, P, T, B, stride, n, rows, units, staged, row_groups, stream
+    "wide_bwd_chain_bf16_launch": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # meta (int64: see csrc gemm_bf16_launch), stream
+    "gemm_bf16_launch": [_P, _P],
+    # src, dst, rows, cols, rows_p, ld, stream
+    "bf16_copy_launch": [_P, _P, _I, _I, _I, _I, _P],
     # xp, Ut, h, T, B, stride, n, rows, units, bf16, stream
     "batched_lstm_recurrence_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # n, rows, units, bf16, per_sm (int*)

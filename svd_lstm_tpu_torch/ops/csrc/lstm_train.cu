@@ -1,5 +1,6 @@
-// LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores, and
-// the batched fast-mode recurrence (K5), bf16 on the tensor cores.
+// LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores; K9f's
+// and K6f's backward (gemm_bf16, the bf16 dh chain) and the batched
+// fast-mode recurrence (K5), bf16 on the tensor cores.
 //
 // Every train kernel that computes a product (narrow_fwd_wave,
 // narrow_bwd_wave, weight_grad, gemm_f32, wide_bwd_chain, wide_fwd_chain)
@@ -17,10 +18,17 @@
 // float32, so the sums, the cell state c, the bias, xp and the gate math
 // stay float32, and every output (h, c, dz, dx, the gradients) is float32
 // and unrounded; db sums dz unrounded, as the TPU kernels do. The rounding
-// runs on the CUDA cores, once an operand, outside the inner loops; the
-// products stay float32 FMAs, so these variants run at about the float32
-// ones' speed, not faster (the tensor cores' bf16 rate is for a later
-// redesign).
+// runs on the CUDA cores, once an operand, outside the inner loops. In the
+// forward kernels, the narrow backward and weight_grad the products stay
+// float32 FMAs, at about the float32 ones' speed. K9f's and K6f's backward
+// (pallas_train_wide.py:_wide_bwd, pallas_train.py:_pallas_bwd, DEFAULT
+// dots) run on the tensor cores instead: bf16 copies of the operands made
+// once a call (bf16_copy), phases R, X and G as gemm_bf16 (TMA and wgmma),
+// the dh chain's product on mma.sync in wide_bwd_chain's BF16
+// instantiation; the same products, their float32 sums in another order
+// (see the notes above gemm_bf16 and chain_product_bf16). Bound at 3x512,
+// B = 128, T = 200: 0.33 ms of bf16 operations, against ~2.8 ms measured
+// (PERF.md §6), most of it the chain's ~7.5 us step.
 //
 // Four forward/backward pairs, one per TPU train kernel pair on the
 // training path of svd_lstm_tpu/ops/pallas_train.py, one reduction that the
@@ -86,6 +94,7 @@
 // returns cudaGetLastError() for the Python wrapper to check.
 
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (the encoder comes from the runtime)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -791,6 +800,10 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
 //      and summed by sum_splits in order: no atomics, so the gradients do
 //      not change from run to run.
 //
+// K9f and K6f (bf16 operands) run the same four phases with gemm_bf16 in
+// place of gemm_f32 and the chain's BF16 instantiation, which also writes
+// dz's bf16 copy for X and G; their db is weight_grad's unrounded sum.
+//
 // What bounds it, and what the design does about it: at 3x512, B = 128,
 // T = 200 the backward is 322 GFLOP (4.8 ms at 67 TFLOP/s float32 on the
 // CUDA cores; exact mode keeps the tensor cores out). Only the dh chain
@@ -820,6 +833,33 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// bf16 tensor-core helpers of K5 and of the bf16 dh chain (mma.sync m16n8k16)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// d += a (16 x 16, row) · b (16 x 8, col), bf16 operands, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two bf16 in one 32-bit word, lo at the lower address
+__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
+  return (uint32_t)lo | ((uint32_t)hi << 16);
+}
+
+__device__ __forceinline__ unsigned short bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
 // ---------------------------------------------------------------------------
@@ -1043,6 +1083,284 @@ gemm_f32(const GemmArgs a) {
 }
 
 // ---------------------------------------------------------------------------
+// gemm_bf16: phases R, X and G of K9f's and K6f's backward (the bf16-operand
+// variants of pallas_train_wide.py:_wide_bwd and pallas_train.py:_pallas_bwd,
+// whose dots are DEFAULT, one bf16 pass, on the TPU) on the tensor cores:
+// C (M, N) = Σ_seg A_seg·B_seg (+ bias[j]) (+ addend[i][j]) with bf16
+// operands and float32 sums. The product of two bf16 values is exact in
+// float32, so this is the arithmetic of gemm_f32<..., true> (its operands
+// rounded the same way, by the copies below) with the float32 sums in
+// another order.
+//
+// What bounds it: at 3x512, B = 128, T = 200 phases R, X and G are 268 GFLOP,
+// 0.27 ms at the card's 989 TFLOP/s bf16 rate, against 4.0 ms at 67 TFLOP/s
+// on the CUDA cores (gemm_f32); their bytes (z, dx and the bf16 operands,
+// ~0.5 GB) take ~0.15 ms. What the design does about it:
+//  * Operands come as bf16 copies, rounded once a call (bf16_copy; the chain
+//    writes dz's), each a row-major (rows, ld) matrix whose row stride ld is
+//    padded with zeros to a multiple of 8 (16 bytes, TMA's stride rule; W's
+//    copy also has as many rows as x's copy has columns, so the K of x·W runs
+//    over whole padded rows of both). Every tile is loaded in its memory's
+//    own orientation by TMA (a CUtensorMap a operand and segment, 128-byte
+//    swizzle, boxes of 64 columns); the transposes are wgmma's: A K-major in
+//    the NN (R) and NT (X) forms and M-major in TN (G), B N-major in NN and
+//    TN and K-major in NT. Ragged M, N and K edges, and h_prev's rows before
+//    t = 0 (the box starts shift rows up: a negative coordinate), are TMA's
+//    zero fill.
+//  * A CTA owns a 128 x 128 tile of C. One producer warp keeps a ring of
+//    GB_STAGES stages of 64-deep K chunks in flight (mbarriers: full with the
+//    transaction bytes, empty with a consumer warp's arrival each); two
+//    consumer warpgroups each issue wgmma m64n128k16 on 64 rows of the tile,
+//    keep one chunk's products in flight and release the stage before it.
+//  * The epilogue adds the bias (R, K9) or the addend xp (R, K6) in float32
+//    and stores C. With gridDim.z > 1 split s sums k in [s·kchunk, (s + 1)·
+//    kchunk) (kchunk a multiple of GB_BK, so no box crosses into the next
+//    split) into C + s·split_stride, and sum_splits adds the splits in order
+//    (phase G): the gradients do not change from run to run.
+// ---------------------------------------------------------------------------
+#define GB_BM 128
+#define GB_BN 128
+#define GB_BK 64          // the K chunk: 64 bf16, one 128-byte swizzled row
+#define GB_STAGES 4
+#define GB_CONSUMERS 2    // warpgroups, 64 rows of the tile each
+#define GB_THREADS (GB_CONSUMERS * 128 + 32)
+#define GB_TILE_BYTES (GB_BM * GB_BK * 2)  // one operand's tile of a chunk: 16 KB
+#define GB_SMEM (GB_STAGES * 2 * GB_TILE_BYTES + 2 * GB_STAGES * 8 + 1024)
+
+struct GemmBf16Args {
+  CUtensorMap a[GM_MAX_SEGS];  // A's copy: boxes of 64 columns x 128 rows (K-major) or 64 (M-major)
+  CUtensorMap b[GM_MAX_SEGS];  // B's copy: 64 x 64 (N-major) or 64 x 128 (K-major)
+  int nseg;
+  int K[GM_MAX_SEGS];
+  int shift[GM_MAX_SEGS];      // A's stored row r - shift (r = i, or k when M-major)
+  float* C;
+  int ldc, M, N;
+  const float* bias;           // (N,) or null
+  const float* addend;         // (M, N) at row stride ldc, or null
+  int kchunk;
+  long long split_stride;
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  }
+}
+
+// a 64-column box of a 2-D tensor map at (column c0, row c1) into shared
+// memory, its bytes counted on the barrier; out-of-range elements are zero
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor: 128-byte swizzle, the leading and
+// stride byte offsets (for a K-major operand the stride is 8 rows of 128
+// bytes; for an M- or N-major one the leading offset steps 64 elements of M
+// or N and the stride 8 rows of k)
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, unsigned lbo, unsigned sbo) {
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3FFF) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// the accumulators are written by the asynchronous products: no read or
+// write of them may move across this point
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128, float32) += A (64 x 16) · B (16 x 128), bf16, from shared
+// memory; TA: A M-major, TB: B N-major (wgmma's transpose immediates)
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// kAT: A read transposed (A(i, k) = stored[k][i], M-major); kBT: B read
+// transposed (B(k, j) = stored[j][k], K-major): NN (R), NT (X), TN (G), as
+// gemm_f32's flags
+template <bool kAT, bool kBT>
+__global__ void __launch_bounds__(GB_THREADS, 1) gemm_bf16(const __grid_constant__ GemmBf16Args p) {
+  extern __shared__ uint8_t gemm_bf16_smem[];
+  // the ring (stages of A's tile then B's), 1024-byte aligned for the swizzle
+  uint8_t* ring = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(gemm_bf16_smem) + 1023) & ~(uintptr_t)1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + GB_STAGES * 2 * GB_TILE_BYTES);
+  uint64_t* empty = full + GB_STAGES;
+  const int tid = threadIdx.x, wg = tid / 128;
+  const bool split = gridDim.z > 1;
+  int kb[GM_MAX_SEGS], nc[GM_MAX_SEGS];
+#pragma unroll
+  for (int s = 0; s < GM_MAX_SEGS; ++s) {
+    const int K = s < p.nseg ? p.K[s] : 0;
+    kb[s] = split ? min(K, (int)blockIdx.z * p.kchunk) : 0;
+    const int ke = split ? min(K, kb[s] + p.kchunk) : K;
+    nc[s] = (ke - kb[s] + GB_BK - 1) / GB_BK;
+  }
+  const int chunks = nc[0] + nc[1];
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < GB_STAGES; ++s) {
+      mbar_init(&full[s], 1);                  // the producer's arrival, with the bytes
+      mbar_init(&empty[s], GB_CONSUMERS * 4);  // every consumer warp's
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int i0 = blockIdx.y * GB_BM, j0 = blockIdx.x * GB_BN;
+  if (wg == GB_CONSUMERS) {  // the producer warp: one thread issues every load
+    if (tid % 32 == 0) {
+      for (int c = 0; c < chunks; ++c) {
+        const int s = c % GB_STAGES, round = c / GB_STAGES;
+        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+        const bool second = c >= nc[0];
+        const int k0 = second ? kb[1] + (c - nc[0]) * GB_BK : kb[0] + c * GB_BK;
+        const int sh = second ? p.shift[1] : p.shift[0];
+        const CUtensorMap* ma = second ? &p.a[1] : &p.a[0];
+        const CUtensorMap* mb = second ? &p.b[1] : &p.b[0];
+        uint8_t* As = ring + s * 2 * GB_TILE_BYTES;
+        uint8_t* Bs = As + GB_TILE_BYTES;
+        mbar_expect_tx(&full[s], 2 * GB_TILE_BYTES);
+        if (kAT) {  // stored rows are k: two boxes of 64 i's
+          tma_load(As, ma, &full[s], i0, k0 - sh);
+          tma_load(As + GB_TILE_BYTES / 2, ma, &full[s], i0 + 64, k0 - sh);
+        } else {
+          tma_load(As, ma, &full[s], k0, i0 - sh);
+        }
+        if (kBT) {
+          tma_load(Bs, mb, &full[s], k0, j0);
+        } else {  // stored rows are k: two boxes of 64 j's
+          tma_load(Bs, mb, &full[s], j0, k0);
+          tma_load(Bs + GB_TILE_BYTES / 2, mb, &full[s], j0 + 64, k0);
+        }
+      }
+    }
+    return;
+  }
+  // a consumer warpgroup: rows [64·wg, 64·wg + 64) of the tile
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  fence_acc(acc);
+  const int lane = tid % 32;
+  for (int c = 0; c < chunks; ++c) {
+    const int s = c % GB_STAGES;
+    mbar_wait(&full[s], (c / GB_STAGES) & 1);
+    const uint8_t* As = ring + s * 2 * GB_TILE_BYTES + wg * (GB_TILE_BYTES / 2);
+    const uint8_t* Bs = ring + s * 2 * GB_TILE_BYTES + GB_TILE_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < GB_BK / 16; ++kk) {
+      // a step of 16 k: 32 bytes along a K-major row, 16 rows of 128 bytes of an M- or N-major tile
+      const uint64_t da = kAT ? wgmma_desc(As + kk * 2048, GB_TILE_BYTES / 2, 1024)
+                              : wgmma_desc(As + kk * 32, 16, 1024);
+      const uint64_t db = kBT ? wgmma_desc(Bs + kk * 32, 16, 1024)
+                              : wgmma_desc(Bs + kk * 2048, GB_TILE_BYTES / 2, 1024);
+      wgmma_m64n128<kAT ? 1 : 0, kBT ? 0 : 1>(acc, da, db);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // chunk c - 1's products are done: its stage is free
+    fence_acc(acc);
+    if (c > 0 && lane == 0) mbar_arrive(&empty[(c - 1) % GB_STAGES]);
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  // d[4q + 2h + e]: row 16·warp + lane / 4 + 8h, column 8q + 2·(lane % 4) + e. The
+  // bias and the addend are all loaded before the first store (C could alias
+  // them for all the compiler knows: a load after a store would wait for it)
+  float* C = p.C + (size_t)blockIdx.z * p.split_stride;
+  const int wq = (tid % 128) / 32;
+  const int row0 = i0 + wg * 64 + wq * 16 + lane / 4, col0 = j0 + 2 * (lane % 4);
+  auto in_range = [&](int i) {
+    return row0 + 8 * (i / 2 % 2) < p.M && col0 + 8 * (i / 4) + i % 2 < p.N;
+  };
+  auto at = [&](int i) { return (size_t)(row0 + 8 * (i / 2 % 2)) * p.ldc + col0 + 8 * (i / 4) + i % 2; };
+  if (p.bias != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (col0 + 8 * (i / 4) + i % 2 < p.N) acc[i] += __ldg(p.bias + col0 + 8 * (i / 4) + i % 2);
+  }
+  if (p.addend != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      if (in_range(i)) acc[i] += __ldg(p.addend + at(i));
+  }
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    if (in_range(i)) C[at(i)] = acc[i];
+}
+
+// dst (rows_p, ld) = src (rows, cols) rounded to bf16 (to nearest even, as
+// opnd), zero past rows x cols: the operand copies of gemm_bf16 and the
+// bf16 dh chain
+__global__ void bf16_copy(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, int rows,
+                          int cols, int rows_p, int ld) {
+  const long long total = (long long)rows_p * ld;
+  for (long long e = blockIdx.x * (long long)blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    const int r = (int)(e / ld), k = (int)(e % ld);
+    dst[e] = __float2bfloat16_rn(r < rows && k < cols ? __ldg(src + (size_t)r * cols + k) : 0.f);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // wide_bwd_chain: phase C, the reverse-time dh chain of one wide layer in one
 // persistent cooperative launch (at most one CTA an SM, all co-resident).
 //
@@ -1089,11 +1407,91 @@ gemm_f32(const GemmArgs a) {
 #define CHAIN_THREADS 256
 #define CHAIN_MAX_ROW_TILES 8 // row tiles a CTA may walk each step
 
+// Phase C's product in the BF16 instantiation: the group's partial sums of
+// dh, the dz tile (R x 4J, bf16, [RP][KP] in shared memory) times the CTA's
+// 4J gate columns of U (bf16, staged as [n][KP] rows of U, or read from U's
+// copy (n, 4n)), on the tensor cores: mma.sync m16n8k16 bf16 -> float32, A by
+// ldmatrix from the dz tile (its fragments held for the whole step), B by
+// ldmatrix from the staged rows or as 32-bit pairs from the copy (two
+// neighbouring gate columns of one gate are neighbours in U's row). A warp
+// takes n tiles of 8 units four at a time, every m tile of the R rows (a
+// tile of 8 rows is padded to 16 with zero rows); rows past R or B are not
+// stored. Pt (one parity of P) is laid out [reader group][writer group][row]
+// [J]: the sums a group reads are J floats a row, R rows a writer, in a
+// run. Laid out [writer][row][n] (the float32 chain's), with their 2 KB and
+// 256 KB strides, the same reads and stores took ~14 us a step at n = 512,
+// B = 128 (PERF.md §6, PR 16), against ~7.5.
+template <int R, int J, bool kStaged>
+__device__ __forceinline__ void chain_product_bf16(const __nv_bfloat16* dzt,
+                                                   const __nv_bfloat16* ust,
+                                                   const __nv_bfloat16* __restrict__ Ub, float* Pt,
+                                                   int r0, int B, int n, int j0) {
+  constexpr int K = 4 * J, KP = K + 8, KS = K / 16, MT = (R + 15) / 16, NB = 4;
+  constexpr int WARPS = CHAIN_THREADS / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, q = lane & 3;
+  const int G = 4 * n, tiles = n / 8;
+  uint32_t af[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+      ldmatrix_x4(af[mt][ks], dzt + (mt * 16 + (lane & 15)) * KP + ks * 16 + (lane >> 4) * 8);
+  for (int nb = warp * NB; nb < tiles; nb += WARPS * NB) {
+    float acc[MT][NB][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t bf[NB][2];
+      if constexpr (kStaged) {
+#pragma unroll
+        for (int pr = 0; pr < NB / 2; ++pr) {  // n tiles nb + 2pr and nb + 2pr + 1 (rows past n: read, not stored)
+          const int a = min((nb + 2 * pr + (lane >> 4)) * 8 + (lane & 7), n - 1);
+          uint32_t r[4];
+          ldmatrix_x4(r, ust + (size_t)a * KP + ks * 16 + ((lane >> 3) & 1) * 8);
+          bf[2 * pr][0] = r[0], bf[2 * pr][1] = r[1], bf[2 * pr + 1][0] = r[2], bf[2 * pr + 1][1] = r[3];
+        }
+      } else {
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt) {
+          const __nv_bfloat16* row = Ub + (size_t)min((nb + nt) * 8 + g, n - 1) * G + j0;
+          const int k = ks * 16 + 2 * q;
+          bf[nt][0] = __ldg(reinterpret_cast<const unsigned int*>(row + (k / J) * n + k % J));
+          bf[nt][1] = __ldg(reinterpret_cast<const unsigned int*>(row + ((k + 8) / J) * n + (k + 8) % J));
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NB; ++nt) mma_bf16(acc[mt][nt], af[mt][ks], bf[nt][0], bf[nt][1]);
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NB; ++nt) {
+        if (nb + nt >= tiles) continue;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = mt * 16 + g + 8 * h, row = r0 + r;
+          if (r < R && row < B)
+            *reinterpret_cast<float2*>(Pt + (((size_t)((nb + nt) * 8 / J) * gridDim.x + blockIdx.x) * B + row) * J +
+                                       (nb + nt) * 8 % J + 2 * q) =
+                make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+        }
+      }
+  }
+}
+
 template <int R, int J, bool kStaged, bool BF16>
 __global__ void __launch_bounds__(CHAIN_THREADS, 1)
 wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
-               const float* __restrict__ c, const float* __restrict__ dh_seq, float* dz, float* P,
-               int T, int B, int stride, int n, int row_tiles) {
+               const __nv_bfloat16* __restrict__ Ub, const float* __restrict__ c,
+               const float* __restrict__ dh_seq, float* dz, __nv_bfloat16* dzb, float* P, int T,
+               int B, int stride, int n, int row_tiles) {
   constexpr int K = 4 * J;  // the CTA's gate columns
   constexpr int CELLS = R * J / CHAIN_THREADS;
   static_assert(CELLS >= 1 && R % 8 == 0, "every thread a cell; 8-row thread tiles");
@@ -1101,13 +1499,31 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
   float* sm = reinterpret_cast<float*>(chain_smem);
   float* dzs = sm;                     // [K][R]: dz_t of the tile's rows at the CTA's columns
   float* us = sm + K * R;              // [K][n]: Ut's rows of the CTA's columns (kStaged)
+  // BF16: the dz tile and the staged columns as bf16 rows of KP (16 bytes of
+  // padding: the eight rows an ldmatrix reads fall in distinct banks); a
+  // thread of the first QUADS owns 4 neighbouring units of one row
+  constexpr int KP = K + 8, RP = (R + 15) / 16 * 16, QUADS = R * J / 4;
+  static_assert(!BF16 || (J % 8 == 0 && QUADS <= CHAIN_THREADS), "a quad of units a thread");
+  __nv_bfloat16* dzt = reinterpret_cast<__nv_bfloat16*>(chain_smem);  // [RP][KP]
+  __nv_bfloat16* ust = dzt + RP * KP;                                  // [n][KP]: U's rows (kStaged)
   const int tid = threadIdx.x;
   const int j0 = blockIdx.x * J;
   const int groups = gridDim.x;
   const int G = 4 * n;
   const size_t pstride = (size_t)groups * B * n;  // floats of one parity of P
   auto col = [&](int k) { return (k / J) * n + j0 + k % J; };  // gate column of local k
-  if (kStaged) {
+  if constexpr (BF16) {
+    if (kStaged) {  // row a of U at the CTA's 4J columns: 16-byte runs of 8 units
+      for (int e = tid; e < n * (K / 8); e += CHAIN_THREADS) {
+        const int a = e / (K / 8), k = e % (K / 8) * 8;
+        *reinterpret_cast<uint4*>(ust + (size_t)a * KP + k) =
+            __ldg(reinterpret_cast<const uint4*>(Ub + (size_t)a * G + col(k)));
+      }
+    }
+    // rows past R and B stay zero; first read after the gate phase's barrier
+    for (int e = tid; e < RP * KP / 8; e += CHAIN_THREADS)
+      reinterpret_cast<uint4*>(dzt)[e] = make_uint4(0u, 0u, 0u, 0u);
+  } else if (kStaged) {
     for (int e = tid; e < K * (n / 4); e += CHAIN_THREADS) {
       const int k = e / (n / 4), a4 = e % (n / 4);
       *reinterpret_cast<float4*>(us + (size_t)k * n + 4 * a4) =
@@ -1120,9 +1536,68 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
   for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
 #pragma unroll
     for (int p = 0; p < CELLS; ++p) dc[q][p] = 0.f;
+  float4 dcq[CHAIN_MAX_ROW_TILES];  // BF16: the quad's dc carry
+#pragma unroll
+  for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q) dcq[q] = make_float4(0.f, 0.f, 0.f, 0.f);
   for (int t = T - 1; t >= 0; --t) {
     for (int tile = 0; tile < row_tiles; ++tile) {
       const int r0 = (blockIdx.y + tile * gridDim.y) * R;
+      if constexpr (BF16) {
+        // the gates of a quad: every load and store 16 bytes (8 for bf16), the
+        // partial sums P_{t+1} read a float4 a group
+        const int r = tid / (J / 4), u0 = tid % (J / 4) * 4, row = r0 + r, j = j0 + u0;
+        if (tid < QUADS && row < B) {
+          const size_t m = (size_t)t * stride + row;
+          float4 zq[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g) zq[g] = __ldg(reinterpret_cast<const float4*>(z + m * G + g * n + j));
+          const float4 ctq = __ldg(reinterpret_cast<const float4*>(c + m * n + j));
+          const float4 cpq = t > 0 ? __ldg(reinterpret_cast<const float4*>(c + (m - stride) * n + j))
+                                   : make_float4(0.f, 0.f, 0.f, 0.f);
+          float4 dhq = __ldg(reinterpret_cast<const float4*>(dh_seq + m * n + j));
+          if (t + 1 < T) {
+            // P_{t+1}: this group's units' partial sums from every group
+            const float* Pp =
+                P + (size_t)((t + 1) & 1) * pstride + ((size_t)blockIdx.x * groups * B + row) * J + u0;
+            float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+            for (int u = 0; u < groups; ++u) {  // in group order
+              const float4 v = __ldcg(reinterpret_cast<const float4*>(Pp + (size_t)u * B * J));
+              s.x += v.x, s.y += v.y, s.z += v.z, s.w += v.w;
+            }
+            dhq.x += s.x, dhq.y += s.y, dhq.z += s.z, dhq.w += s.w;
+          }
+          float4 dcv = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
+            if (q == tile) dcv = dcq[q];
+          const float zc[4][4] = {{zq[0].x, zq[0].y, zq[0].z, zq[0].w}, {zq[1].x, zq[1].y, zq[1].z, zq[1].w},
+                                  {zq[2].x, zq[2].y, zq[2].z, zq[2].w}, {zq[3].x, zq[3].y, zq[3].z, zq[3].w}};
+          const float cpa[4] = {cpq.x, cpq.y, cpq.z, cpq.w}, cta[4] = {ctq.x, ctq.y, ctq.z, ctq.w};
+          const float dha[4] = {dhq.x, dhq.y, dhq.z, dhq.w};
+          float dca[4] = {dcv.x, dcv.y, dcv.z, dcv.w}, g4[4][4];  // [unit][gate]
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            dca[e] = gate_bwd(zc[0][e], zc[1][e], zc[2][e], zc[3][e], cpa[e], cta[e], dha[e], dca[e], g4[e]);
+#pragma unroll
+          for (int q = 0; q < CHAIN_MAX_ROW_TILES; ++q)
+            if (q == tile) dcq[q] = make_float4(dca[0], dca[1], dca[2], dca[3]);
+          const size_t at = m * G + j;
+#pragma unroll
+          for (int g = 0; g < 4; ++g) {
+            *reinterpret_cast<float4*>(dz + at + g * n) = make_float4(g4[0][g], g4[1][g], g4[2][g], g4[3][g]);
+            // rounded once: the product's operand and phases X and G's copy
+            const uint2 v = make_uint2(pack2(bf16_bits(g4[0][g]), bf16_bits(g4[1][g])),
+                                       pack2(bf16_bits(g4[2][g]), bf16_bits(g4[3][g])));
+            *reinterpret_cast<uint2*>(dzt + r * KP + g * J + u0) = v;
+            *reinterpret_cast<uint2*>(dzb + at + g * n) = v;
+          }
+        }
+        __syncthreads();  // dzt complete
+        if (t > 0) chain_product_bf16<R, J, kStaged>(dzt, ust, Ub, P + (size_t)(t & 1) * pstride, r0, B, n, j0);
+        __syncthreads();  // dzt is rewritten by the next tile
+        continue;
+      }
       float zv[CELLS][4], cp[CELLS], ct[CELLS], dh[CELLS];
 #pragma unroll
       for (int p = 0; p < CELLS; ++p) {
@@ -1163,7 +1638,7 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           out[g * n] = g4[g];
-          dzs[(g * J + u) * R + r] = opnd<BF16>(g4[g]);
+          dzs[(g * J + u) * R + r] = g4[g];
         }
       }
       __syncthreads();  // dzs complete
@@ -1213,6 +1688,7 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
     if (t > 0) cooperative_groups::this_grid().sync();
   }
 }
+
 
 // ---------------------------------------------------------------------------
 // K9 and K6 forward — replace pallas_train_wide.py:_wide_fwd and
@@ -1392,32 +1868,6 @@ wide_fwd_chain(const float* __restrict__ xz, const float4* __restrict__ Ui, floa
 // and the h traffic through L2) and 64 x 16; loading xp a step ahead, or
 // two units a load, ran slower.
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a (16 x 16, row) · b (16 x 8, col), bf16 operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 in one 32-bit word, lo at the lower address
-__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__device__ __forceinline__ unsigned short bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
 // Eight k of one row of h_{t-1} (k, ..., k + 7; those past n are zero) as
 // bf16 into the A tile, through L2 (written by other CTAs in this launch).
 __device__ __forceinline__ void load_h8(__nv_bfloat16* dst, const __nv_bfloat16* src, int left,
@@ -1893,13 +2343,17 @@ int launch_gemm(const GemmArgs& a, int splits, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// gemm_f32 in the operand form: NN (phase R), NT (X), TN (G)
-template <bool BF16>
-int switch_gemm(int form, const GemmArgs& a, int splits, cudaStream_t s) {
+// gemm_f32 in the operand form: NN (phase R), NT (X), TN (G); with bf16
+// operands NN only (K9f's x-side: its backward runs on gemm_bf16)
+int switch_gemm(int form, int bf16, const GemmArgs& a, int splits, cudaStream_t s) {
+  if (bf16) {
+    if (form != 0) return (int)cudaErrorInvalidValue;
+    return launch_gemm<GM_BM, GM_BN, false, false, true>(a, splits, s);
+  }
   switch (form) {
-    case 0: return launch_gemm<GM_BM, GM_BN, false, false, BF16>(a, splits, s);
-    case 1: return launch_gemm<GM_BM, GM_BN, false, true, BF16>(a, splits, s);
-    default: return launch_gemm<GM_BM, GM_BN, true, false, BF16>(a, splits, s);
+    case 0: return launch_gemm<GM_BM, GM_BN, false, false, false>(a, splits, s);
+    case 1: return launch_gemm<GM_BM, GM_BN, false, true, false>(a, splits, s);
+    default: return launch_gemm<GM_BM, GM_BN, true, false, false>(a, splits, s);
   }
 }
 
@@ -1910,14 +2364,18 @@ int switch_gemm(int form, const GemmArgs& a, int splits, cudaStream_t s) {
 // launch; a grid that cannot be co-resident is refused, never run another
 // way.
 template <int R, int J, bool kStaged, bool BF16>
-int launch_chain(const float* z, const float* Ut, const float* c, const float* dh, float* dz,
-                 float* P, int T, int B, int stride, int n, int row_groups, cudaStream_t s) {
+int launch_chain(const float* z, const float* Ut, const __nv_bfloat16* Ub, const float* c,
+                 const float* dh, float* dz, __nv_bfloat16* dzb, float* P, int T, int B, int stride,
+                 int n, int row_groups, cudaStream_t s) {
   const int tiles = (B + R - 1) / R;
   if (n % J != 0 || n % 8 != 0 || row_groups < 1 || row_groups > tiles || stride < B)
     return (int)cudaErrorInvalidValue;
   int row_tiles = (tiles + row_groups - 1) / row_groups;
   if (row_tiles > CHAIN_MAX_ROW_TILES) return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)4 * J * R + (kStaged ? (size_t)4 * J * n : 0)) * sizeof(float);
+  // BF16: the dz tile's and the staged rows of 4J + 8 bf16 (ops/cuda_train.py: chain_smem_bytes_bf16)
+  const size_t smem =
+      BF16 ? (size_t)2 * (4 * J + 8) * ((R + 15) / 16 * 16 + (kStaged ? n : 0))
+           : ((size_t)4 * J * R + (kStaged ? (size_t)4 * J * n : 0)) * sizeof(float);
   const auto kernel = wide_bwd_chain<R, J, kStaged, BF16>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1931,8 +2389,9 @@ int launch_chain(const float* z, const float* Ut, const float* c, const float* d
   const dim3 grid(n / J, row_groups);
   if (per_sm < 1 || (long long)grid.x * grid.y > (long long)per_sm * sms)
     return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {(void*)&z,  (void*)&Ut, (void*)&c,      (void*)&dh, (void*)&dz,       (void*)&P,
-                  (void*)&T,  (void*)&B,  (void*)&stride, (void*)&n,  (void*)&row_tiles};
+  void* args[] = {(void*)&z, (void*)&Ut,     (void*)&Ub, (void*)&c,  (void*)&dh,
+                  (void*)&dz, (void*)&dzb,    (void*)&P,  (void*)&T,  (void*)&B,
+                  (void*)&stride, (void*)&n, (void*)&row_tiles};
   err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(CHAIN_THREADS), args, smem, s);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
@@ -2007,6 +2466,58 @@ int launch_fwd_chain(const float* xz, const float4* Ui, float* h, float* c, int 
                   (void*)&B,  (void*)&stride, (void*)&n, (void*)&row_tiles};
   err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(FWD_CHAIN_THREADS), args, smem, s);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links nothing new)
+typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                         const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                         CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+TensorMapEncodeTiled tensor_map_encoder() {
+  static TensorMapEncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (TensorMapEncodeTiled)p;
+  }
+  return fn;
+}
+
+// A row-major bf16 matrix (rows, ld) as a 2-D tensor map: boxes of 64
+// columns (128 bytes, the swizzle's row) by box_rows rows, 128-byte swizzle,
+// zero fill outside the matrix (negative coordinates included).
+int bf16_tensor_map(CUtensorMap* map, const void* base, long long rows, long long ld, int box_rows) {
+  const TensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorNotSupported;
+  if (base == nullptr || rows < 1 || ld < 8 || ld % 8 != 0 || ((uintptr_t)base & 15))
+    return (int)cudaErrorInvalidValue;
+  const cuuint64_t dims[2] = {(cuuint64_t)ld, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                            strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+template <bool kAT, bool kBT>
+int launch_gemm_bf16(const GemmBf16Args& a, int splits, cudaStream_t s) {
+  const auto kernel = gemm_bf16<kAT, kBT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, GB_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((a.N + GB_BN - 1) / GB_BN, (a.M + GB_BM - 1) / GB_BM, splits);
+  gemm_bf16<kAT, kBT><<<grid, GB_THREADS, GB_SMEM, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -2100,8 +2611,9 @@ int wide_fwd_chain_launch(const void* xz, const void* Ui, void* h, void* c, int 
   return (int)cudaErrorInvalidValue;
 }
 
-// gemm_f32 (phases R, X, G of K9's and K6's backward), at its 128 x 128
-// tile. meta: 10 int64 — nseg, M, N, C, ldc, bias, addend, splits, kchunk,
+// gemm_f32 (phases R, X, G of K9's and K6's backward, and the x-side of
+// K9's and K9f's forward), at its 128 x 128 tile; bf16 != 0 in the NN form
+// only. meta: 10 int64 — nseg, M, N, C, ldc, bias, addend, splits, kchunk,
 // split_stride — then GM_MAX_SEGS rows of 9: A, B,
 // lda, ldb, a_t, b_t, shift, ones_row, K (see GemmSeg; a_t: A read
 // transposed, b_t: B read transposed, the same in every segment, not both).
@@ -2142,7 +2654,7 @@ int wide_gemm_launch(const int64_t* meta, int bf16, void* stream) {
     form = f;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? switch_gemm<true>(form, a, splits, s) : switch_gemm<false>(form, a, splits, s);
+  return switch_gemm(form, bf16, a, splits, s);
 }
 
 // out[i] = Σ_{s<splits} partial[s·size + i], in order of s.
@@ -2161,10 +2673,11 @@ int sum_splits_launch(const void* partial, void* out, int size, int splits, void
 // sums, 2 x (n / units) x B x n floats. rows x units: the CTA's tile R x J
 // (32x16, U staged or from the global copy; 16x32 and 8x64 from the global
 // copy), row_groups: gridDim.y (ops/cuda_train.py: chain_plan). Checked
-// here, not chosen.
+// here, not chosen. The float32 chain (K9, K6); K9f's and K6f's is
+// wide_bwd_chain_bf16_launch.
 int wide_bwd_chain_launch(const void* z, const void* Ut, const void* c, const void* dh, void* dz,
                           void* P, int T, int B, int stride, int n, int rows, int units, int staged,
-                          int row_groups, int bf16, void* stream) {
+                          int row_groups, void* stream) {
   if (T < 1 || B < 1 || n < 1 || z == nullptr || Ut == nullptr || c == nullptr || dh == nullptr ||
       dz == nullptr || P == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -2175,16 +2688,108 @@ int wide_bwd_chain_launch(const void* z, const void* Ut, const void* c, const vo
   cudaStream_t s = (cudaStream_t)stream;
 #define CHAIN_CASE(R_, J_, ST_)                                                                   \
   if (rows == R_ && units == J_ && (staged != 0) == ST_)                                          \
-    return bf16 ? launch_chain<R_, J_, ST_, true>(zf, Uf, cf, dhf, dzf, Pf, T, B, stride, n,      \
-                                                  row_groups, s)                                 \
-                : launch_chain<R_, J_, ST_, false>(zf, Uf, cf, dhf, dzf, Pf, T, B, stride, n,     \
-                                                   row_groups, s);
+    return launch_chain<R_, J_, ST_, false>(zf, Uf, nullptr, cf, dhf, dzf, nullptr, Pf, T, B,     \
+                                            stride, n, row_groups, s);
   CHAIN_CASE(32, 16, true)
   CHAIN_CASE(32, 16, false)
   CHAIN_CASE(16, 32, false)
   CHAIN_CASE(8, 64, false)
 #undef CHAIN_CASE
   return (int)cudaErrorInvalidValue;
+}
+
+// Phase C of K9f's and K6f's backward (wide_bwd_chain's BF16 instantiation):
+// as wide_bwd_chain_launch, with U's bf16 copy Ub (n, 4n) in place of Uᵀ,
+// and dzb (T, stride, 4n), where the chain stores dz rounded to bf16 beside
+// dz (the operand of phases X and G); the tile's shared memory is
+// chain_smem_bytes_bf16's (ops/cuda_train.py).
+int wide_bwd_chain_bf16_launch(const void* z, const void* Ub, const void* c, const void* dh,
+                               void* dz, void* dzb, void* P, int T, int B, int stride, int n,
+                               int rows, int units, int staged, int row_groups, void* stream) {
+  if (T < 1 || B < 1 || n < 1 || z == nullptr || Ub == nullptr || c == nullptr || dh == nullptr ||
+      dz == nullptr || dzb == nullptr || P == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // every load and store of a quad is 16 bytes (8 for dzb)
+  if ((((uintptr_t)z) | ((uintptr_t)Ub) | ((uintptr_t)c) | ((uintptr_t)dh) | ((uintptr_t)dz) |
+       ((uintptr_t)dzb) | ((uintptr_t)P)) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const float *zf = (const float*)z, *cf = (const float*)c, *dhf = (const float*)dh;
+  const __nv_bfloat16* Ubf = (const __nv_bfloat16*)Ub;
+  float *dzf = (float*)dz, *Pf = (float*)P;
+  __nv_bfloat16* dzbf = (__nv_bfloat16*)dzb;
+  cudaStream_t s = (cudaStream_t)stream;
+#define CHAIN_CASE(R_, J_, ST_)                                                                   \
+  if (rows == R_ && units == J_ && (staged != 0) == ST_)                                          \
+    return launch_chain<R_, J_, ST_, true>(zf, nullptr, Ubf, cf, dhf, dzf, dzbf, Pf, T, B, stride, \
+                                           n, row_groups, s);
+  CHAIN_CASE(32, 16, true)
+  CHAIN_CASE(32, 16, false)
+  CHAIN_CASE(16, 32, false)
+  CHAIN_CASE(8, 64, false)
+#undef CHAIN_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// gemm_bf16 (phases R, X, G of K9f's and K6f's backward) at its 128 x 128
+// tile. meta: 11 int64 — nseg, M, N, C, ldc, bias, addend, splits, kchunk,
+// split_stride, form (0 NN, 1 NT, 2 TN: gemm_f32's forms) — then
+// GM_MAX_SEGS rows of 8: A, A's rows, A's ld, B, B's rows, B's ld, shift, K:
+// each operand a bf16 copy (rows, ld), ld % 8 == 0, 16-byte aligned. The
+// tensor maps are encoded here, a call, from the copies' shapes.
+int gemm_bf16_launch(const int64_t* meta, void* stream) {
+  GemmBf16Args a;
+  a.nseg = (int)meta[0];
+  a.M = (int)meta[1];
+  a.N = (int)meta[2];
+  a.C = reinterpret_cast<float*>(meta[3]);
+  a.ldc = (int)meta[4];
+  a.bias = reinterpret_cast<const float*>(meta[5]);
+  a.addend = reinterpret_cast<const float*>(meta[6]);
+  const int splits = (int)meta[7];
+  a.kchunk = (int)meta[8];
+  a.split_stride = meta[9];
+  const int form = (int)meta[10];
+  if (a.nseg < 1 || a.nseg > GM_MAX_SEGS || a.M < 1 || a.N < 1 || a.C == nullptr || splits < 1 ||
+      splits > 65535 || form < 0 || form > 2 || a.ldc < a.N ||
+      (splits > 1 && (a.kchunk < 1 || a.kchunk % GB_BK != 0 || a.split_stride < (long long)a.M * a.ldc)))
+    return (int)cudaErrorInvalidValue;
+  const bool at = form == 2, bt = form == 1;
+  for (int i = 0; i < GM_MAX_SEGS; ++i) {
+    const int64_t* m = meta + 11 + 8 * i;
+    a.shift[i] = (int)m[6];
+    a.K[i] = i < a.nseg ? (int)m[7] : 0;
+    if (i >= a.nseg) {
+      a.a[i] = a.a[0];
+      a.b[i] = a.b[0];
+      continue;
+    }
+    int err = a.K[i] < 0 ? (int)cudaErrorInvalidValue : 0;
+    // A: K-major boxes of 64 k x 128 rows, or M-major 64 i x 64 k; B: N-major
+    // 64 j x 64 k, or K-major 64 k x 128 j
+    if (!err) err = bf16_tensor_map(&a.a[i], reinterpret_cast<const void*>(m[0]), m[1], m[2], at ? 64 : 128);
+    if (!err) err = bf16_tensor_map(&a.b[i], reinterpret_cast<const void*>(m[3]), m[4], m[5], bt ? 128 : 64);
+    if (err) return err;
+  }
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {
+    case 0: return launch_gemm_bf16<false, false>(a, splits, s);
+    case 1: return launch_gemm_bf16<false, true>(a, splits, s);
+    default: return launch_gemm_bf16<true, false>(a, splits, s);
+  }
+}
+
+// dst (rows_p, ld) bf16 = src (rows, cols) float32 rounded, zero-padded
+// (bf16_copy): rows_p >= rows, ld >= cols, ld % 8 == 0.
+int bf16_copy_launch(const void* src, void* dst, int rows, int cols, int rows_p, int ld,
+                     void* stream) {
+  if (src == nullptr || dst == nullptr || rows < 0 || cols < 1 || rows_p < rows || rows_p < 1 ||
+      ld < cols || ld % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long total = (long long)rows_p * ld;
+  const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096);
+  bf16_copy<<<blocks, 256, 0, (cudaStream_t)stream>>>((const float*)src, (__nv_bfloat16*)dst, rows,
+                                                       cols, rows_p, ld);
+  return (int)cudaGetLastError();
 }
 
 // K5 (batched_chain): one cooperative launch over B rows of a batch of

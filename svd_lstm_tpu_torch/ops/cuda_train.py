@@ -43,7 +43,9 @@ float32 and unrounded; db is the unrounded sum of dz, as the JAX kernels
 take it. The kernels round where an operand enters a product
 (``csrc/lstm_train.cu``, template flag ``BF16``), and the copies of the
 weights a wrapper makes for them (:func:`pack_gates`,
-:func:`pack_gates_interleaved`, Uᵀ) are rounded once by the wrapper; the
+:func:`pack_gates_interleaved`) are rounded once by the wrapper; K9f's and
+K6f's backward (:func:`wide_bwd_bf16`) takes bf16 copies of x, W, U and h
+(:func:`bf16_operands`, by a kernel) and runs on the tensor cores; the
 plain versions round with ``bf16_round``. (On the CPU the
 JAX package's DEFAULT dots are exact float32, so its CPU output cannot show
 bf16 numerics: the tests hold the bf16 plain versions to a float64
@@ -62,7 +64,8 @@ fails; there is no fallback from the card to the plain version.
 ``LAUNCHES`` counts the launches of each kernel variant (``REPLACES``'
 keys: the wrapper's name, with ``_fast`` for its bf16-operand variant); a
 wrapper adds one where it launches its kernel. The kernels compute on the
-CUDA cores.
+CUDA cores, but for K9f's and K6f's backward (``gemm_bf16`` on ``wgmma``,
+the dh chain's product on ``mma.sync``).
 """
 
 from __future__ import annotations
@@ -667,13 +670,18 @@ def fused_narrow_train_apply_compact(model, x_seq: torch.Tensor, return_sequence
 
 
 # ---------------------------------------------------------------------------
-# K9's and K6's backward: phases R, C, X, G (csrc gemm_f32, wide_bwd_chain)
+# K9's and K6's backward: phases R, C, X, G (csrc gemm_f32, wide_bwd_chain;
+# K9f's and K6f's: gemm_bf16, wide_bwd_chain's BF16 instantiation)
 # ---------------------------------------------------------------------------
 
 GEMM_TILE = (128, 128)  # csrc GM_BM, GM_BN: a GEMM CTA's rows × columns of C
 GEMM_BK = 16           # csrc GM_BK: the K chunk of a GEMM
 GEMM_MAX_SEGS = 2      # csrc GM_MAX_SEGS: products summed by one GEMM
 GEMM_MAX_SPLITS = 16
+GEMM_PER_SM = 2        # gemm_f32's CTAs an SM (csrc __launch_bounds__)
+GEMM_BF16_BK = 64      # csrc GB_BK: gemm_bf16's K chunk, one TMA box deep
+GEMM_BF16_PER_SM = 1   # gemm_bf16's CTAs an SM: its ring of 4 stages takes 129 KB
+BF16_ALIGN = 8         # a bf16 copy's row stride: whole 16 bytes (TMA's stride rule)
 # phase C's tiles, rows × units a CTA (csrc wide_bwd_chain_launch), by width:
 # the first whose unit groups the card's SMs hold. U is staged at the first
 # only: the wider ones are taken past 16·SMs units, where it never fits.
@@ -707,6 +715,20 @@ def chain_smem_bytes(n: int, rows: int, units: int, staged: bool) -> int:
     """Shared memory of phase C: the tile's dz at the CTA's 4·units gate
     columns, and with ``staged`` those columns of U for all n units."""
     return 4 * 4 * units * (rows + (n if staged else 0))
+
+
+def chain_smem_bytes_bf16(n: int, rows: int, units: int, staged: bool) -> int:
+    """Shared memory of phase C's bf16 instantiation (csrc launch_chain):
+    bf16 rows of 4·units + 8 (16 bytes of padding a row), the dz tile's
+    rows rounded up to the mma's 16, and with ``staged`` one row a unit of
+    U at the CTA's gate columns."""
+    return 2 * (4 * units + 8) * (_round_up(rows, 16) + (n if staged else 0))
+
+
+def bf16_ld(cols: int) -> int:
+    """The row stride of a bf16 copy of ``cols`` columns: a multiple of
+    BF16_ALIGN, the columns past ``cols`` zero."""
+    return _round_up(cols, BF16_ALIGN)
 
 
 def fwd_chain_smem_bytes(n: int, rows: int, units: int, staged: bool) -> int:
@@ -749,12 +771,13 @@ def chain_plan(B: int, n: int, sm_count: int, smem_bytes=chain_smem_bytes,
     return ChainPlan(rows, units, staged, unit_groups, row_groups, row_tiles, chunk_tiles * rows, smem)
 
 
-def gemm_splits(K: int, tiles: int, sm_count: int) -> int:
+def gemm_splits(K: int, tiles: int, sm_count: int, per_sm: int = GEMM_PER_SM) -> int:
     """Splits S of a TN GEMM's reduction over K rows (phase G): the S ≤
-    GEMM_MAX_SPLITS, each split at least 256 rows, whose CTAs (two of 256
-    threads an SM: csrc ``__launch_bounds__``) run in the fewest waves per
-    unit of work, ⌈tiles·S / slots⌉ / S; the smallest such S."""
-    slots = 2 * sm_count
+    GEMM_MAX_SPLITS, each split at least 256 rows, whose CTAs (``per_sm``
+    an SM: two of gemm_f32's, GEMM_BF16_PER_SM of gemm_bf16's) run in the
+    fewest waves per unit of work, ⌈tiles·S / slots⌉ / S; the smallest
+    such S."""
+    slots = per_sm * sm_count
     best, best_cost = 1, math.inf
     for S in range(1, min(GEMM_MAX_SPLITS, max(1, K // 256)) + 1):
         cost = math.ceil(tiles * S / slots) / S
@@ -783,7 +806,7 @@ def _gemm(C: torch.Tensor, M: int, N: int, segs, offset: int = 0, bias=None, add
     _launch("wide_gemm", C.device, meta.ctypes.data, int(bf16))
 
 
-def phase_r(x, W, U, b, h, bf16: bool = False) -> torch.Tensor:
+def phase_r(x, W, U, b, h) -> torch.Tensor:
     """z (T, B, 4n) = x·W + h_prev·U + b over all T·B rows, h_prev being h
     read B rows back (zero at t = 0); K6 (W None, x the projection xp): z =
     xp + h_prev·U."""
@@ -792,17 +815,16 @@ def phase_r(x, W, U, b, h, bf16: bool = False) -> torch.Tensor:
     z = torch.empty((T, B, 4 * n), dtype=torch.float32, device=x.device)
     h_prev = _seg(h, n, U, 4 * n, n, shift=B)
     if W is None:
-        _gemm(z, T * B, 4 * n, [h_prev], addend=x, bf16=bf16)
+        _gemm(z, T * B, 4 * n, [h_prev], addend=x)
     else:
-        _gemm(z, T * B, 4 * n, [_seg(x, din, W, 4 * n, din), h_prev], bias=b, bf16=bf16)
+        _gemm(z, T * B, 4 * n, [_seg(x, din, W, 4 * n, din), h_prev], bias=b)
     return z
 
 
-def phase_c(z, Ut, c, dh_seq, dz, plan: ChainPlan, bf16: bool = False) -> None:
+def phase_c(z, Ut, c, dh_seq, dz, plan: ChainPlan) -> None:
     """The dh chain (csrc wide_bwd_chain) from z and Ut = Uᵀ (4n, n): every
     step's dz into ``dz`` (T, B, 4n), one launch a chunk of the batch's
-    rows. ``bf16``: dz rounded before the product dz·Uᵀ (Ut comes
-    rounded)."""
+    rows."""
     T, B, n = c.shape
     G = 4 * n
     # the partial sums of dh: two parities of unit_groups × chunk rows × n
@@ -814,32 +836,29 @@ def phase_c(z, Ut, c, dh_seq, dz, plan: ChainPlan, bf16: bool = False) -> None:
         _launch("wide_bwd_chain", z.device, z.data_ptr() + 4 * b0 * G, Ut.data_ptr(),
                 c.data_ptr() + 4 * b0 * n, dh_seq.data_ptr() + 4 * b0 * n,
                 dz.data_ptr() + 4 * b0 * G, P.data_ptr(), T, rows, B, n, plan.rows, plan.units,
-                int(plan.staged), row_groups, int(bf16))
+                int(plan.staged), row_groups)
 
 
-def phase_x(dz, W, bf16: bool = False) -> torch.Tensor:
+def phase_x(dz, W) -> torch.Tensor:
     """dx (T, B, din) = dz·Wᵀ."""
     T, B, G = dz.shape
     dx = torch.empty((T, B, W.shape[0]), dtype=torch.float32, device=dz.device)
-    _gemm(dx, T * B, W.shape[0], [_seg(dz, G, W, G, G, b_t=1)], bf16=bf16)
+    _gemm(dx, T * B, W.shape[0], [_seg(dz, G, W, G, G, b_t=1)])
     return dx
 
 
-def phase_g(inp, h, dz, sm_count: int, bf16: bool = False):
+def phase_g(inp, h, dz, sm_count: int):
     """The weight gradients over all T·B rows, split over them in a fixed
     order (:func:`gemm_splits`) and summed in order: one output of rows [dW;
     db; dU] (K9, ``inp`` the layer's input; db is a row of ones beside inp's
     columns), or dU alone (K6, ``inp`` None). Returns (dW, dU, db), views of
-    that output, or dU. ``bf16``: the products' operands rounded; db, the
-    unrounded sum of dz, then comes from ``weight_grad`` (its row of the
-    output is left out of the GEMM, which would round dz)."""
+    that output, or dU."""
     T, B, G = dz.shape
     n, M = h.shape[2], T * B
     gemms = []  # (first output row, rows, product)
     if inp is not None:
         din = inp.shape[2]
-        ones = -1 if bf16 else din
-        gemms.append((0, din + int(not bf16), _seg(inp, din, dz, G, M, a_t=1, ones_row=ones)))
+        gemms.append((0, din + 1, _seg(inp, din, dz, G, M, a_t=1, ones_row=din)))
     first = 0 if inp is None else din + 1
     gemms.append((first, n, _seg(h, n, dz, G, M, a_t=1, shift=B)))
     rows = first + n
@@ -850,13 +869,11 @@ def phase_g(inp, h, dz, sm_count: int, bf16: bool = False):
     kchunk = _round_up(-(-M // S), GEMM_BK)
     for r0, r, seg in gemms:
         _gemm(partial, r, G, [seg], offset=r0 * G, splits=S, kchunk=kchunk,
-              split_stride=rows * G, bf16=bf16)
+              split_stride=rows * G)
     if S > 1:
         _launch("sum_splits", dz.device, partial.data_ptr(), out.data_ptr(), rows * G, S)
     if inp is None:
         return out
-    if bf16:
-        out[din] = _weight_grad(None, 0, dz.view(M, G))
     return out[:din], out[din + 1 :], out[din]
 
 
@@ -869,18 +886,172 @@ def wide_bwd(x, W, U, b, h, c, dh_seq, bf16: bool = False):
     """K9's backward (W given) or K6's (W and b None, x the projection xp)
     on checked card tensors: phase R (z), C (the dh chain, writing dz; K6's
     dz is dxp), X (dx, K9) and G (the weight gradients). Returns (dx, dW,
-    dU, db) or (dxp, dU)."""
+    dU, db) or (dxp, dU). ``bf16``: K9f's or K6f's, :func:`wide_bwd_bf16`."""
+    if bf16:
+        return wide_bwd_bf16(x, W, U, b, h, c, dh_seq)
     T, B, _ = x.shape
     n = U.shape[0]
     sms = sm_count(x.device)
     plan = chain_plan(B, n, sms)
-    z = phase_r(x, W, U, b, h, bf16)
+    z = phase_r(x, W, U, b, h)
     dz = torch.empty_like(z)
-    phase_c(z, operand_map(bf16)(U.t().contiguous()), c, dh_seq, dz, plan, bf16)
+    phase_c(z, U.t().contiguous(), c, dh_seq, dz, plan)
     del z  # 4·T·B·4n bytes: freed before phases X and G
     if W is None:
-        return dz, phase_g(None, h, dz, sms, bf16)
-    return (phase_x(dz, W, bf16), *phase_g(x, h, dz, sms, bf16))
+        return dz, phase_g(None, h, dz, sms)
+    return (phase_x(dz, W), *phase_g(x, h, dz, sms))
+
+
+# the bf16 backward (K9f, K6f): every product's operands as bf16 copies
+
+class Bf16Operands(NamedTuple):
+    """The bf16 copies of one call's operands (csrc bf16_copy, each (rows,
+    ld) with its row stride padded by :func:`bf16_ld`): x (T·B, ld(d)) and
+    W (ld(d), 4n), whose extra row is zero, so the K of x·W covers x's
+    padded columns (K9; None for K6), U (n, 4n), and h (T·B, n)."""
+
+    x: torch.Tensor | None
+    W: torch.Tensor | None
+    U: torch.Tensor
+    h: torch.Tensor
+
+
+def bf16_copy(a: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+    """A 2-D float32 card tensor rounded to bf16 (to nearest even) into a
+    zeroed copy of ``rows`` rows (at least a's) and :func:`bf16_ld` columns,
+    by csrc bf16_copy."""
+    r, cols = a.shape
+    rows = r if rows is None else rows
+    out = torch.empty((rows, bf16_ld(cols)), dtype=torch.bfloat16, device=a.device)
+    _launch("bf16_copy", a.device, a.data_ptr(), out.data_ptr(), r, cols, rows, out.shape[1])
+    return out
+
+
+def bf16_operands(x, W, U, h) -> Bf16Operands:
+    """The copies :class:`Bf16Operands` of one call (W None: K6, no x)."""
+    T, B, n = h.shape
+    M = T * B
+    xb = Wb = None
+    if W is not None:
+        xb = bf16_copy(x.view(M, x.shape[2]))
+        Wb = bf16_copy(W, rows=xb.shape[1])
+    return Bf16Operands(xb, Wb, bf16_copy(U), bf16_copy(h.view(M, n)))
+
+
+def _seg_bf16(A: torch.Tensor, B: torch.Tensor, K: int, shift: int = 0) -> list:
+    """One product of gemm_bf16 (csrc gemm_bf16_launch's meta row): A and B
+    bf16 copies (rows, ld)."""
+    return [A.data_ptr(), A.shape[0], A.shape[1], B.data_ptr(), B.shape[0], B.shape[1], shift, K]
+
+
+GEMM_FORMS = {"NN": 0, "NT": 1, "TN": 2}  # csrc gemm_bf16_launch's form
+
+
+def _gemm_bf16(C: torch.Tensor, M: int, N: int, form: str, segs, offset: int = 0, bias=None,
+               addend=None, splits: int = 1, kchunk: int = 0, split_stride: int = 0) -> None:
+    """C[offset:] (M, N), row stride N, = Σ of the bf16 products ``segs``
+    (+ bias) (+ addend, float32), by csrc gemm_bf16 in ``form`` (NN: A and
+    B as stored; NT: B read transposed; TN: A read transposed); with
+    ``splits`` > 1 split s of the reduction goes to C[offset +
+    s·split_stride:]."""
+    meta = np.zeros(11 + 8 * GEMM_MAX_SEGS, dtype=np.int64)
+    meta[:11] = [len(segs), M, N, C.data_ptr() + 4 * offset, N, _ptr(bias) or 0,
+                 _ptr(addend) or 0, splits, kchunk, split_stride, GEMM_FORMS[form]]
+    for i, seg in enumerate(segs):
+        meta[11 + 8 * i : 19 + 8 * i] = seg
+    _launch("gemm_bf16", C.device, meta.ctypes.data)
+
+
+def phase_r_bf16(ops: Bf16Operands, b, xp, B: int) -> torch.Tensor:
+    """z (T·B, 4n) float32 = x·W + h_prev·U + b (K9), or xp + h_prev·U (K6,
+    xp (T, B, 4n)), on the copies, h_prev being h read B rows back: the
+    bias and xp added unrounded."""
+    M, n = ops.h.shape
+    z = torch.empty((M, 4 * n), dtype=torch.float32, device=ops.h.device)
+    h_prev = _seg_bf16(ops.h, ops.U, n, shift=B)
+    if ops.x is None:
+        _gemm_bf16(z, M, 4 * n, "NN", [h_prev], addend=xp)
+    else:
+        _gemm_bf16(z, M, 4 * n, "NN", [_seg_bf16(ops.x, ops.W, ops.x.shape[1]), h_prev], bias=b)
+    return z
+
+
+def phase_c_bf16(z, Ub, c, dh_seq, dz, dzb, plan: ChainPlan) -> None:
+    """The bf16 dh chain (csrc wide_bwd_chain's BF16 instantiation) from z
+    and U's copy Ub (n, 4n): every step's dz into ``dz`` (T, B, 4n) and,
+    rounded, into ``dzb`` (T·B, 4n), one launch a chunk of the batch's
+    rows."""
+    T, B, n = c.shape
+    G = 4 * n
+    P = torch.empty(2 * plan.unit_groups * min(B, plan.chunk_rows) * n, dtype=torch.float32,
+                    device=z.device)
+    for b0 in range(0, B, plan.chunk_rows):
+        rows = min(plan.chunk_rows, B - b0)
+        row_groups = min(plan.row_groups, -(-rows // plan.rows))
+        _launch("wide_bwd_chain_bf16", z.device, z.data_ptr() + 4 * b0 * G, Ub.data_ptr(),
+                c.data_ptr() + 4 * b0 * n, dh_seq.data_ptr() + 4 * b0 * n,
+                dz.data_ptr() + 4 * b0 * G, dzb.data_ptr() + 2 * b0 * G, P.data_ptr(), T, rows, B,
+                n, plan.rows, plan.units, int(plan.staged), row_groups)
+
+
+def phase_x_bf16(dzb, Wb, din: int) -> torch.Tensor:
+    """dx (T·B, din) = dz·Wᵀ on the copies (W's read transposed)."""
+    M, G = dzb.shape
+    dx = torch.empty((M, din), dtype=torch.float32, device=dzb.device)
+    _gemm_bf16(dx, M, din, "NT", [_seg_bf16(dzb, Wb, G)])
+    return dx
+
+
+def phase_g_bf16(ops: Bf16Operands, dzb, dz, din: int, B: int, sm_count: int):
+    """The weight gradients on the copies, as :func:`phase_g` orders them
+    (split over the T·B rows by :func:`gemm_splits`, each split's K a whole
+    number of gemm_bf16's chunks, summed in order), into rows [dW; db; dU]
+    (K9) or dU (K6); db, the unrounded sum of dz, comes from
+    ``weight_grad``: the GEMM would round dz."""
+    M, G = dzb.shape
+    n = ops.h.shape[1]
+    gemms = []  # (first output row, rows, product)
+    if ops.x is not None:
+        gemms.append((0, din, _seg_bf16(ops.x, dzb, M)))
+    first = 0 if ops.x is None else din + 1
+    gemms.append((first, n, _seg_bf16(ops.h, dzb, M, shift=B)))
+    rows = first + n
+    BM, BN = GEMM_TILE
+    S = gemm_splits(M, sum(-(-r // BM) * -(-G // BN) for _, r, _ in gemms), sm_count,
+                    GEMM_BF16_PER_SM)
+    out = torch.empty((rows, G), dtype=torch.float32, device=dzb.device)
+    partial = torch.empty((S, rows, G), dtype=torch.float32, device=dzb.device) if S > 1 else out
+    kchunk = _round_up(-(-M // S), GEMM_BF16_BK)
+    for r0, r, seg in gemms:
+        _gemm_bf16(partial, r, G, "TN", [seg], offset=r0 * G, splits=S, kchunk=kchunk,
+                   split_stride=rows * G)
+    if S > 1:
+        _launch("sum_splits", dzb.device, partial.data_ptr(), out.data_ptr(), rows * G, S)
+    if ops.x is None:
+        return out
+    out[din] = _weight_grad(None, 0, dz.view(M, G))
+    return out[:din], out[din + 1 :], out[din]
+
+
+def wide_bwd_bf16(x, W, U, b, h, c, dh_seq):
+    """K9f's backward (W given) or K6f's (W and b None, x the projection
+    xp) on checked card tensors: the operands' bf16 copies, phase R
+    (gemm_bf16), C (the bf16 chain, writing dz and its bf16 copy), X and G
+    (gemm_bf16; db by weight_grad). Returns (dx, dW, dU, db) or (dxp, dU)."""
+    T, B, din = x.shape
+    n = U.shape[0]
+    sms = sm_count(x.device)
+    plan = chain_plan(B, n, sms, chain_smem_bytes_bf16)
+    ops = bf16_operands(x, W, U, h)
+    z = phase_r_bf16(ops, b, x if W is None else None, B)
+    dz = torch.empty((T, B, 4 * n), dtype=torch.float32, device=x.device)
+    dzb = torch.empty((T * B, 4 * n), dtype=torch.bfloat16, device=x.device)
+    phase_c_bf16(z, ops.U, c, dh_seq, dz, dzb, plan)
+    del z  # 4·T·B·4n bytes: freed before phases X and G
+    if W is None:
+        return dz, phase_g_bf16(ops, dzb, dz, 0, B, sms)
+    dx = phase_x_bf16(dzb, ops.W, din).view(T, B, din)
+    return (dx, *phase_g_bf16(ops, dzb, dz, din, B, sms))
 
 
 # ---------------------------------------------------------------------------

@@ -735,3 +735,112 @@ def test_cuda_dispatch_fast_launches_the_fast_kernels(cuda, units, kind):
     torch.cuda.synchronize()
     launched = {k for k, v in ct.LAUNCHES.items() if v != before[k]}
     assert launched == {f"{kind}_fwd_fast", f"{kind}_bwd_fast"}, launched
+
+
+# ---------------------------------------------------------------------------
+# on the card: K9f's and K6f's tensor-core backward (gemm_bf16 and the bf16
+# dh chain)
+# ---------------------------------------------------------------------------
+
+def _rounded64(t):
+    """A card tensor rounded to bf16, as float64 on the CPU."""
+    return t.bfloat16().double().cpu()
+
+
+def _close_products(name, got, want, scale):
+    """A gemm_bf16 output against float64 products of the same bf16
+    operands: within 1e-5 of the largest Σ|a|·|b| (float32 sums of up to a
+    few thousand products in another order; a wrong tile or transpose is
+    off by O(1))."""
+    err = float((got.double().cpu() - want).abs().max())
+    assert bool(torch.isfinite(got).all()) and err <= 1e-5 * scale, (name, err, scale)
+
+
+# (n, d, B, T): ragged M = T·B (51, 9), d = 16 and 7 (one padded column),
+# T·B = 520 (phase G in two splits, the second ragged)
+GEMM_BF16_CASES = [(128, 16, 17, 3), (128, 7, 9, 1), (256, 7, 130, 4), (128, 16, 130, 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,B,T", GEMM_BF16_CASES)
+def test_cuda_gemm_bf16_forms_match_float64_products(cuda, n, d, B, T):
+    """gemm_bf16 in each form against float64 products of the bf16-rounded
+    operands: R with the h_prev shift and the bias (K9), R with K6's xp
+    addend, X (dz·Wᵀ), G with its splits ([dW; db; dU], db unrounded)."""
+    W, U, b = _t(_layers_np(60 + n + d, (n,), d)[0], cuda)
+    rng = np.random.default_rng(61 + B)
+    M, G = T * B, 4 * n
+    x = _t(_normal(rng, (T, B, d)), cuda)
+    h = _t(_normal(rng, (T, B, n), 0.5), cuda)
+    xp = _t(_normal(rng, (T, B, G)), cuda)
+    dz = _t(_normal(rng, (M, G), 0.1), cuda)
+    ops = ct.bf16_operands(x, W, U, h)
+    assert ops.x.shape == (M, ct.bf16_ld(d)) and ops.W.shape == (ct.bf16_ld(d), G)
+    assert not ops.x[:, d:].any() and not ops.W[d:].any()  # the padding is zero
+    x64, W64, U64, h64, dz64 = (_rounded64(t) for t in (x.view(M, d), W, U, h.view(M, n), dz))
+    hp64 = torch.cat([torch.zeros((B, n), dtype=torch.float64), h64[:-B]])
+    absum = lambda a, c: float((a.abs() @ c.abs()).max())  # noqa: E731
+
+    z = ct.phase_r_bf16(ops, b, None, B)
+    torch.cuda.synchronize()
+    want = x64 @ W64 + hp64 @ U64 + b.double().cpu()
+    _close_products("R (K9)", z, want, absum(x64, W64) + absum(hp64, U64))
+    k6 = ct.Bf16Operands(None, None, ops.U, ops.h)
+    z = ct.phase_r_bf16(k6, None, xp, B)
+    torch.cuda.synchronize()
+    _close_products("R (K6)", z, xp.view(M, G).double().cpu() + hp64 @ U64, absum(hp64, U64))
+
+    dzb = ct.bf16_copy(dz)
+    dx = ct.phase_x_bf16(dzb, ops.W, d)
+    torch.cuda.synchronize()
+    _close_products("X", dx, dz64 @ W64.t(), absum(dz64, W64.t()))
+
+    sms = ct.sm_count(cuda)
+    tiles = -(-d // 128) * -(-G // 128) + -(-n // 128) * -(-G // 128)
+    splits = ct.gemm_splits(M, tiles, sms, ct.GEMM_BF16_PER_SM)
+    assert (splits > 1) == (M >= 512)
+    dW, dU, db = ct.phase_g_bf16(ops, dzb, dz, d, B, sms)
+    torch.cuda.synchronize()
+    _close_products("G dW", dW, x64.t() @ dz64, absum(x64.t(), dz64))
+    _close_products("G dU", dU, hp64.t() @ dz64, absum(hp64.t(), dz64))
+    _close_products("G db", db, dz.double().cpu().sum(0), float(dz.abs().sum(0).max()))
+    dU6 = ct.phase_g_bf16(k6, dzb, dz, 0, B, sms)
+    torch.cuda.synchronize()
+    _close_products("G dU (K6)", dU6, hp64.t() @ dz64, absum(hp64.t(), dz64))
+
+
+# (n, d, B, T): n = 128 and 512 (U staged), ragged B (1, 17, 33, 130), T = 1,
+# d = 16, 7 and 512, n = 1024 (staged in bf16) and 2176 (16 x 32 tiles, U
+# from the copy)
+WIDE_BWD_FAST_CASES = [(512, 16, 1, 5), (512, 512, 17, 4), (512, 16, 130, 3), (128, 16, 33, 1),
+                       (128, 7, 9, 4), (1024, 128, 20, 3), (2176, 16, 20, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,d,B,T", WIDE_BWD_FAST_CASES)
+def test_cuda_wide_bwd_fast_matches_plain(cuda, n, d, B, T, monkeypatch):
+    """K9f's and K6f's backward (gemm_bf16 and the bf16 chain) against
+    their plain bf16 versions, the plain fallback taken away."""
+    W, U, b = _t(_layers_np(70 + n + B, (n,), d)[0], cuda)
+    rng = np.random.default_rng(71 + B)
+    x = _t(_normal(rng, (T, B, d)), cuda)
+    dh = _t(_normal(rng, (T, B, n)), cuda)
+    plan = ct.chain_plan(B, n, ct.sm_count(cuda), ct.chain_smem_bytes_bf16)
+    assert plan.staged == (n <= 1024)
+    h_p, c_p = ct.wide_layer_fwd_plain(x, W, U, b, True)
+    args = (x, W, U, b, h_p, c_p, dh)
+    grads_p = ct.wide_layer_bwd_plain(*args, True)
+    grads64 = ct.wide_layer_bwd_plain(*_double(args), True)
+    xp = (torch.matmul(x, W) + b).contiguous()
+    rargs = (xp, U, h_p, c_p, dh)
+    rec_p = ct.lstm_recurrence_train_bwd_plain(*rargs, True)
+    rec64 = ct.lstm_recurrence_train_bwd_plain(*_double(rargs), True)
+    monkeypatch.setattr(ct, "wide_layer_bwd_plain", None)  # no fallback on the card
+    monkeypatch.setattr(ct, "lstm_recurrence_train_bwd_plain", None)
+    grads = _launched(ct.wide_layer_bwd, lambda: ct.wide_layer_bwd(*args, True), bf16=True)
+    for name, a, r, r64 in zip(("dx", "dW", "dU", "db"), grads, grads_p, grads64):
+        _close_fast(name, a, r, r64)
+    rec = _launched(ct.lstm_recurrence_train_bwd, lambda: ct.lstm_recurrence_train_bwd(*rargs, True),
+                    bf16=True)
+    for name, a, r, r64 in zip(("dxp", "dU"), rec, rec_p, rec64):
+        _close_fast(name, a, r, r64)

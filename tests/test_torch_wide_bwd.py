@@ -520,8 +520,7 @@ def _fake_launch(name, device, *args):
         assert ldc == N and (splits == 1 or split_stride >= M * ldc)
         gemm(mem, segs, M, N, C // 4, ldc, bias // 4, addend // 4, splits, kchunk, split_stride)
     elif name == "wide_bwd_chain":
-        z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups, bf16 = args
-        assert bf16 == 0  # the emulation is of the float32 kernels
+        z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups = args
         chain(mem, z // 4, Ut // 4, c // 4, dh // 4, dz // 4, P // 4, T, B, stride, n, rows, units,
               staged, row_groups)
     elif name == "sum_splits":
