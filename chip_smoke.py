@@ -118,8 +118,10 @@ Phases, each of which raises on failure (no phase is caught):
    and in turns with K7 at run A's inputs (B = 32) too; with ``--parent
    DIR``, K7 forward and backward at run A's shapes, K8's at B = 128, K9's
    at run C's (layer 1), K6's at run D's, cuDNN's on each, K9f's and K6f's
-   backward on the same inputs beside cuDNN's bf16 backward, and one train
-   step of runs A, B, E (narrow) and C, D, F (wide): its span, the host's
+   forward and backward on the same inputs beside cuDNN's bf16 forward and
+   backward, and one train step of runs A, B, E (narrow) and C, D, F (wide)
+   with the float32 kernels and of C and D in the fused_kernel regime (K9f,
+   K6f): its span, the host's
    time to issue it, the card's busy time from torch.profiler, in all and
    in the pair's forward and backward kernels; each measured in a fresh
    process on DIR's package and on this checkout's, in turns (P C C P C P P
@@ -218,11 +220,15 @@ Phases, each of which raises on failure (no phase is caught):
    or twice the plain version's distance from the same arithmetic in
    float64, whichever is larger (``fast_check``: a sum order that flips a
    bf16 rounding carries on), each timed beside its plain version, cuDNN's
-   bf16 LSTM and its bound at 989 TFLOP/s bf16 (K9f's and K6f's backward:
-   bf16 operand copies, ``gemm_bf16`` on ``wgmma`` for R, X and G, the dh
-   chain's product on ``mma.sync``), then the kernels one K9f and one K6f
-   backward launch at T and T/2, as many either way, the bf16 chain among
-   them; (10b) runs A, C and D, 4
+   bf16 LSTM and its bound at 989 TFLOP/s bf16 (K9f's and K6f's forward:
+   the x-side on ``gemm_bf16`` over bf16 copies of x and W (K9f), the chain
+   on ``batched_chain`` with c stored, its product on ``mma.sync``; their
+   backward: bf16 operand copies, ``gemm_bf16`` on ``wgmma`` for R, X and
+   G, the dh chain's product on ``mma.sync``), then the kernels one K9f and
+   one K6f forward and backward launch at T and T/2: each forward exactly
+   the copies and one ``gemm_bf16`` (K9f) and ``batched_chain`` once a chunk
+   of rows, no ``gemm_f32`` and no ``wide_fwd_chain``; each backward as many
+   either way, the bf16 chain among them; (10b) runs A, C and D, 4
    Adam steps of ``fit`` in each training regime (the JAX package's five:
    f32_scan, tf32_scan, bf16_scan, fused_kernel, fused_kernel_compact where
    K8 takes the stack; and the port's float32 kernels), the launch counts
@@ -587,7 +593,7 @@ def batched_kernel_checks(dev) -> dict:
             if name == "3x512" and i == 1:
                 timed = (l, xp, h)
     for n in (512, 30):
-        plan = cb._card_plan(dev, BATCH_B, n, True)
+        plan = cb.card_plan(dev, BATCH_B, n, True)
         log(f"[info] K5 at n={n}, B={BATCH_B}: {plan}, {plan.chunks(BATCH_B)} launch(es) a call")
     l, xp, h = timed  # layer 1 of 3x512: a 512-wide input, as layers 1 and 2 have
     h_in = batched_layer_inputs(P.load_params(DENSE_512, device=dev), xb)[0][2]  # layer 0's h
@@ -1235,9 +1241,10 @@ def wide_bwd_phases(name: str, x, W, U, b, h, c, dh) -> None:
     launches_at_two_lengths(name, call, T, "wide_bwd_chain", "one copy of U's transpose")
 
 
-def launches_at_two_lengths(name: str, call, T: int, chain: str, extra: str) -> None:
+def launches_at_two_lengths(name: str, call, T: int, chain: str, extra: str, expect=None) -> None:
     """The kernels one wrapper call launches at T and at T/2 steps
-    (``call(steps)``): as many either way, the chain kernel among them."""
+    (``call(steps)``): as many either way, the chain kernel among them; with
+    ``expect``, exactly those entry points in that order at both lengths."""
     counts = {}
     for steps in (T, T // 2):
         names = entry_launches(lambda: call(steps))
@@ -1245,8 +1252,24 @@ def launches_at_two_lengths(name: str, call, T: int, chain: str, extra: str) -> 
         log(f"[launches] {name} at T={steps}: {len(names)} kernels and {extra}: " + ", ".join(names))
         if chain not in names:
             fail(f"{name}: the chain kernel did not run")
+        if expect is not None and names != expect:
+            fail(f"{name}: launched {names}, expected {expect}")
     if counts[T] != counts[T // 2]:
         fail(f"{name}: launches grow with T: {counts}")
+
+
+def bf16_fwd_launches(name: str, call, x, n: int, with_x_side: bool) -> None:
+    """K9f's or K6f's forward at T and T/2 (``call(steps)``): the copies of
+    x and W and one gemm_bf16 (K9f only), then batched_chain (its entry
+    point, batched_lstm_recurrence) once a chunk of rows of the plan; no
+    gemm_f32 (wide_gemm) and no wide_fwd_chain."""
+    T, B = x.shape[:2]
+    plan = ct.fwd_plan_bf16(x.device, B, n)
+    log(f"[phase] {name} chain (batched_chain, c stored): {plan}, {plan.chunks(B)} launch(es)")
+    expect = (["bf16_copy", "bf16_copy", "gemm_bf16"] if with_x_side else []) + \
+        ["batched_lstm_recurrence"] * plan.chunks(B)
+    launches_at_two_lengths(name, call, T, "batched_lstm_recurrence", "one rounding of U's transpose",
+                            expect)
 
 
 def wide_fwd_phases(name: str, x, W, U, b) -> None:
@@ -1516,12 +1539,14 @@ def narrow_times(dev, data) -> dict:
 
 
 NARROW_PARTS = {"narrow fwd": ("narrow_fwd",), "narrow bwd": ("narrow_bwd",)}
-# the wide pair's kernels in this checkout and in the parent's (the parent's
-# forward: a wide_fwd_step a step; this checkout's forward chain, its x-side
-# GEMM counted with the backward's gemm_f32)
-WIDE_PARTS = {"wide fwd": ("wide_fwd_step", "wide_fwd_chain"),
-              "wide bwd": ("gemm_f32", "wide_bwd_chain", "wide_bwd_gates", "matmul_nt",
-                           "weight_grad", "sum_splits")}
+# the wide pair's kernels in this checkout and in earlier ones (a
+# wide_fwd_step a step before the forward chain; K9f's and K6f's forward
+# chain batched_chain since the bf16 forward's redesign): the x-side GEMM
+# and the copies are counted with the backward's (gemm_f32, gemm_bf16,
+# bf16_copy)
+WIDE_PARTS = {"wide fwd": ("wide_fwd_step", "wide_fwd_chain", "batched_chain"),
+              "wide bwd": ("gemm_f32", "gemm_bf16", "bf16_copy", "wide_bwd_chain", "wide_bwd_gates",
+                           "matmul_nt", "weight_grad", "sum_splits")}
 
 
 def step_split(step, parts: dict) -> dict:
@@ -1555,8 +1580,9 @@ def step_split(step, parts: dict) -> dict:
 def wide_times(dev, data) -> dict:
     """K9's pair at run C's shapes (the 3x512 checkpoint's layer 1, x its
     layer 0's h) and K6's at run D's (a fresh 512-unit layer's xp), cuDNN's
-    LSTM on both; K9f's and K6f's backward on the same inputs beside cuDNN's
-    bf16 LSTM backward: ms of each, in the package this process imported."""
+    LSTM on both; K9f's and K6f's pair on the same inputs beside cuDNN's
+    bf16 LSTM forward and backward: ms of each, in the package this process
+    imported."""
     rng = np.random.default_rng(1)
     out = {}
     model = TRAIN_RUNS[2].make(dev)
@@ -1569,8 +1595,10 @@ def wide_times(dev, data) -> dict:
     out["K9 fwd (run C layer 1)"] = device_time_ms(ct.wide_layer_fwd, x, W, U, b)
     out["K9 bwd (run C layer 1)"] = device_time_ms(ct.wide_layer_bwd, x, W, U, b, h, c, dh)
     out["cuDNN fwd (run C layer 1)"], out["cuDNN bwd (run C layer 1)"] = library_train([(W, U, b)], x, dh)
+    out["K9f fwd (run C layer 1)"] = device_time_ms(ct.wide_layer_fwd, x, W, U, b, True)
     out["K9f bwd (run C layer 1)"] = device_time_ms(ct.wide_layer_bwd, x, W, U, b, h, c, dh, True)
-    out["cuDNN bf16 bwd (run C layer 1)"] = library_train([(W, U, b)], x, dh, torch.bfloat16)[1]
+    out["cuDNN bf16 fwd (run C layer 1)"], out["cuDNN bf16 bwd (run C layer 1)"] = library_train(
+        [(W, U, b)], x, dh, torch.bfloat16)
     l = TRAIN_RUNS[3].make(dev).layers[0]
     W, U, b = (p.detach() for p in (l.W, l.U, l.b))
     x = first_batch(TRAIN_RUNS[3], data, dev)[0].transpose(0, 1).contiguous()
@@ -1580,8 +1608,10 @@ def wide_times(dev, data) -> dict:
     out["K6 fwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_fwd, xp, U)
     out["K6 bwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_bwd, xp, U, h, c, dh)
     out["cuDNN fwd (run D)"], out["cuDNN bwd (run D)"] = library_train([(W, U, b)], x, dh)
+    out["K6f fwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_fwd, xp, U, True)
     out["K6f bwd (run D)"] = device_time_ms(ct.lstm_recurrence_train_bwd, xp, U, h, c, dh, True)
-    out["cuDNN bf16 bwd (run D)"] = library_train([(W, U, b)], x, dh, torch.bfloat16)[1]
+    out["cuDNN bf16 fwd (run D)"], out["cuDNN bf16 bwd (run D)"] = library_train(
+        [(W, U, b)], x, dh, torch.bfloat16)
     return out
 
 
@@ -1677,9 +1707,10 @@ def inference_times(dev) -> dict:
 def tree_times(dev) -> dict:
     """``--time-tree DIR``: inference_times, narrow_times, wide_times and
     one train step (forward, backward, Adam) of runs A, B, E (narrow) and C,
-    D, F (wide), on DIR's package: the step's span on the card, the host's
-    time to issue it and the card's busy time in it, in all and in the
-    pair's kernels (step_split)."""
+    D, F (wide) with the float32 kernels, and of C and D in the fused_kernel
+    regime (bf16 operands: K9f, K6f), on DIR's package: the step's span on
+    the card, the host's time to issue it and the card's busy time in it,
+    in all and in the pair's kernels (step_split)."""
     data = train_data()
     with exact_matmul():
         out = inference_times(dev)
@@ -1693,6 +1724,14 @@ def tree_times(dev) -> dict:
         name = f"run {run.name.split()[0]} step"
         out[name] = device_time_ms(step)
         out.update({f"{name}, {k}": v for k, v in step_split(step, parts).items()})
+    for run in (TRAIN_RUNS[2], TRAIN_RUNS[3]):
+        x, y = first_batch(run, data, dev)
+        base_apply, loss_extra, make_opt = at._train_apply_for(run.make(dev))
+        apply_fn = resolve_train_apply_fn(regime_cfg(run, "bfloat16", True, False), base_apply)[0]
+        step = at._train_step(run.make(dev), apply_fn, loss_extra, make_opt, "bfloat16", x, y)
+        name = f"run {run.name.split()[0]} fused_kernel step"
+        out[name] = device_time_ms(step)
+        out.update({f"{name}, {k}": v for k, v in step_split(step, WIDE_PARTS).items()})
     return out
 
 
@@ -2480,6 +2519,8 @@ def precision_kernel_checks(dev, data) -> dict:
                     x, W, U, b, library_ms=lib_fwd,
                     **roofline.bound(macs, nbytes(args[:6]), "bfloat16")),
     }
+    bf16_fwd_launches("K9f fwd", lambda steps: ct.wide_layer_fwd(x[:steps].contiguous(), W, U, b, True),
+                      x, U.shape[0], True)
     launches_at_two_lengths(
         "K9f bwd", lambda steps: ct.wide_layer_bwd(*(a[:steps].contiguous() if a.dim() == 3 else a
                                                      for a in args), True),
@@ -2516,6 +2557,8 @@ def precision_kernel_checks(dev, data) -> dict:
                     bf16_variant(ct.lstm_recurrence_train_fwd_plain), xp, U, library_ms=lib_fwd,
                     **roofline.bound(macs, nbytes(xp, U, h, c), "bfloat16")),
     }
+    bf16_fwd_launches("K6f fwd", lambda steps: ct.lstm_recurrence_train_fwd(xp[:steps].contiguous(), U, True),
+                      xp, U.shape[0], False)
     launches_at_two_lengths(
         "K6f bwd", lambda steps: ct.lstm_recurrence_train_bwd(*(a[:steps].contiguous() if a.dim() == 3 else a
                                                               for a in args), True),

@@ -61,10 +61,10 @@ _SIGNATURES = {
     "fused_narrow_train_compact_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # A, shift, dz, out, partial, M, p, G, splits, bf16, stream
     "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # xz, Ui, h, c, T, B, stride, n, rows, units, staged, row_groups, bf16, stream
-    "wide_fwd_chain_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # meta (int64: see csrc wide_gemm_launch), bf16, stream
-    "wide_gemm_launch": [_P, _I, _P],
+    # xz, Ui, h, c, T, B, stride, n, rows, units, staged, row_groups, stream
+    "wide_fwd_chain_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # meta (int64: see csrc wide_gemm_launch), stream
+    "wide_gemm_launch": [_P, _P],
     # partial, out, size, splits, stream
     "sum_splits_launch": [_P, _P, _I, _I, _P],
     # z, Ut, c, dh, dz, P, T, B, stride, n, rows, units, staged, row_groups, stream
@@ -75,10 +75,10 @@ _SIGNATURES = {
     "gemm_bf16_launch": [_P, _P],
     # src, dst, rows, cols, rows_p, ld, stream
     "bf16_copy_launch": [_P, _P, _I, _I, _I, _I, _P],
-    # xp, Ut, h, T, B, stride, n, rows, units, bf16, stream
-    "batched_lstm_recurrence_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # n, rows, units, bf16, per_sm (int*)
-    "batched_lstm_per_sm": [_I, _I, _I, _I, _P],
+    # xp, Ut, h, c, hb (c and hb null for K5), T, B, stride, n, rows, units, bf16, staged, stream
+    "batched_lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # n, rows, units, bf16, cell, staged, per_sm (int*)
+    "batched_lstm_per_sm": [_I, _I, _I, _I, _I, _I, _P],
 }
 
 

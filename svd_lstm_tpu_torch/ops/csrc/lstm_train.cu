@@ -1,34 +1,35 @@
 // LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores; K9f's
-// and K6f's backward (gemm_bf16, the bf16 dh chain) and the batched
-// fast-mode recurrence (K5), bf16 on the tensor cores.
+// and K6f's forward and backward (gemm_bf16, batched_chain, the bf16 dh
+// chain) and the batched fast-mode recurrence (K5), bf16 on the tensor cores.
 //
-// Every train kernel that computes a product (narrow_fwd_wave,
-// narrow_bwd_wave, weight_grad, gemm_f32, wide_bwd_chain, wide_fwd_chain)
-// has a template flag BF16: its bf16-operand variant (K7f, K8f, K9f, K6f),
-// the arithmetic of the TPU kernels' precision=DEFAULT dots. Each operand is
-// rounded to bf16 (__float2bfloat16_rn, round to nearest even) where it
-// enters a product: the narrow kernels' weights when they are staged from W
-// and U, the state vectors and dz when they are stored into shared memory
-// for the product, the wide forward chain's h tile and gemm_f32's tiles in
-// shared memory once they have landed (in place, before the barrier that
-// lets every thread read them); the copies of the
-// weights that a wrapper makes for a kernel (ops/cuda_train.py: pack_gates,
-// pack_gates_interleaved, Uᵀ) come rounded already, so a load from them
-// adds nothing to the inner loops. The product of two bf16 values is exact in
-// float32, so the sums, the cell state c, the bias, xp and the gate math
+// The narrow train kernels and weight_grad (narrow_fwd_wave,
+// narrow_bwd_wave, weight_grad) have a template flag BF16: their
+// bf16-operand variant (K7f, K8f), the arithmetic of the TPU kernels'
+// precision=DEFAULT dots. Each operand is rounded to bf16
+// (__float2bfloat16_rn, round to nearest even) where it enters a product:
+// the narrow kernels' weights when they are staged from W and U, the state
+// vectors and dz when they are stored into shared memory for the product;
+// the copies of the weights that a wrapper makes for a kernel
+// (ops/cuda_train.py: pack_gates) come rounded already, so a load from them
+// adds nothing to the inner loops. The product of two bf16 values is exact
+// in float32, so the sums, the cell state c, the bias, xp and the gate math
 // stay float32, and every output (h, c, dz, dx, the gradients) is float32
-// and unrounded; db sums dz unrounded, as the TPU kernels do. The rounding
-// runs on the CUDA cores, once an operand, outside the inner loops. In the
-// forward kernels, the narrow backward and weight_grad the products stay
-// float32 FMAs, at about the float32 ones' speed. K9f's and K6f's backward
-// (pallas_train_wide.py:_wide_bwd, pallas_train.py:_pallas_bwd, DEFAULT
-// dots) run on the tensor cores instead: bf16 copies of the operands made
-// once a call (bf16_copy), phases R, X and G as gemm_bf16 (TMA and wgmma),
-// the dh chain's product on mma.sync in wide_bwd_chain's BF16
-// instantiation; the same products, their float32 sums in another order
-// (see the notes above gemm_bf16 and chain_product_bf16). Bound at 3x512,
-// B = 128, T = 200: 0.33 ms of bf16 operations, against ~2.8 ms measured
-// (PERF.md §6), most of it the chain's ~7.5 us step.
+// and unrounded; db sums dz unrounded, as the TPU kernels do. In these
+// kernels the products stay float32 FMAs, at about the float32 ones' speed.
+// K9f and K6f (pallas_train_wide.py:_wide_fwd / _wide_bwd,
+// pallas_train.py:_pallas_fwd_hc / _pallas_bwd, DEFAULT dots) run on the
+// tensor cores instead, with the same roundings: bf16 copies of the
+// operands made once a call (bf16_copy), every GEMM over all T·B rows as
+// gemm_bf16 (TMA and wgmma: K9f's forward x-side, the backward's phases R,
+// X and G), the forward chain as batched_chain's c-storing instantiation
+// (K5's kernel: h_t's bf16 copy kept for the next step, the product on
+// mma.sync), the
+// dh chain's product on mma.sync in wide_bwd_chain's BF16 instantiation;
+// the same products, their float32 sums in another order (see the notes
+// above gemm_bf16, batched_chain and chain_product_bf16). Bound at 3x512, B
+// = 128, T = 200: 0.33 ms of bf16 operations for the backward, 0.11 for the
+// forward, against ~2.8 and ~1.8 ms measured (PERF.md §6), most of it the
+// chains' steps (~7.4 and ~7.0 us).
 //
 // Four forward/backward pairs, one per TPU train kernel pair on the
 // training path of svd_lstm_tpu/ops/pallas_train.py, one reduction that the
@@ -42,12 +43,14 @@
 //       _fused_fwd / _fused_bwd (see the note above the launchers).
 //   K9  gemm_f32 + wide_fwd_chain / gemm_f32 + wide_bwd_chain — replace
 //       svd_lstm_tpu/ops/pallas_train_wide.py: _wide_fwd / _wide_bwd (one
-//       layer, n % 128 == 0).
+//       layer, n % 128 == 0); K9f: bf16_copy + gemm_bf16 + batched_chain /
+//       bf16_copy + gemm_bf16 + wide_bwd_chain (BF16) + weight_grad.
 //   K6  the same kernels with the x·W part left out (the forward chain on
 //       z = xp_t + h_{t-1}·U with no x-side GEMM; the backward's GEMMs
 //       without x and W, and dxp = dz) —
 //       replace svd_lstm_tpu/ops/pallas_train.py: _pallas_fwd_hc /
-//       _pallas_bwd.
+//       _pallas_bwd; K6f: batched_chain alone / K9f's backward without x
+//       and W.
 //   weight_grad (+ sum_splits) — the dW/dU/db accumulation that the TPU
 //       backward kernels carried in VMEM scratch (K7, K8; K9 and K6 take
 //       gemm_f32's TN form).
@@ -81,6 +84,8 @@
 //    persistent cooperative launch with its units' columns of U on chip and
 //    a grid barrier a step (wide_fwd_chain, the backward chain's layout; see
 //    its note). Before, a launch a step (~52 us a step at n = 512, B = 128).
+//    K9f and K6f: the same split, the GEMM on gemm_bf16 and the chain on
+//    batched_chain with c stored (its tile and grid by batched_plan).
 //  * K9 and K6 backward: only the dh carry is recurrent. z needs only x_t
 //    and the forward's h_{t-1}, dx only dz, and the weight gradients only
 //    dz and the forward's tensors, so they run as GEMMs over all T·B rows,
@@ -993,7 +998,7 @@ __device__ __forceinline__ void gemm_load_b(float (*Bs)[BN + 4], const GemmSeg& 
   }
 }
 
-template <int BM, int BN, bool kAT, bool kBT, bool BF16>
+template <int BM, int BN, bool kAT, bool kBT>
 __global__ void __launch_bounds__((BM / 8) * (BN / 8), 512 / ((BM / 8) * (BN / 8)))
 gemm_f32(const GemmArgs a) {
   constexpr int NT = (BM / 8) * (BN / 8);
@@ -1036,14 +1041,6 @@ gemm_f32(const GemmArgs a) {
     __syncthreads();     // ... for every thread; and chunk c - 1's buffer is free
     if (c + 1 < chunks) load(c + 1, (c + 1) & 1);  // in flight while chunk c is multiplied
     const int buf = c & 1;
-    if constexpr (BF16) {  // chunk c's tiles rounded in place, once, before any thread reads them
-      // 16 bytes at a time (a float at a time spilled more than the float32 twin)
-      float4* a = reinterpret_cast<float4*>(&As[buf][0][0]);
-      float4* b = reinterpret_cast<float4*>(&Bs[buf][0][0]);
-      for (int e = tid; e < GM_BK * (BM + 4) / 4; e += NT) a[e] = opnd4<true>(a[e]);
-      for (int e = tid; e < GM_BK * (BN + 4) / 4; e += NT) b[e] = opnd4<true>(b[e]);
-      __syncthreads();
-    }
     // the next k's fragments are read while this k's are multiplied
     float4 frag[2][4];
     auto read = [&](int kk, float4* f) {
@@ -1083,14 +1080,14 @@ gemm_f32(const GemmArgs a) {
 }
 
 // ---------------------------------------------------------------------------
-// gemm_bf16: phases R, X and G of K9f's and K6f's backward (the bf16-operand
-// variants of pallas_train_wide.py:_wide_bwd and pallas_train.py:_pallas_bwd,
-// whose dots are DEFAULT, one bf16 pass, on the TPU) on the tensor cores:
-// C (M, N) = Σ_seg A_seg·B_seg (+ bias[j]) (+ addend[i][j]) with bf16
-// operands and float32 sums. The product of two bf16 values is exact in
-// float32, so this is the arithmetic of gemm_f32<..., true> (its operands
-// rounded the same way, by the copies below) with the float32 sums in
-// another order.
+// gemm_bf16: phases R, X and G of K9f's and K6f's backward and K9f's forward
+// x-side (the bf16-operand variants of pallas_train_wide.py:_wide_bwd /
+// _wide_fwd and pallas_train.py:_pallas_bwd, whose dots are DEFAULT, one
+// bf16 pass, on the TPU) on the tensor cores: C (M, N) = Σ_seg A_seg·B_seg
+// (+ bias[j]) (+ addend[i][j]) with bf16 operands and float32 sums. The
+// product of two bf16 values is exact in float32, so this is the arithmetic
+// of the plain bf16 versions (ops/cuda_train.py: operands rounded by the
+// copies below) with the float32 sums in another order.
 //
 // What bounds it: at 3x512, B = 128, T = 200 phases R, X and G are 268 GFLOP,
 // 0.27 ms at the card's 989 TFLOP/s bf16 rate, against 4.0 ms at 67 TFLOP/s
@@ -1701,6 +1698,11 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
 //      wide_bwd_chain), z = xz_t + h_{t-1}·U, the gate update, h_t and c_t
 //      out, one grid barrier a step.
 //
+// K9f and K6f (bf16 operands) run the same two parts on the tensor cores:
+// the x-side as gemm_bf16 in its NN form with the bias, on bf16_copy's
+// copies of x and W, and the chain as batched_chain's kCell instantiation
+// (see K5's note below), which stores bf16(h_t) for the next step's product.
+//
 // A CTA owns J units (blockIdx.x, of n / J groups) and walks row tiles of R
 // rows (blockIdx.y, + gridDim.y, ...), the layout of wide_bwd_chain. Its
 // units' 4J gate columns of U, gate-interleaved ([k][unit][gate], one
@@ -1721,7 +1723,7 @@ wide_bwd_chain(const float* __restrict__ z, const float* __restrict__ Ut,
 // ---------------------------------------------------------------------------
 #define FWD_CHAIN_THREADS 128  // a thread 4 rows x 1 unit: R·J = 512 cells a CTA
 
-template <int R, int J, bool kStaged, bool BF16>
+template <int R, int J, bool kStaged>
 __global__ void __launch_bounds__(FWD_CHAIN_THREADS, 1)
 wide_fwd_chain(const float* __restrict__ xz, const float4* __restrict__ Ui, float* h, float* c,
                int T, int B, int stride, int n, int row_tiles) {
@@ -1755,12 +1757,6 @@ wide_fwd_chain(const float* __restrict__ xz, const float4* __restrict__ Ui, floa
         }
         cp_async_commit();
         cp_async_wait<0>();
-        if constexpr (BF16) {  // the thread's own copies, landed: rounded once, in place
-          for (int e = tid; e < R * n4; e += FWD_CHAIN_THREADS) {
-            float4* q = reinterpret_cast<float4*>(hs + (e / n4) * ld + 4 * (e % n4));
-            *q = opnd4<true>(*q);
-          }
-        }
       }
       __syncthreads();  // hs complete (and the staged columns, at the first tile)
       float acc[4][4];
@@ -1824,6 +1820,28 @@ wide_fwd_chain(const float* __restrict__ xz, const float4* __restrict__ Ui, floa
 // h_{t-1} is read back from the output: rounded to bf16 it is the product's
 // operand whether T is bf16 (exact already) or float32. U arrives as
 // Ut = bf16(U)ᵀ (4n, n), rounded once by the wrapper.
+// With kCell (T = float only) it also stores c_t (float32) beside h_t: that
+// instantiation is K9f's and K6f's forward chain (replacing
+// pallas_train_wide.py:_wide_fwd's and pallas_train.py:_pallas_fwd_hc's
+// recurrence under DEFAULT dots; xp is then K9f's x-side from gemm_bf16 or
+// K6f's xp, h0 = c0 = 0, and h, c float32 and unrounded, as the plain bf16
+// versions keep them). It also stores bf16(h_t), the next step's operand,
+// into slot t & 1 of a two-slot buffer hb, and reads h_{t-1} from slot
+// (t - 1) & 1 by cp.async: 32 KB a CTA a step through L2 instead of the
+// float32 h's 64 KB (~1.5 us of a ~9 us step at B = 128, n = 512, in turns:
+// PERF.md §6). A slot is rewritten two steps after it was written,
+// after a grid barrier that every CTA passes only once its reads of it are
+// done. K5's instantiation (kCell false) compiles as before.
+// Past n = 1152 no staged tile fits on the H100 (at 1280 32 x 16's columns
+// and h tile take 247 KB, and 16 x 8's 160 unit groups are not co-resident
+// at one CTA an SM), so the c-storing chain also has unstaged tiles
+// (kStaged false, UNSTAGED_TILES: 16 x 64): only the h tile is in shared
+// memory, and each lane loads its B fragments from a fragment-ordered copy
+// of Ut (ops/cuda_batched.py: fragment_order, rows zero-padded to a multiple
+// of 32) through L1 and L2, one 16-byte load a gate for two k groups of 16,
+// since ldmatrix reads only shared memory. At B = 128, T = 200 that ran at
+// ~23 us a step at n = 1280 and ~84 at 2176, the float32 chain's route
+// ~220 and ~1380 (PERF.md §6).
 //
 // What bounds it: at 3x512, B = 256, T = 128 a layer is 69 GFLOP (0.07 ms
 // at the 989 TFLOP/s bf16 tensor-core peak) and 134 MB of bf16 xp (0.04 ms
@@ -1866,7 +1884,10 @@ wide_fwd_chain(const float* __restrict__ xz, const float4* __restrict__ Ui, floa
 // us, the h tile's load ~1.1, the grid barrier ~1.0, xp's loads ~0.9, the
 // gate math ~0.3. The 32 x 32 tile ran faster than 32 x 16 (twice the CTAs
 // and the h traffic through L2) and 64 x 16; loading xp a step ahead, or
-// two units a load, ran slower.
+// two units a load, ran slower. The kCell instantiation at B = 128, n = 512
+// (K9f's and K6f's forward, scripts/probe_torch_wide_fwd.py --bf16): 32 x 32
+// again, 64 CTAs, ~7.0 us a step (1.39 ms at T = 200), against ~7.5 at 32 x
+// 16 (128 CTAs) and ~10.1 at 16 x 8.
 // ---------------------------------------------------------------------------
 // Eight k of one row of h_{t-1} (k, ..., k + 7; those past n are zero) as
 // bf16 into the A tile, through L2 (written by other CTAs in this launch).
@@ -1902,27 +1923,35 @@ __device__ __forceinline__ void load_h8(__nv_bfloat16* dst, const float* src, in
 template <int R, int J> struct BatchedTile {
   static constexpr int kWarps = (R / 16) * (J / 8), kThreads = kWarps * 32, kCols = 4 * J;
   static_assert(R % 16 == 0 && J % 8 == 0, "16-row m tiles, 8-unit groups");
-  // bf16 row stride of the shared tiles: Kp (n rounded up to 16) + 16 bytes
-  static int ld(int n) { return (n + 15) / 16 * 16 + 8; }
-  static size_t smem(int n) { return (size_t)(kCols + R) * ld(n) * sizeof(__nv_bfloat16); }
+  // the product's K: n rounded up to the k group of 16, or to the 32 of one
+  // 16-byte load of the fragment-ordered copy when Ut is not staged
+  __host__ __device__ static int kp(int n, bool staged) {
+    return staged ? (n + 15) / 16 * 16 : (n + 31) / 32 * 32;
+  }
+  // bf16 row stride of the shared tiles: Kp + 16 bytes
+  static int ld(int n, bool staged) { return kp(n, staged) + 8; }
+  static size_t smem(int n, bool staged) {
+    return (size_t)((staged ? kCols : 0) + R) * ld(n, staged) * sizeof(__nv_bfloat16);
+  }
 };
 
-template <typename T, int R, int J>
+template <typename T, int R, int J, bool kCell, bool kStaged>
 __global__ void __launch_bounds__(BatchedTile<R, J>::kThreads)
-batched_chain(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ Ut, T* h, int TT, int B,
-              int stride, int n) {
+batched_chain(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ Ut, T* h, float* cs,
+              __nv_bfloat16* hb, int TT, int B, int stride, int n) {
   using Tile = BatchedTile<R, J>;
   constexpr int MT = R / 16, WARPS = Tile::kWarps, THREADS = Tile::kThreads, COLS = Tile::kCols;
+  static_assert(kStaged || kCell, "Ut read from the global copy only by the c-storing chain");
   extern __shared__ uint4 batched_smem[];
-  const int Kp = (n + 15) / 16 * 16, ld = Kp + 8, chunks = ld / 8;
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(batched_smem);  // [COLS][ld]
-  __nv_bfloat16* As = Bs + (size_t)COLS * ld;                          // [R][ld]
+  const int Kp = Tile::kp(n, kStaged), ld = Kp + 8, chunks = ld / 8;
+  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(batched_smem);  // [COLS][ld] (kStaged)
+  __nv_bfloat16* As = Bs + (kStaged ? (size_t)COLS * ld : 0);          // [R][ld]
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int j0 = blockIdx.x * J, r0 = blockIdx.y * R;
   const bool vec = n % 8 == 0;
 
   // the CTA's 4J columns of Ut: row (unit group·4 + gate)·8 + unit
-  for (int e = tid; e < COLS * chunks; e += THREADS) {
+  if constexpr (kStaged) for (int e = tid; e < COLS * chunks; e += THREADS) {
     const int row = e / chunks, k = (e - row * chunks) * 8;
     const int j = j0 + (row >> 5) * 8 + (row & 7), gate = (row >> 3) & 3;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
@@ -1949,6 +1978,11 @@ batched_chain(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ Ut, T*
   const __nv_bfloat16* a_ptr = As + (size_t)(mt * 16 + (lane & 15)) * ld + (lane >> 4) * 8;
   const __nv_bfloat16* b_ptr =
       Bs + (size_t)(ug * 32 + (lane >> 4) * 8 + (lane & 7)) * ld + ((lane >> 3) & 1) * 8;
+  // unstaged: the lane's B fragments are k pairs of unit j0 + ug·8 + gid, a
+  // 16-byte load at 8·tig in each 32 k of the fragment-ordered copy (Kp a row)
+  const int ju = j0 + ug * 8 + gid;
+  const uint4* b_glob =
+      reinterpret_cast<const uint4*>(Ut) + (size_t)(ju < n ? ju : 0) * (Kp / 8) + tig;
   const int G4 = 4 * n;
   float c[4] = {0.f, 0.f, 0.f, 0.f};  // cell q: row g + 8·(q / 2), unit 2·tig + q % 2
   for (int t = 0; t < TT; ++t) {
@@ -1969,25 +2003,47 @@ batched_chain(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ Ut, T*
     if (t > 0) {
       cooperative_groups::this_grid().sync();  // h_{t-1} complete
       const T* hp = h + (size_t)(t - 1) * stride * n;
+      const __nv_bfloat16* hq = kCell ? hb + (size_t)((t - 1) & 1) * stride * n : nullptr;
       for (int r = warp; r < R; r += WARPS) {
         const int row = r0 + r;
         if (row >= B) break;  // warp-uniform; the rows past B stay zero
-        for (int k = lane * 8; k < n; k += 256)
-          load_h8(As + (size_t)r * ld + k, hp + (size_t)row * n + k, n - k, vec);
+        for (int k = lane * 8; k < n; k += 256) {
+          if constexpr (kCell)  // h_{t-1}'s bf16 copy: half the float32 h's bytes, by cp.async
+            load_h8(As + (size_t)r * ld + k, hq + (size_t)row * n + k, n - k, vec);
+          else
+            load_h8(As + (size_t)r * ld + k, hp + (size_t)row * n + k, n - k, vec);
+        }
       }
       cp_async_commit();
       cp_async_wait<0>();
       __syncthreads();
+      if constexpr (kStaged) {
 #pragma unroll 2
-      for (int k0 = 0; k0 < Kp; k0 += 16) {
-        uint32_t a[4], b01[4], b23[4];
-        ldmatrix_x4(a, a_ptr + k0);
-        ldmatrix_x4(b01, b_ptr + k0);
-        ldmatrix_x4(b23, b_ptr + 16 * ld + k0);
-        mma_bf16(acc[0], a, b01[0], b01[1]);
-        mma_bf16(acc[1], a, b01[2], b01[3]);
-        mma_bf16(acc[2], a, b23[0], b23[1]);
-        mma_bf16(acc[3], a, b23[2], b23[3]);
+        for (int k0 = 0; k0 < Kp; k0 += 16) {
+          uint32_t a[4], b01[4], b23[4];
+          ldmatrix_x4(a, a_ptr + k0);
+          ldmatrix_x4(b01, b_ptr + k0);
+          ldmatrix_x4(b23, b_ptr + 16 * ld + k0);
+          mma_bf16(acc[0], a, b01[0], b01[1]);
+          mma_bf16(acc[1], a, b01[2], b01[3]);
+          mma_bf16(acc[2], a, b23[0], b23[1]);
+          mma_bf16(acc[3], a, b23[2], b23[3]);
+        }
+      } else {
+        const size_t gate_rows = (size_t)n * (Kp / 8);  // uint4s from one gate's rows to the next
+        for (int k0 = 0; k0 < Kp; k0 += 32) {
+          uint4 w[4];
+#pragma unroll
+          for (int g = 0; g < 4; ++g)
+            w[g] = ju < n ? __ldg(b_glob + g * gate_rows + k0 / 8) : make_uint4(0u, 0u, 0u, 0u);
+          uint32_t a[4];
+          ldmatrix_x4(a, a_ptr + k0);  // the k group k0: .x and .y of each load
+#pragma unroll
+          for (int g = 0; g < 4; ++g) mma_bf16(acc[g], a, w[g].x, w[g].y);
+          ldmatrix_x4(a, a_ptr + k0 + 16);  // and k0 + 16: .z and .w
+#pragma unroll
+          for (int g = 0; g < 4; ++g) mma_bf16(acc[g], a, w[g].z, w[g].w);
+        }
       }
       // the A tile is rewritten only after the next grid barrier
     }
@@ -1998,7 +2054,14 @@ batched_chain(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ Ut, T*
       gate_fwd(acc[0][q] + xv[q][0], acc[1][q] + xv[q][1], acc[2][q] + xv[q][2],
                acc[3][q] + xv[q][3], c[q], hn, cn);
       c[q] = cn;
-      if (row < B && j < n) h[((size_t)t * stride + row) * n + j] = from_f32<T>(hn);
+      if (row < B && j < n) {
+        const size_t m = ((size_t)t * stride + row) * n + j;
+        h[m] = from_f32<T>(hn);
+        if constexpr (kCell) {  // K9f's and K6f's forward: c_t beside h_t, and h_t's bf16 copy
+          cs[m] = cn;
+          hb[(size_t)(t & 1) * stride * n + (size_t)row * n + j] = __float2bfloat16_rn(hn);
+        }
+      }
     }
   }
 }
@@ -2336,24 +2399,19 @@ int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl
               : switch_bwd_wave<false>(S, staged, a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
 }
 
-template <int BM, int BN, bool kAT, bool kBT, bool BF16>
+template <int BM, int BN, bool kAT, bool kBT>
 int launch_gemm(const GemmArgs& a, int splits, cudaStream_t s) {
   const dim3 grid((a.N + BN - 1) / BN, (a.M + BM - 1) / BM, splits);
-  gemm_f32<BM, BN, kAT, kBT, BF16><<<grid, (BM / 8) * (BN / 8), 0, s>>>(a);
+  gemm_f32<BM, BN, kAT, kBT><<<grid, (BM / 8) * (BN / 8), 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
-// gemm_f32 in the operand form: NN (phase R), NT (X), TN (G); with bf16
-// operands NN only (K9f's x-side: its backward runs on gemm_bf16)
-int switch_gemm(int form, int bf16, const GemmArgs& a, int splits, cudaStream_t s) {
-  if (bf16) {
-    if (form != 0) return (int)cudaErrorInvalidValue;
-    return launch_gemm<GM_BM, GM_BN, false, false, true>(a, splits, s);
-  }
+// gemm_f32 in the operand form: NN (phase R, K9's x-side), NT (X), TN (G)
+int switch_gemm(int form, const GemmArgs& a, int splits, cudaStream_t s) {
   switch (form) {
-    case 0: return launch_gemm<GM_BM, GM_BN, false, false, false>(a, splits, s);
-    case 1: return launch_gemm<GM_BM, GM_BN, false, true, false>(a, splits, s);
-    default: return launch_gemm<GM_BM, GM_BN, true, false, false>(a, splits, s);
+    case 0: return launch_gemm<GM_BM, GM_BN, false, false>(a, splits, s);
+    case 1: return launch_gemm<GM_BM, GM_BN, false, true>(a, splits, s);
+    default: return launch_gemm<GM_BM, GM_BN, true, false>(a, splits, s);
   }
 }
 
@@ -2397,13 +2455,16 @@ int launch_chain(const float* z, const float* Ut, const __nv_bfloat16* Ub, const
   return (int)cudaGetLastError();
 }
 
-// K5's tiles, rows x units a CTA (ops/cuda_batched.py: BATCHED_TILES)
+// K5's tiles, rows x units a CTA (ops/cuda_batched.py: BATCHED_TILES), Ut
+// staged; and the c-storing chain's tiles with Ut read from the global copy
+// (UNSTAGED_TILES)
 #define BATCHED_TILES(X) X(32, 32) X(32, 16) X(16, 8)
+#define UNSTAGED_TILES(X) X(16, 64)
 
-template <typename T, int R, int J>
+template <typename T, int R, int J, bool kCell, bool kStaged>
 int batched_occupancy(int n, int* per_sm) {
-  const auto kernel = batched_chain<T, R, J>;
-  const size_t smem = BatchedTile<R, J>::smem(n);
+  const auto kernel = batched_chain<T, R, J, kCell, kStaged>;
+  const size_t smem = BatchedTile<R, J>::smem(n, kStaged);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel,
@@ -2413,11 +2474,11 @@ int batched_occupancy(int n, int* per_sm) {
 // Checks co-residency (every CTA of the grid on the card at once, from the
 // occupancy of this kernel and the device's SM count), then the
 // cooperative launch.
-template <typename T, int R, int J>
-int launch_batched(const void* xp_, const void* Ut_, void* h_, int TT, int B, int stride, int n,
-                   cudaStream_t s) {
+template <typename T, int R, int J, bool kCell, bool kStaged>
+int launch_batched(const void* xp_, const void* Ut_, void* h_, void* c_, void* hb_, int TT, int B,
+                   int stride, int n, cudaStream_t s) {
   int per_sm = 0, dev = 0, sms = 0;
-  int err = batched_occupancy<T, R, J>(n, &per_sm);
+  int err = batched_occupancy<T, R, J, kCell, kStaged>(n, &per_sm);
   if (err != (int)cudaSuccess) return err;
   cudaError_t e;
   if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
@@ -2429,17 +2490,20 @@ int launch_batched(const void* xp_, const void* Ut_, void* h_, int TT, int B, in
   const T* xp = (const T*)xp_;
   const __nv_bfloat16* Ut = (const __nv_bfloat16*)Ut_;
   T* h = (T*)h_;
-  void* args[] = {(void*)&xp, (void*)&Ut, (void*)&h, (void*)&TT, (void*)&B, (void*)&stride, (void*)&n};
-  e = cudaLaunchCooperativeKernel((const void*)batched_chain<T, R, J>, grid,
+  float* c = (float*)c_;
+  __nv_bfloat16* hb = (__nv_bfloat16*)hb_;
+  void* args[] = {(void*)&xp, (void*)&Ut, (void*)&h,      (void*)&c, (void*)&hb,
+                  (void*)&TT, (void*)&B,  (void*)&stride, (void*)&n};
+  e = cudaLaunchCooperativeKernel((const void*)batched_chain<T, R, J, kCell, kStaged>, grid,
                                   dim3(BatchedTile<R, J>::kThreads), args,
-                                  BatchedTile<R, J>::smem(n), s);
+                                  BatchedTile<R, J>::smem(n, kStaged), s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // wide_fwd_chain at one (R, J, home): checks the shape, the shared memory
 // and co-residency, then the cooperative launch.
-template <int R, int J, bool kStaged, bool BF16>
+template <int R, int J, bool kStaged>
 int launch_fwd_chain(const float* xz, const float4* Ui, float* h, float* c, int T, int B,
                      int stride, int n, int row_groups, cudaStream_t s) {
   const int tiles = (B + R - 1) / R;
@@ -2449,7 +2513,7 @@ int launch_fwd_chain(const float* xz, const float4* Ui, float* h, float* c, int 
   if (row_tiles > CHAIN_MAX_ROW_TILES) return (int)cudaErrorInvalidValue;
   const size_t smem = ((size_t)R * (n + 4) + (kStaged ? (size_t)4 * J * n : 0)) * sizeof(float);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
-  const auto kernel = wide_fwd_chain<R, J, kStaged, BF16>;
+  const auto kernel = wide_fwd_chain<R, J, kStaged>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0, per_sm = 0;
@@ -2581,9 +2645,10 @@ int weight_grad_launch(const void* A, int shift, const void* dz, void* out, void
   return (int)cudaGetLastError();
 }
 
-// The forward chain of K9 and K6 (wide_fwd_chain) over B rows of a batch
-// of stride rows: xz (T, stride, 4n) the x-side (K9: x·W + b from
-// gemm_f32; K6: xp), h and c (T, stride, n) out, each pointer at the
+// The forward chain of K9 and K6 (wide_fwd_chain; K9f's and K6f's is
+// batched_chain's c-storing instantiation, batched_lstm_recurrence_launch)
+// over B rows of a batch of stride rows: xz (T, stride, 4n) the x-side (K9:
+// x·W + b from gemm_f32; K6: xp), h and c (T, stride, n) out, each pointer at the
 // chunk's first row; Ui: U gate-interleaved, (n, n, 4) (ops/cuda_train.py:
 // pack_gates_interleaved). rows x units: the CTA's tile R x J (32x16, U
 // staged or from the global copy; 16x32 and 8x64 from the global copy),
@@ -2591,7 +2656,7 @@ int weight_grad_launch(const void* A, int shift, const void* dz, void* out, void
 // not chosen; a grid that cannot be co-resident is refused.
 int wide_fwd_chain_launch(const void* xz, const void* Ui, void* h, void* c, int T, int B,
                           int stride, int n, int rows, int units, int staged, int row_groups,
-                          int bf16, void* stream) {
+                          void* stream) {
   if (T < 1 || B < 1 || n < 1 || xz == nullptr || Ui == nullptr || h == nullptr || c == nullptr)
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)Ui) & 15) return (int)cudaErrorMisalignedAddress;
@@ -2599,10 +2664,9 @@ int wide_fwd_chain_launch(const void* xz, const void* Ui, void* h, void* c, int 
   const float4* U4 = (const float4*)Ui;
   float *hf = (float*)h, *cf = (float*)c;
   cudaStream_t s = (cudaStream_t)stream;
-#define FWD_CASE(R_, J_, ST_)                                                                 \
-  if (rows == R_ && units == J_ && (staged != 0) == ST_)                                      \
-    return bf16 ? launch_fwd_chain<R_, J_, ST_, true>(x, U4, hf, cf, T, B, stride, n, row_groups, s) \
-                : launch_fwd_chain<R_, J_, ST_, false>(x, U4, hf, cf, T, B, stride, n, row_groups, s);
+#define FWD_CASE(R_, J_, ST_)                                \
+  if (rows == R_ && units == J_ && (staged != 0) == ST_)     \
+    return launch_fwd_chain<R_, J_, ST_>(x, U4, hf, cf, T, B, stride, n, row_groups, s);
   FWD_CASE(32, 16, true)
   FWD_CASE(32, 16, false)
   FWD_CASE(16, 32, false)
@@ -2612,13 +2676,12 @@ int wide_fwd_chain_launch(const void* xz, const void* Ui, void* h, void* c, int 
 }
 
 // gemm_f32 (phases R, X, G of K9's and K6's backward, and the x-side of
-// K9's and K9f's forward), at its 128 x 128 tile; bf16 != 0 in the NN form
-// only. meta: 10 int64 — nseg, M, N, C, ldc, bias, addend, splits, kchunk,
+// K9's forward), at its 128 x 128 tile. meta: 10 int64 — nseg, M, N, C, ldc, bias, addend, splits, kchunk,
 // split_stride — then GM_MAX_SEGS rows of 9: A, B,
 // lda, ldb, a_t, b_t, shift, ones_row, K (see GemmSeg; a_t: A read
 // transposed, b_t: B read transposed, the same in every segment, not both).
 // Pointers are device pointers or 0.
-int wide_gemm_launch(const int64_t* meta, int bf16, void* stream) {
+int wide_gemm_launch(const int64_t* meta, void* stream) {
   GemmArgs a;
   a.nseg = (int)meta[0];
   a.M = (int)meta[1];
@@ -2654,7 +2717,7 @@ int wide_gemm_launch(const int64_t* meta, int bf16, void* stream) {
     form = f;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  return switch_gemm(form, bf16, a, splits, s);
+  return switch_gemm(form, a, splits, s);
 }
 
 // out[i] = Σ_{s<splits} partial[s·size + i], in order of s.
@@ -2730,7 +2793,8 @@ int wide_bwd_chain_bf16_launch(const void* z, const void* Ub, const void* c, con
   return (int)cudaErrorInvalidValue;
 }
 
-// gemm_bf16 (phases R, X, G of K9f's and K6f's backward) at its 128 x 128
+// gemm_bf16 (phases R, X, G of K9f's and K6f's backward, K9f's forward
+// x-side) at its 128 x 128
 // tile. meta: 11 int64 — nseg, M, N, C, ldc, bias, addend, splits, kchunk,
 // split_stride, form (0 NN, 1 NT, 2 TN: gemm_f32's forms) — then
 // GM_MAX_SEGS rows of 8: A, A's rows, A's ld, B, B's rows, B's ld, shift, K:
@@ -2795,35 +2859,61 @@ int bf16_copy_launch(const void* src, void* dst, int rows, int cols, int rows_p,
 // K5 (batched_chain): one cooperative launch over B rows of a batch of
 // stride rows (the pointers at the chunk's first row): xp (T, stride, 4n)
 // and h (T, stride, n) bf16 when bf16 != 0, else float32; Ut = bf16(U)ᵀ
-// (4n, n). rows x units: the CTA's tile (ops/cuda_batched.py:
-// batched_plan), checked here, not chosen; a grid that cannot be
-// co-resident is refused.
-int batched_lstm_recurrence_launch(const void* xp, const void* Ut, void* h, int T, int B,
-                                   int stride, int n, int rows, int units, int bf16,
-                                   void* stream) {
-  if (T < 1 || B < 1 || n < 1 || stride < B || xp == nullptr || Ut == nullptr || h == nullptr)
+// (4n, n). c (T, stride, n) float32 and hb (2, stride, n) bf16, both or
+// neither: with a float32 xp and h, the cell states stored beside h and a
+// two-slot bf16 copy of h that the next step reads (K9f's and K6f's
+// forward, ops/cuda_train.py: wide_fwd_bf16; K5 passes null). rows x
+// units: the CTA's tile (ops/cuda_batched.py: batched_plan), checked here,
+// not chosen; a grid that cannot be co-resident is refused. staged == 0
+// (the c-storing chain only, a tile of UNSTAGED_TILES): Ut is the
+// fragment-ordered copy (4n, ⌈n / 32⌉·32) of ops/cuda_batched.py:
+// fragment_order, read from global memory, not staged.
+int batched_lstm_recurrence_launch(const void* xp, const void* Ut, void* h, void* c, void* hb,
+                                   int T, int B, int stride, int n, int rows, int units, int bf16,
+                                   int staged, void* stream) {
+  if (T < 1 || B < 1 || n < 1 || stride < B || xp == nullptr || Ut == nullptr || h == nullptr ||
+      (c == nullptr) != (hb == nullptr) || (bf16 && c != nullptr) || (!staged && c == nullptr))
     return (int)cudaErrorInvalidValue;
-  if ((((uintptr_t)Ut) | ((uintptr_t)h)) & 15) return (int)cudaErrorMisalignedAddress;
+  if ((((uintptr_t)Ut) | ((uintptr_t)h) | ((uintptr_t)c) | ((uintptr_t)hb)) & 15)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
-#define BATCHED_CASE(R_, J_)                                                                   \
-  if (rows == R_ && units == J_)                                                               \
-    return bf16 ? launch_batched<__nv_bfloat16, R_, J_>(xp, Ut, h, T, B, stride, n, s)          \
-                : launch_batched<float, R_, J_>(xp, Ut, h, T, B, stride, n, s);
+#define BATCHED_CASE(R_, J_)                                                                     \
+  if (staged && rows == R_ && units == J_) {                                                     \
+    if (bf16)                                                                                    \
+      return launch_batched<__nv_bfloat16, R_, J_, false, true>(xp, Ut, h, c, hb, T, B, stride, n, s); \
+    if (c) return launch_batched<float, R_, J_, true, true>(xp, Ut, h, c, hb, T, B, stride, n, s);   \
+    return launch_batched<float, R_, J_, false, true>(xp, Ut, h, c, hb, T, B, stride, n, s);         \
+  }
   BATCHED_TILES(BATCHED_CASE)
 #undef BATCHED_CASE
+#define UNSTAGED_CASE(R_, J_)        \
+  if (!staged && rows == R_ && units == J_) \
+    return launch_batched<float, R_, J_, true, false>(xp, Ut, h, c, hb, T, B, stride, n, s);
+  UNSTAGED_TILES(UNSTAGED_CASE)
+#undef UNSTAGED_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// K5's CTAs an SM at rows x units and width n (the occupancy of
-// batched_chain with its shared memory), into *per_sm.
-int batched_lstm_per_sm(int n, int rows, int units, int bf16, int* per_sm) {
-  if (n < 1 || per_sm == nullptr) return (int)cudaErrorInvalidValue;
-#define BATCHED_CASE(R_, J_)                                                                   \
-  if (rows == R_ && units == J_)                                                               \
-    return bf16 ? batched_occupancy<__nv_bfloat16, R_, J_>(n, per_sm)                           \
-                : batched_occupancy<float, R_, J_>(n, per_sm);
+// batched_chain's CTAs an SM at rows x units and width n (the occupancy of
+// the instantiation batched_lstm_recurrence_launch takes for bf16, a c
+// output or none and Ut staged or not, with its shared memory), into
+// *per_sm.
+int batched_lstm_per_sm(int n, int rows, int units, int bf16, int cell, int staged, int* per_sm) {
+  if (n < 1 || per_sm == nullptr || (bf16 && cell) || (!staged && !cell))
+    return (int)cudaErrorInvalidValue;
+#define BATCHED_CASE(R_, J_)                                                             \
+  if (staged && rows == R_ && units == J_) {                                             \
+    if (bf16) return batched_occupancy<__nv_bfloat16, R_, J_, false, true>(n, per_sm);   \
+    if (cell) return batched_occupancy<float, R_, J_, true, true>(n, per_sm);            \
+    return batched_occupancy<float, R_, J_, false, true>(n, per_sm);                     \
+  }
   BATCHED_TILES(BATCHED_CASE)
 #undef BATCHED_CASE
+#define UNSTAGED_CASE(R_, J_)               \
+  if (!staged && rows == R_ && units == J_) \
+    return batched_occupancy<float, R_, J_, true, false>(n, per_sm);
+  UNSTAGED_TILES(UNSTAGED_CASE)
+#undef UNSTAGED_CASE
   return (int)cudaErrorInvalidValue;
 }
 

@@ -31,7 +31,10 @@ memory. K9's forward is one GEMM for x·W + b over all T·B rows and one
 persistent launch for the recurrence (:func:`wide_fwd`); its backward runs
 four phases (:func:`wide_bwd`: GEMMs for z, dx and the weight gradients
 over all T·B rows, and one persistent launch for the dh chain). K6 runs
-K9's kernels with the x·W part taken out.
+K9's kernels with the x·W part taken out. K9f's and K6f's forward
+(:func:`wide_fwd_bf16`) runs its x-side on ``gemm_bf16`` and its chain on
+K5's ``batched_chain`` with c stored, planned by ``cuda_batched.batched_plan``
+(past n = 1152 its unstaged tile, U read from a global copy).
 
 Every wrapper, plain version and autograd Function takes ``bf16``. False
 (exact): everything in float32. True: the bf16-operand variant, the
@@ -40,14 +43,14 @@ K8f, K9f, K6f): each operand of an in-kernel product rounded to bf16
 (round to nearest even) where it enters the product, the products exact,
 the sums, the state c, the bias, xp and the gate math float32, every output
 float32 and unrounded; db is the unrounded sum of dz, as the JAX kernels
-take it. The kernels round where an operand enters a product
+take it. The narrow kernels round where an operand enters a product
 (``csrc/lstm_train.cu``, template flag ``BF16``), and the copies of the
-weights a wrapper makes for them (:func:`pack_gates`,
-:func:`pack_gates_interleaved`) are rounded once by the wrapper; K9f's and
-K6f's backward (:func:`wide_bwd_bf16`) takes bf16 copies of x, W, U and h
-(:func:`bf16_operands`, by a kernel) and runs on the tensor cores; the
-plain versions round with ``bf16_round``. (On the CPU the
-JAX package's DEFAULT dots are exact float32, so its CPU output cannot show
+weights a wrapper makes for them (:func:`pack_gates`) are rounded once by
+the wrapper; K9f and K6f take bf16 copies of their operands (x and W by
+:func:`bf16_copy`, U as bf16(U)ᵀ for the forward chain, :func:`bf16_operands`
+for the backward; the forward chain stores each h_t's bf16 copy for the
+next step) and run on the tensor cores; the plain versions round with
+``bf16_round``. (On the CPU the JAX package's DEFAULT dots are exact float32, so its CPU output cannot show
 bf16 numerics: the tests hold the bf16 plain versions to a float64
 emulation that rounds the same operands.)
 
@@ -64,8 +67,8 @@ fails; there is no fallback from the card to the plain version.
 ``LAUNCHES`` counts the launches of each kernel variant (``REPLACES``'
 keys: the wrapper's name, with ``_fast`` for its bf16-operand variant); a
 wrapper adds one where it launches its kernel. The kernels compute on the
-CUDA cores, but for K9f's and K6f's backward (``gemm_bf16`` on ``wgmma``,
-the dh chain's product on ``mma.sync``).
+CUDA cores, but for K9f and K6f, forward and backward (``gemm_bf16`` on
+``wgmma``, the chains' products on ``mma.sync``).
 """
 
 from __future__ import annotations
@@ -83,6 +86,7 @@ from svd_lstm_tpu_torch.models.lstm import (
     stacked_lstm_apply,
 )
 from svd_lstm_tpu_torch.models.reduced import operand_map
+from svd_lstm_tpu_torch.ops import cuda_batched as cb
 from svd_lstm_tpu_torch.ops.cuda_lstm import _SMEM_LIMIT, _check_smem, _check_T, _launch, _on_card
 from svd_lstm_tpu_torch.utils.precision import dot
 
@@ -793,17 +797,16 @@ def _seg(A: torch.Tensor, lda: int, B: torch.Tensor, ldb: int, K: int, a_t: int 
 
 
 def _gemm(C: torch.Tensor, M: int, N: int, segs, offset: int = 0, bias=None, addend=None,
-          splits: int = 1, kchunk: int = 0, split_stride: int = 0, bf16: bool = False) -> None:
+          splits: int = 1, kchunk: int = 0, split_stride: int = 0) -> None:
     """C[offset:] (M, N), row stride N, = Σ of the products ``segs`` (+ bias)
     (+ addend), by csrc gemm_f32; with ``splits`` > 1 split s of the
-    reduction goes to C[offset + s·split_stride:]. ``bf16``: every operand
-    of the products rounded (not the bias or the addend)."""
+    reduction goes to C[offset + s·split_stride:]."""
     meta = np.zeros(10 + 9 * GEMM_MAX_SEGS, dtype=np.int64)
     meta[:10] = [len(segs), M, N, C.data_ptr() + 4 * offset, N, _ptr(bias) or 0,
                  _ptr(addend) or 0, splits, kchunk, split_stride]
     for i, seg in enumerate(segs):
         meta[10 + 9 * i : 19 + 9 * i] = seg
-    _launch("wide_gemm", C.device, meta.ctypes.data, int(bf16))
+    _launch("wide_gemm", C.device, meta.ctypes.data)
 
 
 def phase_r(x, W, U, b, h) -> torch.Tensor:
@@ -927,15 +930,20 @@ def bf16_copy(a: torch.Tensor, rows: int | None = None) -> torch.Tensor:
     return out
 
 
+def bf16_xw(x, W) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The copies of x (T·B, ld(d)) and W (ld(d), 4n), W's rows past d zero,
+    so the K of x·W runs over x's padded columns. (The forward chain's U is
+    the one operand not copied by :func:`bf16_copy`: it takes bf16(U)ᵀ,
+    transposed, as K5 does, which the copy kernel does not do.)"""
+    xb = bf16_copy(x.view(-1, x.shape[2]))
+    return xb, bf16_copy(W, rows=xb.shape[1])
+
+
 def bf16_operands(x, W, U, h) -> Bf16Operands:
     """The copies :class:`Bf16Operands` of one call (W None: K6, no x)."""
     T, B, n = h.shape
-    M = T * B
-    xb = Wb = None
-    if W is not None:
-        xb = bf16_copy(x.view(M, x.shape[2]))
-        Wb = bf16_copy(W, rows=xb.shape[1])
-    return Bf16Operands(xb, Wb, bf16_copy(U), bf16_copy(h.view(M, n)))
+    xb, Wb = (None, None) if W is None else bf16_xw(x, W)
+    return Bf16Operands(xb, Wb, bf16_copy(U), bf16_copy(h.view(T * B, n)))
 
 
 def _seg_bf16(A: torch.Tensor, B: torch.Tensor, K: int, shift: int = 0) -> list:
@@ -1071,21 +1079,20 @@ def pack_gates_interleaved(U: torch.Tensor) -> torch.Tensor:
     return U.reshape(n, 4, n).transpose(1, 2).contiguous()
 
 
-def phase_x_side(x, W, b, bf16: bool = False) -> torch.Tensor:
+def phase_x_side(x, W, b) -> torch.Tensor:
     """xz (T, B, 4n) = x·W + b over all T·B rows (gemm_f32 NN, the bias
     added to each row)."""
     T, B, din = x.shape
     G = W.shape[1]
     xz = torch.empty((T, B, G), dtype=torch.float32, device=x.device)
-    _gemm(xz, T * B, G, [_seg(x, din, W, G, din)], bias=b, bf16=bf16)
+    _gemm(xz, T * B, G, [_seg(x, din, W, G, din)], bias=b)
     return xz
 
 
-def phase_chain_fwd(xz, Ui, h, c, plan: ChainPlan, bf16: bool = False) -> None:
+def phase_chain_fwd(xz, Ui, h, c, plan: ChainPlan) -> None:
     """The forward chain (csrc wide_fwd_chain) from the x-side xz (T, B,
     4n) and U gate-interleaved: h and c (T, B, n), one launch a chunk of
-    the batch's rows. ``bf16``: h_{t-1} rounded before the product (Ui
-    comes rounded)."""
+    the batch's rows."""
     T, B, n = h.shape
     G = 4 * n
     for b0 in range(0, B, plan.chunk_rows):
@@ -1093,20 +1100,80 @@ def phase_chain_fwd(xz, Ui, h, c, plan: ChainPlan, bf16: bool = False) -> None:
         row_groups = min(plan.row_groups, -(-rows // plan.rows))
         _launch("wide_fwd_chain", h.device, xz.data_ptr() + 4 * b0 * G, Ui.data_ptr(),
                 h.data_ptr() + 4 * b0 * n, c.data_ptr() + 4 * b0 * n, T, rows, B, n, plan.rows,
-                plan.units, int(plan.staged), row_groups, int(bf16))
+                plan.units, int(plan.staged), row_groups)
 
 
 def wide_fwd(x, W, U, b, bf16: bool = False):
     """K9's forward (W given: the x-side GEMM, then the chain) or K6's (W
     and b None, x the projection xp: the chain alone) on checked card
-    tensors. Returns h, c (T, B, n)."""
+    tensors. Returns h, c (T, B, n). ``bf16``: K9f's or K6f's,
+    :func:`wide_fwd_bf16`."""
+    if bf16:
+        return wide_fwd_bf16(x, W, U, b)
     T, B, _ = x.shape
     n = U.shape[0]
     plan = fwd_chain_plan(B, n, sm_count(x.device))
-    xz = x if W is None else phase_x_side(x, W, b, bf16)
+    xz = x if W is None else phase_x_side(x, W, b)
     h = torch.empty((T, B, n), dtype=torch.float32, device=x.device)
     c = torch.empty_like(h)
-    phase_chain_fwd(xz, operand_map(bf16)(pack_gates_interleaved(U)), h, c, plan, bf16)
+    phase_chain_fwd(xz, pack_gates_interleaved(U), h, c, plan)
+    return h, c
+
+
+# the bf16 forward (K9f, K6f): the x-side on gemm_bf16, the chain on
+# batched_chain (K5's kernel) with c stored
+
+def fwd_plan_bf16(device: torch.device, B: int, n: int) -> cb.BatchedPlan:
+    """The bf16 forward chain's tile, grid and chunks: K5's rule and tile
+    order (``cuda_batched.batched_plan``: every launch's grid co-resident, T
+    steps a launch, the batch in the fewest chunks of rows) at the occupancy
+    of batched_chain's c-storing instantiation on the card of ``device``,
+    then, where no staged tile fits (n ≥ 1280 on the H100), the unstaged
+    tiles. At B = 128, n = 512 it takes 32 x 32 tiles, 64 CTAs: faster there
+    than 32 x 16's 128 CTAs (PERF.md §6)."""
+    return cb.card_plan(device, B, n, False, cell=True)
+
+
+def phase_x_side_bf16(x, W, b) -> torch.Tensor:
+    """xz (T, B, 4n) = bf16(x)·bf16(W) + b over all T·B rows: gemm_bf16 NN
+    on the copies of :func:`bf16_xw`, the bias added unrounded."""
+    T, B, _ = x.shape
+    G = W.shape[1]
+    xb, Wb = bf16_xw(x, W)
+    xz = torch.empty((T, B, G), dtype=torch.float32, device=x.device)
+    _gemm_bf16(xz, T * B, G, "NN", [_seg_bf16(xb, Wb, xb.shape[1])], bias=b)
+    return xz
+
+
+def phase_chain_fwd_bf16(xz, Ut, h, c, plan: cb.BatchedPlan) -> None:
+    """The bf16 forward chain (csrc batched_chain, c stored) from the
+    float32 x-side xz (T, B, 4n) and Ut = bf16(U)ᵀ (4n, n; for an unstaged
+    plan its ``cuda_batched.fragment_order`` copy): h and c (T, B, n)
+    float32, one cooperative launch a chunk of the batch's rows; the steps
+    exchange h through a two-slot bf16 copy (2, B, n)."""
+    T, B, n = h.shape
+    G = 4 * n
+    hb = torch.empty((2, B, n), dtype=torch.bfloat16, device=h.device)
+    for b0 in range(0, B, plan.chunk_rows):
+        _launch("batched_lstm_recurrence", h.device, xz.data_ptr() + 4 * b0 * G, Ut.data_ptr(),
+                h.data_ptr() + 4 * b0 * n, c.data_ptr() + 4 * b0 * n, hb.data_ptr() + 2 * b0 * n,
+                T, min(plan.chunk_rows, B - b0), B, n, plan.rows, plan.units, 0, int(plan.staged))
+
+
+def wide_fwd_bf16(x, W, U, b):
+    """K9f's forward (W given: the x-side on gemm_bf16, then the chain) or
+    K6f's (W and b None, x the projection xp: the chain alone) on checked
+    card tensors: every product's operands bf16, its sums float32, h and c
+    float32 and unrounded. Returns h, c (T, B, n)."""
+    T, B, _ = x.shape
+    n = U.shape[0]
+    plan = fwd_plan_bf16(x.device, B, n)
+    xz = x if W is None else phase_x_side_bf16(x, W, b)
+    h = torch.empty((T, B, n), dtype=torch.float32, device=x.device)
+    c = torch.empty_like(h)
+    # rounded once, as K5's wrapper rounds it (the TPU's DEFAULT dot rounds U each step)
+    Ut = U.t().to(torch.bfloat16).contiguous()
+    phase_chain_fwd_bf16(xz, Ut if plan.staged else cb.fragment_order(Ut), h, c, plan)
     return h, c
 
 

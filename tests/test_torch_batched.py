@@ -386,7 +386,7 @@ def test_cuda_k5_one_launch_per_row_chunk(cuda, n, B, monkeypatch):
     monkeypatch.setattr(cb, "_launch", lambda name, *a: calls.append(name) or launch(name, *a))
     cb.batched_lstm_recurrence(xp, U)
     torch.cuda.synchronize()
-    plan = cb._card_plan(cuda, B, n, True)
+    plan = cb.card_plan(cuda, B, n, True)
     assert calls == ["batched_lstm_recurrence"] * plan.chunks(B)
     assert (len(calls) == 1) == (B == 256)
 

@@ -131,7 +131,7 @@ def emulate_chain(xp_ptr, Ut_ptr, h_ptr, T, B, stride, n, rows, units, bf16, *, 
 
 def _run_emulated(xp, U, sms, per_sm, monkeypatch, mutation=None, seed=0):
     """batched_lstm_recurrence on CPU tensors with the card's route taken:
-    the plan for ``sms`` SMs at ``per_sm(rows, units)`` CTAs an SM, every
+    the plan for ``sms`` SMs at ``per_sm(rows, units, staged)`` CTAs an SM, every
     launch emulated. Returns (h, plan, the launches' first rows)."""
     rng = np.random.default_rng(seed)
     T, B, G4 = xp.shape
@@ -139,15 +139,17 @@ def _run_emulated(xp, U, sms, per_sm, monkeypatch, mutation=None, seed=0):
     plan = cb.batched_plan(B, n, sms, per_sm)
     firsts = []
 
-    def launch(name, device, xp_ptr, Ut_ptr, h_ptr, T_, B_, stride, n_, rows, units, bf16):
-        assert name == "batched_lstm_recurrence"
+    def launch(name, device, xp_ptr, Ut_ptr, h_ptr, c_ptr, hb_ptr, T_, B_, stride, n_, rows, units,
+               bf16, staged):
+        assert name == "batched_lstm_recurrence" and c_ptr is None and hb_ptr is None  # K5's
+        assert staged == 1
         first = (xp_ptr - xp.data_ptr()) // (xp.element_size() * G4)
         firsts.append(first)
         emulate_chain(xp_ptr, Ut_ptr, h_ptr, T_, B_, stride, n_, rows, units, bf16,
                       first_row=first, rng=rng, mutation=mutation)
 
     monkeypatch.setattr(cb, "_on_card", lambda *t: True)
-    monkeypatch.setattr(cb, "_card_plan", lambda dev, B_, n_, bf16: plan)
+    monkeypatch.setattr(cb, "card_plan", lambda dev, B_, n_, bf16: plan)
     monkeypatch.setattr(cb, "_launch", launch)
     monkeypatch.setattr(cb.batched_lstm_recurrence, "launches", 0)
     h = cb.batched_lstm_recurrence(xp, U)
@@ -164,7 +166,8 @@ def _limit(xp, U, want) -> float:
 def _smem_occupancy(n):
     """CTAs an SM as shared memory allows (228 KB an SM, 1 KB a CTA kept
     back), at most 8: a stand-in for the occupancy API."""
-    return lambda rows, units: min(8, 233_472 // (cb.batched_smem_bytes(n, rows, units) + 1024))
+    return lambda rows, units, staged: min(
+        8, 233_472 // (cb.batched_smem_bytes(n, rows, units, staged) + 1024))
 
 
 # T, B, n, SMs, CTAs an SM (None: as shared memory allows), launches
@@ -182,7 +185,7 @@ def test_emulated_chain_matches_plain(T, B, n, sms, per_sm, launches, dtype, mon
     xp, U = (torch.tensor(a) for a in _case(1, T, B, n))
     xp = xp.to(dtype)
     want = cb.batched_lstm_recurrence_plain(xp, U)
-    occupancy = _smem_occupancy(n) if per_sm is None else (lambda r, u: per_sm)
+    occupancy = _smem_occupancy(n) if per_sm is None else (lambda r, u, s: per_sm)
     got, plan, firsts = _run_emulated(xp, U, sms, occupancy, monkeypatch)
     assert firsts == list(range(0, B, plan.chunk_rows)) and len(firsts) == launches
     assert cb.batched_lstm_recurrence.launches == 1
@@ -200,7 +203,7 @@ def test_a_mutated_emulation_fails(mutation, case, monkeypatch):
     xp, U = (torch.tensor(a) for a in _case(2, T, B, n))
     xp = xp.bfloat16()
     want = cb.batched_lstm_recurrence_plain(xp, U)
-    occupancy = _smem_occupancy(n) if per_sm is None else (lambda r, u: per_sm)
+    occupancy = _smem_occupancy(n) if per_sm is None else (lambda r, u, s: per_sm)
     got, _, _ = _run_emulated(xp, U, sms, occupancy, monkeypatch, mutation)
     err = float((got.float() - want.float()).abs().max())
     assert not err <= _limit(xp, U, want)
@@ -213,17 +216,17 @@ def test_a_mutated_emulation_fails(mutation, case, monkeypatch):
 def test_grid_rule_at_the_batched_point():
     """B = 256 at n = 512 (3x512) and n = 30 (4x30) on the H100's 132 SMs,
     one CTA an SM at 32 x 32 and n = 512 (166 KB): one launch each."""
-    plan = cb.batched_plan(256, 512, 132, lambda r, u: 1)
+    plan = cb.batched_plan(256, 512, 132, lambda r, u, s: 1)
     assert (plan.rows, plan.units, plan.unit_groups) == (32, 32, 16)
     assert plan.chunks(256) == 1 and plan.smem_bytes == 2 * (128 + 32) * 520
-    plan = cb.batched_plan(256, 30, 132, lambda r, u: 8)
+    plan = cb.batched_plan(256, 30, 132, lambda r, u, s: 8)
     assert (plan.rows, plan.units, plan.unit_groups, plan.chunks(256)) == (32, 32, 1, 1)
 
 
 def test_grid_rule_past_one_co_resident_grid():
     """B = 2048 at n = 512: 64 row tiles, 8 a launch beside the 16 unit
     groups, so 8 launches of 256 rows; every launch's grid co-resident."""
-    plan = cb.batched_plan(2048, 512, 132, lambda r, u: 1)
+    plan = cb.batched_plan(2048, 512, 132, lambda r, u, s: 1)
     assert plan.chunk_rows == 256 and plan.chunks(2048) == 8
     assert plan.unit_groups * plan.chunk_rows // plan.rows <= 132
 
@@ -231,7 +234,7 @@ def test_grid_rule_past_one_co_resident_grid():
 @pytest.mark.parametrize("B", [1, 31, 256, 257, 1000, 2048, 5000])
 @pytest.mark.parametrize("n,per_sm", [(30, 8), (136, 4), (512, 1), (700, 1), (1000, 2), (2048, 4)])
 def test_grid_rule_keeps_every_launch_co_resident(B, n, per_sm):
-    plan = cb.batched_plan(B, n, 132, lambda r, u: per_sm)
+    plan = cb.batched_plan(B, n, 132, lambda r, u, s: per_sm)
     assert plan.smem_bytes <= cb._SMEM_LIMIT
     assert plan.unit_groups == -(-n // plan.units)
     assert plan.unit_groups * -(-min(B, plan.chunk_rows) // plan.rows) <= per_sm * 132
@@ -243,9 +246,9 @@ def test_grid_rule_takes_a_narrower_tile_or_refuses():
     """Past ~700 units 32 x 32's shared memory does not fit (32 x 16 runs),
     past ~2400 no tile does; unit groups the card cannot hold at once are
     refused too: never another route."""
-    assert cb.batched_plan(256, 1024, 132, lambda r, u: 1)[:2] == (32, 16)
-    assert cb.batched_plan(256, 2048, 132, lambda r, u: 2)[:2] == (16, 8)
+    assert cb.batched_plan(256, 1024, 132, lambda r, u, s: 1)[:2] == (32, 16)
+    assert cb.batched_plan(256, 2048, 132, lambda r, u, s: 2)[:2] == (16, 8)
     with pytest.raises(ValueError, match="fits no tile"):
-        cb.batched_plan(256, 4096, 132, lambda r, u: 1)
+        cb.batched_plan(256, 4096, 132, lambda r, u, s: 1)
     with pytest.raises(ValueError, match="fits no tile"):
-        cb.batched_plan(256, 512, 4, lambda r, u: 1)
+        cb.batched_plan(256, 512, 4, lambda r, u, s: 1)

@@ -270,8 +270,8 @@ def _fake_launch(name, device, *args):
         gemm(mem, [Seg(A=A // 4, B=Bp // 4, lda=lda, ldb=ldb, a_t=a_t, b_t=b_t, shift=shift,
                        ones_row=ones_row, K=K)], M, N, C // 4, ldc, bias // 4)
     elif name == "wide_fwd_chain":
-        xz, Ui, h, c, T, B, stride, n, rows, units, staged, row_groups, bf16 = args
-        assert Ui % 16 == 0 and bf16 == 0  # the emulation is of the float32 kernels
+        xz, Ui, h, c, T, B, stride, n, rows, units, staged, row_groups = args
+        assert Ui % 16 == 0
         fwd_chain(mem, xz // 4, Ui // 4, h // 4, c // 4, T, B, stride, n, rows, units, staged,
                   row_groups)
     else:
