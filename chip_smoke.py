@@ -244,7 +244,42 @@ Phases, each of which raises on failure (no phase is caught):
    by ``tuned_train_flags``, ``fit`` with ``auto_flags=True`` from float32
    scan flags launching the winner's kernels, then ``python -m
    svd_lstm_tpu_torch tune --train``. The ``kernels`` line's launches of
-   the bf16 variants are those of these main-path calls only.
+   the bf16 variants are those of these main-path calls only;
+11. drive the conv hybrids (``models/conv.py``), every main-path call with
+   the batch-1 and train kernels' counts set to 0 just before it and read
+   just after (``count_call``), its launches added to the ``kernels``
+   line's. First each kernel of the reference-scale path against its plain
+   version on the hybrid's own inputs (the stack's n = 15 and d = 15 are
+   widths no earlier phase runs; the plans printed): K7 at B = 32 and K8 at
+   B = 128 (T = 200) as in 5 and 5c, K1 and K1f over T = 6656 as in 3 and
+   3c, each timed. (11a) the reference's conv experiment, a seeded
+   ``init_conv_lstm`` of 16 channels, 15 filters, k = 10, 2x15 units, on
+   the surrogate's windows: ``fit`` at B = 32 (K7), ``make_conv_singular_model``
+   (split), ``finetune`` of σ under Hoyer 0.01 (K7 on the dense view; the
+   conv, the factors and the biases frozen, every σ moved),
+   ``make_conv_reduced_model(cutoff=None, rank=8)``, ``recover_reduced_gated``
+   at B = 128 (K8; the gate on 2048 steps, monotone, the rank held), then
+   ``predict`` of the fitted and the recovered hybrids exact (K1 once) and
+   fast (K1f once) over T = 6656: exact against the CPU float64 scan as in
+   4, fast within 4b's narrow band; the fit held against
+   ``recurrence_kernel=False`` as in 7 (the conv's w and b among the
+   gradients); (11b) a seeded conv front end (16 -> 16, k = 10) over the
+   3x512 checkpoint's layers and head and its direct merged r = 24
+   truncation: ``predict`` exact (K3, K2 once a layer) and fast (K3f, K2f),
+   exact against the CPU float64 scan, the dense hybrid's fast within the
+   wide band (the truncation's fast error reported: ROADMAP fault 3.1);
+   both hybrids, the bare stacks and the conv front end alone timed, the
+   hybrid reduced/full ratio beside the bare one; (11c) on 11a's hybrids:
+   ``quantize_params`` -> ``quantized_apply(predict)`` (K1) against the
+   CPU float64 scan of the int8 model; the CSV exports and the int8 ``.bin``
+   (version 3, the conv section) through the native runtime over 2048
+   frames against ``predict`` within 1e-4; ``make_stream_fn``'s graph step
+   on the recovered hybrid over 2048 frames against ``predict`` (5e-4) and
+   the eager step (1e-6), p50 and p99 a frame beside the 500 µs period;
+   ``autotune`` of the recovered hybrid, its winner launched by
+   ``predict(impl="auto")`` bit-equal to the explicit impl; a
+   ``rank_sweep`` of 16 reductions of the fitted hybrid (K1 once an
+   evaluation). The phase prints its wall time.
 
 Beside each kernel the script times one PyTorch library call that computes
 the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
@@ -858,9 +893,11 @@ def check_vs_cpu_reference(name: str, y: torch.Tensor, m_cpu, x_cpu: torch.Tenso
     impl on the CPU (plain versions), floored at REF_TOL: a reduced model
     with large C factors is ill-conditioned in float32 whatever the device.
     Converts m_cpu to float64."""
+    from svd_lstm_tpu_torch.models.conv import inner_stack  # a conv hybrid routes on its stack
+
     if y.ndim != 2 or y.shape[1] != 1 or not bool(torch.isfinite(y).all()):
         fail(f"{name}: bad output {tuple(y.shape)}")
-    impl = "fused" if max(l.units for l in m_cpu.layers) <= 128 else "hybrid"  # auto's pick
+    impl = "fused" if max(l.units for l in inner_stack(m_cpu).layers) <= 128 else "hybrid"  # auto's pick
     cpu32 = P.predict(m_cpu, x_cpu, impl=impl)
     ref64 = P.predict(m_cpu.double(), x_cpu.double(), impl="scan").float()
     cpu_err = max_err(cpu32, ref64)
@@ -1900,34 +1937,40 @@ def train_comparisons(dev, data, histories: dict) -> None:
     ``histories`` holds runs A–D's loss histories from phase 6; E's and F's
     are one epoch of ``finetune_reduced``, taken here."""
     for run in TRAIN_RUNS + RECOVERY_RUNS:
-        x, y = first_batch(run, data, dev)
-        loss_k, grads_k, step_k = first_step(run, dev, x, y, kernel=True)
-        loss_p, grads_p, step_p = first_step(run, dev, x, y, kernel=False)
-        tol = FWD_TOL * max(1.0, abs(loss_p))
-        drifts = {}
-        if isinstance(run, RecoveryRun):  # the drift of the plain float32 step from float64
-            loss64, grads64, _ = first_step(run, dev, x.double(), y.double(), False, torch.float64)
-            tol = max(tol, 2 * abs(loss_p - loss64))
-            drifts = {name: 2 * max_err(g.double(), grads64[name]) for name, g in grads_p.items()}
-        log(f"[check] run {run.name} first-step loss: kernel {loss_k:.8f}, plain {loss_p:.8f} "
-            f"(tol {tol:g})")
-        if not abs(loss_k - loss_p) <= tol:
-            fail(f"run {run.name}: first-step loss differs by {abs(loss_k - loss_p):.3e}")
-        for name, want in grads_p.items():
-            check_close(f"run {run.name} first-step d{name}", grads_k[name], want,
-                        max(GRAD_RTOL * float(want.abs().max()), drifts.get(name, 0.0)))
-        if run.name not in histories:
-            histories[run.name] = train(run, run.make(dev), data, kernel=True).history
-        hist_k = np.asarray(histories[run.name])
-        hist_p = np.asarray(train(run, run.make(dev), data, kernel=False).history)
-        rel = float(np.max(np.abs(hist_k - hist_p) / np.abs(hist_p)))
-        log(f"[check] run {run.name} loss history: kernel {hist_k.tolist()}, plain "
-            f"{hist_p.tolist()}, max rel diff {rel:.3e} (rtol {HIST_RTOL:g})")
-        if not (hist_k.shape == hist_p.shape and rel <= HIST_RTOL):
-            fail(f"run {run.name}: loss histories of kernel and plain runs disagree")
-        ms_k, ms_p = device_time_ms(step_k), device_time_ms(step_p)
-        log(f"[time] run {run.name} one train step (forward, backward, Adam; B={run.cfg.batch_size}, "
-            f"T={run.cfg.window_len}): kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
+        compare_run(run, dev, data, histories)
+
+
+def compare_run(run: TrainRun, dev, data, histories: dict) -> None:
+    """One run against the same run on the plain autograd scan: the first
+    step's loss and gradients, the loss histories, one step's time."""
+    x, y = first_batch(run, data, dev)
+    loss_k, grads_k, step_k = first_step(run, dev, x, y, kernel=True)
+    loss_p, grads_p, step_p = first_step(run, dev, x, y, kernel=False)
+    tol = FWD_TOL * max(1.0, abs(loss_p))
+    drifts = {}
+    if isinstance(run, RecoveryRun):  # the drift of the plain float32 step from float64
+        loss64, grads64, _ = first_step(run, dev, x.double(), y.double(), False, torch.float64)
+        tol = max(tol, 2 * abs(loss_p - loss64))
+        drifts = {name: 2 * max_err(g.double(), grads64[name]) for name, g in grads_p.items()}
+    log(f"[check] run {run.name} first-step loss: kernel {loss_k:.8f}, plain {loss_p:.8f} "
+        f"(tol {tol:g})")
+    if not abs(loss_k - loss_p) <= tol:
+        fail(f"run {run.name}: first-step loss differs by {abs(loss_k - loss_p):.3e}")
+    for name, want in grads_p.items():
+        check_close(f"run {run.name} first-step d{name}", grads_k[name], want,
+                    max(GRAD_RTOL * float(want.abs().max()), drifts.get(name, 0.0)))
+    if run.name not in histories:
+        histories[run.name] = train(run, run.make(dev), data, kernel=True).history
+    hist_k = np.asarray(histories[run.name])
+    hist_p = np.asarray(train(run, run.make(dev), data, kernel=False).history)
+    rel = float(np.max(np.abs(hist_k - hist_p) / np.abs(hist_p)))
+    log(f"[check] run {run.name} loss history: kernel {hist_k.tolist()}, plain "
+        f"{hist_p.tolist()}, max rel diff {rel:.3e} (rtol {HIST_RTOL:g})")
+    if not (hist_k.shape == hist_p.shape and rel <= HIST_RTOL):
+        fail(f"run {run.name}: loss histories of kernel and plain runs disagree")
+    ms_k, ms_p = device_time_ms(step_k), device_time_ms(step_p)
+    log(f"[time] run {run.name} one train step (forward, backward, Adam; B={run.cfg.batch_size}, "
+        f"T={run.cfg.window_len}): kernel {ms_k:.3f} ms, plain {ms_p:.3f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -2756,6 +2799,339 @@ def precision_path(dev, data) -> tuple:
     return checks, launches
 
 
+# ---------------------------------------------------------------------------
+# the conv hybrids (phase 11)
+# ---------------------------------------------------------------------------
+
+CONV_K = 10          # 11: the reference's conv experiment, Conv1D(15, k = 10, causal, relu) -> 2x LSTM(15)
+CONV_UNITS = (15, 15)
+CONV_RANK = 8        # 11a: make_conv_reduced_model(cutoff=None, rank=8), as examples/conv_compression.py
+WIDE_CONV_RANK = 24  # 11b: the direct merged truncation of the 3x512 stack, as phase 4's
+CONV_SWEEP_REDUCTIONS = 16
+CONV_FIT = TrainRun(
+    "11a conv 2x15 fit",
+    lambda dev: P.init_conv_lstm(torch.Generator().manual_seed(0), in_channels=D, filters=CONV_UNITS[0],
+                                 kernel_size=CONV_K, units=CONV_UNITS, device=dev),
+    P.TrainConfig(window_len=TRAIN_T, batch_size=32, recurrence_kernel=True, num_windows=128, epochs=2),
+    (ct.fused_narrow_train_fwd, ct.fused_narrow_train_bwd))
+CONV_RECOVER_CFG = P.TrainConfig(batch_size=COMPACT_B, window_len=TRAIN_T, recurrence_kernel=True,
+                                 num_windows=256, epochs=1)
+
+
+def count_call(total: dict, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``, one call of phase 11's main path, with the
+    batch-1 and train kernels' counts set to 0 just before it and read just
+    after; its launches are added to ``total``. Returns (its result, its
+    launches)."""
+    ck.reset_launch_counts()
+    ct.reset_launch_counts()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    launched = {k: v for counts in (ck.LAUNCHES, ct.LAUNCHES) for k, v in counts.items() if v}
+    for k, v in launched.items():
+        total[k] = total.get(k, 0) + v
+    return out, launched
+
+
+def require(name: str, launched: dict, kernels, times: int | None = None) -> None:
+    """Fail unless each wrapper in ``kernels`` launched (``times`` times
+    each, where given)."""
+    for k in kernels:
+        n = launched.get(k, 0)
+        if n < 1 or (times is not None and n != times):
+            fail(f"{name}: {k} launched {n} times{'' if times is None else f', not {times}'}")
+    log(f"[conv] {name}: launches {launched}")
+
+
+def conv_windows(model, data, dev, cfg: P.TrainConfig) -> torch.Tensor:
+    """The hybrid's stack's input on the first batch of ``cfg``'s windows:
+    the conv front end's output, time-major (T, B, filters)."""
+    run = dataclasses.replace(CONV_FIT, cfg=cfg)
+    x = first_batch(run, data, dev)[0]
+    with exact_matmul(), torch.no_grad():
+        return P.models.conv.conv_front(model.conv, x).transpose(0, 1).contiguous()
+
+
+def conv_kernel_checks(dev, data, x) -> None:
+    """11, before the path: each kernel of the 2x15 path (n = 15, d = 15, odd
+    widths no earlier phase runs) against its plain version on the hybrid's
+    own inputs, and timed: K7 at B = 32 and K8 at B = 128 (T = 200), K1 and
+    K1f over T = 6656. Their plans are printed first."""
+    rng = np.random.default_rng(5)
+    model = CONV_FIT.make(dev)
+    layers = [tuple(p.detach() for p in (l.W, l.U, l.b)) for l in model.layers]
+    units, d = list(CONV_UNITS), CONV_UNITS[0]
+    log(f"[conv] plans at 2x15, d=15: K1 exact {ck.dense_plan(units, d, False)}, fast "
+        f"{ck.dense_plan(units, d, True)}; K7 lanes fwd {ct.narrow_fwd_lanes(units, d)}, bwd "
+        f"{ct.narrow_bwd_lanes(units, d)} (weights staged: {ct.narrow_bwd_staged(units, d)}); K8 "
+        f"{ct.compact_smem_bytes(units, d)} B of shared memory (fits: {ct.compact_fits(units, d)})")
+    for tag, cfg, fwd, bwd, fwd_p, bwd_p in (
+        ("K7", CONV_FIT.cfg, ct.fused_narrow_train_fwd, ct.fused_narrow_train_bwd,
+         ct.fused_narrow_train_fwd_plain, ct.fused_narrow_train_bwd_plain),
+        ("K8", CONV_RECOVER_CFG, ct.fused_narrow_train_compact_fwd, ct.fused_narrow_train_compact_bwd,
+         ct.fused_narrow_train_compact_fwd_plain, ct.fused_narrow_train_compact_bwd_plain),
+    ):
+        xw = conv_windows(model, data, dev, cfg)
+        shape = f"2x15, B={xw.shape[1]}, T={xw.shape[0]}, d={xw.shape[2]}"
+        hs_p, cs_p = fwd_p(layers, xw)
+        hs64, cs64 = fwd_p(double(layers), xw.double())
+        hs, cs = fwd(layers, xw)
+        for k, got, want, want64 in (("h", hs, hs_p, hs64), ("c", cs, cs_p, cs64)):
+            for i, (a, r, r64) in enumerate(zip(got, want, want64)):
+                check_state(f"{tag} fwd {shape} {k}{i}", a, r, r64)
+        dh = torch.tensor(rng.normal(size=hs_p[-1].shape), dtype=torch.float32, device=dev)
+        args = (layers, xw, hs_p, cs_p, dh)
+        got, want = bwd(*args), bwd_p(*args)
+        for k, gs, ws in zip(("dW", "dU", "db"), got[:3], want[:3]):
+            for i, (a, r) in enumerate(zip(gs, ws)):
+                check_grad(f"{tag} bwd {shape} {k}{i}", a, r)
+        check_grad(f"{tag} bwd {shape} dx", got[3], want[3])
+        macs = roofline.lstm_macs(xw.shape[0], xw.shape[1], [(W.shape[0], U.shape[0]) for W, U, _ in layers])
+        lib_fwd, lib_bwd = library_train(layers, xw, dh)
+        time_pair(f"{tag} fwd", shape, fwd, fwd_p, layers, xw, library_ms=lib_fwd,
+                  **roofline.bound(macs, nbytes(layers, xw, hs, cs)))
+        time_pair(f"{tag} bwd", shape, bwd, bwd_p, *args, library_ms=lib_bwd,
+                  **roofline.bound(3 * macs, nbytes(args, got)))
+    with exact_matmul(), torch.no_grad():
+        xc = P.models.conv.conv_front(model.conv, x[None])[0]
+        stack = model.stack
+        plain = ck.fused_dense_stack_plain(stack, xc, "default")
+        limit = fast_limit("K1f 2x15", plain, ck.fused_dense_stack_plain(as_double(stack), xc.double(),
+                                                                         "default"))
+        check_close("K1f fused_dense_stack fast 2x15",
+                    ck.fused_dense_stack(stack, xc, dot_precision="default"), plain, limit)
+        check_close("K1 fused_dense_stack 2x15 (the conv's output)", ck.fused_dense_stack(stack, xc),
+                    ck.fused_dense_stack_plain(stack, xc), TOL)
+        for tag, dp in (("K1", None), ("K1f", "default")):
+            cost = roofline.dense_step_cost(d, units, dtype=torch.float32 if dp is None else torch.bfloat16)
+            r = {"ms": device_time_ms(lambda: ck.fused_dense_stack(stack, xc, dot_precision=dp)),
+                 "plain_ms": device_time_ms(lambda: ck.fused_dense_stack_plain(stack, xc, dp), warmup=0,
+                                            repeats=PLAIN_REPEATS),
+                 **cost.call_bound(T)}
+            log(f"[time] {tag} (2x15, T={T}, d=15): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); {card_line()}")
+
+
+def check_sigma_tune(init, tuned) -> None:
+    """11a: the σ fine-tune froze the conv front end, the factors and the
+    biases, and moved every σ."""
+    for name, old in init.named_parameters():
+        new = dict(tuned.named_parameters())[name]
+        moved = not torch.equal(old, new)
+        if moved != name.endswith(("ws", "us")) and not name.startswith("inner.head."):
+            fail(f"11a finetune: {name} {'moved' if moved else 'did not move'}")
+    log("[conv] 11a finetune: the conv and the factors frozen, every σ moved")
+
+
+def conv_reference_path(dev, data, x, total: dict) -> dict:
+    """11a: fit -> make_conv_singular_model -> finetune (Hoyer) ->
+    make_conv_reduced_model -> recover_reduced_gated -> predict, exact and
+    fast, each call counted; the outputs against the CPU float64 scan.
+    Returns the models and the fit's loss history."""
+    X, y = data.X_train, data.y_train
+    res, launched = count_call(total, P.fit, CONV_FIT.make(dev), X, y, CONV_FIT.cfg)
+    require("11a fit (B=32)", launched, [k.__name__ for k in CONV_FIT.kernels])
+    if not res.history or res.rollbacks or not np.all(np.isfinite(res.history)):
+        fail("11a fit: non-finite loss")
+    log(f"[conv] 11a fit: loss history {res.history}")
+    smodel = P.make_conv_singular_model(res.params, merged_kernel=False)
+    tuned, launched = count_call(total, P.finetune, smodel, X, y, P.FactorConfig(hoyer=0.01), CONV_FIT.cfg)
+    require("11a finetune (B=32)", launched, [k.__name__ for k in CONV_FIT.kernels])
+    check_sigma_tune(smodel, tuned.params)
+    reduced = P.make_conv_reduced_model(tuned.params, cutoff=None, rank=CONV_RANK)
+    gate = dict(max_epochs=2, validation=(X[:, :GATE_STEPS], y[:GATE_STEPS]))
+    (rec, info), launched = count_call(total, P.recover_reduced_gated, reduced, X, y,
+                                       train_cfg=CONV_RECOVER_CFG, **gate)
+    require(f"11a recover_reduced_gated (B={COMPACT_B})", launched,
+            ["fused_narrow_train_compact_fwd", "fused_narrow_train_compact_bwd"])
+    log(f"[conv] 11a recovery: raw val MSE {info['raw_val_mse']:.6e}, best {info['best_val_mse']:.6e}, "
+        f"trace {info['trace']}")
+    if not (np.isfinite(info["best_val_mse"]) and info["best_val_mse"] <= info["raw_val_mse"]):
+        fail("11a recovery: the gate returned a model worse than the truncation")
+    if final_ranks(rec.inner) != {CONV_RANK}:
+        fail(f"11a recovery: ranks {final_ranks(rec.inner)}, not {CONV_RANK}")
+
+    models = {"dense": res.params, "reduced": rec}
+    x_cpu = x[:REF_STEPS].cpu()
+    times = {}
+    for name, m in models.items():
+        y_exact, launched = count_call(total, P.predict, m, x)
+        require(f"11a predict {name} exact", launched, ["fused_dense_stack"], times=1)
+        y_fast, launched = count_call(total, P.predict, m, x, precision="fast")
+        require(f"11a predict {name} fast", launched, ["fused_dense_stack_fast"], times=1)
+        check_vs_cpu_reference(f"11a {name} hybrid", y_exact, copy.deepcopy(m).cpu(), x_cpu)
+        rel = rel_err(y_fast, y_exact)
+        log(f"[check] 11a {name} hybrid fast vs exact: rel Frobenius {rel:.3e} "
+            f"(band {FAST_BAND['narrow']:g})")
+        if not rel <= FAST_BAND["narrow"]:
+            fail(f"11a {name} hybrid: fast error {rel:.3e}")
+        times[name] = {p: device_time_ms(lambda p=p: P.predict(m, x, precision=p)) for p in ("exact", "fast")}
+    y_true = data.y_test
+    x_test = torch.tensor(data.X_test[0], device=dev)
+    log(f"[conv] 11a T={T}: predict dense exact {times['dense']['exact']:.3f} ms, fast "
+        f"{times['dense']['fast']:.3f} ms; reduced r={CONV_RANK} exact {times['reduced']['exact']:.3f} ms, "
+        f"fast {times['reduced']['fast']:.3f} ms; test RMSE dense "
+        f"{P.rmse(P.predict(res.params, x_test)[:, 0].cpu().numpy(), y_true):.6f}, recovered "
+        f"{P.rmse(P.predict(rec, x_test)[:, 0].cpu().numpy(), y_true):.6f}; weights "
+        f"{sum(p.numel() for p in res.params.parameters())} -> {rec.weight_count()}; {card_line()}")
+    return models, res.history
+
+
+def conv_wide_path(dev, x, total: dict) -> None:
+    """11b: a seeded conv front end (16 -> 16, k = 10) over the 3x512
+    checkpoint's own layers and head, dense (K3 and K3f once a layer) and
+    its direct merged r = 24 truncation (K2 and K2f once a layer), exact and
+    fast; exact against the CPU float64 scan, dense fast within the wide
+    band (the direct truncation's fast error reported: ROADMAP fault 3.1);
+    times beside the bare stacks' and the conv front end's."""
+    m512 = P.load_params(DENSE_512, device=dev)
+    front = P.init_conv_lstm(torch.Generator().manual_seed(1), in_channels=D, filters=D, kernel_size=CONV_K,
+                             units=(), device=dev).conv
+    hybrid = P.ConvLSTM(front, list(m512.layers), m512.head)
+    reduced = P.make_conv_reduced_model(P.make_conv_singular_model(hybrid, merged_kernel=True), cutoff=None,
+                                        rank=WIDE_CONV_RANK)
+    bare_red = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=WIDE_CONV_RANK)
+    x_cpu = x[:REF_STEPS].cpu()
+    L = len(m512.layers)
+    for name, m, kernel in (("dense", hybrid, "lstm_recurrence"),
+                            (f"merged r={WIDE_CONV_RANK}", reduced, "reduced_recurrence")):
+        y_exact, launched = count_call(total, P.predict, m, x)
+        require(f"11b predict {name} exact", launched, [kernel], times=L)
+        y_fast, launched = count_call(total, P.predict, m, x, precision="fast")
+        require(f"11b predict {name} fast", launched, [kernel + "_fast"], times=L)
+        check_vs_cpu_reference(f"11b 3x512 {name} hybrid", y_exact, copy.deepcopy(m).cpu(), x_cpu)
+        rel = rel_err(y_fast, y_exact)
+        gated = name == "dense"
+        log(f"[check] 11b {name} hybrid fast vs exact: rel Frobenius {rel:.3e} "
+            + (f"(band {FAST_BAND['wide']:g})" if gated else "(reported, not gated: ROADMAP fault 3.1)"))
+        if gated and not rel <= FAST_BAND["wide"]:
+            fail(f"11b {name} hybrid: fast error {rel:.3e}")
+    ms = {}
+    for name, m in (("hybrid dense", hybrid), ("hybrid reduced", reduced), ("bare dense", m512),
+                    ("bare reduced", bare_red)):
+        for p in ("exact", "fast"):
+            ms[name, p] = device_time_ms(lambda m=m, p=p: P.predict(m, x, precision=p))
+    with exact_matmul(), torch.no_grad():
+        conv_ms = device_time_ms(lambda: P.models.conv.conv_front(front, x[None]))
+    for p in ("exact", "fast"):
+        log(f"[ratio] 11b 3x512 {p}, T={T}: hybrid dense {ms['hybrid dense', p]:.3f} ms, hybrid merged "
+            f"r={WIDE_CONV_RANK} {ms['hybrid reduced', p]:.3f} ms, ratio "
+            f"{ms['hybrid reduced', p] / ms['hybrid dense', p]:.4f}; "
+            f"bare dense {ms['bare dense', p]:.3f} ms, "
+            f"bare r={WIDE_CONV_RANK} {ms['bare reduced', p]:.3f} ms, ratio "
+            f"{ms['bare reduced', p] / ms['bare dense', p]:.4f}; the conv front end alone {conv_ms:.3f} ms; "
+            f"{card_line()}")
+
+
+def conv_deploy_path(dev, x, data, models: dict, total: dict) -> None:
+    """11c, on 11a's hybrids: the int8 tree through quantized_apply(predict)
+    (K1); the CSV and int8 .bin exports through the native runtime against
+    predict; make_stream_fn's graph step against predict and the eager
+    step, its per-frame latency; autotune of the reduced hybrid, its winner
+    launched by predict(impl="auto"); a rank sweep of the dense hybrid (K1
+    once an evaluation)."""
+    from svd_lstm_tpu_torch.bench.sweep import rank_sweep
+    from svd_lstm_tpu_torch.config import SweepConfig
+    from svd_lstm_tpu_torch.io import csv_weights, int8_export, native
+    from svd_lstm_tpu_torch.models.conv import inner_stack
+
+    dense, rec = models["dense"], models["reduced"]
+    x_cpu = x[:REF_STEPS].cpu()
+    q = P.quantize_params(rec)
+    y8, launched = count_call(total, P.quantized_apply(P.predict), q, x)
+    require("11c int8 predict", launched, ["fused_dense_stack"], times=1)
+    dq_cpu = P.from_numpy_tree(P.to_numpy_tree(P.dequantize_params(q)), device="cpu")
+    check_vs_cpu_reference("11c int8 reduced hybrid", y8, dq_cpu, x_cpu)
+    log(f"[conv] 11c int8: param_bytes {P.param_bytes(rec)} -> {P.param_bytes(q)}; int8 vs float32 predict "
+        f"rel Frobenius {rel_err(y8, P.predict(rec, x)):.4e}")
+
+    frames = x[:STREAM_FRAMES]
+    frames_np = frames.cpu().numpy()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, model in models.items():
+            d = os.path.join(tmp, name)
+            if name == "reduced":
+                native.save_reduced_weights_as_csv(model, d)
+            else:
+                csv_weights.save_model_weights_as_csv(model, d)
+            binpath = d + ".bin"
+            size = int8_export.save_model_int8_bin(model, binpath)
+            check_prefix(f"11c native CSV {name} hybrid vs card predict",
+                         native.NativeModel.from_export_dir(d).run(frames_np), P.predict(model, frames),
+                         NATIVE_TOL)
+            check_prefix(f"11c native int8 .bin ({size} bytes) {name} hybrid vs card predict of the "
+                         f"artifact's model", native.NativeModel.from_int8(binpath).run(frames_np),
+                         P.predict(int8_export.dequantized_params(model), frames), NATIVE_TOL)
+
+        fn, state0 = P.make_stream_fn(rec)
+        state, ys = state0, []
+        for t in range(len(frames)):
+            yt, state = fn(state, frames[t : t + 1])
+            ys.append(yt)
+        graph = torch.cat(ys)
+        check_close(f"11c stream graph step, reduced hybrid, vs predict, {len(frames)} frames", graph,
+                    P.predict(rec, frames), TOL)
+        state, ys = P.init_stream(rec), []
+        for t in range(len(frames)):
+            yt, state = P.stream_step(rec, state, frames[t : t + 1])
+            ys.append(yt)
+        check_close("11c stream graph step, reduced hybrid, vs eager stream_step", graph, torch.cat(ys),
+                    GRAPH_TOL)
+        lat_graph = stream_latency(fn, state0, frames_np, dev)
+        lat_eager = stream_latency(lambda s, f: P.stream_step(rec, s, f), P.init_stream(rec), frames_np, dev)
+        nm = native.NativeModel.from_int8(os.path.join(tmp, "reduced.bin"))
+        lat_native = []
+        for f in frames_np:
+            t0 = time.perf_counter()
+            nm.step(f)
+            lat_native.append(time.perf_counter() - t0)
+    log(f"[stream] 11c reduced hybrid, per-frame wall clock over {len(frames_np)} frames after "
+        f"{STREAM_WARMUP}: {percentiles('graph step', lat_graph)}; "
+        f"{percentiles('eager stream_step', lat_eager)}; {percentiles('native int8 (host)', lat_native)}; "
+        f"frame period {FRAME_PERIOD_US:.0f} us; {card_line()}")
+
+    r = at.autotune(rec, x, repeats=TUNE_REPEATS)
+    log(f"[tune] 11c reduced hybrid {tuple(x.shape)} exact: winner {r.impl!r}, "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in sorted(r.table.items(), key=lambda kv: kv[1]))
+        + f"; {card_line()}")
+    if r.failed:
+        fail(f"11c autotune: candidates failed: {r.failed}")
+    at.store_tuned(at.cache_key(rec, x, "exact"), r.impl)
+    y_auto, launched = count_call(total, P.predict, rec, x)
+    want = {route_kernel(inner_stack(rec), r.impl)} - {None}
+    if set(launched) != want:
+        fail(f"11c autotune: predict(impl='auto') launched {launched}, winner {r.impl!r} wants {want}")
+    if not torch.equal(y_auto, P.predict(rec, x, impl=r.impl, consult_cache=False)):
+        fail(f"11c autotune: predict(impl='auto') differs from impl={r.impl!r}")
+    log(f"[tune] 11c: predict(impl='auto') launched {launched or 'no kernel'}, bit-equal to impl={r.impl!r}")
+
+    inv = data.pin_scaler.inverse_transform
+    y_m = inv(data.y_test.reshape(-1, 1)).ravel()
+    res, launched = count_call(total, rank_sweep, dense, data.X_test, y_m, inv,
+                               SweepConfig(evaluate_every=SWEEP_EVERY), max_reductions=CONV_SWEEP_REDUCTIONS)
+    require("11c rank sweep", launched, ["fused_dense_stack"], times=len(res.rmse))
+    if res.reductions_done != CONV_SWEEP_REDUCTIONS or not np.isfinite(res.rmse).all():
+        fail(f"11c rank sweep: {res.reductions_done} reductions, RMSE {res.rmse}")
+    log(f"[sweep] 11c dense hybrid, T={data.X_test.shape[1]}, {res.reductions_done} reductions: RMSE "
+        f"{', '.join(f'{v:.6f}' for v in res.rmse)}, weights eliminated {res.weights_eliminated[-1]}")
+
+
+def conv_path(dev, x, data) -> dict:
+    """Phase 11: the conv hybrids (11a-11c), every main-path call counted.
+    Returns the launches of those calls."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    conv_kernel_checks(dev, data, x)
+    models, history = conv_reference_path(dev, data, x, total)
+    compare_run(CONV_FIT, dev, data, {CONV_FIT.name: history})
+    with exact_matmul(), torch.no_grad():
+        conv_wide_path(dev, x, total)
+        conv_deploy_path(dev, x, data, models, total)
+    log(f"[conv] phase 11 kernel launches of its main-path calls: {total}; phase 11 took "
+        f"{time.perf_counter() - t0:.1f} s on {card_line()}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only "
@@ -2776,7 +3152,7 @@ def main() -> int:
 
 
 def smoke(args) -> int:
-    """Phases 1-10 (see the module docstring)."""
+    """Phases 1-11 (see the module docstring)."""
     log(card_line())  # the card's name and power limit, as nvidia-smi prints them
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
@@ -2812,6 +3188,9 @@ def smoke(args) -> int:
     checks.update(precision_checks)
     # the bf16 variants' launches: 10b-10c's main-path calls' (the float32 kernels' are phase 6's)
     launches.update({k: v for k, v in precision_launches.items() if k.endswith("_fast")})
+    # and phase 11's main-path calls on the conv hybrids
+    for k, v in conv_path(dev, x, data).items():
+        launches[k] = launches.get(k, 0) + v
 
     print(json.dumps({"kernels": kernel_entries(checks, launches)}))
     print(json.dumps({

@@ -15,11 +15,13 @@ runtime (``io.native.NativeModel``), frame-at-a-time streaming
 recurrence and the training recurrences (forward and backward) run in
 hand-written CUDA kernels (``ops/csrc``); everything else is plain PyTorch.
 Weights keep the JAX package's Keras layout and its ``.npz`` checkpoint
-format.
+format. Every step above also takes the Conv1D + LSTM hybrids
+(``init_conv_lstm``, ``models/conv.py``): their conv front end runs first,
+then the stack's own route.
 
 The entry points run on the card unless asked for the CPU:
-``load_params``, ``from_numpy_tree`` and ``init_stacked_lstm`` put the
-model on ``device="cuda"`` by default (``device="cpu"`` for the CPU), and
+``load_params``, ``from_numpy_tree``, ``init_stacked_lstm`` and
+``init_conv_lstm`` put the model on ``device="cuda"`` by default (``device="cpu"`` for the CPU), and
 ``predict``, ``fit``, ``finetune`` and the recovery functions follow the
 device of their model and input.
 
@@ -32,7 +34,10 @@ __version__ = "0.1.0"
 from svd_lstm_tpu_torch.api import exact_matmul, model_input_dim, predict, valid_impls
 from svd_lstm_tpu_torch.config import DataConfig, FactorConfig, ModelConfig, TrainConfig
 from svd_lstm_tpu_torch.factor.svd import (
+    conv_singular_to_dense,
     factorize_lstm_params,
+    make_conv_reduced_model,
+    make_conv_singular_model,
     make_reduced_model,
     make_singular_model,
     singular_to_dense,
@@ -43,6 +48,16 @@ from svd_lstm_tpu_torch.io.checkpoint import (
     load_params,
     save_params,
     to_numpy_tree,
+)
+from svd_lstm_tpu_torch.models.conv import (
+    ConvFront,
+    ConvLSTM,
+    ConvReducedLSTM,
+    ConvSingularLSTM,
+    conv_lstm_apply,
+    conv_reduced_apply,
+    conv_singular_apply,
+    init_conv_lstm,
 )
 from svd_lstm_tpu_torch.models.lstm import (
     DenseHead,

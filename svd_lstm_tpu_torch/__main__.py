@@ -63,18 +63,20 @@ def _export(argv):
         save_model_weights_as_csv,
         save_model_weights_as_json,
     )
+    from svd_lstm_tpu_torch.models.conv import CONV_TYPES, inner_stack
     from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
     from svd_lstm_tpu_torch.models.singular import SingularLSTM
 
     params = _load_checkpoint_f32(args.checkpoint, args.device)
-    if isinstance(params, SingularLSTM):
+    # the family of the stack: a conv hybrid exports as its stack does, plus conv/
+    if isinstance(inner_stack(params), SingularLSTM):
         raise SystemExit(
             "singular (factorized) checkpoints have no deployment export: "
-            "collapse to dense first (factor.svd.singular_to_dense) or "
-            "truncate (make_reduced_model)"
+            "collapse to dense first (factor.svd.singular_to_dense / "
+            "conv_singular_to_dense) or truncate (make_reduced_model)"
         )
     os.makedirs(args.outdir, exist_ok=True)
-    is_reduced = isinstance(params, ReducedLSTM)
+    is_reduced = isinstance(inner_stack(params), ReducedLSTM)
     if is_reduced:
         from svd_lstm_tpu_torch.io.native import save_reduced_weights_as_csv
 
@@ -84,10 +86,11 @@ def _export(argv):
         save_model_weights_as_csv(params, args.outdir)
         print(f"per-gate CSVs -> {args.outdir}/")
     if args.json:
-        if is_reduced:
+        if is_reduced or isinstance(params, CONV_TYPES):
             raise SystemExit(
                 "--json covers the reference's dense JSON dump "
-                "(load_preprocess.py:80-90) only; export a dense checkpoint or drop --json"
+                "(load_preprocess.py:80-90) only; export a dense (non-conv) checkpoint or "
+                "drop --json"
             )
         path = os.path.join(args.outdir, "model_weights.json")
         save_model_weights_as_json(params, path)
@@ -173,18 +176,19 @@ def _stream(argv):
             # checkpoint -> temporary CSV export -> native load, all on the host
             import tempfile
 
+            from svd_lstm_tpu_torch.models.conv import inner_stack
             from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
             from svd_lstm_tpu_torch.models.singular import SingularLSTM
 
             params = _load_checkpoint_f32(args.artifact, "cpu")
-            if isinstance(params, SingularLSTM):
+            if isinstance(inner_stack(params), SingularLSTM):
                 raise SystemExit(
                     "--native cannot run a singular (factorized) checkpoint: the "
                     "native runtime consumes dense or two-step reduced exports. "
                     "Truncate first (make_reduced_model) or drop --native."
                 )
             tmpdir = tempfile.TemporaryDirectory(prefix="svdlstm_stream_")
-            if isinstance(params, ReducedLSTM):
+            if isinstance(inner_stack(params), ReducedLSTM):
                 from svd_lstm_tpu_torch.io.native import save_reduced_weights_as_csv
 
                 save_reduced_weights_as_csv(params, tmpdir.name)

@@ -38,6 +38,11 @@ Routing (``impl="auto"``):
 ``impl="scan"`` keeps the exact float32 plain loop reachable for any input
 and any precision.
 
+Conv hybrids (``models/conv.py``) peel their front end first: the causal
+conv and relu run on the model's device in the exact scope (TF32 off for
+cuDNN too), and the stack then takes the routes above on the conv's output,
+as a bare stack would, with the same ``impl`` and ``precision``.
+
 Precision modes (``utils/precision.py``), set per call and restored on exit;
 nothing is set at import:
 
@@ -55,6 +60,7 @@ import torch
 
 from svd_lstm_tpu_torch.bench.autotune import cached_impl
 from svd_lstm_tpu_torch.factor.svd import singular_to_dense
+from svd_lstm_tpu_torch.models.conv import CONV_TYPES, conv_front, inner_stack
 from svd_lstm_tpu_torch.models.lstm import StackedLSTM, stacked_lstm_apply
 from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
 from svd_lstm_tpu_torch.models.singular import SingularLSTM, singular_lstm_apply
@@ -71,7 +77,10 @@ _REDUCED_HYBRID_MIN_UNITS = 256  # batch-1 fast: narrower reduced models run den
 
 
 def model_input_dim(model) -> int:
-    """Frame width the model consumes: layer 0's ``input_dim``."""
+    """Frame width the model consumes: the conv front end's channel count
+    for the conv hybrids, else layer 0's ``input_dim``."""
+    if isinstance(model, CONV_TYPES):
+        return int(model.conv.in_channels)
     return int(model.layers[0].input_dim)
 
 
@@ -83,7 +92,9 @@ def valid_impls(model, x, precision: str = "exact") -> list:
     """Implementations with distinct execution paths for this (model,
     input, precision): batched input has the scan and, in fast mode on the
     card, 'auto' (the K5 path); batch-1 input has the scan, the hybrid and,
-    where every layer n ≤ 128, the fused kernel."""
+    where every layer n ≤ 128, the fused kernel. Conv hybrids route on
+    their stack."""
+    model = inner_stack(model)
     if x.ndim == 3:
         if precision == "fast" and x.device.type == "cuda":
             return ["auto", "scan"]
@@ -130,7 +141,7 @@ def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"
         raise ValueError(
             f"unknown impl {impl!r}; expected 'auto' | 'scan' | 'fused' | 'hybrid'"
         )
-    if not isinstance(model, (StackedLSTM, SingularLSTM, ReducedLSTM)):
+    if not isinstance(model, (StackedLSTM, SingularLSTM, ReducedLSTM, *CONV_TYPES)):
         raise TypeError(f"unknown model params: {type(model)}")
     if impl == "auto" and consult_cache:
         hit = cached_impl(model, x, precision)
@@ -138,6 +149,12 @@ def predict(model, x: torch.Tensor, impl: str = "auto", precision: str = "exact"
         if hit is not None and hit != "auto" and hit in valid_impls(model, x, precision):
             impl = hit
     batched = x.ndim == 3
+    if isinstance(model, CONV_TYPES):
+        # the front end first, exact, then the stack's own dispatch
+        with matmul_scope("exact"), torch.no_grad():
+            h = conv_front(model.conv, x if batched else x[None])
+        return predict(inner_stack(model), h if batched else h[0], impl=impl,
+                       precision=precision, consult_cache=consult_cache)
     if batched and impl in ("fused", "hybrid"):
         raise ValueError(
             f"impl={impl!r} kernels are batch-1 only; use impl='auto' or "

@@ -10,8 +10,9 @@ model and input (``api.valid_impls``; on the card with CUDA events,
 returns the winner, and it remembers winners in a JSON file keyed by the
 model family, every leaf's shape, the parameter and input dtypes, the input
 shape, the precision and the device (``"cuda:" + the card's name``, or
-``"cpu"``). Every field but ``device`` is the JAX package's key for the same
-model. ``predict(impl="auto")`` consults the file (:func:`cached_impl`), so
+``"cpu"``); a conv hybrid's family is ``"conv+" + its stack's`` and its
+dims start with ``("conv", the conv's leaf shapes)``. Every field but
+``device`` is the JAX package's key for the same model. ``predict(impl="auto")`` consults the file (:func:`cached_impl`), so
 one ``tune`` run redirects every later ``predict`` of that shape on that
 card.
 
@@ -42,6 +43,7 @@ from typing import NamedTuple, Sequence
 import torch
 
 from svd_lstm_tpu_torch.io.checkpoint import to_tensor_tree
+from svd_lstm_tpu_torch.models.conv import CONV_TYPES, inner_stack
 from svd_lstm_tpu_torch.models.lstm import StackedLSTM
 from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
 from svd_lstm_tpu_torch.models.singular import SingularLSTM
@@ -63,8 +65,8 @@ def _family(model) -> str:
         return "singular"
     if isinstance(model, ReducedLSTM):
         return "reduced"
-    if hasattr(model, "conv"):
-        raise NotImplementedError("conv hybrids are not ported yet (ROADMAP queue 1, item 7: conv hybrids)")
+    if isinstance(model, CONV_TYPES):
+        return "conv+" + _family(inner_stack(model))
     raise TypeError(f"unknown model params: {type(model)}")
 
 
@@ -77,10 +79,17 @@ def _leaves(node) -> list:
 def _dims(model) -> list:
     """Per layer (units, every leaf's shape in the JAX package's leaf
     order), then the head's leaf shapes: the units pin the width rules, the
-    shapes the input width, per-gate ranks, split or merged and the head."""
+    shapes the input width, per-gate ranks, split or merged and the head. A
+    conv hybrid's start with ("conv", the conv's leaf shapes)."""
     tree = to_tensor_tree(model)
     shapes = lambda node: [tuple(int(s) for s in leaf.shape) for leaf in _leaves(node)]  # noqa: E731
-    return [(int(l.units), shapes(t)) for l, t in zip(model.layers, tree.layers)] + [shapes(tree.head)]
+    front = []
+    if isinstance(model, CONV_TYPES):
+        front = [("conv", shapes(tree.conv))]
+        tree = getattr(tree, "inner", tree)  # ConvLSTM's tree holds its layers itself
+        model = inner_stack(model)
+    return front + [(int(l.units), shapes(t)) for l, t in zip(model.layers, tree.layers)] + [
+        shapes(tree.head)]
 
 
 def _dtype(t: torch.Tensor) -> str:
@@ -351,24 +360,19 @@ _TRAIN_REGIMES = (
 def _train_apply_for(model):
     """The family's scan apply, loss extra and optimizer factory, as
     ``fit`` and ``finetune`` train it, so the measured step is the step
-    that family runs. Conv hybrids raise (``_family``)."""
-    from svd_lstm_tpu_torch.models.lstm import stacked_lstm_apply
+    that family runs (a conv hybrid's: its front end, then its stack's)."""
+    from svd_lstm_tpu_torch.train.loop import default_apply_fn
 
     adam = lambda m: torch.optim.Adam(m.parameters(), lr=1e-3)  # noqa: E731
     fam = _family(model)
-    if fam == "singular":
+    if fam.removeprefix("conv+") == "singular":
         from svd_lstm_tpu_torch.config import FactorConfig
-        from svd_lstm_tpu_torch.models.singular import singular_lstm_apply
         from svd_lstm_tpu_torch.train.finetune import make_finetune_optimizer, regularization_loss
 
         fcfg = FactorConfig(hoyer=0.01)
-        return (singular_lstm_apply, lambda m: regularization_loss(m, fcfg),
+        return (default_apply_fn(model), lambda m: regularization_loss(m, fcfg),
                 lambda m: make_finetune_optimizer(m, fcfg))
-    if fam == "reduced":
-        from svd_lstm_tpu_torch.models.reduced import reduced_lstm_apply
-
-        return reduced_lstm_apply, None, adam
-    return stacked_lstm_apply, None, adam
+    return default_apply_fn(model), None, adam
 
 
 def _compact_candidate(model, x) -> bool:

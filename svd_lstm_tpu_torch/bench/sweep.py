@@ -16,6 +16,9 @@ LSTM_wrapper.iterate_reduce_model, old_versions/svd_classes.py:139-182):
 5. stop early when the RMSE ratio crosses ``threshold``;
 6. keep each evaluation's predictions if asked (for the reduce_rank.gif).
 
+A ``ConvLSTM`` sweeps its stack's gate blocks (the conv kernel is not a
+gate block, so it never enters the order) and keeps its front end.
+
 Each evaluation is one ``predict(model, X[0], impl="auto")`` on the model's
 device: on the card K1 for stacks of at most 128 units and K3's hybrid for
 wider ones, on the CPU the plain scan. A reduction builds a new model that
@@ -35,6 +38,7 @@ import torch
 from svd_lstm_tpu_torch.api import predict
 from svd_lstm_tpu_torch.config import SweepConfig
 from svd_lstm_tpu_torch.factor.svd import get_model_singular_values, set_model_matrix_rank
+from svd_lstm_tpu_torch.models.conv import ConvLSTM
 from svd_lstm_tpu_torch.models.lstm import StackedLSTM
 from svd_lstm_tpu_torch.train.metrics import rmse as rmse_fn
 
@@ -50,11 +54,7 @@ class SweepResult:
 
 
 def _check_dense(model) -> None:
-    if hasattr(model, "conv"):
-        raise NotImplementedError(
-            "conv hybrids are not ported yet (ROADMAP queue 1, item 7: conv hybrids)"
-        )
-    if not isinstance(model, StackedLSTM):
+    if not isinstance(model, (StackedLSTM, ConvLSTM)):
         raise TypeError(f"the rank sweep reduces dense models; got {type(model).__name__}")
 
 

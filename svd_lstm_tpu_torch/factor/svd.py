@@ -17,6 +17,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from svd_lstm_tpu_torch.models.conv import ConvFront, ConvLSTM, ConvReducedLSTM, ConvSingularLSTM
 from svd_lstm_tpu_torch.models.lstm import DenseHead, LSTMLayer, StackedLSTM
 from svd_lstm_tpu_torch.models.reduced import ReducedLayer, ReducedLSTM
 from svd_lstm_tpu_torch.models.singular import SingularLayer, SingularLSTM
@@ -30,6 +31,10 @@ def _f64(t: torch.Tensor) -> np.ndarray:
 
 def _copy_head(head: DenseHead) -> DenseHead:
     return DenseHead(head.w.detach().clone(), head.b.detach().clone())
+
+
+def _copy_conv(conv: ConvFront) -> ConvFront:
+    return ConvFront(conv.w.detach().clone(), conv.b.detach().clone())
 
 
 # ---------------------------------------------------------------------------
@@ -199,6 +204,41 @@ def singular_to_dense(smodel: SingularLSTM, dtype=torch.float32) -> StackedLSTM:
 
 
 # ---------------------------------------------------------------------------
+# conv-hybrid surgery: the same pipeline over the Conv1D + LSTM family
+# ---------------------------------------------------------------------------
+#
+# The conv front end is carried through unchanged (copied, as the head is)
+# while the LSTM stack goes through the dense -> singular -> reduced surgery
+# above.
+
+def make_conv_singular_model(model: ConvLSTM, merged_kernel: bool = False,
+                             dtype=torch.float32) -> ConvSingularLSTM:
+    """Conv hybrid -> conv + factorized stack."""
+    if not isinstance(model, ConvLSTM):
+        raise TypeError(f"expected ConvLSTM, got {type(model).__name__}")
+    inner = make_singular_model(model.stack, merged_kernel, dtype)
+    return ConvSingularLSTM(_copy_conv(model.conv), inner)
+
+
+def make_conv_reduced_model(model: ConvSingularLSTM, cutoff: float | None = 0.05,
+                            rank: int | None = None, dtype=torch.float32) -> ConvReducedLSTM:
+    """Conv + singular stack -> conv + truncated two-step stack."""
+    if not isinstance(model, ConvSingularLSTM):
+        raise TypeError(f"expected ConvSingularLSTM, got {type(model).__name__}")
+    inner = make_reduced_model(model.inner, cutoff=cutoff, rank=rank, dtype=dtype)
+    return ConvReducedLSTM(_copy_conv(model.conv), inner)
+
+
+def conv_singular_to_dense(model: ConvSingularLSTM, dtype=torch.float32) -> ConvLSTM:
+    """Collapse a conv + singular hybrid back to the dense family, exactly;
+    the conv front end untouched (inverse of :func:`make_conv_singular_model`)."""
+    if not isinstance(model, ConvSingularLSTM):
+        raise TypeError(f"expected ConvSingularLSTM, got {type(model).__name__}")
+    dense = singular_to_dense(model.inner, dtype)
+    return ConvLSTM(_copy_conv(model.conv), list(dense.layers), dense.head)
+
+
+# ---------------------------------------------------------------------------
 # v1 rank utilities (reference code/old_versions/svd_classes.py)
 # ---------------------------------------------------------------------------
 
@@ -249,7 +289,8 @@ def set_model_matrix_rank(model: StackedLSTM, index: Tuple[int, int, int], rank:
     """A new model with one gate block reduced to ``rank``, index = (layer,
     0 for W / 1 for U, gate). The reconstruction runs in float64 and is cast
     to the block's dtype. Only the reduced parameter is new: every other
-    parameter (and the head) is the source model's own."""
+    parameter (and the head, and a ``ConvLSTM``'s conv front end) is the
+    source model's own."""
     li, wj, g = index
     layer = model.layers[li]
     n = layer.units
@@ -263,4 +304,6 @@ def set_model_matrix_rank(model: StackedLSTM, index: Tuple[int, int, int], rank:
             torch.nn.Parameter(torch.tensor(M, dtype=old.dtype, device=old.device)))
     layers = list(model.layers)
     layers[li] = new_layer
+    if isinstance(model, ConvLSTM):
+        return ConvLSTM(model.conv, layers, model.head)
     return StackedLSTM(layers, model.head)

@@ -24,6 +24,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from svd_lstm_tpu_torch.models.conv import ConvFront, ConvLSTM, ConvReducedLSTM, ConvSingularLSTM
 from svd_lstm_tpu_torch.models.lstm import DenseHead, LSTMLayer, StackedLSTM
 from svd_lstm_tpu_torch.models.reduced import ReducedLayer, ReducedLSTM
 from svd_lstm_tpu_torch.models.singular import SingularLayer, SingularLSTM
@@ -37,6 +38,10 @@ _FIELDS = {
     "SingularModelParams": ("layers", "head"),
     "ReducedLayerParams": ("wB", "wC", "uB", "uC", "b"),
     "ReducedModelParams": ("layers", "head"),
+    "ConvParams": ("w", "b"),
+    "ConvLSTMParams": ("conv", "layers", "head"),
+    "ConvSingularParams": ("conv", "inner"),
+    "ConvReducedParams": ("conv", "inner"),
     "QuantizedTensor": QuantizedTensor._fields,
 }
 # numpy-tree node types, named as the JAX package names its parameter types
@@ -51,6 +56,10 @@ _MODULE_OF_NODE = {
     "SingularModelParams": SingularLSTM,
     "ReducedLayerParams": ReducedLayer,
     "ReducedModelParams": ReducedLSTM,
+    "ConvParams": ConvFront,
+    "ConvLSTMParams": ConvLSTM,
+    "ConvSingularParams": ConvSingularLSTM,
+    "ConvReducedParams": ConvReducedLSTM,
 }
 _NODE_OF_MODULE = {cls: name for name, cls in _MODULE_OF_NODE.items()}
 
@@ -77,10 +86,9 @@ def from_numpy_tree(tree: Any, device: str | torch.device = "cuda") -> Any:
         name = type(tree).__name__
         if name not in _MODULE_OF_NODE:
             raise _unsupported(name)
-        kids = {k: from_numpy_tree(getattr(tree, k), device) for k in _FIELDS[name]}
-        if "layers" in kids:
-            return _MODULE_OF_NODE[name](kids["layers"], kids["head"])
-        return _MODULE_OF_NODE[name](**kids)
+        # every module takes its node's fields in order
+        return _MODULE_OF_NODE[name](*(from_numpy_tree(getattr(tree, k), device)
+                                       for k in _FIELDS[name]))
     if isinstance(tree, tuple):
         return tuple(from_numpy_tree(v, device) for v in tree)
     if isinstance(tree, torch.Tensor):
@@ -171,7 +179,7 @@ def _build(spec: Any, leaves) -> Any:
 
 
 def save_params(path: str, module: Any) -> None:
-    """Save a dense/singular/reduced model, or a quantized one (the tree of
+    """Save a dense/singular/reduced model or a conv hybrid, or a quantized one (the tree of
     ``utils.quantize.quantize_params``), to ``path`` (``.npz``; parent dirs
     are created) in the format ``svd_lstm_tpu.io.checkpoint`` reads."""
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)

@@ -13,7 +13,10 @@ untransposed Keras blocks ``W[:, g*n:(g+1)*n]`` (in_dim × units) and a
 ``layout.txt`` marker; the reference's shipped fixtures store the blocks
 transposed (units × in_dim) and carry no marker, so the loader's default
 reads a directory with the marker untransposed and one without it
-transposed. The conv front end (``conv/``) is ROADMAP queue 1 item 7.
+transposed. A conv hybrid (``ConvLSTM``) adds its front end as ``conv/``:
+``w.csv`` ((k·c_in) × filters, tap-major rows), ``b.csv`` and ``shape.csv``
+(k, c_in), which the native runtime reads too; a directory with ``conv/``
+loads as a ``ConvLSTM``.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from svd_lstm_tpu_torch.io.checkpoint import to_numpy, to_numpy_tree
+from svd_lstm_tpu_torch.models.conv import ConvFront, ConvLSTM
 from svd_lstm_tpu_torch.models.lstm import DenseHead, LSTMLayer, StackedLSTM
 
 GATES = ("i", "f", "c", "o")
@@ -33,37 +37,53 @@ GATES = ("i", "f", "c", "o")
 _LAYOUT_MARKER = "layout.txt"
 
 
-def _conv_not_ported() -> NotImplementedError:
-    return NotImplementedError("conv front ends are not ported yet (ROADMAP queue 1, item 7)")
-
-
 def save_conv_front_csv(conv, savpath: str) -> None:
-    """The conv front end's ``conv/`` directory: not ported (item 7)."""
-    raise _conv_not_ported()
+    """Write a conv front end (``ConvFront`` or its tree, any device) as
+    ``conv/`` next to the lstm_* directories: w.csv ((k·c_in) × filters,
+    tap-major rows), b.csv, shape.csv (k, c_in)."""
+    d = os.path.join(savpath, "conv")
+    os.makedirs(d, exist_ok=True)
+    w = to_numpy(conv.w)  # (k, c_in, filters)
+    k, c_in, filters = w.shape
+    np.savetxt(os.path.join(d, "w.csv"), w.reshape(k * c_in, filters), delimiter=",")
+    np.savetxt(os.path.join(d, "b.csv"), to_numpy(conv.b), delimiter=",")
+    np.savetxt(os.path.join(d, "shape.csv"), np.array([[k, c_in]]), delimiter=",")
 
 
-def load_conv_front_csv(savpath: str, dtype=torch.float32):
-    """The conv front end's ``conv/`` directory: not ported (item 7)."""
-    raise _conv_not_ported()
+def load_conv_front_csv(savpath: str, dtype=torch.float32, device: str | torch.device = "cuda"):
+    """Load a ``conv/`` front-end directory onto ``device`` (the card unless
+    ``device="cpu"``) if there is one; None otherwise. Raises
+    ``ValueError`` when w.csv's rows disagree with shape.csv."""
+    d = os.path.join(savpath, "conv")
+    if not os.path.isdir(d):
+        return None
+    w = np.loadtxt(os.path.join(d, "w.csv"), delimiter=",", ndmin=2)
+    b = np.atleast_1d(np.loadtxt(os.path.join(d, "b.csv"), delimiter=","))
+    shape = np.loadtxt(os.path.join(d, "shape.csv"), delimiter=",").reshape(-1)
+    k, c_in = int(shape[0]), int(shape[1])
+    if w.shape[0] != k * c_in:
+        raise ValueError(f"{d}/w.csv has {w.shape[0]} rows; shape.csv says k*c_in = {k * c_in}")
+    return ConvFront(_tensor(w.reshape(k, c_in, -1), dtype, device), _tensor(b, dtype, device))
 
 
 def _dense_tree(model):
-    if hasattr(model, "conv"):
-        raise _conv_not_ported()
     tree = to_numpy_tree(model)
-    if type(tree).__name__ != "StackedLSTMParams":
+    if type(tree).__name__ not in ("StackedLSTMParams", "ConvLSTMParams"):
         raise TypeError(f"per-gate CSVs hold a dense model, not {type(model).__name__}")
     return tree
 
 
 def save_model_weights_as_csv(model, savpath: str = "./model_weights") -> None:
-    """Write a dense model (``StackedLSTM``, any device) as per-gate CSVs,
-    one directory per layer plus ``dense_top/``, with the ``layout.txt``
-    marker of the untransposed blocks."""
+    """Write a dense model (``StackedLSTM``, or the ``ConvLSTM`` hybrid with
+    its ``conv/``; any device) as per-gate CSVs, one directory per layer
+    plus ``dense_top/``, with the ``layout.txt`` marker of the untransposed
+    blocks."""
     params = _dense_tree(model)
     os.makedirs(savpath, exist_ok=True)
     with open(os.path.join(savpath, _LAYOUT_MARKER), "w") as f:
         f.write("keras\n")  # untransposed (in_dim, units) blocks
+    if hasattr(params, "conv"):
+        save_conv_front_csv(params.conv, savpath)
     for li, layer in enumerate(params.layers):
         d = os.path.join(savpath, f"lstm_{li}")
         os.makedirs(d, exist_ok=True)
@@ -143,13 +163,12 @@ def load_model_from_csv(
     device: str | torch.device = "cuda",
 ) -> StackedLSTM:
     """Load a whole stacked model from a model_weights/-style directory onto
-    ``device`` (the card unless ``device="cpu"``).
+    ``device`` (the card unless ``device="cpu"``); with a ``conv/``
+    directory, the ``ConvLSTM`` hybrid.
 
     ``layer_dirs`` default: every ``lstm_*`` subdirectory in layer order.
     ``transposed=None`` (default) reads a directory with the ``layout.txt``
     marker untransposed and a bare fixture directory transposed."""
-    if os.path.isdir(os.path.join(savpath, "conv")):
-        raise _conv_not_ported()
     if transposed is None:
         transposed = not os.path.exists(os.path.join(savpath, _LAYOUT_MARKER))
     if layer_dirs is None:
@@ -163,13 +182,18 @@ def load_model_from_csv(
     if w.ndim == 1:
         w = w[:, None]
     head = DenseHead(_tensor(w, dtype, device), _tensor(b.reshape(-1), dtype, device))
+    conv = load_conv_front_csv(savpath, dtype, device)
+    if conv is not None:
+        return ConvLSTM(conv, layers, head)
     return StackedLSTM(layers, head)
 
 
 def save_model_weights_as_json(model, savpath: str = "model_weights.json") -> None:
     """Whole-model JSON dump of a dense model (reference
     load_preprocess.py:80-90): ``layer<i>`` = [W, U, b], then the head."""
-    params = _dense_tree(model)
+    params = to_numpy_tree(model)
+    if type(params).__name__ != "StackedLSTMParams":
+        raise TypeError(f"the JSON dump holds a dense model, not {type(model).__name__}")
     data = {}
     for i, layer in enumerate(params.layers):
         data[f"layer{i}"] = [layer.W.tolist(), layer.U.tolist(), layer.b.tolist()]

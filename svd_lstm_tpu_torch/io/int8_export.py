@@ -12,9 +12,10 @@ Format (all little-endian; "qmat" = u32 rows, u32 cols, f32 scale[cols],
 i8 data[rows*cols] row-major; "fvec" = u32 len, f32 data[len]):
 
     magic  "SVDL8BIN"            (8 bytes)
-    u32    version (2 for LSTM stacks; 3, with a conv front end, is not
-           written by the port: conv hybrids are ROADMAP queue 1 item 7)
+    u32    version (2 for LSTM stacks, 3 when a conv front end is present)
     u32    n_layers
+    [version 3 only] u8 has_conv; if 1: u32 k, u32 c_in,
+           qmat w ((k·c_in) x filters, tap-major rows), fvec b (filters)
     per layer:
       u8   kind: 'd' dense | 'r' reduced (split) | 'm' reduced (merged)
       dense:   qmat W (in x 4n), qmat U (n x 4n), fvec b (4n)
@@ -100,27 +101,30 @@ def _write_fvec(f, v: np.ndarray) -> None:
 
 
 def _numpy_model(model):
-    """A dense or reduced port model (or its tree) as a numpy tree; the conv
-    hybrids are refused by name."""
-    from svd_lstm_tpu_torch.io.checkpoint import to_numpy_tree
+    """A dense or reduced port model, or the conv hybrid of either (or its
+    tree), as ``(conv tree or None, the stack's numpy tree)``; other
+    families raise ``TypeError``."""
+    from svd_lstm_tpu_torch.io.checkpoint import NODE_TYPES, to_numpy_tree
 
-    if hasattr(model, "conv") or hasattr(model, "inner"):
-        raise NotImplementedError(
-            f"{type(model).__name__}: conv hybrids are not ported yet (ROADMAP queue 1, item 7)"
-        )
     tree = to_numpy_tree(model)
+    conv, name = None, type(tree).__name__
+    if name == "ConvLSTMParams":
+        conv, tree = tree.conv, NODE_TYPES["StackedLSTMParams"](layers=tree.layers, head=tree.head)
+    elif name == "ConvReducedParams":
+        conv, tree = tree.conv, tree.inner
     if type(tree).__name__ not in ("StackedLSTMParams", "ReducedModelParams"):
         raise TypeError(f"unsupported model params: {type(model).__name__}")
-    return tree
+    return conv, tree
 
 
 def save_model_int8_bin(model, path: str, compensate: bool = True) -> int:
-    """Write a dense (``StackedLSTM``) or reduced (``ReducedLSTM``) model, on
-    any device, as the int8 binary artifact. Returns the file size in
-    bytes. ``compensate`` (default True) applies the least-squares C-factor
+    """Write a dense (``StackedLSTM``) or reduced (``ReducedLSTM``) model, or
+    its conv hybrid (``ConvLSTM``, ``ConvReducedLSTM``: version 3), on any
+    device, as the int8 binary artifact. Returns the file size in bytes.
+    ``compensate`` (default True) applies the least-squares C-factor
     compensation to reduced models; False writes the raw per-matrix
     quantization."""
-    params = _numpy_model(model)
+    conv, params = _numpy_model(model)
     head_b = np.asarray(params.head.b).reshape(-1)
     if head_b.size != 1:
         # the artifact (and the native runtime's scalar y = b + w·h) encodes a
@@ -133,7 +137,14 @@ def save_model_int8_bin(model, path: str, compensate: bool = True) -> int:
     # leave a truncated artifact at the target path
     with open(path, "wb") as f:
         f.write(MAGIC)
-        f.write(struct.pack("<II", VERSION, len(params.layers)))
+        f.write(struct.pack("<II", VERSION if conv is None else 3, len(params.layers)))
+        if conv is not None:
+            w = np.asarray(conv.w, np.float32)  # (k, c_in, filters)
+            k, c_in, filters = w.shape
+            f.write(struct.pack("<B", 1))
+            f.write(struct.pack("<II", k, c_in))
+            _write_qmat(f, w.reshape(k * c_in, filters))
+            _write_fvec(f, conv.b)
         for layer in params.layers:
             if dense:
                 f.write(b"d")
@@ -161,14 +172,31 @@ def dequantized_params(model, compensate: bool = True):
     """The float32 model the int8 artifact encodes (every matrix quantized and
     dequantized; biases and head exact), as port modules on the model's
     device: the oracle the native runtime must match. ``compensate`` must
-    match what :func:`save_model_int8_bin` was called with."""
+    match what :func:`save_model_int8_bin` was called with. A conv hybrid's
+    kernel is dequantized per filter, its bias exact."""
     from svd_lstm_tpu_torch.io.checkpoint import NODE_TYPES, from_numpy_tree
 
-    params = _numpy_model(model)
+    conv, params = _numpy_model(model)
     device = next(model.parameters()).device if hasattr(model, "parameters") else "cpu"
+    stack = _dequantized_stack(params, compensate)
+    if conv is not None:
+        w = np.asarray(conv.w, np.float32)
+        k, c_in, filters = w.shape
+        conv = conv._replace(w=_dq(w.reshape(k * c_in, filters)).reshape(k, c_in, filters))
+        if type(stack).__name__ == "StackedLSTMParams":
+            stack = NODE_TYPES["ConvLSTMParams"](conv=conv, layers=stack.layers, head=stack.head)
+        else:
+            stack = NODE_TYPES["ConvReducedParams"](conv=conv, inner=stack)
+    return from_numpy_tree(stack, device)
+
+
+def _dequantized_stack(params, compensate: bool):
+    """The numpy tree of the float32 stack the artifact encodes."""
+    from svd_lstm_tpu_torch.io.checkpoint import NODE_TYPES
+
     if type(params).__name__ == "StackedLSTMParams":
         layers = tuple(l._replace(W=_dq(l.W), U=_dq(l.U)) for l in params.layers)
-        return from_numpy_tree(params._replace(layers=layers), device)
+        return params._replace(layers=layers)
 
     def side(Bs, Cs):
         split = isinstance(Bs, tuple)
@@ -182,4 +210,4 @@ def dequantized_params(model, compensate: bool = True):
         wB, wC = side(l.wB, l.wC)
         uB, uC = side(l.uB, l.uC)
         layers.append(NODE_TYPES["ReducedLayerParams"](wB=wB, wC=wC, uB=uB, uC=uC, b=l.b))
-    return from_numpy_tree(params._replace(layers=tuple(layers)), device)
+    return params._replace(layers=tuple(layers))

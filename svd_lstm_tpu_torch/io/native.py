@@ -224,15 +224,16 @@ def save_reduced_weights_as_csv(model, savpath: str) -> None:
     files (wB{i,f,c,o}.csv, wC*.csv, uB*.csv, uC*.csv, b*.csv); merged
     layers one file per factor (wB.csv, wC.csv, uB.csv, uC.csv, b.csv): the
     runtime's 'r' and 'm' kinds. A C with no columns (full rank) is not
-    written."""
+    written. A ``ConvReducedLSTM`` adds its front end as ``conv/``
+    (``csv_weights.save_conv_front_csv``), which the runtime streams through
+    its shift-buffer conv."""
     from svd_lstm_tpu_torch.io.checkpoint import to_numpy_tree
-    from svd_lstm_tpu_torch.io.csv_weights import _LAYOUT_MARKER
+    from svd_lstm_tpu_torch.io.csv_weights import _LAYOUT_MARKER, save_conv_front_csv
 
-    if hasattr(model, "inner"):
-        raise NotImplementedError(
-            f"{type(model).__name__}: conv hybrids are not ported yet (ROADMAP queue 1, item 7)"
-        )
     params = to_numpy_tree(model)
+    conv = None
+    if type(params).__name__ == "ConvReducedParams":
+        conv, params = params.conv, params.inner
     if type(params).__name__ != "ReducedModelParams":
         raise TypeError(f"two-step CSVs hold a reduced model, not {type(model).__name__}")
     gates = "ifco"
@@ -240,6 +241,8 @@ def save_reduced_weights_as_csv(model, savpath: str) -> None:
     # the marker of save_model_weights_as_csv, so from_export_dir reads both alike
     with open(os.path.join(savpath, _LAYOUT_MARKER), "w") as f:
         f.write("untransposed (in_dim x units) gate blocks; two-step B/C\n")
+    if conv is not None:
+        save_conv_front_csv(conv, savpath)
     for li, layer in enumerate(params.layers):
         d = os.path.join(savpath, f"lstm_{li}")
         os.makedirs(d, exist_ok=True)

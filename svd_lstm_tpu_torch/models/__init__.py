@@ -1,3 +1,4 @@
+from svd_lstm_tpu_torch.models.conv import ConvFront, ConvLSTM, ConvReducedLSTM, ConvSingularLSTM
 from svd_lstm_tpu_torch.models.lstm import DenseHead, LSTMLayer, StackedLSTM
 from svd_lstm_tpu_torch.models.reduced import ReducedLayer, ReducedLSTM
 from svd_lstm_tpu_torch.models.singular import SingularLayer, SingularLSTM
@@ -16,6 +17,10 @@ __all__ = [
     "SingularLSTM",
     "ReducedLayer",
     "ReducedLSTM",
+    "ConvFront",
+    "ConvLSTM",
+    "ConvSingularLSTM",
+    "ConvReducedLSTM",
     "init_stream",
     "make_stream_fn",
     "stream_many",

@@ -18,6 +18,11 @@ Counterpart of ``svd_lstm_tpu/train/finetune.py``:
   dense train kernels (``ops/reduced_train.py``). The gate's optimizer is
   optax's ``chain(clip(clip), adam(lr))``: :class:`ClippedAdam`.
 
+Each takes the conv hybrids too (``models/conv.py``): the penalty is on the
+stack's σ, the conv front end follows the factors' rule (frozen under
+σ-only tuning, trained with ``train_uv``), and the recovery trains the conv
+with the factors.
+
 Not ported yet (ROADMAP queue 1, item 4): dropout fine-tunes and the QAT
 hooks (``apply_fn`` / ``gate_apply_fn`` of the gate take any forward, but
 the fake-quantized one is not ported).
@@ -39,6 +44,14 @@ from svd_lstm_tpu_torch.factor.regularizers import (
     orthogonal_penalty,
     trace_norm_penalty,
 )
+from svd_lstm_tpu_torch.models.conv import (
+    ConvLSTM,
+    ConvReducedLSTM,
+    ConvSingularLSTM,
+    conv_reduced_apply,
+    conv_singular_apply,
+    inner_stack,
+)
 from svd_lstm_tpu_torch.models.reduced import ReducedLSTM, reduced_lstm_apply
 from svd_lstm_tpu_torch.models.singular import SingularLSTM, singular_lstm_apply
 from svd_lstm_tpu_torch.train.loop import TrainResult, fit, make_val_fn
@@ -48,7 +61,9 @@ _FACTORS = ("wl", "wr", "ul", "ur")
 
 def regularization_loss(model: SingularLSTM, cfg: FactorConfig) -> torch.Tensor:
     """Σ layers: hoyer(σ_w) + hoyer(σ_u) [+ trace_norm(σ)] [+ orthogonal
-    (U/V factors)]."""
+    (U/V factors)]. A conv hybrid's penalty is its stack's: the conv front
+    end carries no regularizer."""
+    model = inner_stack(model)
     total = torch.zeros((), dtype=model.head.w.dtype, device=model.head.w.device)
     for layer in model.layers:
         if cfg.hoyer:
@@ -64,11 +79,13 @@ def regularization_loss(model: SingularLSTM, cfg: FactorConfig) -> torch.Tensor:
 
 
 def trainable_mask(model: SingularLSTM, train_uv: bool) -> dict:
-    """{parameter name: receives updates}, over ``model.named_parameters()``."""
+    """{parameter name: receives updates}, over ``model.named_parameters()``.
+    The head and σ always train; the factors, biases and a conv hybrid's
+    front end only with ``train_uv``."""
     mask = {}
     for name, _ in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        mask[name] = name.startswith("head.") or leaf in ("ws", "us") or train_uv
+        owner, leaf = name.split(".")[-2:]
+        mask[name] = owner == "head" or leaf in ("ws", "us") or train_uv
     return mask
 
 
@@ -95,12 +112,14 @@ def finetune(
     """Fine-tune a copy of a factorized model on the model's device (the
     windows move there); returns the ``TrainResult`` of :func:`fit`.
     Without ``train_cfg`` it trains for ``finetune_epochs`` at
-    ``finetune_batch_size``."""
-    if not isinstance(smodel, SingularLSTM):
-        raise NotImplementedError(
-            f"finetune of {type(smodel).__name__} is not ported yet (conv hybrids: "
-            "ROADMAP queue 1, item 7)"
-        )
+    ``finetune_batch_size``. Takes a ``SingularLSTM`` or a
+    ``ConvSingularLSTM``."""
+    if isinstance(smodel, SingularLSTM):
+        apply_fn = singular_lstm_apply
+    elif isinstance(smodel, ConvSingularLSTM):
+        apply_fn = conv_singular_apply
+    else:
+        raise TypeError(f"finetune takes a factorized model, not {type(smodel).__name__}")
     if factor_cfg.dropout > 0.0 or factor_cfg.recurrent_dropout > 0.0:
         raise NotImplementedError(
             "dropout fine-tunes are not ported yet (ROADMAP queue 1, item 4: dropout "
@@ -116,7 +135,7 @@ def finetune(
         X_train,
         y_train,
         cfg=train_cfg,
-        apply_fn=singular_lstm_apply,
+        apply_fn=apply_fn,
         optimizer=lambda m: make_finetune_optimizer(m, factor_cfg, train_cfg.learning_rate),
         loss_extra=lambda m: regularization_loss(m, factor_cfg),
         verbose=verbose,
@@ -131,13 +150,13 @@ def finetune(
 
 def reduced_apply_fn(model) -> Callable:
     """The reduced family's exact forward, shared by ``finetune_reduced`` and
-    the gate: ``reduced_lstm_apply``. Conv hybrids are not ported."""
-    if not isinstance(model, ReducedLSTM):
-        raise NotImplementedError(
-            f"recovery of {type(model).__name__} is not ported yet (conv hybrids: ROADMAP "
-            "queue 1, item 7)"
-        )
-    return reduced_lstm_apply
+    the gate: ``reduced_lstm_apply``, or ``conv_reduced_apply`` for the conv
+    hybrid."""
+    if isinstance(model, ReducedLSTM):
+        return reduced_lstm_apply
+    if isinstance(model, ConvReducedLSTM):
+        return conv_reduced_apply
+    raise TypeError(f"recovery takes a reduced model, not {type(model).__name__}")
 
 
 def finetune_reduced(
@@ -300,19 +319,25 @@ def truncate_recover_progressive(
     descending rank schedule (e.g. ``(32, 24)``): each stage factorizes the
     current dense model, truncates it to the stage's rank, runs
     :func:`recover_reduced_gated` (``gate_kwargs`` forwarded), and hands the
-    recovered model's exact dense reconstruction to the next stage. Returns
-    ``(reduced model, infos)``, one gate ``info`` per stage with its
-    ``rank``."""
-    from svd_lstm_tpu_torch.factor.svd import make_reduced_model, make_singular_model
+    recovered model's exact dense reconstruction to the next stage. A
+    ``ConvLSTM`` goes down the schedule as a conv hybrid, its front end
+    trained with the factors. Returns ``(reduced model, infos)``, one gate
+    ``info`` per stage with its ``rank``."""
+    from svd_lstm_tpu_torch.factor import svd
     from svd_lstm_tpu_torch.ops.layouts import reconstruct_dense_model
 
     if not all(a > b for a, b in zip(ranks, ranks[1:])):
         raise ValueError(f"ranks must be strictly descending: {ranks}")
+    conv = isinstance(dense_model, ConvLSTM)
     dense = dense_model
     rmod, infos = None, []
     for r in ranks:
-        smodel = make_singular_model(dense, merged_kernel=merged_kernel)
-        rmod = make_reduced_model(smodel, cutoff=None, rank=r)
+        if conv:
+            smodel = svd.make_conv_singular_model(dense, merged_kernel=merged_kernel)
+            rmod = svd.make_conv_reduced_model(smodel, cutoff=None, rank=r)
+        else:
+            smodel = svd.make_singular_model(dense, merged_kernel=merged_kernel)
+            rmod = svd.make_reduced_model(smodel, cutoff=None, rank=r)
         if verbose:
             print(f"progressive: rank {r}", flush=True)
         rmod, info = recover_reduced_gated(
@@ -320,11 +345,14 @@ def truncate_recover_progressive(
         )
         infos.append({"rank": r, **info})
         with exact_matmul():
-            dense = reconstruct_dense_model(rmod)
+            dense = reconstruct_dense_model(inner_stack(rmod))
+        if conv:
+            dense = ConvLSTM(rmod.conv, list(dense.layers), dense.head)
     return rmod, infos
 
 
 def harvest_sigmas(smodel: SingularLSTM) -> list:
     """Every layer's (σ_w, σ_u) as numpy arrays, as the reference collects
-    them after fine-tuning."""
-    return [(l.ws.detach().cpu().numpy(), l.us.detach().cpu().numpy()) for l in smodel.layers]
+    them after fine-tuning. Takes the conv hybrid too."""
+    return [(l.ws.detach().cpu().numpy(), l.us.detach().cpu().numpy())
+            for l in inner_stack(smodel).layers]

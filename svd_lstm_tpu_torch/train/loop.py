@@ -32,6 +32,7 @@ import torch
 from svd_lstm_tpu_torch.api import exact_matmul
 from svd_lstm_tpu_torch.config import TrainConfig, check_train_config
 from svd_lstm_tpu_torch.data.batcher import split_train_random
+from svd_lstm_tpu_torch.models.conv import conv_lstm_apply, conv_reduced_apply, conv_singular_apply
 from svd_lstm_tpu_torch.models.lstm import stacked_lstm_apply
 from svd_lstm_tpu_torch.models.reduced import reduced_lstm_apply
 from svd_lstm_tpu_torch.models.singular import singular_lstm_apply
@@ -135,8 +136,9 @@ def resolve_train_apply_fn(cfg: TrainConfig, apply_fn: Callable) -> tuple:
     the float32 kernels, or their bf16-operand variants under
     ``matmul_precision="bfloat16"``. As in the JAX package, the dense scan
     passes ``cfg.compact_gates`` to the dispatch and the singular and
-    reduced views keep its "auto". Conv models have no kernel path in the
-    port yet. Other applies keep their scan."""
+    reduced views keep its "auto". The conv hybrids' applies run their
+    front end and then the same kernels (``ops/conv_train.py``, "auto").
+    Other applies keep their scan."""
     if not cfg.recurrence_kernel:
         return apply_fn, False
     bf16 = cfg.matmul_precision == "bfloat16"
@@ -153,6 +155,13 @@ def resolve_train_apply_fn(cfg: TrainConfig, apply_fn: Callable) -> tuple:
         from svd_lstm_tpu_torch.ops.reduced_train import reduced_lstm_apply_fast_train
 
         return functools.partial(reduced_lstm_apply_fast_train, bf16=bf16), True
+    if apply_fn in (conv_lstm_apply, conv_singular_apply, conv_reduced_apply):
+        from svd_lstm_tpu_torch.ops import conv_train
+
+        fast = {conv_lstm_apply: conv_train.conv_lstm_apply_fast_train,
+                conv_singular_apply: conv_train.conv_singular_apply_fast_train,
+                conv_reduced_apply: conv_train.conv_reduced_apply_fast_train}[apply_fn]
+        return functools.partial(fast, bf16=bf16), True
     return apply_fn, False
 
 
@@ -182,21 +191,20 @@ def apply_cached_train_flags(cfg: TrainConfig, model, X_train, windows,
 
 
 def default_apply_fn(model) -> Callable:
-    """The family's exact forward: dense, singular or reduced. Conv hybrids
-    are not ported."""
+    """The family's exact forward: dense, singular, reduced or one of their
+    conv hybrids."""
+    from svd_lstm_tpu_torch.models.conv import ConvLSTM, ConvReducedLSTM, ConvSingularLSTM
     from svd_lstm_tpu_torch.models.lstm import StackedLSTM
     from svd_lstm_tpu_torch.models.reduced import ReducedLSTM
     from svd_lstm_tpu_torch.models.singular import SingularLSTM
 
-    if isinstance(model, StackedLSTM):
-        return stacked_lstm_apply
-    if isinstance(model, SingularLSTM):
-        return singular_lstm_apply
-    if isinstance(model, ReducedLSTM):
-        return reduced_lstm_apply
-    raise NotImplementedError(
-        f"training {type(model).__name__} is not ported yet (ROADMAP queue 1, item 7)"
-    )
+    for family, apply_fn in ((StackedLSTM, stacked_lstm_apply), (SingularLSTM, singular_lstm_apply),
+                             (ReducedLSTM, reduced_lstm_apply), (ConvLSTM, conv_lstm_apply),
+                             (ConvSingularLSTM, conv_singular_apply),
+                             (ConvReducedLSTM, conv_reduced_apply)):
+        if isinstance(model, family):
+            return apply_fn
+    raise TypeError(f"no training forward for {type(model).__name__}")
 
 
 def fit(
@@ -292,9 +300,12 @@ def fit(
 
 
 @torch.no_grad()
-def predict_full_run(model, X: np.ndarray, apply_fn: Callable = stacked_lstm_apply) -> np.ndarray:
+def predict_full_run(model, X: np.ndarray, apply_fn: Callable | None = None) -> np.ndarray:
     """Whole-run sequence prediction in exact mode, (1, T, d) -> (T,) on the
-    host: the reference's return_sequences=True evaluation clone."""
+    host: the reference's return_sequences=True evaluation clone.
+    ``apply_fn`` defaults to the model family's exact forward."""
+    if apply_fn is None:
+        apply_fn = default_apply_fn(model)
     x = torch.as_tensor(np.asarray(X, dtype=np.float32), device=next(model.parameters()).device)
     with exact_matmul():
         out = apply_fn(model, x, return_sequences=True)

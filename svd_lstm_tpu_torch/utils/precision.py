@@ -4,8 +4,12 @@ Counterpart of ``svd_lstm_tpu/utils/precision.py``. On the H100:
 
 * ``"exact"``: float32 matmuls in full float32 (TF32 off, float32 matmul
   precision "highest"), the analogue of the JAX package's
-  ``jax_default_matmul_precision=float32``;
-* ``"high"``: TF32 on for float32 matmuls (precision "high"), the card's
+  ``jax_default_matmul_precision=float32``. cuDNN's TF32 switch
+  (``torch.backends.cudnn.allow_tf32``, on by default) is turned off too,
+  so a convolution in the scope (the conv hybrids' front end) runs in full
+  float32 as well;
+* ``"high"``: TF32 on for float32 matmuls (precision "high") and for cuDNN's
+  convolutions, the card's
   nearest counterpart of JAX's ``default_matmul_precision("tensorfloat32")``.
   On the TPU that was 3-pass bf16 (relative error ~1e-4); TF32 keeps 10
   mantissa bits, so it is coarser (its error against exact is measured by
@@ -59,12 +63,15 @@ _TRAIN_PRECISION = contextvars.ContextVar("svd_lstm_tpu_torch_train_precision", 
 @contextlib.contextmanager
 def _float32_matmul(mode: str):
     allow_tf32 = torch.backends.cuda.matmul.allow_tf32
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
     prec = torch.get_float32_matmul_precision()
     torch.backends.cuda.matmul.allow_tf32 = mode == "high"
+    torch.backends.cudnn.allow_tf32 = mode == "high"
     torch.set_float32_matmul_precision(_FLOAT32_PRECISION[mode])
     try:
         yield
     finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
         torch.set_float32_matmul_precision(prec)
         # set the TF32 switch only where the precision did not restore it: a
         # needless set mixes torch's two APIs and makes the precision unreadable
@@ -74,7 +81,8 @@ def _float32_matmul(mode: str):
 
 def matmul_scope(precision: str):
     """Context manager selecting the float32 matmul mode of a named
-    precision mode: 'exact' TF32 off, 'high' TF32 on, 'fast' untouched."""
+    precision mode: 'exact' TF32 off, 'high' TF32 on (matmuls and cuDNN's
+    convolutions alike), 'fast' untouched."""
     if precision not in PRECISION_MODES:
         raise ValueError(f"unknown precision: {precision!r}")
     if precision == "fast":
@@ -83,8 +91,9 @@ def matmul_scope(precision: str):
 
 
 def exact_matmul():
-    """float32 matmuls in full float32 (TF32 off, precision "highest") for
-    the duration of the block; the previous settings are restored after."""
+    """float32 matmuls and convolutions in full float32 (TF32 off for both,
+    precision "highest") for the duration of the block; the previous
+    settings are restored after."""
     return matmul_scope("exact")
 
 

@@ -8,7 +8,11 @@ float32, and so does σ of a split singular layer, stacked to (4, k): σ is
 what the Hoyer fine-tune trains. Reduced layers quantize the compensated
 (B, C) pairs of the binary exporter (``io/int8_export._compensated_gate_pairs``:
 C re-solved against the quantized B), so the ``.npz`` and ``.bin`` artifacts
-encode the same float32 model.
+encode the same float32 model. A conv hybrid's kernel (k, c_in, filters) is
+quantized per filter: one scale over its k·c_in taps, the (k·c_in ×
+filters) per-column scheme of the ``.bin``'s conv section, stored as a
+(1, 1, filters) scale; its bias stays float32 and the stack follows its
+family's rule.
 
 A quantized model is a tree, not an ``nn.Module``: the ``NODE_TYPES``
 namedtuples of ``io/checkpoint.py`` with :class:`QuantizedTensor` leaves (and
@@ -68,19 +72,38 @@ def _is_matrix(x: Any) -> bool:
     return isinstance(x, torch.Tensor) and x.ndim >= 2 and x.is_floating_point()
 
 
-def _no_conv(params: Any) -> None:
-    if hasattr(params, "conv") or hasattr(params, "inner"):
-        raise NotImplementedError(
-            f"{type(params).__name__}: conv hybrids are not ported yet (ROADMAP queue 1, item 7)"
-        )
-
-
 def _tree(params: Any) -> Any:
     """The parameter tree of a model (its own tensors), or the tree itself."""
     from svd_lstm_tpu_torch.io.checkpoint import to_tensor_tree
 
-    _no_conv(params)
     return to_tensor_tree(params)
+
+
+def _conv_kernel_grid(w: torch.Tensor, fn) -> Any:
+    """``fn`` (a per-column quantizer of a matrix) over a conv kernel (k,
+    c_in, filters) viewed as the (k·c_in, filters) matrix: one scale a
+    filter. Returns ``fn``'s result reshaped back (a tensor, or a
+    :class:`QuantizedTensor` with a (1, 1, filters) scale)."""
+    k, c_in, filters = w.shape
+    out = fn(w.reshape(k * c_in, filters))
+    if _is_qt(out):
+        return QuantizedTensor(out.q.reshape(k, c_in, filters), out.scale.reshape(1, 1, filters))
+    return out.reshape(k, c_in, filters)
+
+
+def _split_conv(tree: Any, recurse) -> Any:
+    """A conv hybrid's tree with ``recurse`` applied to its stack's tree
+    (a dense ``ConvLSTMParams`` stack as ``StackedLSTMParams``), or None
+    for a tree without a conv front end."""
+    from svd_lstm_tpu_torch.io.checkpoint import NODE_TYPES
+
+    name = type(tree).__name__
+    if name == "ConvLSTMParams":
+        inner = recurse(NODE_TYPES["StackedLSTMParams"](layers=tree.layers, head=tree.head))
+        return tree._replace(layers=inner.layers, head=inner.head)
+    if name in ("ConvSingularParams", "ConvReducedParams"):
+        return tree._replace(inner=recurse(tree.inner))
+    return None
 
 
 def _leaves(tree: Any) -> list:
@@ -98,8 +121,8 @@ def _device(tree: Any) -> torch.device:
 
 def quantize_params(params: Any) -> Any:
     """Quantize every floating matrix leaf (ndim >= 2) of a dense, singular
-    or reduced model to a :class:`QuantizedTensor`; 1-D leaves and σ stay
-    float32. Returns the model's tree (``io.checkpoint.NODE_TYPES``) on its
+    or reduced model or a conv hybrid to a :class:`QuantizedTensor`; 1-D
+    leaves and σ stay float32. Returns the model's tree (``io.checkpoint.NODE_TYPES``) on its
     device, which ``io.checkpoint.save_params`` writes and
     :func:`quantized_apply`-wrapped forwards take. Idempotent: a quantized
     tree passes through."""
@@ -115,6 +138,12 @@ def quantize_params(params: Any) -> Any:
             # within each gate so the scheme stays per output column
             return quantize_tensor(x.detach(), axis=x.ndim - 2)
         return x.detach() if isinstance(x, torch.Tensor) else x
+
+    hybrid = _split_conv(tree, quantize_params)
+    if hybrid is not None:
+        w = hybrid.conv.w
+        qw = w if _is_qt(w) else _conv_kernel_grid(w.detach(), quantize_tensor)
+        return hybrid._replace(conv=hybrid.conv._replace(w=qw, b=hybrid.conv.b.detach()))
 
     name = type(tree).__name__
     if name == "ReducedModelParams":
@@ -260,6 +289,11 @@ def fake_quantize_params(params: Any) -> Any:
     def maybe_fq(x):
         return fake_quant_tensor(x, axis=x.ndim - 2) if _is_matrix(x) else x
 
+    hybrid = _split_conv(tree, fake_quantize_params)
+    if hybrid is not None:
+        return hybrid._replace(conv=hybrid.conv._replace(
+            w=_conv_kernel_grid(hybrid.conv.w, fake_quant_tensor)))
+
     name = type(tree).__name__
     if name == "ReducedModelParams":
         layers = []
@@ -304,8 +338,9 @@ class _Bound(torch.nn.Module):
 def qat_apply(apply_fn):
     """Wrap a forward so training runs through the int8 grid:
     ``fit(model, ..., apply_fn=qat_apply(reduced_lstm_apply))`` fine-tunes
-    the float32 master weights against the quantized view (QAT). The
-    forward runs on the model with its parameters swapped for the view's
+    the float32 master weights against the quantized view (QAT); a conv
+    hybrid's forward (``conv_reduced_apply``, ...) trains its kernel against
+    the per-filter grid. The forward runs on the model with its parameters swapped for the view's
     tensors for the call (``torch.func.functional_call``); the model's own
     parameters stay float32 and take the gradients."""
 

@@ -286,7 +286,8 @@ def test_entry_points_default_to_the_card():
         pytest.skip("a card is present")
     tree = P.to_numpy_tree(P.load_params(SEQUENTIAL, device="cpu"))
     for make in (lambda: P.load_params(SEQUENTIAL), lambda: P.from_numpy_tree(tree),
-                 lambda: P.init_stacked_lstm(torch.Generator().manual_seed(0))):
+                 lambda: P.init_stacked_lstm(torch.Generator().manual_seed(0)),
+                 lambda: P.init_conv_lstm(torch.Generator().manual_seed(0))):
         with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
             make()
 

@@ -304,14 +304,18 @@ def test_tune_command_writes_its_cache(tmp_path):
 
 
 def test_tune_train_is_not_ported():
-    """The training half is ported (tests/test_torch_autotune_train.py);
-    what it cannot tune yet is a conv hybrid (ROADMAP queue 1, item 7)."""
+    """Once the conv hybrids' refusal; they are ported now: a conv hybrid
+    has the JAX package's keys ("conv+" its stack's family, the conv's
+    shapes first) and is tuned and served like any model."""
+    from svd_lstm_tpu.models.conv import init_conv_lstm
 
-    class ConvHybrid(torch.nn.Module):
-        conv = None
-
-    x = torch.zeros((2, 3, 4))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        at.autotune_train(ConvHybrid(), x, torch.zeros(2))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        at.train_cache_key(ConvHybrid(), x)
+    jm = init_conv_lstm(jax.random.PRNGKey(0), in_channels=4, filters=3, kernel_size=2, units=(5,))
+    m, x = P.from_numpy_tree(jm, device="cpu"), _x((12, 4))
+    for got, want in ((at.cache_key(m, torch.tensor(x), "exact"), jat.cache_key(jm, jnp.asarray(x), "exact")),
+                      (at.train_cache_key(m, (2, 3, 4)), jat.train_cache_key(jm, np.zeros((2, 3, 4))))):
+        got, want = json.loads(got), json.loads(want)
+        assert got.pop("device") == "cpu"
+        want.pop("device")
+        assert got == want and got["family"] == "conv+dense" and got["dims"][0][0] == "conv"
+    impl = at.tuned_impl(m, torch.tensor(x))
+    assert impl in ("scan", "fused", "hybrid") and at.cached_impl(m, torch.tensor(x)) == impl

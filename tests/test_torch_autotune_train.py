@@ -104,12 +104,15 @@ def test_autotune_train_reduced_runs_the_view(model):
 
 
 def test_autotune_train_conv_hybrid_is_not_ported():
-    class ConvHybrid(torch.nn.Module):
-        conv = None
-
+    """Once the conv hybrids' refusal; they are ported now: the dense
+    hybrid's regimes run its front end and then its stack's kernels (the
+    compact regime is the dense family's alone, as in the JAX package)."""
+    hybrid = P.init_conv_lstm(torch.Generator().manual_seed(0), in_channels=4, filters=3,
+                              kernel_size=2, units=(5,), device="cpu")
     x, y = _train_xy()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        at.autotune_train(ConvHybrid(), x, y)
+    r = at.autotune_train(hybrid, x, y, repeats=1)
+    assert {"tf32_scan", "bf16_scan", "fused_kernel"} <= set(r.table)
+    assert r.failed == {"fused_kernel_compact": "compact layout ineligible for this model"}
 
 
 def test_train_cache_key_is_the_jax_packages_but_the_device():

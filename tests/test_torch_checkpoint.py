@@ -125,9 +125,17 @@ def test_unsupported_node_types_raise_by_name(tmp_path, node):
 
 
 def test_jax_conv_checkpoint_raises_by_name(tmp_path):
+    """Once the conv hybrids' refusal; a JAX conv checkpoint loads now, and
+    the port's save of it is the JAX package's file leaf for leaf."""
     from svd_lstm_tpu.models.conv import init_conv_lstm
 
     path = str(tmp_path / "conv.npz")
-    jckpt.save_params(path, init_conv_lstm(jax.random.PRNGKey(0), units=(8,)))
-    with pytest.raises(TypeError, match="ConvLSTMParams"):
-        P.load_params(path, device="cpu")
+    params = init_conv_lstm(jax.random.PRNGKey(0), units=(8,))
+    jckpt.save_params(path, params)
+    model = P.load_params(path, device="cpu")
+    assert isinstance(model, P.ConvLSTM)
+    back = str(tmp_path / "back.npz")
+    P.save_params(back, model)
+    again = jckpt.load_params(back)
+    assert type(again).__name__ == "ConvLSTMParams"
+    _same_leaves(again, jax.tree_util.tree_leaves(params))

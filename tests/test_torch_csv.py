@@ -149,14 +149,22 @@ def test_layer_dirs_sort_numerically(tmp_path):
 
 
 def test_conv_front_end_and_wrong_families_raise(tmp_path, dense):
+    """A ``conv/`` directory (once refused) loads as the conv hybrid, the
+    same bytes from either package; the wrong families still raise."""
+    from svd_lstm_tpu.models.conv import ConvParams
+
     path = str(tmp_path / "csv")
     jc.save_model_weights_as_csv(dense, path)
-    os.makedirs(os.path.join(path, "conv"))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        pc.load_model_from_csv(path, device="cpu")
-    for fn in (lambda: pc.save_conv_front_csv(None, path), lambda: pc.load_conv_front_csv(path)):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn()
+    assert isinstance(pc.load_model_from_csv(path, device="cpu"), P.StackedLSTM)
+    w = np.random.default_rng(0).normal(size=(3, 2, 6)).astype(np.float32)  # 6: layer 0's input
+    conv = ConvParams(w=jnp.asarray(w), b=jnp.arange(6, dtype=jnp.float32))
+    jc.save_conv_front_csv(conv, path)
+    hybrid = pc.load_model_from_csv(path, device="cpu")
+    assert isinstance(hybrid, P.ConvLSTM) and hybrid.conv.w.shape == (3, 2, 6)
+    np.testing.assert_array_equal(hybrid.conv.w.detach().numpy(), w)
+    pc.save_model_weights_as_csv(hybrid, str(tmp_path / "back"))
+    _same_tree(path, str(tmp_path / "back"))
+    assert pc.load_conv_front_csv(str(tmp_path / "x"), device="cpu") is None
     red = _port(make_reduced_model(make_singular_model(dense), rank=4))
     with pytest.raises(TypeError, match="dense"):
         pc.save_model_weights_as_csv(red, str(tmp_path / "x"))

@@ -261,12 +261,19 @@ def test_int8_checkpoint_of_the_committed_model_loads(tmp_path):
 
 
 def test_conv_hybrids_raise_by_item():
+    """Once the conv hybrids' refusal; they are ported now: the JAX
+    package's int8 tree of a hybrid, the conv kernel per filter (tests of
+    every family: tests/test_torch_conv.py)."""
     from svd_lstm_tpu.models.conv import init_conv_lstm
 
     conv = init_conv_lstm(jax.random.PRNGKey(0), units=(4,))
-    for fn in (pq.quantize_params, pq.fake_quantize_params, pq.param_bytes):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn(conv)
+    model = P.from_numpy_tree(conv, device="cpu")
+    q, jqt = pq.quantize_params(model), jq.quantize_params(conv)
+    _same_quantized(q, jqt)
+    assert pq.param_bytes(q) == jq.param_bytes(jqt)
+    view = pq.fake_quantize_params(model)
+    np.testing.assert_allclose(view.conv.w.detach().numpy(),
+                               np.asarray(jq.fake_quantize_params(conv).conv.w), atol=1e-7)
 
 
 @settings(max_examples=25, deadline=None)

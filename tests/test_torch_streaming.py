@@ -112,9 +112,20 @@ def test_a_step_never_writes_the_state_it_is_given(models, frames):
 
 
 def test_conv_hybrids_raise_by_item():
+    """Once the conv hybrids' refusal; they stream now: the JAX package's
+    state layout (the frame buffer first) and its step's outputs."""
     from svd_lstm_tpu.models.conv import init_conv_lstm
 
     conv = init_conv_lstm(jax.random.PRNGKey(0), units=(4,))
-    for fn in (ps.init_stream, ps.make_stream_fn):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            fn(conv)
+    model = P.from_numpy_tree(conv, device="cpu")
+    frames = np.random.default_rng(0).normal(size=(1, 6, 1)).astype(np.float32)
+    state, jstate = ps.init_stream(model), js.init_stream(conv)
+    assert [tuple(t.shape) for t in jax.tree.leaves(state)] == [t.shape for t in jax.tree.leaves(jstate)]
+    fn, s = ps.make_stream_fn(model)
+    for t in range(frames.shape[1]):
+        with torch.no_grad():
+            y, state = ps.stream_step(model, state, torch.tensor(frames[:, t]))
+        yf, s = fn(s, torch.tensor(frames[:, t]))
+        jy, jstate = js.stream_step(conv, jstate, jnp.asarray(frames[:, t]))
+        np.testing.assert_allclose(y.numpy(), np.asarray(jy), atol=1e-6)
+        assert torch.equal(y, yf)

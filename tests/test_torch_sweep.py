@@ -191,9 +191,17 @@ def test_each_evaluation_sees_the_reduction_just_made(small):
 
 
 def test_conv_models_raise():
-    class Conv:
-        conv = None
-        layers = ()
+    """Once the conv hybrids' refusal; the dense hybrid sweeps now, in the
+    JAX package's order, its front end kept; other families still raise."""
+    from svd_lstm_tpu.models.conv import init_conv_lstm
 
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tsweep.sorted_sigma_indices(Conv())
+    jm = init_conv_lstm(jax.random.PRNGKey(0), in_channels=3, filters=4, kernel_size=2, units=(5,))
+    m = P.from_numpy_tree(jm, device="cpu")
+    np.testing.assert_array_equal(tsweep.sorted_sigma_indices(m), jsweep.sorted_sigma_indices(jm))
+    reduced = tsvd.set_model_matrix_rank(m, (0, 1, 2), 2)
+    assert isinstance(reduced, P.ConvLSTM) and reduced.conv is m.conv
+    np.testing.assert_allclose(reduced.layers[0].U.detach().numpy(),
+                               np.asarray(jsvd.set_model_matrix_rank(jm, (0, 1, 2), 2).layers[0].U),
+                               atol=1e-6)
+    with pytest.raises(TypeError, match="dense"):
+        tsweep.sorted_sigma_indices(P.make_conv_singular_model(m))

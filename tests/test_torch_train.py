@@ -93,6 +93,14 @@ def test_unported_knobs_raise(data, windows):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         P.finetune(smodel, data.X_train, data.y_train, pcfg.FactorConfig(dropout=0.1),
                    _train_cfg(pcfg), windows=windows)
+    # the conv hybrids' dropout and remat: the same item
+    hybrid = P.make_conv_singular_model(P.init_conv_lstm(
+        torch.Generator().manual_seed(0), in_channels=16, filters=4, kernel_size=2, units=(4,),
+        device="cpu"))
+    for fcfg, cfg in ((pcfg.FactorConfig(recurrent_dropout=0.1), _train_cfg(pcfg)),
+                      (pcfg.FactorConfig(), _train_cfg(pcfg, remat_chunk=4))):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
+            P.finetune(hybrid, data.X_train, data.y_train, fcfg, cfg, windows=windows)
     # ported since: compact_gates=True (K8) and the reduced recovery
     P.fit(model, data.X_train, data.y_train,
           _train_cfg(pcfg, epochs=1, recurrence_kernel=True, compact_gates=True), windows=windows)
