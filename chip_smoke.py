@@ -279,7 +279,41 @@ Phases, each of which raises on failure (no phase is caught):
    ``autotune`` of the recovered hybrid, its winner launched by
    ``predict(impl="auto")`` bit-equal to the explicit impl; a
    ``rank_sweep`` of 16 reductions of the fitted hybrid (K1 once an
-   evaluation). The phase prints its wall time.
+   evaluation). The phase prints its wall time;
+12. drive the last training knobs and the structural surgery, every
+   main-path call counted as in 11 (``count_call``). (12a) one f32_scan
+   train step (``fit``'s resolver and loss) of a seeded 1x512 stack at B =
+   64, T = 1024 with ``remat_chunk`` 0 and 64 (each after an untimed first
+   step): the same loss (1e-6 relative) and gradients (1e-5 of each one's
+   largest |value|), ``torch.cuda.max_memory_allocated`` above the step's
+   start and the wall time both ways (the prediction printed first), failing
+   unless the remat peak is below the plain one; the same step with
+   ``recurrence_kernel`` launches K6 and gives the same result with either
+   chunk (the knob is ignored); a split 4x30 singular step at T = 200 with
+   remat 50 against 0. (12b) one epoch of a dropout σ fine-tune
+   (``FactorConfig(dropout=0.2, recurrent_dropout=0.2)``) of the split 4x30
+   model at B = 32, T = 200, 256 windows, ``recurrence_kernel`` set: no train
+   kernel launched, finite losses, the masks of one (seed, epoch, batch)
+   bit-identical, two runs from one seed within 1e-6, the step's ms; with
+   rates 0 (K7) equal to the plain σ fine-tune and within 1e-3 of it on the
+   scan. (12c) ``prune_to_width`` of the 3x512 checkpoint to 3x384: K3, K3f,
+   K2 (its direct merged r = 24 truncation) and K9 (run C's B = 128) first
+   held against their plain versions at n = 384 and timed, their plans
+   printed; ``predict`` exact (K3 once a layer) against the CPU float64
+   scan and within 5e-4 of the full model with the dropped units silenced,
+   fast (K3f) within the wide band; the truncation's ``predict`` exact (K2)
+   and fast (K2f); a ``fit`` at run C's shape (K9) held to the plain scan as
+   in 7; ``prune_to_width`` of 4x30 to 4x20, ``predict`` (K1) against the
+   CPU scan; the pruned and unpruned times and reduced/full ratios. (12d)
+   two seeded 1x256 stacks merged by ``merge_parallel_cell_weights`` into
+   one 1x512 layer (same input, and the inputs concatenated, 16 + 16), its
+   head [w1; w2]: K3 against its plain version on the block-diagonal U,
+   then ``predict(merged)`` within 2 x 5e-4 of ``predict(m1) +
+   predict(m2)`` over T = 6656 (K3 once each). (12e) ``finetune_with_pruning``
+   of the split 4x30 model, the schedule 0 -> 0.5 over two epochs (K7):
+   every σ tensor at least floor(0.5 size) zeros, the cutoff truncation
+   keeping none of them, ``predict`` (K1) against the CPU float64 scan. The
+   phase prints its wall time.
 
 Beside each kernel the script times one PyTorch library call that computes
 the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
@@ -328,6 +362,7 @@ from svd_lstm_tpu_torch.ops import cuda_train as ct
 from svd_lstm_tpu_torch.ops.reduced_train import reduced_dense_view
 from svd_lstm_tpu_torch.train.finetune import make_finetune_optimizer, regularization_loss
 from svd_lstm_tpu_torch.train.loop import default_apply_fn, mse_last_step, resolve_train_apply_fn
+from svd_lstm_tpu_torch.utils.precision import train_matmul_scope
 
 T = 6656
 D = 16
@@ -699,7 +734,7 @@ def plain_states(xp, rec, starts):
     return h_seq, states
 
 
-def check_windows(name: str, errs, drifts, ulps: float) -> float:
+def check_windows(name: str, errs, drifts, ulps: float, drift_limit: bool = False) -> float:
     """A fast variant against its plain fast version over short windows
     (each started from the plain version's state, or from zero state): the
     median window within TOL, a float32 sum order; at least WINDOW_SHARE of
@@ -708,13 +743,20 @@ def check_windows(name: str, errs, drifts, ulps: float) -> float:
     rest of a window, and on the ill-conditioned factors such a flip can
     reach far more than 2 ulps; ``drifts``, the plain version's distance
     from float64 state over the same windows, shows how often that happens
-    without the kernel. Returns the largest window's error."""
+    without the kernel. ``drift_limit`` gives each window the limit
+    max(2 ulps, 2 × its plain version's distance from float64 state), the
+    rule K5, K1f and K3f are held to over a whole run: for a model on which
+    the plain version itself strays from float64 in more than a quarter of
+    the windows (the direct truncations, ROADMAP fault 3.1). Returns the
+    largest window's error."""
     errs, drifts = np.asarray(errs), np.asarray(drifts)
-    med, share = float(np.median(errs)), float(np.mean(errs <= ulps))
+    limits = np.maximum(ulps, 2 * drifts) if drift_limit else np.full_like(errs, ulps)
+    med, share = float(np.median(errs)), float(np.mean(errs <= limits))
     log(f"[check] {name}: {len(errs)} windows, median max abs diff {med:.3e} (tol {TOL:g}), "
-        f"share within 2 bf16 ulps ({ulps:.3e}) {share:.3f} (at least {WINDOW_SHARE}), largest "
-        f"{errs.max():.3e}; plain vs float64 state: median {np.median(drifts):.3e}, share within "
-        f"{np.mean(drifts <= ulps):.3f}")
+        f"share within 2 bf16 ulps ({ulps:.3e}) {np.mean(errs <= ulps):.3f}"
+        + (f", within max(2 ulps, 2 x the window's plain vs float64) {share:.3f}" if drift_limit else "")
+        + f" (at least {WINDOW_SHARE}), largest {errs.max():.3e}; plain vs float64 state: median "
+        f"{np.median(drifts):.3e}, share within {np.mean(drifts <= ulps):.3f}")
     if not bool(np.isfinite(errs).all()) or not med <= TOL or not share >= WINDOW_SHARE:
         fail(f"{name}: the kernel disagrees with its plain version")
     return float(errs.max())
@@ -727,6 +769,35 @@ def check_finite(name: str, got: torch.Tensor, plain: torch.Tensor) -> None:
     if got.shape != plain.shape or not bool(torch.isfinite(got).all()):
         fail(f"{name}: bad output {tuple(got.shape)}")
     log(f"[info] {name}, whole run: max abs diff from the plain version {max_err(got, plain):.3e}")
+
+
+def reduced_fast_windows(label: str, model, x, drift_limit: bool = False) -> list:
+    """K2f on each layer of a reduced stack against its plain version over
+    WINDOWS windows of WINDOW_T steps, each restarted from the plain
+    version's (h, c), and its whole run finite; each layer's xp from the
+    plain h of the layer below (``drift_limit``: see check_windows).
+    Returns, a layer, ((xp, uB, uC), the plain h, the largest window's
+    error)."""
+    fast, starts, h, out = "default", window_starts(x.shape[0], WINDOW_T), x, []
+    for i, l in enumerate(model.layers):
+        xp = (reduced_projection(l, h, "w", bf16=True) + l.b).contiguous()
+        uB, uC = recurrence_args(l)
+        uB64, uC64 = double([uB, uC])
+        h, states = plain_states(xp, folded_projection(uB, uC, True), starts)
+        errs, drifts = [], []
+        for t in starts:
+            hc, cc = states[t]
+            xw = xp[t : t + WINDOW_T]
+            plain = ck.reduced_recurrence_plain(xw, uB, uC, hc, cc, fast)
+            got = ck.reduced_recurrence(xw, uB, uC, hc, cc, dot_precision=fast)
+            plain64 = ck.reduced_recurrence_plain(xw.double(), uB64, uC64, hc.double(), cc.double(), fast)
+            errs.append(max_err(got, plain))
+            drifts.append(max_err(plain.double(), plain64))
+        name = f"{label} layer {i}"
+        err = check_windows(name, errs, drifts, 2 * bf16_ulp(float(h.abs().max())), drift_limit)
+        check_finite(name, ck.reduced_recurrence(xp, uB, uC, dot_precision=fast), h)
+        out.append(((xp, uB, uC), h, err))
+    return out
 
 
 def fast_kernel_checks(dev, x) -> dict:
@@ -781,29 +852,11 @@ def fast_kernel_checks(dev, x) -> dict:
     # plain version's (h, c); each layer's xp from the plain h of the layer below
     wide = P.load_params(WIDE_R24, device=dev)
     red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
-    starts = window_starts(Tx, WINDOW_T)
     err, timed = 0.0, None
     for name, m in (("merged r=24 (wide_r24_progressive)", wide), ("4x30 split r=15", red30)):
-        h = x
-        for i, l in enumerate(m.layers):
-            xp = (reduced_projection(l, h, "w", bf16=True) + l.b).contiguous()
-            uB, uC = recurrence_args(l)
-            uB64, uC64 = double([uB, uC])
-            h, states = plain_states(xp, folded_projection(uB, uC, True), starts)
-            errs, drifts = [], []
-            for t in starts:
-                hc, cc = states[t]
-                xw = xp[t : t + WINDOW_T]
-                plain = ck.reduced_recurrence_plain(xw, uB, uC, hc, cc, fast)
-                got = ck.reduced_recurrence(xw, uB, uC, hc, cc, dot_precision=fast)
-                plain64 = ck.reduced_recurrence_plain(xw.double(), uB64, uC64, hc.double(),
-                                                      cc.double(), fast)
-                errs.append(max_err(got, plain))
-                drifts.append(max_err(plain.double(), plain64))
-            label = f"K2f reduced_recurrence fast {name} layer {i}"
-            err = max(err, check_windows(label, errs, drifts, 2 * bf16_ulp(float(h.abs().max()))))
-            check_finite(label, ck.reduced_recurrence(xp, uB, uC, dot_precision=fast), h)
-            timed = timed or ((xp, uB, uC), h)
+        for args, h, e in reduced_fast_windows(f"K2f reduced_recurrence fast {name}", m, x):
+            err = max(err, e)
+            timed = timed or (args, h)
     args, h = timed
     r = args[1].shape[1]
     results["reduced_recurrence_fast"] = {
@@ -2833,14 +2886,14 @@ def count_call(total: dict, fn, *args, **kwargs):
     return out, launched
 
 
-def require(name: str, launched: dict, kernels, times: int | None = None) -> None:
+def require(name: str, launched: dict, kernels, times: int | None = None, tag: str = "conv") -> None:
     """Fail unless each wrapper in ``kernels`` launched (``times`` times
     each, where given)."""
     for k in kernels:
         n = launched.get(k, 0)
         if n < 1 or (times is not None and n != times):
             fail(f"{name}: {k} launched {n} times{'' if times is None else f', not {times}'}")
-    log(f"[conv] {name}: launches {launched}")
+    log(f"[{tag}] {name}: launches {launched}")
 
 
 def conv_windows(model, data, dev, cfg: P.TrainConfig) -> torch.Tensor:
@@ -3132,6 +3185,407 @@ def conv_path(dev, x, data) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the last training knobs and the structural surgery (phase 12)
+# ---------------------------------------------------------------------------
+
+REMAT_B, REMAT_T, REMAT_K = 64, 1024, 64  # 12a: the 1x512 f32_scan step and its chunk
+SINGULAR_REMAT = 50        # 12a: the 4x30 split model's chunk at T = 200
+REMAT_LOSS_RTOL = 1e-6     # 12a: remat vs plain step: the same arithmetic, recomputed
+REMAT_GRAD_RTOL = 1e-5     # 12a: every gradient, of its largest |value|
+DROPOUT = 0.2              # 12b: both rates
+SEED_RTOL = 1e-6           # 12b: two dropout fine-tunes from one seed
+PRUNED_WIDE = (384, 384, 384)     # 12c: prune_to_width of the 3x512 checkpoint
+PRUNED_NARROW = (20, 20, 20, 20)  # 12c: of the 4x30 checkpoint
+PRUNED_RANK = 24           # 12c: the direct merged truncation of the pruned 3x384
+SILENCED_TOL = 5e-4        # 12c: pruned vs the full model with the dropped units silenced
+MERGE_UNITS = 256          # 12d: each parallel cell; the merged layer has twice as many
+MERGE_TOL = 2 * TOL        # 12d: the merged predict against the sum of two
+SIGMA_SPARSITY = 0.5       # 12e: the schedule's final sparsity
+KNOB_CFG = P.TrainConfig(batch_size=32, window_len=TRAIN_T, recurrence_kernel=True, num_windows=256,
+                         epochs=1)  # 12b, 12e (two epochs)
+
+
+def knob_step(model, x, y, cfg: P.TrainConfig, apply_fn):
+    """One train step's forward and backward as ``fit`` takes it (its
+    resolver, its loss, its regime) on a copy of ``model``. Returns (loss,
+    {parameter: gradient}, the peak of allocated device memory above the
+    step's start in bytes, wall seconds, whether a train kernel took it)."""
+    m = copy.deepcopy(model)
+    fn, used = resolve_train_apply_fn(cfg, apply_fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with train_matmul_scope(cfg.matmul_precision):
+        loss = mse_last_step(m, x, y, fn)
+        loss.backward()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    grads = {name: p.grad.detach().clone() for name, p in m.named_parameters()}
+    return loss.item(), grads, peak, wall, used
+
+
+def check_same_step(name: str, got: tuple, want: tuple) -> None:
+    """Two knob_step results of one step: loss within REMAT_LOSS_RTOL, every
+    gradient within REMAT_GRAD_RTOL of its largest |value|."""
+    (lg, gg), (lw, gw) = got[:2], want[:2]
+    log(f"[check] {name} loss: {lg:.9f} vs {lw:.9f} (rtol {REMAT_LOSS_RTOL:g})")
+    if not abs(lg - lw) <= REMAT_LOSS_RTOL * abs(lw):
+        fail(f"{name}: losses differ by {abs(lg - lw):.3e}")
+    for k, w in gw.items():
+        check_close(f"{name} d{k}", gg[k], w, REMAT_GRAD_RTOL * float(w.abs().max()))
+
+
+def remat_path(dev, data, total: dict) -> None:
+    """12a: one f32_scan step of a seeded 1x512 stack at B = 64, T = 1024
+    with remat_chunk 0 and 64: the same loss and gradients, the remat peak
+    memory below the plain one; the same step with recurrence_kernel (K6,
+    the knob ignored); a split 4x30 singular step with remat 50 at T = 200."""
+    model = P.init_stacked_lstm(torch.Generator().manual_seed(12), input_dim=D, units=(512,), device=dev)
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.normal(size=(REMAT_B, REMAT_T, D)), dtype=torch.float32, device=dev)
+    y = torch.tensor(rng.normal(size=REMAT_B), dtype=torch.float32, device=dev)
+    step_mib = 7 * REMAT_B * 512 * 4 / 2**20
+    log(f"[knobs] 12a prediction: the plain scan keeps ~7 (B, n) tensors a step ({step_mib:.2f} MiB), "
+        f"{REMAT_T} steps ~{REMAT_T * step_mib / 1024:.2f} GiB plus xp (B, T, 4n) "
+        f"{REMAT_B * REMAT_T * 2048 * 4 / 2**30:.2f} GiB: a peak of 1.5-2.0 GiB; remat keeps "
+        f"{REMAT_T // REMAT_K} chunk boundaries, the (B, T, n) output and one chunk's {REMAT_K} steps "
+        "while it recomputes: 0.25-0.45 GiB; its step 1.3-2x the plain step's wall time")
+    cfg = P.TrainConfig(batch_size=REMAT_B, window_len=REMAT_T)
+    steps = {}
+    for K in (0, REMAT_K):
+        # a first step of each, untimed: it pays torch.utils.checkpoint's lazy imports
+        knob_step(model, x, y, dataclasses.replace(cfg, remat_chunk=K), P.stacked_lstm_apply)
+        steps[K], launched = count_call(total, knob_step, model, x, y, dataclasses.replace(cfg, remat_chunk=K),
+                                        P.stacked_lstm_apply)
+        if launched or steps[K][4]:
+            fail(f"12a f32_scan step, remat_chunk={K}: launched {launched}")
+        log(f"[knobs] 12a 1x512 f32_scan step (B={REMAT_B}, T={REMAT_T}, d={D}), remat_chunk={K}: loss "
+            f"{steps[K][0]:.9f}, peak {steps[K][2] / 2**20:.1f} MiB above the step's start, wall "
+            f"{steps[K][3] * 1e3:.1f} ms; {card_line()}")
+    check_same_step(f"12a remat_chunk={REMAT_K} vs 0", steps[REMAT_K], steps[0])
+    if not steps[REMAT_K][2] < steps[0][2]:
+        fail(f"12a: the remat peak {steps[REMAT_K][2]} B is not below the plain peak {steps[0][2]} B")
+    kernel = {}
+    for K in (0, REMAT_K):
+        kernel[K], launched = count_call(
+            total, knob_step, model, x, y, dataclasses.replace(cfg, recurrence_kernel=True, remat_chunk=K),
+            P.stacked_lstm_apply)
+        require(f"12a recurrence_kernel step, remat_chunk={K}", launched,
+                ["lstm_recurrence_train_fwd", "lstm_recurrence_train_bwd"], tag="knobs")
+        log(f"[knobs] 12a K6 step, remat_chunk={K}: peak {kernel[K][2] / 2**20:.1f} MiB, wall "
+            f"{kernel[K][3] * 1e3:.1f} ms")
+    check_same_step(f"12a K6 step, remat_chunk={REMAT_K} vs 0 (ignored)", kernel[REMAT_K], kernel[0])
+    grad_err = max(max_err(kernel[0][1][k], g) / float(g.abs().max()) for k, g in steps[0][1].items())
+    log(f"[info] 12a K6 step vs the f32_scan step: loss {kernel[0][0]:.9f} vs {steps[0][0]:.9f}, "
+        f"gradients within {grad_err:.3e} of their largest |value|")
+
+    smodel = P.make_singular_model(P.load_params(DENSE_30, device=dev), merged_kernel=False)
+    xs, ys = first_batch(TRAIN_RUNS[1], data, dev)
+    sing = {}
+    for K in (0, SINGULAR_REMAT):
+        sing[K], launched = count_call(total, knob_step, smodel, xs, ys,
+                                       P.TrainConfig(remat_chunk=K), P.singular_lstm_apply)
+        if launched:
+            fail(f"12a singular scan step launched {launched}")
+        log(f"[knobs] 12a 4x30 split singular step (B={xs.shape[0]}, T={xs.shape[1]}), remat_chunk={K}: "
+            f"peak {sing[K][2] / 2**20:.1f} MiB, wall {sing[K][3] * 1e3:.1f} ms")
+    check_same_step(f"12a 4x30 split remat_chunk={SINGULAR_REMAT} vs 0", sing[SINGULAR_REMAT], sing[0])
+
+
+def dropout_path(dev, data, total: dict) -> None:
+    """12b: one epoch of a dropout σ fine-tune of the split 4x30 model with
+    recurrence_kernel set (the wrapper keeps the scan: no train kernel),
+    twice from one seed; the same fine-tune with rates 0 (K7) against the
+    plain σ fine-tune and its scan."""
+    from svd_lstm_tpu_torch.models.lstm import layer_masks
+    from svd_lstm_tpu_torch.train.loop import batch_generator
+
+    X, y = data.X_train, data.y_train
+    smodel = P.make_singular_model(P.load_params(DENSE_30, device=dev), merged_kernel=False)
+    fcfg = P.FactorConfig(hoyer=0.01, dropout=DROPOUT, recurrent_dropout=DROPOUT)
+    l0 = smodel.layers[0]
+    masks = [layer_masks(batch_generator(KNOB_CFG.seed ^ 0x5EED, 0, 0, dev), DROPOUT, DROPOUT, 4,
+                         KNOB_CFG.batch_size, l0.input_dim, l0.units, torch.float32, dev) for _ in range(2)]
+    if not all(torch.equal(a, b) for a, b in zip(*masks)):
+        fail("12b: one (seed, epoch, batch) drew two different masks")
+    keep = float(masks[0][0].ne(0).float().mean())
+    log(f"[knobs] 12b batch (0, 0)'s layer-0 masks bit-identical from one seed; kept share {keep:.4f} "
+        f"(rate {DROPOUT})")
+    steps = KNOB_CFG.num_windows // KNOB_CFG.batch_size
+    hists = []
+    for i in range(2):
+        t0 = time.perf_counter()
+        res, launched = count_call(total, P.finetune, smodel, X, y, fcfg, KNOB_CFG)
+        wall = time.perf_counter() - t0
+        if launched:
+            fail(f"12b dropout fine-tune launched {launched}: it must keep the scan")
+        if not res.history or res.rollbacks or not np.all(np.isfinite(res.history)):
+            fail(f"12b dropout fine-tune: history {res.history}, rollbacks {res.rollbacks}")
+        hists.append(np.asarray(res.history))
+        log(f"[knobs] 12b dropout fine-tune run {i}: history {res.history}, {steps} steps in {wall:.2f} s "
+            f"({wall / steps * 1e3:.1f} ms a step, B={KNOB_CFG.batch_size}, T={TRAIN_T}); {card_line()}")
+    rel = float(np.max(np.abs(hists[0] - hists[1]) / np.abs(hists[1])))
+    log(f"[check] 12b two dropout fine-tunes from one seed: max rel diff {rel:.3e} (rtol {SEED_RTOL:g})")
+    if not rel <= SEED_RTOL:
+        fail("12b: two dropout fine-tunes from one seed disagree")
+    zero, launched = count_call(total, P.finetune, smodel, X, y,
+                                P.FactorConfig(hoyer=0.01, dropout=0.0, recurrent_dropout=0.0), KNOB_CFG)
+    require("12b fine-tune with rates 0", launched, ["fused_narrow_train_fwd", "fused_narrow_train_bwd"],
+            tag="knobs")
+    plain, _ = count_call(total, P.finetune, smodel, X, y, P.FactorConfig(hoyer=0.01), KNOB_CFG)
+    scan = P.finetune(smodel, X, y, P.FactorConfig(hoyer=0.01), dataclasses.replace(KNOB_CFG, recurrence_kernel=False))
+    for name, other, tol in (("the plain σ fine-tune", plain.history, SEED_RTOL),
+                             ("the plain σ fine-tune on the scan", scan.history, HIST_RTOL)):
+        rel = float(np.max(np.abs(np.asarray(zero.history) - other) / np.abs(other)))
+        log(f"[check] 12b rates 0 {zero.history} vs {name} {other}: max rel diff {rel:.3e} (rtol {tol:g})")
+        if not rel <= tol:
+            fail(f"12b: the fine-tune with rates 0 differs from {name}")
+    if np.allclose(hists[0], zero.history, rtol=SEED_RTOL, atol=0):
+        fail("12b: the dropout fine-tune trained as if nothing dropped")
+
+
+def silenced(model, keep: list):
+    """A copy of a dense stack with every unit outside ``keep`` silenced: its
+    g-gate columns of W, U and b zeroed (its c and h stay 0) and its rows of
+    the next layer's W or the head zeroed."""
+    m = copy.deepcopy(model)
+    with torch.no_grad():
+        for li, layer in enumerate(m.layers):
+            n = layer.units
+            drop = torch.tensor(np.setdiff1d(np.arange(n), keep[li]), device=layer.W.device)
+            for M in (layer.W, layer.U):
+                M[:, 2 * n + drop] = 0.0
+            layer.b[2 * n + drop] = 0.0
+            (m.layers[li + 1].W if li + 1 < len(m.layers) else m.head.w)[drop] = 0.0
+    return m
+
+
+def pruned_kernel_checks(dev, x, data, pruned, red) -> None:
+    """12c, before the path: K3 and K3f on each layer of the pruned 3x384, K2
+    on each layer of its direct merged r = 24 truncation (T = 6656) and K2f
+    over windows of it as phase 3c holds K2f, and K9
+    on its first two layers at run C's B = 128 (T = 200), each against its
+    plain version and timed; the plans first (n = 384 is a width no earlier
+    phase runs)."""
+    n = PRUNED_WIDE[0]
+    sms = ct.sm_count(dev)
+    log(f"[knobs] 12c plans at n = {n}: K3 exact {ck.card_recurrence_plan(dev, n, False)}, fast "
+        f"{ck.card_recurrence_plan(dev, n, True)}; K2 merged r={PRUNED_RANK} exact "
+        f"{ck.card_reduced_plan(dev, n, ck.reduced_ranks(red.layers[0].uB), False)}, fast "
+        f"{ck.card_reduced_plan(dev, n, ck.reduced_ranks(red.layers[0].uB), True)}; K9 at B={COMPACT_B}: "
+        f"forward chain {ct.fwd_chain_plan(COMPACT_B, n, sms)}, backward chain {ct.chain_plan(COMPACT_B, n, sms)}")
+    Tx, d = x.shape
+    with torch.no_grad():
+        runs = layer_runs(pruned, x, lambda l, h: torch.matmul(h, l.W), ck.lstm_recurrence_plain)
+        for i, (l, xp, h) in enumerate(runs):
+            check_close(f"12c K3 lstm_recurrence 3x384 layer {i}", ck.lstm_recurrence(xp, l.U), h, TOL)
+            plain = ck.lstm_recurrence_plain(xp, l.U, dot_precision="default")
+            limit = fast_limit(f"12c K3f 3x384 layer {i}", plain,
+                               ck.lstm_recurrence_plain(xp.double(), l.U.double(), dot_precision="default"))
+            check_close(f"12c K3f lstm_recurrence fast 3x384 layer {i}",
+                        ck.lstm_recurrence(xp, l.U, dot_precision="default"), plain, limit)
+        l0, xp0, h0 = runs[0]
+        log(f"[time] 12c K3 (one 384-unit layer, T={Tx}): kernel "
+            f"{device_time_ms(ck.lstm_recurrence, xp0, l0.U):.3f} ms, fast "
+            f"{device_time_ms(lambda: ck.lstm_recurrence(xp0, l0.U, dot_precision='default')):.3f} ms, plain "
+            f"{device_time_ms(ck.lstm_recurrence_plain, xp0, l0.U, warmup=0, repeats=PLAIN_REPEATS):.3f} ms, "
+            f"library {library_forward('12c K3 384', [(l0.W, l0.U, l0.b)], x[:, None], h0[:, None]):.3f} ms, "
+            f"bound {roofline.recurrence_step_cost(n).call_bound(Tx)['bound_ms']:.4f} ms; {card_line()}")
+        proj = lambda l, h: reduced_projection(l, h, "w")  # noqa: E731
+        timed = None
+        for i, (l, xp, h) in enumerate(layer_runs(red, x, proj, ck.reduced_recurrence_plain)):
+            args = (xp, *recurrence_args(l))
+            check_close(f"12c K2 reduced_recurrence 3x384 merged r={PRUNED_RANK} layer {i}",
+                        ck.reduced_recurrence(*args), h, TOL)
+            timed = timed or args
+        with exact_matmul():  # the direct truncation: each window's limit takes its plain drift in
+            reduced_fast_windows(f"12c K2f reduced_recurrence fast 3x384 merged r={PRUNED_RANK}", red, x,
+                                 drift_limit=True)
+        log(f"[time] 12c K2 (one 384-unit layer, merged r={PRUNED_RANK}, T={Tx}): kernel "
+            f"{device_time_ms(ck.reduced_recurrence, *timed):.3f} ms, fast "
+            f"{device_time_ms(lambda: ck.reduced_recurrence(*timed, dot_precision='default')):.3f} ms, plain "
+            f"{device_time_ms(ck.reduced_recurrence_plain, *timed, warmup=0, repeats=PLAIN_REPEATS):.3f} ms, "
+            f"library {reduced_library_ms(red, x, torch.float32):.3f} ms, bound "
+            f"{roofline.reduced_recurrence_step_cost(n, (PRUNED_RANK,)).call_bound(Tx)['bound_ms']:.4f} ms")
+    rng = np.random.default_rng(6)
+    xw = first_batch(TRAIN_RUNS[2], data, dev)[0].transpose(0, 1).contiguous()
+    with exact_matmul():
+        for i, l in enumerate(pruned.layers[:2]):
+            W, U, b = (p.detach() for p in (l.W, l.U, l.b))
+            h_p, c_p = ct.wide_layer_fwd_plain(xw, W, U, b)
+            h64, c64 = ct.wide_layer_fwd_plain(*double([xw, W, U, b]))
+            h, c = ct.wide_layer_fwd(xw, W, U, b)
+            name = f"12c K9 3x384 layer {i} (d={xw.shape[-1]})"
+            check_state(f"{name} fwd h", h, h_p, h64)
+            check_state(f"{name} fwd c", c, c_p, c64)
+            dh = torch.tensor(rng.normal(size=h_p.shape), dtype=torch.float32, device=dev)
+            args = (xw, W, U, b, h_p, c_p, dh)
+            got, want = ct.wide_layer_bwd(*args), ct.wide_layer_bwd_plain(*args)
+            for k, a, r in zip(("dx", "dW", "dU", "db"), got, want):
+                check_grad(f"{name} bwd {k}", a, r)
+            xw = h_p
+        shape = f"one {n}-unit layer, d={n}, B={COMPACT_B}, T={TRAIN_T}"
+        macs = roofline.lstm_macs(TRAIN_T, COMPACT_B, [(n, n)])
+        lib_fwd, lib_bwd = library_train([args[1:4]], args[0], dh)
+        time_pair("12c K9 fwd", shape, ct.wide_layer_fwd, ct.wide_layer_fwd_plain, *args[:4],
+                  library_ms=lib_fwd, **roofline.bound(macs, nbytes(args[:6])))
+        time_pair("12c K9 bwd", shape, ct.wide_layer_bwd, ct.wide_layer_bwd_plain, *args,
+                  library_ms=lib_bwd, **roofline.bound(3 * macs, nbytes(args, got)))
+
+
+def prune_path(dev, x, data, total: dict) -> None:
+    """12c: prune_to_width of the 3x512 checkpoint to 3x384 and of the 4x30
+    one to 4x20; predict exact and fast, against the CPU float64 scan and
+    against the full model with the dropped units silenced; the direct
+    merged r = 24 truncation of the pruned stack; one fit at run C's shape
+    on K9 held to the plain scan; the times beside the unpruned models'."""
+    m512 = P.load_params(DENSE_512, device=dev)
+    keep = [np.sort(np.argsort(s)[::-1][:w]) for s, w in zip(P.unit_importance(m512), PRUNED_WIDE)]
+    pruned = P.prune_to_width(m512, PRUNED_WIDE)
+    red = P.make_reduced_model(P.make_singular_model(pruned, merged_kernel=True), rank=PRUNED_RANK)
+    pruned_kernel_checks(dev, x, data, pruned, red)
+    x_cpu = x[:REF_STEPS].cpu()
+    L = len(PRUNED_WIDE)
+    with exact_matmul(), torch.no_grad():
+        y_exact, launched = count_call(total, P.predict, pruned, x)
+        require("12c predict 3x384 exact", launched, ["lstm_recurrence"], times=L, tag="knobs")
+        check_vs_cpu_reference("12c 3x384", y_exact, copy.deepcopy(pruned).cpu(), x_cpu)
+        y_fast, launched = count_call(total, P.predict, pruned, x, precision="fast")
+        require("12c predict 3x384 fast", launched, ["lstm_recurrence_fast"], times=L, tag="knobs")
+        rel = rel_err(y_fast, y_exact)
+        log(f"[check] 12c 3x384 fast vs exact: rel Frobenius {rel:.3e} (band {FAST_BAND['wide']:g})")
+        if not rel <= FAST_BAND["wide"]:
+            fail(f"12c 3x384: fast error {rel:.3e}")
+        y_sil, launched = count_call(total, P.predict, silenced(m512, keep), x)
+        require("12c predict 3x512 silenced", launched, ["lstm_recurrence"], times=L, tag="knobs")
+        check_close("12c pruned 3x384 vs 3x512 with the dropped units silenced", y_exact, y_sil, SILENCED_TOL)
+        y_red, launched = count_call(total, P.predict, red, x)
+        require(f"12c predict 3x384 merged r={PRUNED_RANK} exact", launched, ["reduced_recurrence"], times=L,
+                tag="knobs")
+        check_vs_cpu_reference(f"12c 3x384 merged r={PRUNED_RANK}", y_red, copy.deepcopy(red).cpu(), x_cpu)
+        y_redf, launched = count_call(total, P.predict, red, x, precision="fast")
+        require(f"12c predict 3x384 merged r={PRUNED_RANK} fast", launched, ["reduced_recurrence_fast"],
+                times=L, tag="knobs")
+        log(f"[check] 12c 3x384 merged r={PRUNED_RANK} fast vs exact: rel Frobenius "
+            f"{rel_err(y_redf, y_red):.3e} (reported, not gated: ROADMAP fault 3.1)")
+        m30 = P.load_params(DENSE_30, device=dev)
+        p20 = P.prune_to_width(m30, PRUNED_NARROW)
+        y20, launched = count_call(total, P.predict, p20, x)
+        require("12c predict 4x20 exact", launched, ["fused_dense_stack"], times=1, tag="knobs")
+        check_vs_cpu_reference("12c 4x20", y20, copy.deepcopy(p20).cpu(), x_cpu)
+        red512 = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=PRUNED_RANK)
+        for p in ("exact", "fast"):
+            a = time_full_vs_reduced(pruned, red, x, precision=p)
+            b = time_full_vs_reduced(m512, red512, x, precision=p)
+            log(f"[ratio] 12c {p}, T={T}: 3x384 dense {a.full_ms:.3f} ms, merged r={PRUNED_RANK} "
+                f"{a.reduced_ms:.3f} ms, ratio {a.ratio:.4f}; 3x512 dense {b.full_ms:.3f} ms, merged "
+                f"r={PRUNED_RANK} {b.reduced_ms:.3f} ms, ratio {b.ratio:.4f}; pruned/unpruned dense "
+                f"{a.full_ms / b.full_ms:.4f}, reduced {a.reduced_ms / b.reduced_ms:.4f}; {card_line()}")
+        ms20, ms30 = (device_time_ms(P.predict, m, x) for m in (p20, m30))
+        log(f"[ratio] 12c T={T} exact: 4x20 {ms20:.3f} ms, 4x30 {ms30:.3f} ms, ratio {ms20 / ms30:.4f}; "
+            f"test RMSE 4x20 {P.rmse(P.predict(p20, torch.tensor(data.X_test[0], device=dev))[:, 0].cpu().numpy(), data.y_test):.6f}, "
+            f"4x30 {P.rmse(P.predict(m30, torch.tensor(data.X_test[0], device=dev))[:, 0].cpu().numpy(), data.y_test):.6f}")
+    run = TrainRun("12c 3x384 fit", lambda dev: P.prune_to_width(P.load_params(DENSE_512, device=dev), PRUNED_WIDE),
+                   TRAIN_RUNS[2].cfg, TRAIN_RUNS[2].kernels)
+    res, launched = count_call(total, P.fit, pruned, data.X_train, data.y_train, run.cfg)
+    require(f"12c fit 3x384 (B={run.cfg.batch_size})", launched, [k.__name__ for k in run.kernels], tag="knobs")
+    if not res.history or res.rollbacks or not np.all(np.isfinite(res.history)):
+        fail("12c fit: non-finite loss")
+    compare_run(run, dev, data, {run.name: res.history})
+
+
+def merge_path(dev, x, total: dict) -> None:
+    """12d: two seeded 1x256 stacks merged into one 1x512 layer, the
+    merged head [w1; w2] with bias b1 and the second head's bias 0, so
+    predict(merged) = predict(m1) + predict(m2) over T = 6656; with the
+    same input and with the inputs concatenated (16 + 16). K3 first against
+    its plain version on the merged, block-diagonal U."""
+    x2 = torch.tensor(np.random.default_rng(13).normal(size=(T, D)), dtype=torch.float32, device=dev)
+    for same_x in (True, False):
+        m1, m2 = (P.init_stacked_lstm(torch.Generator().manual_seed(seed), input_dim=D, units=(MERGE_UNITS,),
+                                      device=dev) for seed in (1, 2))
+        with torch.no_grad():
+            m2.head.b.zero_()
+        layer = P.merge_parallel_cell_weights(m1.layers[0], m2.layers[0], same_x=same_x)
+        head = P.DenseHead(torch.cat([m1.head.w, m2.head.w]).detach(), m1.head.b.detach().clone())
+        merged = P.StackedLSTM([layer], head)
+        xm = x if same_x else torch.cat([x, x2], dim=-1)
+        name = f"12d merged 1x{2 * MERGE_UNITS} ({'same x' if same_x else 'x concatenated'})"
+        zero = float((layer.U == 0).float().mean())
+        with exact_matmul(), torch.no_grad():
+            xp = (torch.matmul(xm, layer.W) + layer.b).contiguous()
+            check_close(f"{name} K3 lstm_recurrence (U {zero:.3f} zero)", ck.lstm_recurrence(xp, layer.U),
+                        ck.lstm_recurrence_plain(xp, layer.U), TOL)
+            y, launched = count_call(total, P.predict, merged, xm)
+            require(f"{name} predict", launched, ["lstm_recurrence"], times=1, tag="knobs")
+            y1, launched = count_call(total, P.predict, m1, x)
+            require("12d predict 1x256 (first)", launched, ["lstm_recurrence"], times=1, tag="knobs")
+            y2, launched = count_call(total, P.predict, m2, x if same_x else x2)
+            require("12d predict 1x256 (second)", launched, ["lstm_recurrence"], times=1, tag="knobs")
+            check_close(f"{name} predict vs the two cells' sum, T={T}", y, y1 + y2, MERGE_TOL)
+            log(f"[time] {name}: predict {device_time_ms(P.predict, merged, xm):.3f} ms, each 1x256 "
+                f"{device_time_ms(P.predict, m1, x):.3f} ms; {card_line()}")
+
+
+def sigma_prune_path(dev, x, data, total: dict) -> None:
+    """12e: finetune_with_pruning of the split 4x30 singular model, the
+    schedule 0 -> 0.5 over the run's steps, two epochs (K7 through the
+    singular dense view); every σ tensor at least floor(0.5·size) zeros;
+    the cutoff truncation drops at least those; predict exact (K1)."""
+    smodel = P.make_singular_model(P.load_params(DENSE_30, device=dev), merged_kernel=False)
+    cfg = dataclasses.replace(KNOB_CFG, epochs=2)
+    steps = cfg.num_windows // cfg.batch_size
+    sched = P.PolynomialDecaySchedule(0.0, SIGMA_SPARSITY, begin_step=0, end_step=cfg.epochs * steps)
+    t0 = time.perf_counter()
+    res, launched = count_call(total, P.finetune_with_pruning, smodel, data.X_train, data.y_train, sched,
+                               steps_per_epoch=steps, factor_cfg=P.FactorConfig(hoyer=0.01), train_cfg=cfg)
+    wall = time.perf_counter() - t0
+    require("12e finetune_with_pruning", launched, ["fused_narrow_train_fwd", "fused_narrow_train_bwd"],
+            tag="knobs")
+    if len(res.history) != cfg.epochs or res.rollbacks or not np.all(np.isfinite(res.history)):
+        fail(f"12e: history {res.history}, rollbacks {res.rollbacks}")
+    tuned = res.params
+    for i, l in enumerate(tuned.layers):
+        for f in ("ws", "us"):
+            v = getattr(l, f)
+            zeros, need = int((v == 0).sum()), int(np.floor(SIGMA_SPARSITY * v.numel()))
+            if zeros < need:
+                fail(f"12e layers[{i}].{f}: {zeros} zeros, fewer than {need}")
+    reduced = P.make_reduced_model(tuned, cutoff=0.05)
+    for i, (l, r) in enumerate(zip(tuned.layers, reduced.layers)):
+        for f, ranks in (("ws", r.ranks[0]), ("us", r.ranks[1])):
+            nonzero = [max(1, int((g != 0).sum())) for g in getattr(l, f)]
+            if any(k > nz for k, nz in zip(ranks, nonzero)):
+                fail(f"12e layers[{i}].{f}: ranks {ranks} keep pruned σ (nonzero {nonzero})")
+    log(f"[knobs] 12e finetune_with_pruning: history {res.history}, σ sparsity "
+        f"{P.sigma_sparsity(tuned):.4f} (schedule end {SIGMA_SPARSITY}), {wall:.2f} s; cutoff 0.05 keeps "
+        f"{weights(reduced)} of {weights(P.make_reduced_model(smodel, cutoff=0.05))} weights; ranks "
+        f"{[r.ranks for r in reduced.layers]}")
+    with exact_matmul(), torch.no_grad():
+        y, launched = count_call(total, P.predict, reduced, x)
+        require("12e predict (cutoff 0.05)", launched, ["fused_dense_stack"], times=1, tag="knobs")
+        check_vs_cpu_reference("12e σ-pruned reduced", y, copy.deepcopy(reduced).cpu(), x[:REF_STEPS].cpu())
+
+
+def knobs_path(dev, x, data) -> dict:
+    """Phase 12: remat (12a), the dropout fine-tune (12b), unit pruning
+    (12c), the merge (12d) and σ magnitude pruning (12e), every main-path
+    call counted. Returns the launches of those calls."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    remat_path(dev, data, total)
+    dropout_path(dev, data, total)
+    prune_path(dev, x, data, total)
+    merge_path(dev, x, total)
+    sigma_prune_path(dev, x, data, total)
+    log(f"[knobs] phase 12 kernel launches of its main-path calls: {total}; phase 12 took "
+        f"{time.perf_counter() - t0:.1f} s on {card_line()}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only "
@@ -3151,46 +3605,72 @@ def main() -> int:
         return smoke(args)
 
 
+def wall_clock():
+    """``lap(name)`` logs the seconds since the last lap (or since this
+    call) and since this call, so a run's wall time splits by phase."""
+    t0 = last = time.perf_counter()
+
+    def lap(name: str) -> None:
+        nonlocal last
+        now = time.perf_counter()
+        log(f"[wall] phase {name}: {now - last:.1f} s, {now - t0:.1f} s since the build began")
+        last = now
+
+    return lap
+
+
 def smoke(args) -> int:
-    """Phases 1-11 (see the module docstring)."""
+    """Phases 1-12 (see the module docstring)."""
     log(card_line())  # the card's name and power limit, as nvidia-smi prints them
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
     dev = torch.device("cuda", 0)
+    lap = wall_clock()
     build_kernels()
+    lap("2 build")
 
     x = torch.tensor(np.random.default_rng(0).normal(size=(T, D)), dtype=torch.float32, device=dev)
     with exact_matmul(), torch.no_grad():
         checks = kernel_checks(dev, x)
         checks.update(batched_kernel_checks(dev))
         checks.update(fast_kernel_checks(dev, x))
+        lap("3-3c kernel checks")
         launches, ratios = main_path(dev, x)
         launches.update(batched_path(dev))
         fast_launches, fast_ratios = fast_path(dev, x)
         launches.update(fast_launches)
+        lap("4-4c batch-1 and batched predict")
     log(f"[ratio] reduced / full batch-1 predict on {card_line()}: "
         + ", ".join(f"{k} {v:.4f}" for k, v in {**ratios, **fast_ratios}.items()))
 
     data = train_data()
     with exact_matmul():
         checks.update(train_kernel_checks(dev, data))
+    lap("5-5c train kernel checks")
     if args:
         tree_turns(args[1])
+        lap("5c parent in turns")
     train_launches, histories = train_path(dev, data)
     recovery_launches = recovery_path(dev, data)
     # a train kernel's launches: phase 6's runs A-D and E-F, each counted from zero
     launches.update({k: train_launches[k] + recovery_launches[k] for k in train_launches})
     train_comparisons(dev, data, histories)
+    lap("6-7 training and recovery")
     with exact_matmul(), torch.no_grad():
         deployment_path(dev, x)
+        lap("8 deployment")
         evaluation_path(dev, x, data)
+        lap("9 evaluation")
     precision_checks, precision_launches = precision_path(dev, data)
     checks.update(precision_checks)
     # the bf16 variants' launches: 10b-10c's main-path calls' (the float32 kernels' are phase 6's)
     launches.update({k: v for k, v in precision_launches.items() if k.endswith("_fast")})
-    # and phase 11's main-path calls on the conv hybrids
-    for k, v in conv_path(dev, x, data).items():
-        launches[k] = launches.get(k, 0) + v
+    lap("10 training precision")
+    # and phase 11's main-path calls on the conv hybrids, and phase 12's
+    for name, phase in (("11 conv hybrids", conv_path), ("12 knobs and surgery", knobs_path)):
+        for k, v in phase(dev, x, data).items():
+            launches[k] = launches.get(k, 0) + v
+        lap(name)
 
     print(json.dumps({"kernels": kernel_entries(checks, launches)}))
     print(json.dumps({

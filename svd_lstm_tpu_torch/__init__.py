@@ -17,7 +17,12 @@ hand-written CUDA kernels (``ops/csrc``); everything else is plain PyTorch.
 Weights keep the JAX package's Keras layout and its ``.npz`` checkpoint
 format. Every step above also takes the Conv1D + LSTM hybrids
 (``init_conv_lstm``, ``models/conv.py``): their conv front end runs first,
-then the stack's own route.
+then the stack's own route. Fine-tunes take Keras-semantics dropout
+(``FactorConfig.dropout``, ``recurrent_dropout``) and the plain scan takes
+chunked-time rematerialization (``TrainConfig.remat_chunk``); the
+structural surgery prunes whole units (``prune_to_width``), prunes σ by
+magnitude while fine-tuning (``finetune_with_pruning``) and merges two
+parallel cells into one layer (``merge_parallel_cell_weights``).
 
 The entry points run on the card unless asked for the CPU:
 ``load_params``, ``from_numpy_tree``, ``init_stacked_lstm`` and
@@ -43,6 +48,14 @@ from svd_lstm_tpu_torch.factor.svd import (
     singular_to_dense,
     truncate_singular_layer,
 )
+from svd_lstm_tpu_torch.factor.prune_magnitude import (
+    PolynomialDecaySchedule,
+    finetune_with_pruning,
+    magnitude_mask,
+    prune_sigmas,
+    sigma_sparsity,
+)
+from svd_lstm_tpu_torch.factor.prune_units import prune_to_width, prune_units, unit_importance
 from svd_lstm_tpu_torch.io.checkpoint import (
     from_numpy_tree,
     load_params,
@@ -64,8 +77,10 @@ from svd_lstm_tpu_torch.models.lstm import (
     LSTMLayer,
     StackedLSTM,
     init_stacked_lstm,
+    lstm_layer_apply,
     stacked_lstm_apply,
 )
+from svd_lstm_tpu_torch.models.merge import merge_parallel_cell_weights
 from svd_lstm_tpu_torch.models.reduced import ReducedLayer, ReducedLSTM, reduced_lstm_apply
 from svd_lstm_tpu_torch.models.singular import (
     SingularLayer,
@@ -81,6 +96,7 @@ from svd_lstm_tpu_torch.models.streaming import (
 from svd_lstm_tpu_torch.ops.cuda_batched import batched_forward_fast
 from svd_lstm_tpu_torch.ops.layouts import reconstruct_dense_model
 from svd_lstm_tpu_torch.train.finetune import (
+    dropout_apply_fn,
     finetune,
     finetune_reduced,
     harvest_sigmas,

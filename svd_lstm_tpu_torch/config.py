@@ -6,9 +6,7 @@ packages unchanged (the reference's constants: sampling period 500/16 µs,
 frame width 16, split at 30.7 s, units (40, 40, 40, 40), 20 000 windows ×
 200 steps, 30 epochs of Adam on the window-end MSE, hoyer 0.01, cutoff 0.05).
 
-Some knobs have no port yet. The training code raises
-``NotImplementedError`` where it would use one of them, naming its ROADMAP
-item; see :func:`check_train_config`.
+:func:`check_train_config` refuses an unknown ``matmul_precision``.
 """
 
 from __future__ import annotations
@@ -90,7 +88,16 @@ class TrainConfig:
     recurrence_kernel: bool = False
     compact_gates: bool | str = "auto"
     auto_flags: bool = False
-    remat_chunk: int = 0                # not ported
+    # Chunked-time activation rematerialization of the plain scan's train
+    # step (``torch.utils.checkpoint`` around each chunk of this many
+    # steps, ``models/lstm.chunked_remat_scan``): the backward pass keeps
+    # only the raw input chunks and the chunk-boundary (h, c) and
+    # recomputes the rest, O(T/K + K) live activation memory instead of
+    # O(T) for ~2x the forward's work, the same values. It lets windows
+    # train whose saved activations would not fit in the card's memory.
+    # 0 = off. Ignored when recurrence_kernel takes the step (the train
+    # kernels keep their own residuals).
+    remat_chunk: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,8 +112,11 @@ class FactorConfig:
     cutoff: float = 0.05            # σ truncation threshold
     finetune_epochs: int = 10
     finetune_batch_size: int = 32
-    dropout: float = 0.0            # not ported
-    recurrent_dropout: float = 0.0  # not ported
+    # Keras-semantics dropout during the fine-tune: masks on the cell inputs
+    # / on h(t-1), constant across time, fresh each batch (the reference's
+    # SingularLSTMCell). Fine-tunes with dropout keep the plain scan.
+    dropout: float = 0.0
+    recurrent_dropout: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,14 +132,8 @@ TRAIN_PRECISIONS = ("float32", "tensorfloat32", "bfloat16")  # TrainConfig.matmu
 
 
 def check_train_config(cfg: TrainConfig) -> None:
-    """Raise ``ValueError`` for an unknown ``matmul_precision`` and
-    ``NotImplementedError`` for the knobs the port does not have."""
+    """Raise ``ValueError`` for an unknown ``matmul_precision``."""
     if cfg.matmul_precision not in TRAIN_PRECISIONS:
         raise ValueError(
             f"unknown matmul_precision {cfg.matmul_precision!r}; expected one of {TRAIN_PRECISIONS}"
-        )
-    if cfg.remat_chunk:
-        raise NotImplementedError(
-            "remat_chunk is not ported yet (ROADMAP queue 1, item 4: dropout and "
-            "remat of the model applies); use remat_chunk=0"
         )

@@ -20,15 +20,22 @@ import torch
 from svd_lstm_tpu_torch.utils.precision import dot
 
 
+def _abs(x: torch.Tensor) -> torch.Tensor:
+    """|x| with the JAX package's derivative at 0: +1, where torch.abs
+    gives 0. Pruning zeroes σ's exactly, and a penalty on them must push
+    as it does in the reference."""
+    return torch.where(x >= 0, x, -x)
+
+
 def hoyer_penalty(x: torch.Tensor, coef: float = 1.0, eps: float = 1e-12) -> torch.Tensor:
     """coef * Σ|x| / (Σx² + eps)."""
     x = x.reshape(-1)
-    return coef * torch.sum(torch.abs(x)) / (torch.sum(torch.square(x)) + eps)
+    return coef * torch.sum(_abs(x)) / (torch.sum(torch.square(x)) + eps)
 
 
 def trace_norm_penalty(x: torch.Tensor, coef: float = 1.0) -> torch.Tensor:
     """coef * Σ|x|."""
-    return coef * torch.sum(torch.abs(x))
+    return coef * torch.sum(_abs(x))
 
 
 def orthogonal_penalty(
@@ -50,6 +57,6 @@ def orthogonal_penalty(
     norm = torch.sqrt(torch.sum(torch.square(m), dim=1, keepdim=True) + eps)
     mn = m / norm
     gram = dot(mn, mn.t())  # a product of the train step: it follows the regime
-    off = torch.abs(gram - torch.diag(torch.diagonal(gram)))
+    off = _abs(gram - torch.diag(torch.diagonal(gram)))
     num_pairs = size * (size - 1.0) / 2.0
     return factor * 0.5 * torch.sum(off) / num_pairs

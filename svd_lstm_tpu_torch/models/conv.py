@@ -48,8 +48,6 @@ from svd_lstm_tpu_torch.models.reduced import ReducedLSTM, reduced_lstm_apply
 from svd_lstm_tpu_torch.models.singular import SingularLSTM, singular_lstm_apply
 from svd_lstm_tpu_torch.utils.precision import product
 
-_NOT_PORTED = "not ported yet (ROADMAP queue 1, item 4: dropout and remat of the model applies)"
-
 
 class ConvFront(nn.Module):
     """The causal conv front end: ``w`` (kernel_size, in_channels, filters),
@@ -189,19 +187,12 @@ def init_conv_lstm(
     return ConvLSTM(conv, layers, head).to(device)
 
 
-def _refuse(dropout: float, recurrent_dropout: float, remat_chunk: int) -> None:
-    if dropout > 0.0 or recurrent_dropout > 0.0:
-        raise NotImplementedError(f"dropout of the conv hybrids is {_NOT_PORTED}")
-    if remat_chunk:
-        raise NotImplementedError(f"remat_chunk of the conv hybrids is {_NOT_PORTED}")
-
-
 def conv_lstm_apply(model: ConvLSTM, x_seq: torch.Tensor, return_sequences: bool = True,
                     remat_chunk: int = 0) -> torch.Tensor:
     """(batch, T, in_channels) -> (batch, T, out), or (batch, out) for the
-    last step."""
-    _refuse(0.0, 0.0, remat_chunk)
-    return stacked_lstm_apply(model.stack, conv_front(model.conv, x_seq), return_sequences)
+    last step. ``remat_chunk`` goes to every layer of the stack."""
+    return stacked_lstm_apply(model.stack, conv_front(model.conv, x_seq), return_sequences,
+                              remat_chunk=remat_chunk)
 
 
 def conv_singular_apply(
@@ -214,10 +205,11 @@ def conv_singular_apply(
     remat_chunk: int = 0,
 ) -> torch.Tensor:
     """Causal conv + relu, then the factorized stack. The dropout and remat
-    arguments of the JAX signature are refused (``NotImplementedError``,
-    ROADMAP queue 1 item 4), as the pure family's fine-tune refuses them."""
-    _refuse(dropout, recurrent_dropout, remat_chunk)
-    return singular_lstm_apply(model.inner, conv_front(model.conv, x_seq), return_sequences)
+    arguments pass straight to ``singular_lstm_apply``: the conv front end
+    takes no dropout (Keras drops the LSTM cells' inputs)."""
+    return singular_lstm_apply(model.inner, conv_front(model.conv, x_seq), return_sequences,
+                               dropout=dropout, recurrent_dropout=recurrent_dropout, rng=rng,
+                               remat_chunk=remat_chunk)
 
 
 def conv_reduced_apply(model: ConvReducedLSTM, x_seq: torch.Tensor,

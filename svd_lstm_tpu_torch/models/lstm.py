@@ -31,7 +31,7 @@ from typing import Callable, Sequence, Tuple
 import torch
 from torch import nn
 
-from svd_lstm_tpu_torch.utils.precision import dot
+from svd_lstm_tpu_torch.utils.precision import dot, einsum
 
 
 class DenseHead(nn.Module):
@@ -132,29 +132,146 @@ def scan_recurrence(
     return h_seq, (h, c)
 
 
+def chunked_remat_scan(
+    make_xp: Callable[[torch.Tensor], torch.Tensor],
+    recurrent_product: Callable[[torch.Tensor], torch.Tensor],
+    x_seq: torch.Tensor,
+    K: int,
+    h0: torch.Tensor | None = None,
+    c0: torch.Tensor | None = None,
+):
+    """Chunked-time rematerialized recurrence, shared by the dense and the
+    singular layers: ``scan_recurrence(make_xp(x_seq), recurrent_product)``
+    with ``torch.utils.checkpoint`` around each chunk of ``K`` steps (its
+    input projection and its steps), so autograd keeps only the raw input
+    chunk and the chunk-boundary (h, c) and recomputes the rest during the
+    backward pass. The tail of T mod K steps runs unwrapped.
+
+    x_seq: (B, T, d); make_xp: (B, T', d) -> (B, T', 4n) with the bias
+    folded in. Returns ``(h_seq (B, T, n), (hT, cT))``. The caller
+    guarantees 0 < K < T. The masks of a dropout apply are drawn before
+    and captured by ``make_xp`` and ``recurrent_product``, so the
+    recomputation draws nothing and no RNG state is stashed. The first
+    call in a process also pays ``torch.utils.checkpoint``'s lazy imports."""
+    from torch.utils.checkpoint import checkpoint
+
+    T = x_seq.shape[1]
+    n_chunks, tail = divmod(T, K)
+
+    def chunk(x_chunk, h, c):
+        h_seq, (h, c) = scan_recurrence(make_xp(x_chunk), recurrent_product, h, c)
+        return h_seq, h, c
+
+    h, c, parts = h0, c0, []
+    for i in range(n_chunks):
+        h_seq, h, c = checkpoint(chunk, x_seq[:, i * K : (i + 1) * K], h, c, use_reentrant=False,
+                                 preserve_rng_state=False)
+        parts.append(h_seq)
+    if tail:
+        h_seq, (h, c) = scan_recurrence(make_xp(x_seq[:, n_chunks * K :]), recurrent_product, h, c)
+        parts.append(h_seq)
+    return torch.cat(parts, dim=1), (h, c)
+
+
+def run_recurrence(make_xp, recurrent_product, x_seq, h0=None, c0=None, remat_chunk: int = 0):
+    """The layers' time loop: the plain scan, or :func:`chunked_remat_scan`
+    when ``0 < remat_chunk < T`` (any other value is the plain scan)."""
+    if remat_chunk and 0 < remat_chunk < x_seq.shape[1]:
+        return chunked_remat_scan(make_xp, recurrent_product, x_seq, int(remat_chunk), h0, c0)
+    return scan_recurrence(make_xp(x_seq), recurrent_product, h0, c0)
+
+
+def dropout_masks(gen: torch.Generator, rate: float, shape, count: int, dtype, device) -> torch.Tensor:
+    """``count`` inverted-scaled Bernoulli keep-masks of ``shape`` (1 / (1 −
+    rate) with probability 1 − rate, else 0), drawn once from ``gen``, a
+    generator on ``device``, so they are constant over every step of the
+    scan (Keras ``get_dropout_mask_for_cell`` semantics)."""
+    keep = 1.0 - rate
+    u = torch.rand((count, *shape), generator=gen, dtype=torch.float32, device=device)
+    return (u < keep).to(dtype) / keep
+
+
+def layer_masks(rng, dropout: float, recurrent_dropout: float, count: int, B: int, d: int, n: int,
+                dtype, device) -> tuple:
+    """One layer's ``(dp, rdp)``: the input masks (count, B, d) and the
+    recurrent masks (count, B, n), each None where its rate is 0. ``rng`` is
+    the masks' source: a ``torch.Generator`` on the layer's device (dp drawn
+    first, then rdp, as the JAX layer splits its key into ``k_dp, k_rdp``),
+    or the pair ``(dp, rdp)`` itself, given explicitly (a test feeds the JAX
+    package's masks through it). A nonzero rate without a source raises."""
+    use_dp, use_rdp = dropout > 0.0, recurrent_dropout > 0.0
+    if not (use_dp or use_rdp):
+        return None, None
+    if rng is None:
+        raise ValueError("dropout requires an rng (a torch.Generator or explicit masks)")
+    if isinstance(rng, torch.Generator):
+        dp = dropout_masks(rng, dropout, (B, d), count, dtype, device) if use_dp else None
+        rdp = dropout_masks(rng, recurrent_dropout, (B, n), count, dtype, device) if use_rdp else None
+        return dp, rdp
+    dp, rdp = rng
+    return (dp if use_dp else None), (rdp if use_rdp else None)
+
+
+def gate_masked_product(x: torch.Tensor, masks: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
+    """Per-gate masked product: ``[(x * masks[g]) @ M[:, g-th block]]_g``.
+    x: (B, ..., k) batch-major; masks: (4, B, k), constant over the middle
+    axes; M: (k, 4n). Returns (B, ..., 4n)."""
+    k, g4 = M.shape
+    n = g4 // 4
+    m = masks.permute(1, 0, 2).reshape(masks.shape[1], *([1] * (x.ndim - 2)), 4, k)
+    z = einsum("...gk,kgn->...gn", x.unsqueeze(-2) * m, M.reshape(k, 4, n))
+    return z.reshape(*z.shape[:-2], g4)
+
+
 def lstm_layer_apply(
     layer: LSTMLayer,
     x_seq: torch.Tensor,
     h0: torch.Tensor | None = None,
     c0: torch.Tensor | None = None,
     return_state: bool = False,
+    dropout: float = 0.0,
+    recurrent_dropout: float = 0.0,
+    rng=None,
+    remat_chunk: int = 0,
 ):
     """Run one LSTM layer over a sequence. x_seq: (batch, T, d). Returns the
-    (batch, T, units) hidden sequence (optionally plus final (h, c))."""
-    xp = dot(x_seq, layer.W) + layer.b  # (B, T, 4n): one hoisted matmul
-    U = layer.U
-    h_seq, state = scan_recurrence(xp, lambda h: dot(h, U), h0, c0)
+    (batch, T, units) hidden sequence (optionally plus final (h, c)).
+
+    Dropout follows Keras LSTM semantics: one inverted-scaled mask per
+    gate, drawn once and reused at every step, on the inputs (``dropout``,
+    (4, B, d)) and on h(t−1) (``recurrent_dropout``, (4, B, n)). ``rng`` is
+    the masks' source (:func:`layer_masks`).
+
+    ``0 < remat_chunk < T`` rematerializes the backward pass's activations
+    in time chunks of that length (:func:`chunked_remat_scan`): the same
+    values, O(T/K + K) live activation memory instead of O(T)."""
+    B, _, d = x_seq.shape
+    n = layer.units
+    dp, rdp = layer_masks(rng, dropout, recurrent_dropout, 4, B, d, n, x_seq.dtype, x_seq.device)
+    W, U, b = layer.W, layer.U, layer.b
+
+    def make_xp(x):  # one hoisted matmul over the (chunk of the) sequence
+        if dp is None:
+            return dot(x, W) + b
+        return gate_masked_product(x, dp, W) + b
+
+    if rdp is None:
+        rec = lambda h: dot(h, U)  # noqa: E731
+    else:
+        rec = lambda h: gate_masked_product(h, rdp, U)  # noqa: E731
+    h_seq, state = run_recurrence(make_xp, rec, x_seq, h0, c0, remat_chunk)
     return (h_seq, state) if return_state else h_seq
 
 
 def stacked_lstm_apply(
-    model: StackedLSTM, x_seq: torch.Tensor, return_sequences: bool = True
+    model: StackedLSTM, x_seq: torch.Tensor, return_sequences: bool = True, remat_chunk: int = 0
 ) -> torch.Tensor:
     """Stacked LSTM + Dense head. (batch, T, d) -> (batch, T, out), or
-    (batch, out) for the last step when ``return_sequences`` is False."""
+    (batch, out) for the last step when ``return_sequences`` is False.
+    ``remat_chunk`` goes to every layer (:func:`lstm_layer_apply`)."""
     h = x_seq
     for layer in model.layers:
-        h = lstm_layer_apply(layer, h)
+        h = lstm_layer_apply(layer, h, remat_chunk=remat_chunk)
     if not return_sequences:
         h = h[:, -1]
     return model.head(h)

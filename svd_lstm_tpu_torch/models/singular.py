@@ -20,7 +20,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from svd_lstm_tpu_torch.models.lstm import DenseHead, scan_recurrence
+from svd_lstm_tpu_torch.models.lstm import (
+    DenseHead,
+    layer_masks,
+    run_recurrence,
+)
 from svd_lstm_tpu_torch.utils.precision import dot, einsum
 
 
@@ -91,19 +95,86 @@ def singular_recurrent_product(p: SingularLayer, h: torch.Tensor) -> torch.Tenso
     return _three_step_merged(h, p.ul, p.us, p.ur)
 
 
-def singular_layer_apply(p: SingularLayer, x_seq, h0=None, c0=None, return_state=False):
-    """x_seq: (batch, T, d) -> (batch, T, units)."""
-    xp = singular_input_projection(p, x_seq)
-    h_seq, state = scan_recurrence(xp, lambda h: singular_recurrent_product(p, h), h0, c0)
+def _masked_input_projection(p: SingularLayer, x_seq: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
+    """The input three-step product with dropout masks on the inputs, over
+    (B, ..., d) batch-major input. The merged layer multiplies the inputs by
+    one mask, ``dp[0]`` (as the reference's merged cell does); the split
+    layer masks each gate's input."""
+    if p.split:
+        m = dp.permute(1, 0, 2).reshape(dp.shape[1], *([1] * (x_seq.ndim - 2)), *dp.shape[::2])
+        xg = einsum("...gd,gdk->...gk", x_seq.unsqueeze(-2) * m, p.wl) * p.ws
+        xp = einsum("...gk,gkn->...gn", xg, p.wr)
+        return xp.reshape(*xp.shape[:-2], -1) + p.b
+    m = dp[0].reshape(dp.shape[1], *([1] * (x_seq.ndim - 2)), dp.shape[2])
+    return _three_step_merged(x_seq * m, p.wl, p.ws, p.wr) + p.b
+
+
+def _masked_recurrent_product(p: SingularLayer, h: torch.Tensor, rdp: torch.Tensor) -> torch.Tensor:
+    """The recurrent three-step product with recurrent-dropout masks on
+    h(t−1): one mask merged, one a gate split."""
+    if p.split:
+        hm = h.unsqueeze(1) * rdp.permute(1, 0, 2)  # (B, 4, n)
+        hg = einsum("bgn,gnk->bgk", hm, p.ul) * p.us
+        z = einsum("bgk,gkn->bgn", hg, p.ur)
+        return z.reshape(*z.shape[:-2], -1)
+    return _three_step_merged(h * rdp[0], p.ul, p.us, p.ur)
+
+
+def singular_layer_apply(
+    p: SingularLayer,
+    x_seq: torch.Tensor,
+    h0=None,
+    c0=None,
+    return_state: bool = False,
+    dropout: float = 0.0,
+    recurrent_dropout: float = 0.0,
+    rng=None,
+    remat_chunk: int = 0,
+):
+    """x_seq: (batch, T, d) -> (batch, T, units). Dropout masks (one a gate
+    split, one merged) come from ``rng`` as in
+    :func:`svd_lstm_tpu_torch.models.lstm.layer_masks`; ``0 < remat_chunk
+    < T`` recomputes each chunk's three-step input product and steps in the
+    backward pass, as the dense layer does."""
+    B, _, d = x_seq.shape
+    count = 4 if p.split else 1
+    dp, rdp = layer_masks(rng, dropout, recurrent_dropout, count, B, d, p.units, x_seq.dtype,
+                          x_seq.device)
+
+    def make_xp(x):
+        if dp is None:
+            return singular_input_projection(p, x)
+        return _masked_input_projection(p, x, dp)
+
+    if rdp is None:
+        rec = lambda h: singular_recurrent_product(p, h)  # noqa: E731
+    else:
+        rec = lambda h: _masked_recurrent_product(p, h, rdp)  # noqa: E731
+    h_seq, state = run_recurrence(make_xp, rec, x_seq, h0, c0, remat_chunk)
     return (h_seq, state) if return_state else h_seq
 
 
 def singular_lstm_apply(
-    model: SingularLSTM, x_seq: torch.Tensor, return_sequences: bool = True
+    model: SingularLSTM,
+    x_seq: torch.Tensor,
+    return_sequences: bool = True,
+    dropout: float = 0.0,
+    recurrent_dropout: float = 0.0,
+    rng=None,
+    remat_chunk: int = 0,
 ) -> torch.Tensor:
+    """The factorized stack and its head. ``rng``: one generator from which
+    every layer draws its masks in layer order (the JAX package splits its
+    key once a layer), or one explicit ``(dp, rdp)`` pair a layer."""
+    if (dropout > 0.0 or recurrent_dropout > 0.0) and rng is None:
+        raise ValueError("dropout requires an rng (a torch.Generator or explicit masks)")
+    sources = [rng] * len(model.layers) if rng is None or isinstance(rng, torch.Generator) else list(rng)
+    if len(sources) != len(model.layers):
+        raise ValueError(f"{len(sources)} mask pairs for {len(model.layers)} layers")
     h = x_seq
-    for layer in model.layers:
-        h = singular_layer_apply(layer, h)
+    for layer, src in zip(model.layers, sources):
+        h = singular_layer_apply(layer, h, dropout=dropout, recurrent_dropout=recurrent_dropout,
+                                 rng=src, remat_chunk=remat_chunk)
     if not return_sequences:
         h = h[:, -1]
     return model.head(h)

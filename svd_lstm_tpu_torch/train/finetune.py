@@ -23,9 +23,10 @@ stack's σ, the conv front end follows the factors' rule (frozen under
 σ-only tuning, trained with ``train_uv``), and the recovery trains the conv
 with the factors.
 
-Not ported yet (ROADMAP queue 1, item 4): dropout fine-tunes and the QAT
-hooks (``apply_fn`` / ``gate_apply_fn`` of the gate take any forward, but
-the fake-quantized one is not ported).
+A fine-tune with ``FactorConfig(dropout=..., recurrent_dropout=...)`` trains
+through the Keras-semantics dropout wrapper of :func:`dropout_apply_fn` on
+the plain scan (the train kernels have no masks); its masks are fresh each
+batch, and validation never drops.
 """
 
 from __future__ import annotations
@@ -99,6 +100,39 @@ def make_finetune_optimizer(
     )
 
 
+def dropout_apply_fn(
+    factor_cfg: FactorConfig,
+    seed: int,
+    remat_chunk: int = 0,
+    base_apply: Callable | None = None,
+) -> tuple:
+    """``(apply_fn, dropout_seed)`` for the singular fine-tune: a
+    Keras-semantics per-gate dropout wrapper of ``base_apply`` (default
+    ``singular_lstm_apply``) when ``factor_cfg`` sets a rate, and the seed
+    ``seed ^ 0x5EED`` that ``fit`` derives every batch's masks from;
+    ``(base_apply, None)`` otherwise.
+
+    The wrapper drops only when ``fit`` passes it a mask source (``rng``),
+    which it does on the training loss alone: validation calls it without
+    one and runs the exact forward. It bakes ``remat_chunk`` in and says so
+    by ``remat_chunk_applied``, which ``resolve_train_apply_fn`` reads. Being
+    no stock apply, it keeps the plain scan when ``recurrence_kernel`` is
+    set, as in the JAX package."""
+    if base_apply is None:
+        base_apply = singular_lstm_apply
+    if factor_cfg.dropout <= 0.0 and factor_cfg.recurrent_dropout <= 0.0:
+        return base_apply, None
+    def apply_fn(model, x, return_sequences=True, rng=None):
+        if rng is None:
+            return base_apply(model, x, return_sequences, remat_chunk=remat_chunk)
+        return base_apply(model, x, return_sequences, dropout=factor_cfg.dropout,
+                          recurrent_dropout=factor_cfg.recurrent_dropout, rng=rng,
+                          remat_chunk=remat_chunk)
+
+    apply_fn.remat_chunk_applied = remat_chunk
+    return apply_fn, seed ^ 0x5EED
+
+
 def finetune(
     smodel: SingularLSTM,
     X_train,
@@ -113,23 +147,21 @@ def finetune(
     windows move there); returns the ``TrainResult`` of :func:`fit`.
     Without ``train_cfg`` it trains for ``finetune_epochs`` at
     ``finetune_batch_size``. Takes a ``SingularLSTM`` or a
-    ``ConvSingularLSTM``."""
+    ``ConvSingularLSTM``; the dropout rates of ``factor_cfg`` train through
+    :func:`dropout_apply_fn`."""
     if isinstance(smodel, SingularLSTM):
-        apply_fn = singular_lstm_apply
+        base_apply = singular_lstm_apply
     elif isinstance(smodel, ConvSingularLSTM):
-        apply_fn = conv_singular_apply
+        base_apply = conv_singular_apply
     else:
         raise TypeError(f"finetune takes a factorized model, not {type(smodel).__name__}")
-    if factor_cfg.dropout > 0.0 or factor_cfg.recurrent_dropout > 0.0:
-        raise NotImplementedError(
-            "dropout fine-tunes are not ported yet (ROADMAP queue 1, item 4: dropout "
-            "and remat of the model applies)"
-        )
     if train_cfg is None:
         train_cfg = TrainConfig(
             epochs=factor_cfg.finetune_epochs,
             batch_size=factor_cfg.finetune_batch_size,
         )
+    apply_fn, dropout_seed = dropout_apply_fn(factor_cfg, train_cfg.seed,
+                                              remat_chunk=train_cfg.remat_chunk, base_apply=base_apply)
     return fit(
         smodel,
         X_train,
@@ -141,6 +173,7 @@ def finetune(
         verbose=verbose,
         init_opt_state=init_opt_state,
         windows=windows,
+        dropout_seed=dropout_seed,
     )
 
 

@@ -24,6 +24,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import functools
+import warnings
 from typing import Any, Callable
 
 import numpy as np
@@ -48,10 +49,23 @@ class TrainResult:
     opt_state: Any = None              # the optimizer's final state_dict
 
 
-def mse_last_step(model, x, y, apply_fn) -> torch.Tensor:
-    """Mean squared error of the window-end prediction."""
-    pred = apply_fn(model, x, return_sequences=False)[..., 0]
+def mse_last_step(model, x, y, apply_fn, rng=None) -> torch.Tensor:
+    """Mean squared error of the window-end prediction. ``rng`` (a dropout
+    mask source) goes to ``apply_fn`` when given."""
+    if rng is None:
+        pred = apply_fn(model, x, return_sequences=False)[..., 0]
+    else:
+        pred = apply_fn(model, x, return_sequences=False, rng=rng)[..., 0]
     return torch.mean(torch.square(pred - y))
+
+
+def batch_generator(seed: int, epoch: int, batch: int, device) -> torch.Generator:
+    """The dropout masks' generator of one batch: a ``torch.Generator`` on
+    ``device`` seeded from (seed, epoch, batch) alone, so a batch's masks
+    do not depend on what ran before it (the JAX ``fit`` folds the epoch
+    into its key and splits it once a batch)."""
+    state = np.random.SeedSequence([seed, epoch, batch]).generate_state(2, np.uint32)
+    return torch.Generator(device=device).manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
 
 
 def make_val_fn(exact_apply_fn: Callable, validation: tuple | None, device) -> Callable | None:
@@ -128,40 +142,59 @@ def drive_epochs(
 
 
 def resolve_train_apply_fn(cfg: TrainConfig, apply_fn: Callable) -> tuple:
-    """The kernel swap of the training step. Returns ``(apply_fn,
-    using_kernel)``. With ``cfg.recurrence_kernel`` the dense scan, the σ
-    fine-tune and the reduced recovery run through the CUDA train kernels
-    (``ops/cuda_train.py``, ``ops/singular_train.py``,
-    ``ops/reduced_train.py``; on CPU tensors through their plain versions):
-    the float32 kernels, or their bf16-operand variants under
-    ``matmul_precision="bfloat16"``. As in the JAX package, the dense scan
-    passes ``cfg.compact_gates`` to the dispatch and the singular and
-    reduced views keep its "auto". The conv hybrids' applies run their
-    front end and then the same kernels (``ops/conv_train.py``, "auto").
-    Other applies keep their scan."""
-    if not cfg.recurrence_kernel:
-        return apply_fn, False
-    bf16 = cfg.matmul_precision == "bfloat16"
-    if apply_fn is stacked_lstm_apply:
-        from svd_lstm_tpu_torch.ops.cuda_train import stacked_lstm_apply_fast_train
+    """The kernel and remat swaps of the training step. Returns
+    ``(apply_fn, using_kernel)``.
 
-        return functools.partial(stacked_lstm_apply_fast_train, compact=cfg.compact_gates,
-                                 bf16=bf16), True
-    if apply_fn is singular_lstm_apply:
-        from svd_lstm_tpu_torch.ops.singular_train import singular_lstm_apply_fast_train
+    * ``cfg.recurrence_kernel``: the dense scan, the σ fine-tune and the
+      reduced recovery run through the CUDA train kernels
+      (``ops/cuda_train.py``, ``ops/singular_train.py``,
+      ``ops/reduced_train.py``; on CPU tensors through their plain
+      versions): the float32 kernels, or their bf16-operand variants under
+      ``matmul_precision="bfloat16"``. As in the JAX package, the dense scan
+      passes ``cfg.compact_gates`` to the dispatch and the singular and
+      reduced views keep its "auto". The conv hybrids' applies run their
+      front end and then the same kernels (``ops/conv_train.py``, "auto").
+      Dropout wrappers and custom applies keep their scan: the kernels
+      have no masks. ``remat_chunk`` is ignored on the kernels.
+    * ``cfg.remat_chunk``: chunked-time rematerialization of the scan
+      (``models/lstm.chunked_remat_scan``) for the stock dense, singular
+      and conv applies. A wrapper that applied the knob itself says so by
+      ``remat_chunk_applied`` (``train/finetune.dropout_apply_fn``); any
+      other apply cannot carry it, and a warning says the step runs without
+      rematerialization."""
+    if cfg.recurrence_kernel:
+        bf16 = cfg.matmul_precision == "bfloat16"
+        if apply_fn is stacked_lstm_apply:
+            from svd_lstm_tpu_torch.ops.cuda_train import stacked_lstm_apply_fast_train
 
-        return functools.partial(singular_lstm_apply_fast_train, bf16=bf16), True
-    if apply_fn is reduced_lstm_apply:
-        from svd_lstm_tpu_torch.ops.reduced_train import reduced_lstm_apply_fast_train
+            return functools.partial(stacked_lstm_apply_fast_train, compact=cfg.compact_gates,
+                                     bf16=bf16), True
+        if apply_fn is singular_lstm_apply:
+            from svd_lstm_tpu_torch.ops.singular_train import singular_lstm_apply_fast_train
 
-        return functools.partial(reduced_lstm_apply_fast_train, bf16=bf16), True
-    if apply_fn in (conv_lstm_apply, conv_singular_apply, conv_reduced_apply):
-        from svd_lstm_tpu_torch.ops import conv_train
+            return functools.partial(singular_lstm_apply_fast_train, bf16=bf16), True
+        if apply_fn is reduced_lstm_apply:
+            from svd_lstm_tpu_torch.ops.reduced_train import reduced_lstm_apply_fast_train
 
-        fast = {conv_lstm_apply: conv_train.conv_lstm_apply_fast_train,
-                conv_singular_apply: conv_train.conv_singular_apply_fast_train,
-                conv_reduced_apply: conv_train.conv_reduced_apply_fast_train}[apply_fn]
-        return functools.partial(fast, bf16=bf16), True
+            return functools.partial(reduced_lstm_apply_fast_train, bf16=bf16), True
+        if apply_fn in (conv_lstm_apply, conv_singular_apply, conv_reduced_apply):
+            from svd_lstm_tpu_torch.ops import conv_train
+
+            fast = {conv_lstm_apply: conv_train.conv_lstm_apply_fast_train,
+                    conv_singular_apply: conv_train.conv_singular_apply_fast_train,
+                    conv_reduced_apply: conv_train.conv_reduced_apply_fast_train}[apply_fn]
+            return functools.partial(fast, bf16=bf16), True
+    if cfg.remat_chunk:
+        if apply_fn in (stacked_lstm_apply, singular_lstm_apply, conv_lstm_apply, conv_singular_apply):
+            return functools.partial(apply_fn, remat_chunk=cfg.remat_chunk), False
+        if getattr(apply_fn, "remat_chunk_applied", None) != cfg.remat_chunk:
+            warnings.warn(
+                f"TrainConfig.remat_chunk={cfg.remat_chunk} cannot be applied to apply_fn "
+                f"{apply_fn!r}: only the stock dense, singular and conv scans (or a "
+                "dropout_apply_fn wrapper built with the same remat_chunk) carry the knob; "
+                "training will run WITHOUT activation rematerialization",
+                stacklevel=3,
+            )
     return apply_fn, False
 
 
@@ -221,6 +254,7 @@ def fit(
     windows: tuple | None = None,
     init_opt_state: dict | None = None,
     loss_fn: Callable | None = None,
+    dropout_seed: int | None = None,
 ) -> TrainResult:
     """Train a copy of ``model`` on random windows of the (1, T, d) run, on
     the model's device (the windows move there once).
@@ -236,7 +270,13 @@ def fit(
     sampler.
     ``init_opt_state`` is an optimizer state_dict to start from (a
     ``TrainResult.opt_state``). ``cfg.auto_flags`` replaces the regime's
-    flags by the autotune cache's on a hit (:func:`apply_cached_train_flags`)."""
+    flags by the autotune cache's on a hit (:func:`apply_cached_train_flags`).
+
+    ``dropout_seed`` turns on fresh dropout masks for every training batch:
+    with the epoch and the batch's index it seeds that batch's generator on
+    the model's device (:func:`batch_generator`), passed to ``apply_fn`` as
+    ``rng`` (with ``loss_fn``, as its fifth argument). Validation never
+    drops."""
     check_train_config(cfg)
     model = copy.deepcopy(model)
     if cfg.auto_flags:
@@ -284,7 +324,11 @@ def fit(
         with train_matmul_scope(cfg.matmul_precision):
             for i in range(0, n_full, cfg.batch_size):
                 sel = idx[i : i + cfg.batch_size]
-                loss = data_loss(model, X_dev[sel], y_dev[sel], apply_fn)
+                if dropout_seed is None:
+                    loss = data_loss(model, X_dev[sel], y_dev[sel], apply_fn)
+                else:
+                    rng = batch_generator(dropout_seed, epoch, i // cfg.batch_size, device)
+                    loss = data_loss(model, X_dev[sel], y_dev[sel], apply_fn, rng)
                 if loss_extra is not None:
                     loss = loss + loss_extra(model)
                 opt.zero_grad(set_to_none=True)

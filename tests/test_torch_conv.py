@@ -305,18 +305,45 @@ def test_recover_reduced_gated_matches_jax(jax_models, run):
     assert {r for l in rmod.inner.layers for side in l.ranks for r in side} == {4}
 
 
-def test_item4_refusals(models, run):
+def test_item4_refusals(jax_models, models, run):
+    """The conv hybrids' dropout and remat, once refused, against the JAX
+    package: ``conv_singular_apply`` with dropout, recurrent dropout and
+    remat on the JAX package's own masks (its key split once a layer, then
+    into ``k_dp, k_rdp``; the front end takes none), forward and gradients;
+    ``conv_lstm_apply`` with remat; and ``fit`` of the dense hybrid with
+    ``remat_chunk`` against the JAX ``fit``'s history and parameters."""
+    from svd_lstm_tpu.models import singular as jsing
+
     X, y = run
-    xt = torch.zeros((1, 4, C_IN))
-    for kw in (dict(dropout=0.1), dict(recurrent_dropout=0.1), dict(remat_chunk=2)):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            P.conv_singular_apply(models["singular"], xt, **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.conv_lstm_apply(models["dense"], xt, remat_chunk=2)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.finetune(models["singular"], X, y, pcfg.FactorConfig(dropout=0.1), _cfg(pcfg))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        P.fit(models["dense"], X, y, _cfg(pcfg, remat_chunk=4))
+    xb = np.random.default_rng(7).normal(size=(3, 16, C_IN)).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    js = jax_models["singular"]
+    masks = []
+    for layer, k in zip(js.inner.layers, jax.random.split(key, len(js.inner.layers))):
+        k_dp, k_rdp = jax.random.split(k)
+        masks.append(tuple(torch.tensor(np.asarray(jsing.dropout_masks(kk, rate, (3, dim), 4, jnp.float32)))
+                           for kk, rate, dim in ((k_dp, 0.2, layer.input_dim), (k_rdp, 0.3, layer.units))))
+    kw = dict(dropout=0.2, recurrent_dropout=0.3, remat_chunk=5)
+
+    def loss_j(p):
+        return jnp.sum(jconv.conv_singular_apply(p, jnp.asarray(xb), rng=key, **kw) ** 2)
+
+    want, gwant = jax.value_and_grad(loss_j)(js)
+    m = P.from_numpy_tree(js, device="cpu")
+    got = torch.sum(P.conv_singular_apply(m, torch.tensor(xb), rng=masks, **kw) ** 2)
+    got.backward()
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-5)
+    for (name, p), g in zip(m.named_parameters(), jax.tree.leaves(gwant)):
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(g), atol=1e-5 * float(np.abs(g).max()),
+                                   rtol=0, err_msg=name)
+    out_j = jconv.conv_lstm_apply(jax_models["dense"], jnp.asarray(xb), remat_chunk=5)
+    np.testing.assert_allclose(P.conv_lstm_apply(models["dense"], torch.tensor(xb), remat_chunk=5)
+                               .detach().numpy(), np.asarray(out_j), **CLOSE)
+    want = jax_fit(jax_models["dense"], X, y, _cfg(jcfg, remat_chunk=4), apply_fn=jconv.conv_lstm_apply)
+    got = P.fit(models["dense"], X, y, _cfg(pcfg, remat_chunk=4))
+    np.testing.assert_allclose(got.history, want.history, **HIST)
+    for a, b in zip(_leaves(P.to_numpy_tree(got.params)), _leaves(want.params)):
+        np.testing.assert_allclose(a, b, atol=2e-6, rtol=0)
 
 
 # ---------------------------------------------------------------------------

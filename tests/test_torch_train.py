@@ -80,27 +80,40 @@ def test_config_defaults_match_jax(name):
 
 
 def test_unported_knobs_raise(data, windows):
-    """remat_chunk still raises, naming its ROADMAP item; an unknown
-    matmul_precision is refused (the three regimes and auto_flags are
-    ported: tests/test_torch_train_precision.py, test_torch_autotune_train.py)."""
+    """An unknown matmul_precision is refused. The knobs this test once
+    refused are ported (parity with the JAX package:
+    tests/test_torch_dropout_remat.py), so each now runs and matches the
+    plain scan: ``remat_chunk`` recomputes the same values, a dropout
+    fine-tune trains with finite losses and differs from the plain one, and
+    both on the conv hybrid. The three regimes and auto_flags:
+    tests/test_torch_train_precision.py, test_torch_autotune_train.py."""
     model = P.from_numpy_tree(jax_init(jax.random.PRNGKey(0), input_dim=16, units=(4,)), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-        P.fit(model, data.X_train, data.y_train, _train_cfg(pcfg, remat_chunk=4), windows=windows)
     with pytest.raises(ValueError, match="matmul_precision"):
         P.fit(model, data.X_train, data.y_train, _train_cfg(pcfg, matmul_precision="float16"),
               windows=windows)
+    plain = P.fit(model, data.X_train, data.y_train, _train_cfg(pcfg), windows=windows)
+    remat = P.fit(model, data.X_train, data.y_train, _train_cfg(pcfg, remat_chunk=4), windows=windows)
+    np.testing.assert_allclose(remat.history, plain.history, **HIST)
+    _leaves_close(remat.params, P.to_numpy_tree(plain.params))
     smodel = P.make_singular_model(model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        P.finetune(smodel, data.X_train, data.y_train, pcfg.FactorConfig(dropout=0.1),
-                   _train_cfg(pcfg), windows=windows)
-    # the conv hybrids' dropout and remat: the same item
+    plain = P.finetune(smodel, data.X_train, data.y_train, pcfg.FactorConfig(), _train_cfg(pcfg),
+                       windows=windows)
+    dropped = P.finetune(smodel, data.X_train, data.y_train, pcfg.FactorConfig(dropout=0.1),
+                         _train_cfg(pcfg), windows=windows)
+    assert np.isfinite(dropped.history).all() and not np.allclose(dropped.history, plain.history, **HIST)
+    # the conv hybrids' dropout and remat
     hybrid = P.make_conv_singular_model(P.init_conv_lstm(
         torch.Generator().manual_seed(0), in_channels=16, filters=4, kernel_size=2, units=(4,),
         device="cpu"))
-    for fcfg, cfg in ((pcfg.FactorConfig(recurrent_dropout=0.1), _train_cfg(pcfg)),
-                      (pcfg.FactorConfig(), _train_cfg(pcfg, remat_chunk=4))):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 4"):
-            P.finetune(hybrid, data.X_train, data.y_train, fcfg, cfg, windows=windows)
+    base = P.finetune(hybrid, data.X_train, data.y_train, pcfg.FactorConfig(), _train_cfg(pcfg),
+                      windows=windows)
+    dropped = P.finetune(hybrid, data.X_train, data.y_train, pcfg.FactorConfig(recurrent_dropout=0.1),
+                         _train_cfg(pcfg), windows=windows)
+    assert np.isfinite(dropped.history).all() and not np.allclose(dropped.history, base.history, **HIST)
+    remat = P.finetune(hybrid, data.X_train, data.y_train, pcfg.FactorConfig(),
+                       _train_cfg(pcfg, remat_chunk=4), windows=windows)
+    np.testing.assert_allclose(remat.history, base.history, **HIST)
+    _leaves_close(remat.params, P.to_numpy_tree(base.params))
     # ported since: compact_gates=True (K8) and the reduced recovery
     P.fit(model, data.X_train, data.y_train,
           _train_cfg(pcfg, epochs=1, recurrence_kernel=True, compact_gates=True), windows=windows)
