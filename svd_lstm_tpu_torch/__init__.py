@@ -22,7 +22,11 @@ then the stack's own route. Fine-tunes take Keras-semantics dropout
 chunked-time rematerialization (``TrainConfig.remat_chunk``); the
 structural surgery prunes whole units (``prune_to_width``), prunes σ by
 magnitude while fine-tuning (``finetune_with_pruning``) and merges two
-parallel cells into one layer (``merge_parallel_cell_weights``).
+parallel cells into one layer (``merge_parallel_cell_weights``). The JAX
+package's workflow scripts are modules of ``examples/`` and commands of
+``python -m svd_lstm_tpu_torch`` (``train``, ``compress``, ``sweep``,
+``rank-rmse``, ``timing``, ``freq``, ``batched``, ``seq-train``,
+``native-bench``), their figures in ``viz/plots.py``.
 
 The entry points run on the card unless asked for the CPU:
 ``load_params``, ``from_numpy_tree``, ``init_stacked_lstm`` and

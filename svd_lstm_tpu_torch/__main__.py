@@ -1,6 +1,6 @@
 """Command-line entry: ``python -m svd_lstm_tpu_torch <command> [args]``.
 
-Counterpart of ``svd_lstm_tpu/__main__.py``'s deployment commands:
+Counterpart of ``svd_lstm_tpu/__main__.py``. The deployment and evaluation commands:
 
     export — checkpoint -> deployment artifacts: per-gate CSVs (dense) or
              two-step factor CSVs (reduced), optionally the JSON dump and the
@@ -21,14 +21,48 @@ Counterpart of ``svd_lstm_tpu/__main__.py``'s deployment commands:
              regime's whole train step instead, the winner's TrainConfig
              flags stored for ``fit``'s ``auto_flags``
 
-The JAX package's other commands are not ported yet:
-ROADMAP queue 1, item 5 (the CLI).
+The workflow commands, each a module of ``examples/`` with ``run`` and
+``main`` (``--device cuda`` by default; outputs under ``torch_runs/``):
+
+    train        — train the full dense regressor (examples/train_full_model)
+    compress     — factorize -> Hoyer fine-tune -> truncate -> time and score
+                   (examples/svd_acceleration)
+    sweep        — rank-reduction sweep: the RMSE curve and the gif
+                   (examples/rank_sweep)
+    rank-rmse    — the published 4x30 rank-RMSE configuration
+                   (examples/rank_rmse_published)
+    timing       — reduced/full timing ratio at each rank cut (examples/timing_curves)
+    freq         — toy sine-series task (examples/frequency_prediction)
+    batched      — batched multi-sequence inference (examples/batched_inference)
+    seq-train    — parallel -> sequential merge, then more training
+                   (examples/sequentialize_train)
+    native-bench — per-step latency of the native C++ runtime (examples/bench_native)
+
+Not ported yet: ``distributed`` (ROADMAP queue 1, item 8: parallel/) and
+``bench`` (item 3: the CUDA benchmark).
 """
 
 import os
 import sys
 
-_COMMANDS = ("export", "stream", "trace", "tune")
+# command -> its module under svd_lstm_tpu_torch.examples
+_WORKFLOW = {
+    "train": "train_full_model",
+    "compress": "svd_acceleration",
+    "sweep": "rank_sweep",
+    "rank-rmse": "rank_rmse_published",
+    "timing": "timing_curves",
+    "freq": "frequency_prediction",
+    "batched": "batched_inference",
+    "seq-train": "sequentialize_train",
+    "native-bench": "bench_native",
+}
+# the JAX package's commands still to port, and the ROADMAP item that holds each
+_NOT_PORTED = {
+    "distributed": "ROADMAP queue 1, item 8 (parallel/: the dp pipeline over torch.distributed)",
+    "bench": "ROADMAP queue 1, item 3 (the CUDA benchmark, a benchmark PR)",
+}
+_COMMANDS = ("export", "stream", "trace", "tune", *_WORKFLOW)
 
 
 def _load_checkpoint_f32(path, device):
@@ -399,6 +433,14 @@ def main():
     if cmd in commands:
         commands[cmd](sys.argv[2:])
         return
+    if cmd in _WORKFLOW:
+        import importlib
+
+        importlib.import_module(f"svd_lstm_tpu_torch.examples.{_WORKFLOW[cmd]}").main(sys.argv[2:])
+        return
+    if cmd in _NOT_PORTED:
+        print(f"{cmd}: not ported yet; {_NOT_PORTED[cmd]}")
+        raise SystemExit(2)
     print(__doc__)
     print("commands:", ", ".join(_COMMANDS))
     raise SystemExit(2)

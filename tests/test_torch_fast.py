@@ -21,6 +21,11 @@ so its fast functions are exact there. Hence three kinds of reference:
   within the fast bands of the JAX package's own tests (2e-2 for a stack
   with a layer of 128 units or more, 3e-2 for a narrow one;
   tests/test_pallas_batched.py), and more than zero.
+
+K4's cases are in tests/test_torch_fast_k4.py and ``predict(precision=
+"fast")`` of every family and width in tests/test_torch_fast_predict.py:
+files of their own, with this file's helpers, so that ``--dist loadfile``
+runs them on other workers.
 """
 
 import numpy as np
@@ -293,34 +298,6 @@ def test_k1_fast_within_band_of_pallas_default(units):
     assert 0 < _rel(got, want) <= _band(units)
 
 
-@pytest.mark.parametrize("entry", ["plain", "wrapper"])
-@pytest.mark.parametrize("family", ["reduced", "reduced_merged"], ids=["split", "merged"])
-@pytest.mark.parametrize("units", [(24, 40), (136,)])
-def test_k4_fast_matches_bf16_emulation(units, family, entry):
-    params = _jax_family(units, family, seed=5)
-    x = _x(24, seed=7)
-    model = from_numpy_tree(params, device="cpu")
-    fn = ck.fused_reduced_stack_plain if entry == "plain" else ck.fused_reduced_stack
-    want = _k4_emulation(params, x)
-    np.testing.assert_allclose(_np(fn(model, _t(x), dot_precision="default")), want,
-                               atol=ATOL, rtol=0)
-    assert _maxdiff(_np(fn(model, _t(x))), want) > NOOP_GAP
-
-
-@pytest.mark.parametrize("family", ["reduced", "reduced_merged"], ids=["split", "merged"])
-@pytest.mark.parametrize("units", [(24, 40), (136,)])
-def test_k4_fast_within_band_of_pallas_default(units, family):
-    from svd_lstm_tpu.ops.pallas_lstm import fused_reduced_stack_pallas
-
-    params = _jax_family(units, family, seed=6)
-    x = _x(24, seed=8)
-    want = np.asarray(fused_reduced_stack_pallas(params, _jnp(x), interpret=True,
-                                                 dot_precision="default"))
-    got = _np(ck.fused_reduced_stack_plain(from_numpy_tree(params, device="cpu"), _t(x),
-                                           dot_precision="default"))
-    assert 0 < _rel(got, want) <= _band(units)
-
-
 # ---------------------------------------------------------------------------
 # the fast hybrids: x-side products with bf16 operands, results not rounded
 # ---------------------------------------------------------------------------
@@ -371,35 +348,12 @@ def test_reduced_projection_bf16_keeps_float32():
 
 
 # ---------------------------------------------------------------------------
-# predict(x (T, d), precision="fast")
+# predict(x (T, d), precision="fast"): the widths and families of
+# tests/test_torch_fast_predict.py, and the routing
 # ---------------------------------------------------------------------------
 
 WIDTHS = {"narrow": ((24, 40), 32), "mid": ((136,), 24), "wide": ((256,), 16)}
 FAMILIES = ["dense", "singular", "reduced", "reduced_merged"]
-
-
-@pytest.mark.parametrize("family", FAMILIES)
-@pytest.mark.parametrize("width", list(WIDTHS))
-def test_predict_fast_matches_jax(width, family):
-    """Every family × width of the routing table. JAX's predict(fast) runs
-    the exact scan on the CPU; the port runs its plain fast versions."""
-    import jax.numpy as jnp
-    from svd_lstm_tpu import api as japi
-
-    units, T = WIDTHS[width]
-    params = _jax_family(units, family, seed=11)
-    x = _x(T, seed=13)
-    want = np.asarray(japi.predict(params, jnp.asarray(x), precision="fast", consult_cache=False))
-    model = from_numpy_tree(params, device="cpu")
-    before = dict(ck.LAUNCHES)
-    got = P.predict(model, _t(x), precision="fast")
-    assert ck.LAUNCHES == before  # CPU tensors: the plain versions
-    assert got.dtype == torch.float32 and tuple(got.shape) == (T, 1)
-    assert 0 < _rel(_np(got), want) <= _band(units)
-    assert not torch.equal(got, P.predict(model, _t(x)))
-    # impl='scan' is the exact float32 loop in every mode
-    scan = P.predict(model, _t(x), impl="scan", precision="fast")
-    np.testing.assert_allclose(_np(scan), want, atol=2e-5, rtol=1e-5)
 
 
 # the routing table of svd_lstm_tpu/api.py:212-290 in fast mode: the
