@@ -334,6 +334,29 @@ Phases, each of which raises on failure (no phase is caught):
    evaluation; 20 finite ratios);
    ``freq --quick``; ``seq-train --quick``; ``native-bench`` (the native
    runtime within 1e-4 of ``predict``). The phase prints its wall time.
+14. the parallel slice (``svd_lstm_tpu_torch/parallel``): (14a) at world
+   size 1 under NCCL on the card (a one-rank group in this process),
+   ``fit_dp`` at run C's shape (K9), ``finetune_dp`` at run B's (K7) and
+   ``finetune_reduced_dp`` at run E's (K8), each history within 1e-6 of its
+   single-device run; the sharded dp x tp step (3x512, B = 128, T = 200)
+   against the dp step (loss rtol 1e-5); ``make_batched_fast_inference``
+   (3x512, B = 256, T = 128, K5 once a layer) within 1e-6 of
+   ``predict(precision="fast")``; K3 and K2 over two chunks of 512 steps,
+   the second from the (h, c) the first stored (``return_c``), h within TOL
+   and c within ``check_state``'s limit of the plain versions; then
+   ``make_pipeline_inference(ct=512)`` at T = 6656 on the 3x512 checkpoint
+   (K3 once a layer and chunk) and ``wide_r24_progressive`` (K2) within TOL
+   of ``predict``, its time beside predict's. (14b) run A's ``fit_dp`` on
+   two gloo ranks on cuda:0 (K7 on each), against the one-rank run of 14a:
+   histories rtol 1e-4, parameters atol 2e-4; a warm run's ms a step
+   beside the one rank's. (14c) ``distributed --quick``
+   (one rank, NCCL; K2 in the pipeline), ``wide_rank_accuracy`` on the
+   committed 3x512 checkpoint with the recovery cut to 0 epochs (K3, K2 in
+   its exact ``predict``s, K3f, K2f in its fast ones),
+   ``conv_compression --quick`` (K1 in its ``predict``s) and
+   ``realtime_stream --quick`` (both through the native runtime), each
+   through its ``main``; ``entry()``'s forward on the card within 1e-4 of
+   the plain CPU forward. The phase prints its wall time.
 
 Beside each kernel the script times one PyTorch library call that computes
 the same function (cuDNN ``torch.nn.LSTM``, TF32 off for the float32 ones;
@@ -397,7 +420,6 @@ COMPACT_B = 128     # K8 and runs E, F: the batch from which the dispatch takes 
 GATE_STEPS = 2048   # runs E, F: the gate validates on this many steps of the training half
 BATCH_B, BATCH_T = 256, 128  # batched inference: the JAX package's throughput point
 FAST_BAND = {"wide": 2e-2, "narrow": 3e-2}  # rel. Frobenius error vs exact (tests/test_pallas_batched.py)
-PLAIN_REPEATS = 2   # timed calls of a slow plain version in 3 and 3c (already warm from its check)
 WINDOWS = 64        # 3c: windows a fast variant is checked over, spread over T
 WINDOW_T = 16       # steps of a K2f window, restarted from the plain version's (h, c)
 K4_WINDOW_T = 8     # steps of a K4 fast window, from zero state
@@ -418,6 +440,24 @@ def log(*a):
 
 def fail(msg: str):
     raise RuntimeError(msg)
+
+
+def timed(fn):
+    """``fn`` that also keeps the device time in ms (CUDA events, one call)
+    of each of its calls in ``.ms``: a slow plain version's check call is
+    its timed call (plain_ms), so it runs once."""
+
+    def call(*args):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args)
+        end.record()
+        end.synchronize()
+        call.ms.append(start.elapsed_time(end))
+        return out
+
+    call.ms = []
+    return call
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -569,14 +609,14 @@ def kernel_checks(dev, x):
         log(f"[info] K1 route {'x'.join(map(str, units))}, d={d}: exact "
             f"{ck.dense_plan(units, d, False)}, fast {ck.dense_plan(units, d, True)}")
     red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
-    err = 0.0
+    err, plain = 0.0, timed(ck.fused_dense_stack_plain)
     for name, m in (("4x30 dense", m30), ("4x30 split r=15 reconstructed", P.reconstruct_dense_model(red30))):
         err = max(err, check_close(f"K1 fused_dense_stack {name}", ck.fused_dense_stack(m, x),
-                                   ck.fused_dense_stack_plain(m, x), TOL))
+                                   plain(m, x), TOL))
     results["fused_dense_stack"] = {
         "max_abs_err": err,
         "ms": device_time_ms(ck.fused_dense_stack, m30, x),
-        "plain_ms": device_time_ms(ck.fused_dense_stack_plain, m30, x, warmup=0, repeats=PLAIN_REPEATS),
+        "plain_ms": plain.ms[0],
         # cuDNN runs the stack without the head (one (T, 30)·(30, 1) product)
         "library_ms": library_forward("K1 4x30", [(l.W, l.U, l.b) for l in m30.layers], x[:, None],
                                       ck.fused_dense_stack(m30, x)[:, None], m30.head),
@@ -588,7 +628,8 @@ def kernel_checks(dev, x):
     m512 = P.load_params(DENSE_512, device=dev)
     log(f"[info] K3 plan, n = 512: exact {ck.card_recurrence_plan(dev, 512, False)}, "
         f"fast {ck.card_recurrence_plan(dev, 512, True)}")
-    runs = layer_runs(m512, x, lambda l, h: torch.matmul(h, l.W), ck.lstm_recurrence_plain)
+    plain = timed(ck.lstm_recurrence_plain)
+    runs = layer_runs(m512, x, lambda l, h: torch.matmul(h, l.W), plain)
     err = max(check_close(f"K3 lstm_recurrence 3x512 layer {i}", ck.lstm_recurrence(xp, l.U), h, TOL)
               for i, (l, xp, h) in enumerate(runs))
     l0, xp0, h0 = runs[0]
@@ -598,7 +639,7 @@ def kernel_checks(dev, x):
     results["lstm_recurrence"] = {
         "max_abs_err": err,
         "ms": device_time_ms(ck.lstm_recurrence, xp0, l0.U),
-        "plain_ms": device_time_ms(ck.lstm_recurrence_plain, xp0, l0.U, warmup=0, repeats=PLAIN_REPEATS),
+        "plain_ms": plain.ms[0],
         # cuDNN also computes the x-side product x·W + b (d = 16)
         "library_ms": library_forward("K3 512", [(l0.W, l0.U, l0.b)], x[:, None], h0[:, None]),
         **roofline.recurrence_step_cost(n).call_bound(Tx),
@@ -611,8 +652,7 @@ def kernel_checks(dev, x):
     direct = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=24)
     red512 = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=False), rank=24)
     proj = lambda l, h: reduced_projection(l, h, "w")
-    err = 0.0
-    timed = None
+    err, first, plain = 0.0, None, timed(ck.reduced_recurrence_plain)
     for name, m in (("merged r=24 (wide_r24_progressive)", wide), ("direct merged r=24 (3x512)", direct),
                     ("split r=24 (3x512)", red512)):
         l0 = m.layers[0]
@@ -620,17 +660,17 @@ def kernel_checks(dev, x):
             plan = ck.card_reduced_plan(dev, l0.units, ck.reduced_ranks(recurrence_args(l0)[0]), fast)
             log(f"[info] K2 plan, {name}, {'fast' if fast else 'exact'}: {plan} (a CTA's weights "
                 f"{plan.weight_bytes} B)")
-        for i, (l, xp, h) in enumerate(layer_runs(m, x, proj, ck.reduced_recurrence_plain)):
+        for i, (l, xp, h) in enumerate(layer_runs(m, x, proj, plain)):
             args = (xp, *recurrence_args(l))
             err = max(err, check_close(f"K2 reduced_recurrence {name} layer {i}",
                                        ck.reduced_recurrence(*args), h, TOL))
-            timed = timed or (args, h)
-    args, h = timed
+            first = first or (args, h)
+    args, h = first
     r = args[1].shape[1]
     results["reduced_recurrence"] = {
         "max_abs_err": err,
         "ms": device_time_ms(ck.reduced_recurrence, *args),
-        "plain_ms": device_time_ms(ck.reduced_recurrence_plain, *args, warmup=0, repeats=PLAIN_REPEATS),
+        "plain_ms": plain.ms[0],  # wide_r24_progressive's layer 0, the timed kernel's call
         # cuDNN on the layer's exact dense reconstruction, with its x-side product
         "library_ms": reduced_library_ms(wide, x, torch.float32),
         **roofline.reduced_recurrence_step_cost(n, (r,)).call_bound(Tx),
@@ -675,17 +715,17 @@ def batched_kernel_checks(dev) -> dict:
     the 4x30 checkpoints at B = 256, T = 128, timed on a 512-wide layer."""
     xb = torch.tensor(np.random.default_rng(2).normal(size=(BATCH_B, BATCH_T, D)),
                       dtype=torch.float32, device=dev)
-    err, timed = 0.0, None
+    err, chosen = 0.0, None
     for name, path in (("3x512", DENSE_512), ("4x30", DENSE_30)):
         for i, (l, xp, h) in enumerate(batched_layer_inputs(P.load_params(path, device=dev), xb)):
             err = max(err, check_k5(f"K5 batched_lstm_recurrence {name} layer {i}",
                                     cb.batched_lstm_recurrence(xp, l.U), xp, l.U, h))
             if name == "3x512" and i == 1:
-                timed = (l, xp, h)
+                chosen = (l, xp, h)
     for n in (512, 30):
         plan = cb.card_plan(dev, BATCH_B, n, True)
         log(f"[info] K5 at n={n}, B={BATCH_B}: {plan}, {plan.chunks(BATCH_B)} launch(es) a call")
-    l, xp, h = timed  # layer 1 of 3x512: a 512-wide input, as layers 1 and 2 have
+    l, xp, h = chosen  # layer 1 of 3x512: a 512-wide input, as layers 1 and 2 have
     h_in = batched_layer_inputs(P.load_params(DENSE_512, device=dev), xb)[0][2]  # layer 0's h
     n, W16, b16 = l.units, l.W.to(torch.bfloat16), l.b.to(torch.bfloat16)
     with_x = device_time_ms(lambda: cb.batched_lstm_recurrence(torch.matmul(h_in, W16) + b16, l.U))
@@ -834,17 +874,17 @@ def fast_kernel_checks(dev, x) -> dict:
     results = {}
     Tx, d = x.shape
     fast = "default"
-    plain_ms = lambda fn, *a: device_time_ms(fn, *a, warmup=0, repeats=PLAIN_REPEATS)
 
     # K1f: the 4x30 checkpoint
     m30 = P.load_params(DENSE_30, device=dev)
-    plain = ck.fused_dense_stack_plain(m30, x, fast)
+    k1f_plain = timed(ck.fused_dense_stack_plain)
+    plain = k1f_plain(m30, x, fast)
     limit = fast_limit("K1f 4x30", plain, ck.fused_dense_stack_plain(as_double(m30), x.double(), fast))
     got = ck.fused_dense_stack(m30, x, dot_precision=fast)
     results["fused_dense_stack_fast"] = {
         "max_abs_err": check_close("K1f fused_dense_stack fast 4x30 dense", got, plain, limit),
         "ms": device_time_ms(lambda: ck.fused_dense_stack(m30, x, dot_precision=fast)),
-        "plain_ms": plain_ms(lambda: ck.fused_dense_stack_plain(m30, x, fast)),
+        "plain_ms": k1f_plain.ms[0],
         "library_ms": library_forward("K1f 4x30 bf16", [(l.W, l.U, l.b) for l in m30.layers],
                                       x[:, None].bfloat16(), got[:, None],
                                       lambda o: m30.head(o.float())),
@@ -855,7 +895,7 @@ def fast_kernel_checks(dev, x) -> dict:
     # K3f: each layer of 3x512, from the fast x-side of the fast layer below
     m512 = P.load_params(DENSE_512, device=dev)
     proj = lambda l, h: torch.matmul(bf16_round(h), bf16_round(l.W))
-    rec = lambda xp, U: ck.lstm_recurrence_plain(xp, U, dot_precision=fast)
+    rec = timed(lambda xp, U: ck.lstm_recurrence_plain(xp, U, dot_precision=fast))
     runs = layer_runs(m512, x, proj, rec)
     err = 0.0
     for i, (l, xp, h) in enumerate(runs):
@@ -867,7 +907,7 @@ def fast_kernel_checks(dev, x) -> dict:
     results["lstm_recurrence_fast"] = {
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.lstm_recurrence(xp0, l0.U, dot_precision=fast)),
-        "plain_ms": plain_ms(rec, xp0, l0.U),
+        "plain_ms": rec.ms[0],  # layer 0's, in layer_runs
         # cuDNN's bf16 LSTM also computes the x-side product x·W + b (d = 16)
         "library_ms": library_forward("K3f 512 bf16", [(l0.W, l0.U, l0.b)], x[:, None].bfloat16(),
                                       h0[:, None]),
@@ -880,17 +920,18 @@ def fast_kernel_checks(dev, x) -> dict:
     # plain version's (h, c); each layer's xp from the plain h of the layer below
     wide = P.load_params(WIDE_R24, device=dev)
     red30 = P.make_reduced_model(P.make_singular_model(m30, merged_kernel=False), rank=15)
-    err, timed = 0.0, None
+    err, first = 0.0, None
     for name, m in (("merged r=24 (wide_r24_progressive)", wide), ("4x30 split r=15", red30)):
         for args, h, e in reduced_fast_windows(f"K2f reduced_recurrence fast {name}", m, x):
             err = max(err, e)
-            timed = timed or (args, h)
-    args, h = timed
+            first = first or (args, h)
+    args, h = first
     r = args[1].shape[1]
     results["reduced_recurrence_fast"] = {
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.reduced_recurrence(*args, dot_precision=fast)),
-        "plain_ms": plain_ms(lambda: ck.reduced_recurrence_plain(*args, dot_precision=fast)),
+        "plain_ms": device_time_ms(lambda: ck.reduced_recurrence_plain(*args, dot_precision=fast), warmup=0,
+                                   repeats=1),
         # cuDNN's bf16 LSTM on the layer's exact dense reconstruction, with its x-side
         "library_ms": reduced_library_ms(wide, x, torch.bfloat16),
         **roofline.reduced_recurrence_step_cost(n, (r,), dtype=torch.bfloat16).call_bound(Tx),
@@ -900,11 +941,11 @@ def fast_kernel_checks(dev, x) -> dict:
     # K4 exact over the whole run: 4x30 split r=15 and the direct 3x512 merged
     # r=24 truncation (|C| ~ 1.1e4, ROADMAP fault 3.1)
     red512 = P.make_reduced_model(P.make_singular_model(m512, merged_kernel=True), rank=24)
-    err = 0.0
+    err, k4_plain = 0.0, timed(ck.fused_reduced_stack_plain)
     for name, m in (("4x30 split r=15", red30), ("3x512 merged r=24", red512)):
         log(f"[info] K4 plan, {name}: exact {ck.card_reduced_stack_plan(dev, m, d, False)}, "
             f"fast {ck.card_reduced_stack_plan(dev, m, d, True)}")
-        plain = ck.fused_reduced_stack_plain(m, x)
+        plain = k4_plain(m, x)
         drift = max_err(plain.double(), ck.fused_reduced_stack_plain(as_double(m), x.double()))
         log(f"[info] K4 {name} exact: plain float32 vs float64 {drift:.3e}")
         err = max(err, check_close(f"K4 fused_reduced_stack exact {name}",
@@ -920,7 +961,7 @@ def fast_kernel_checks(dev, x) -> dict:
     results["fused_reduced_stack"] = {
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(red512, x)),
-        "plain_ms": plain_ms(lambda: ck.fused_reduced_stack_plain(red512, x)),
+        "plain_ms": k4_plain.ms[1],  # red512's
         # cuDNN on the stack's exact dense reconstruction (the head left out)
         "library_ms": reduced_library_ms(red512, x, torch.float32, len(red512.layers)),
         **reduced_cost(red512, d).call_bound(Tx),
@@ -931,7 +972,7 @@ def fast_kernel_checks(dev, x) -> dict:
     # state (the kernel takes no initial state): 4x30 split r=15 and
     # wide_r24_progressive (3x512 merged r=24 after recovery, |C| <= 199; the
     # direct truncation's bf16 operands flip apart within a few steps)
-    err = 0.0
+    err, k4f_plain = 0.0, timed(ck.fused_reduced_stack_plain)
     for name, m in (("4x30 split r=15", red30), ("3x512 merged r=24 (wide_r24_progressive)", wide)):
         m64 = as_double(m)
         errs, drifts, largest = [], [], 0.0
@@ -944,7 +985,7 @@ def fast_kernel_checks(dev, x) -> dict:
         label = f"K4 fused_reduced_stack fast {name}"
         err = max(err, check_windows(label, errs, drifts, 2 * bf16_ulp(largest)))
         got = ck.fused_reduced_stack(m, x, dot_precision=fast)
-        check_finite(label, got, ck.fused_reduced_stack_plain(m, x, fast))
+        check_finite(label, got, k4f_plain(m, x, fast))
     k4f_30 = {
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(red30, x, dot_precision=fast)),
         "library_ms": reduced_library_ms(red30, x, torch.bfloat16, len(red30.layers)),
@@ -956,7 +997,7 @@ def fast_kernel_checks(dev, x) -> dict:
     results["fused_reduced_stack_fast"] = {
         "max_abs_err": err,
         "ms": device_time_ms(lambda: ck.fused_reduced_stack(wide, x, dot_precision=fast)),
-        "plain_ms": plain_ms(lambda: ck.fused_reduced_stack_plain(wide, x, fast)),
+        "plain_ms": k4f_plain.ms[1],  # wide_r24_progressive's whole run
         # cuDNN's bf16 LSTM on the stack's exact dense reconstruction (the head left out)
         "library_ms": reduced_library_ms(wide, x, torch.bfloat16, len(wide.layers)),
         **reduced_cost(wide, d, torch.bfloat16).call_bound(Tx),
@@ -1599,10 +1640,10 @@ def compact_kernel_checks(dev, data, rng) -> dict:
         in_turns("K8 bwd, K7 bwd", shape, ct.fused_narrow_train_compact_bwd, ct.fused_narrow_train_bwd,
                  *args)
         if name == "4x40":
-            timed = (shape, layers, hs, cs, args, got)
+            chosen = (shape, layers, hs, cs, args, got)
     # below the dispatch's B = 128: K8 and K7 on run A's inputs (B = 32)
     xa = first_batch(TRAIN_RUNS[0], data, dev)[0].transpose(0, 1).contiguous()
-    layers = timed[1]
+    layers = chosen[1]
     hs_a, cs_a = ct.fused_narrow_train_fwd_plain(layers, xa)
     dh_a = torch.tensor(rng.normal(size=hs_a[-1].shape), dtype=torch.float32, device=dev)
     shape_a = f"4x40, B={xa.shape[1]}, T={xa.shape[0]}, d={xa.shape[2]}"
@@ -1610,7 +1651,7 @@ def compact_kernel_checks(dev, data, rng) -> dict:
              layers, xa)
     in_turns("K8 bwd, K7 bwd", shape_a, ct.fused_narrow_train_compact_bwd, ct.fused_narrow_train_bwd,
              layers, xa, hs_a, cs_a, dh_a)
-    shape, layers, hs, cs, args, got = timed
+    shape, layers, hs, cs, args, got = chosen
     T8, B8, _ = x.shape
     macs = roofline.lstm_macs(T8, B8, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
     lib_fwd, lib_bwd = library_train(layers, x, args[-1])
@@ -2320,7 +2361,7 @@ def deployment_path(dev, x) -> dict:
 # the evaluation slice (phase 9)
 # ---------------------------------------------------------------------------
 
-TUNE_REPEATS = 2      # 9a: timed calls a candidate (the plain scan of 3x512 is a Python loop)
+TUNE_REPEATS = 1      # 9a: timed calls a candidate (one sample: the winners are not rankings)
 SWEEP_EVERY = 8       # 9d: reductions between evaluations
 SWEEP_CPU_STEPS = 512  # 9d: the card's sweep against the CPU's over this many steps
 SWEEP_CPU_REDUCTIONS = 64
@@ -2976,19 +3017,18 @@ def conv_kernel_checks(dev, data, x) -> None:
     with exact_matmul(), torch.no_grad():
         xc = P.models.conv.conv_front(model.conv, x[None])[0]
         stack = model.stack
-        plain = ck.fused_dense_stack_plain(stack, xc, "default")
+        k1_plain = timed(ck.fused_dense_stack_plain)
+        plain = k1_plain(stack, xc, "default")
         limit = fast_limit("K1f 2x15", plain, ck.fused_dense_stack_plain(as_double(stack), xc.double(),
                                                                          "default"))
         check_close("K1f fused_dense_stack fast 2x15",
                     ck.fused_dense_stack(stack, xc, dot_precision="default"), plain, limit)
         check_close("K1 fused_dense_stack 2x15 (the conv's output)", ck.fused_dense_stack(stack, xc),
-                    ck.fused_dense_stack_plain(stack, xc), TOL)
-        for tag, dp in (("K1", None), ("K1f", "default")):
+                    k1_plain(stack, xc), TOL)
+        for tag, dp, plain_ms in (("K1", None, k1_plain.ms[1]), ("K1f", "default", k1_plain.ms[0])):
             cost = roofline.dense_step_cost(d, units, dtype=torch.float32 if dp is None else torch.bfloat16)
             r = {"ms": device_time_ms(lambda: ck.fused_dense_stack(stack, xc, dot_precision=dp)),
-                 "plain_ms": device_time_ms(lambda: ck.fused_dense_stack_plain(stack, xc, dp), warmup=0,
-                                            repeats=PLAIN_REPEATS),
-                 **cost.call_bound(T)}
+                 "plain_ms": plain_ms, **cost.call_bound(T)}
             log(f"[time] {tag} (2x15, T={T}, d=15): kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
                 f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); {card_line()}")
 
@@ -3407,7 +3447,8 @@ def pruned_kernel_checks(dev, x, data, pruned, red) -> None:
         f"forward chain {ct.fwd_chain_plan(COMPACT_B, n, sms)}, backward chain {ct.chain_plan(COMPACT_B, n, sms)}")
     Tx, d = x.shape
     with torch.no_grad():
-        runs = layer_runs(pruned, x, lambda l, h: torch.matmul(h, l.W), ck.lstm_recurrence_plain)
+        k3_plain = timed(ck.lstm_recurrence_plain)
+        runs = layer_runs(pruned, x, lambda l, h: torch.matmul(h, l.W), k3_plain)
         for i, (l, xp, h) in enumerate(runs):
             check_close(f"12c K3 lstm_recurrence 3x384 layer {i}", ck.lstm_recurrence(xp, l.U), h, TOL)
             plain = ck.lstm_recurrence_plain(xp, l.U, dot_precision="default")
@@ -3419,23 +3460,23 @@ def pruned_kernel_checks(dev, x, data, pruned, red) -> None:
         log(f"[time] 12c K3 (one 384-unit layer, T={Tx}): kernel "
             f"{device_time_ms(ck.lstm_recurrence, xp0, l0.U):.3f} ms, fast "
             f"{device_time_ms(lambda: ck.lstm_recurrence(xp0, l0.U, dot_precision='default')):.3f} ms, plain "
-            f"{device_time_ms(ck.lstm_recurrence_plain, xp0, l0.U, warmup=0, repeats=PLAIN_REPEATS):.3f} ms, "
+            f"{k3_plain.ms[0]:.3f} ms, "
             f"library {library_forward('12c K3 384', [(l0.W, l0.U, l0.b)], x[:, None], h0[:, None]):.3f} ms, "
             f"bound {roofline.recurrence_step_cost(n).call_bound(Tx)['bound_ms']:.4f} ms; {card_line()}")
         proj = lambda l, h: reduced_projection(l, h, "w")  # noqa: E731
-        timed = None
-        for i, (l, xp, h) in enumerate(layer_runs(red, x, proj, ck.reduced_recurrence_plain)):
+        first, k2_plain = None, timed(ck.reduced_recurrence_plain)
+        for i, (l, xp, h) in enumerate(layer_runs(red, x, proj, k2_plain)):
             args = (xp, *recurrence_args(l))
             check_close(f"12c K2 reduced_recurrence 3x384 merged r={PRUNED_RANK} layer {i}",
                         ck.reduced_recurrence(*args), h, TOL)
-            timed = timed or args
+            first = first or args
         with exact_matmul():  # the direct truncation: each window's limit takes its plain drift in
             reduced_fast_windows(f"12c K2f reduced_recurrence fast 3x384 merged r={PRUNED_RANK}", red, x,
                                  drift_limit=True)
         log(f"[time] 12c K2 (one 384-unit layer, merged r={PRUNED_RANK}, T={Tx}): kernel "
-            f"{device_time_ms(ck.reduced_recurrence, *timed):.3f} ms, fast "
-            f"{device_time_ms(lambda: ck.reduced_recurrence(*timed, dot_precision='default')):.3f} ms, plain "
-            f"{device_time_ms(ck.reduced_recurrence_plain, *timed, warmup=0, repeats=PLAIN_REPEATS):.3f} ms, "
+            f"{device_time_ms(ck.reduced_recurrence, *first):.3f} ms, fast "
+            f"{device_time_ms(lambda: ck.reduced_recurrence(*first, dot_precision='default')):.3f} ms, plain "
+            f"{k2_plain.ms[0]:.3f} ms, "
             f"library {reduced_library_ms(red, x, torch.float32):.3f} ms, bound "
             f"{roofline.reduced_recurrence_step_cost(n, (PRUNED_RANK,)).call_bound(Tx)['bound_ms']:.4f} ms")
     rng = np.random.default_rng(6)
@@ -3775,6 +3816,257 @@ def workflow_path(dev) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# the parallel slice (phase 14)
+# ---------------------------------------------------------------------------
+
+PP_CT = 512            # 14a: the pipeline's chunk
+DP_STEP_RTOL = 1e-5    # 14a: the sharded step's loss against the dp step's (tests/test_parallel.py)
+HIST_RTOL_ONE = 1e-6   # 14a: fit_dp at one rank against fit: the same arithmetic
+DP2_HIST_RTOL = 1e-4   # 14b: two ranks against one (tests/test_parallel_fit.py)
+DP2_PARAM_ATOL = 2e-4
+ENTRY_TOL = 1e-4       # 14c: entry()'s forward on the card against the plain CPU forward
+
+
+def count_batched(fn, *args):
+    """``fn(*args)`` with K5's count read around it. Returns (its result,
+    the launches)."""
+    before = cb.batched_lstm_recurrence.launches
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, cb.batched_lstm_recurrence.launches - before
+
+
+def check_carried_c(dev, x) -> None:
+    """14a, before the pipeline: K3 (3x512 layer 0) and K2 (layer 0 of
+    wide_r24_progressive) over the pipeline's first two chunks, the second
+    from the (h, c) the first stored (``return_c``): h within TOL of the
+    plain version's whole run, the stored c within check_state's limit of
+    the plain version's."""
+    for name, model, kernel, plain in (
+            ("K3 lstm_recurrence 3x512", P.load_params(DENSE_512, device=dev), ck.lstm_recurrence,
+             ck.lstm_recurrence_plain),
+            ("K2 reduced_recurrence wide_r24_progressive", P.load_params(WIDE_R24, device=dev),
+             ck.reduced_recurrence, ck.reduced_recurrence_plain)):
+        l = model.layers[0]
+        args = recurrence_args(l)
+        xp = ((torch.matmul(x[: 2 * PP_CT], l.W) if isinstance(l, P.LSTMLayer)
+               else reduced_projection(l, x[: 2 * PP_CT], "w")) + l.b).contiguous()
+        h1, c1 = kernel(xp[:PP_CT], *args, return_c=True)
+        h2, c2 = kernel(xp[PP_CT:], *args, h1[-1], c1, return_c=True)
+        want_h, want_c = plain(xp, *args, return_c=True)
+        _, c_half = plain(xp[:PP_CT], *args, return_c=True)
+        _, c_half64 = plain(xp[:PP_CT].double(), *double(args), return_c=True)
+        check_close(f"14a {name} layer 0, two chunks from the stored (h, c)", torch.cat([h1, h2]), want_h, TOL)
+        check_state(f"14a {name} layer 0, the stored c after chunk 0", c1, c_half, c_half64)
+        check_state(f"14a {name} layer 0, the stored c after chunk 1", c2, want_c,
+                    plain(xp.double(), *double(args), return_c=True)[1])
+
+
+def warm_step_ms(fit_call, cfg: P.TrainConfig) -> float:
+    """ms a step of a warm ``fit_call()`` (host clock to a synchronize, the
+    run's every step, its model's copy and the epoch loop included)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fit_call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / (cfg.epochs * (cfg.num_windows // cfg.batch_size))
+
+
+def world_one_path(dev, data, total: dict) -> list:
+    """14a: every parallel entry point at world size 1 under NCCL on the
+    card, each against the single-device path it shards. Returns run A's
+    fit_dp history and parameters (14b's reference)."""
+    from svd_lstm_tpu_torch import parallel as par
+
+    A, B, C = TRAIN_RUNS[:3]
+    E = RECOVERY_RUNS[0]
+    X, y = data.X_train, data.y_train
+    with par.process_group("nccl"):
+        mesh = par.make_mesh(device=dev)
+        log(f"[parallel] 14a mesh: {mesh.dp}x{mesh.tp}, {mesh.backend}, {mesh.device}")
+        for run, dp_fn, one_fn, kernels in (
+                (C, lambda m: par.fit_dp(m, X, y, mesh, cfg=C.cfg),
+                 lambda m: P.fit(m, X, y, C.cfg), ["wide_layer_fwd", "wide_layer_bwd"]),
+                (B, lambda m: par.finetune_dp(m, X, y, mesh, factor_cfg=B.factor_cfg, train_cfg=B.cfg),
+                 lambda m: P.finetune(m, X, y, B.factor_cfg, B.cfg), ["fused_narrow_train_fwd"]),
+                (E, lambda m: par.finetune_reduced_dp(m, X, y, mesh, train_cfg=E.cfg),
+                 lambda m: P.finetune_reduced(m, X, y, E.cfg), ["fused_narrow_train_compact_fwd"])):
+            t0 = time.perf_counter()
+            got, launched = count_call(total, dp_fn, run.make(dev))
+            dp_s = time.perf_counter() - t0
+            require(f"14a {run.name} through the dp loop", launched, kernels, tag="parallel")
+            t0 = time.perf_counter()
+            want = one_fn(run.make(dev))
+            torch.cuda.synchronize()
+            one_s = time.perf_counter() - t0
+            err = float(np.max(np.abs(np.asarray(got.history) / np.asarray(want.history) - 1)))
+            log(f"[parallel] 14a {run.name}: fit_dp-family history {got.history} against "
+                f"{want.history} (max rel diff {err:.3e}); {dp_s:.2f} s against {one_s:.2f} s "
+                f"(host clock, first calls) on {card_line()}")
+            if not err <= HIST_RTOL_ONE:
+                fail(f"14a {run.name}: the one-rank dp history {err:.3e} from the single-device one")
+        ref, launched = count_call(total, lambda: par.fit_dp(A.make(dev), X, y, mesh, cfg=A.cfg))
+        require("14a A 4x40 fit through fit_dp (14b's reference)", launched, ["fused_narrow_train_fwd"],
+                tag="parallel")
+        ref.step_ms = warm_step_ms(lambda: par.fit_dp(A.make(dev), X, y, mesh, cfg=A.cfg), A.cfg)
+
+        x, yb = first_batch(C, data, dev)
+        local = par.shard_params_for_mesh(C.make(dev), mesh)
+        sharded = par.make_sharded_train_step(mesh, torch.optim.Adam(local.parameters(), lr=1e-3))
+        plain = C.make(dev)
+        dp_step = par.make_dp_train_step(mesh, torch.optim.Adam(plain.parameters(), lr=1e-3),
+                                         P.stacked_lstm_apply)
+        loss_s, loss_d = sharded(local, x, yb), dp_step(plain, x, yb)
+        log(f"[parallel] 14a sharded step 3x512 (B=128, T=200): loss {loss_s:.8f}, dp step {loss_d:.8f}")
+        if not abs(loss_s - loss_d) <= DP_STEP_RTOL * abs(loss_d):
+            fail(f"14a sharded step loss {loss_s} against the dp step's {loss_d}")
+
+        with exact_matmul(), torch.no_grad():
+            dense = P.load_params(DENSE_512, device=dev)
+            xb = torch.tensor(np.random.default_rng(0).normal(size=(256, 128, D)), dtype=torch.float32,
+                              device=dev)
+            got, k5 = count_batched(par.make_batched_fast_inference(mesh), dense, xb)
+            total["batched_lstm_recurrence"] = total.get("batched_lstm_recurrence", 0) + k5
+            if k5 != len(dense.layers):
+                fail(f"14a batched fast inference launched K5 {k5} times, not {len(dense.layers)}")
+            check_close("14a make_batched_fast_inference 3x512 (B=256, T=128) against predict(fast)", got,
+                        P.predict(dense, xb, precision="fast"), 1e-6)
+
+            xl = torch.tensor(np.random.default_rng(0).normal(size=(T, D)), dtype=torch.float32, device=dev)
+            check_carried_c(dev, xl)
+            pp = par.make_pipeline_inference(mesh, ct=PP_CT)
+            for name, path, kernel in (("3x512 dense", DENSE_512, "lstm_recurrence"),
+                                       ("wide_r24_progressive", WIDE_R24, "reduced_recurrence")):
+                model = P.load_params(path, device=dev)
+                got, launched = count_call(total, pp, model, xl[None])
+                chunks = -(-T // PP_CT)
+                require(f"14a pipeline {name}", launched, [kernel], times=len(model.layers) * chunks,
+                        tag="parallel")
+                want = P.predict(model, xl)
+                check_close(f"14a make_pipeline_inference(ct={PP_CT}) {name} T={T} against predict", got[0],
+                            want, TOL)
+                pp_ms = device_time_ms(lambda: pp(model, xl[None]))
+                pr_ms = device_time_ms(lambda: P.predict(model, xl))
+                log(f"[time] 14a pipeline {name} (1 stage, {chunks} chunks of {PP_CT}): {pp_ms:.3f} ms, "
+                    f"predict {pr_ms:.3f} ms, ratio {pp_ms / pr_ms:.4f} on {card_line()}")
+    return ref
+
+
+def _dp_rank(dev, name: str) -> dict:
+    """14b: one of two gloo ranks on the card, run ``name`` of TRAIN_RUNS
+    through fit_dp; its history, parameters and train-kernel launches."""
+    from svd_lstm_tpu_torch import parallel as par
+
+    run = next(r for r in TRAIN_RUNS if r.name == name)
+    data = train_data()
+    mesh = par.make_mesh(device=dev)
+    ck.reset_launch_counts()
+    ct.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = par.fit_dp(run.make(dev), data.X_train, data.y_train, mesh, cfg=run.cfg)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {k: v for k, v in ct.LAUNCHES.items() if v}
+    step_ms = warm_step_ms(lambda: par.fit_dp(run.make(dev), data.X_train, data.y_train, mesh, cfg=run.cfg),
+                           run.cfg)
+    return {"history": res.history, "params": [p.detach().cpu() for p in res.params.parameters()],
+            "launches": launches, "s": first_s, "step_ms": step_ms, "device": str(dev)}
+
+
+def two_rank_path(ref, total: dict) -> None:
+    """14b: run A's fit_dp on two gloo ranks on cuda:0 (the batch of 32 split
+    16 + 16, the gradients averaged through all_reduce on the card) against
+    its one-rank run (14a): histories within rtol 1e-4, parameters within
+    atol 2e-4."""
+    from svd_lstm_tpu_torch import parallel as par
+
+    A = TRAIN_RUNS[0]
+    t0 = time.perf_counter()
+    r0, r1 = par.launch(_dp_rank, 2, "gloo", "cuda", A.name)
+    log(f"[parallel] 14b two gloo ranks on {r0['device']} and {r1['device']}: {time.perf_counter() - t0:.1f} s "
+        f"with the spawn, the first fit_dp {r0['s']:.2f} s (host clock) on {card_line()}")
+    log(f"[time] 14b {A.name} warm fit_dp, ms a step (host clock, B = {A.cfg.batch_size}): two ranks on the "
+        f"one card {r0['step_ms']:.3f} and {r1['step_ms']:.3f}, one rank {ref.step_ms:.3f}, ratio "
+        f"{max(r0['step_ms'], r1['step_ms']) / ref.step_ms:.3f} on {card_line()}")
+    for r in (r0, r1):
+        require(f"14b {A.name} on one of two ranks", r["launches"], ["fused_narrow_train_fwd",
+                                                                      "fused_narrow_train_bwd"], tag="parallel")
+        for k, v in r["launches"].items():
+            total[k] = total.get(k, 0) + v
+    if r0["history"] != r1["history"]:
+        fail(f"14b the ranks disagree: {r0['history']} against {r1['history']}")
+    err = float(np.max(np.abs(np.asarray(r0["history"]) / np.asarray(ref.history) - 1)))
+    perr = max(max_err(a, b.detach().cpu()) for a, b in zip(r0["params"], ref.params.parameters()))
+    log(f"[parallel] 14b {A.name}: history {r0['history']} against one rank's {ref.history} (max rel diff "
+        f"{err:.3e}), parameters max abs diff {perr:.3e}")
+    if not (err <= DP2_HIST_RTOL and perr <= DP2_PARAM_ATOL):
+        fail(f"14b two ranks against one: history {err:.3e} (rtol {DP2_HIST_RTOL}), parameters {perr:.3e} "
+             f"(atol {DP2_PARAM_ATOL})")
+
+
+def parallel_commands(dev, total: dict) -> None:
+    """14c: ``distributed --quick`` (one rank, NCCL) and the three examples'
+    ``main`` with the JAX scripts' ``--quick`` cuts (wide_rank_accuracy on
+    the committed 3x512 checkpoint, the recovery cut to 0 epochs), then
+    ``entry()``'s forward on the card against the plain CPU forward."""
+    from svd_lstm_tpu_torch.entry import entry
+    from svd_lstm_tpu_torch.examples import (
+        conv_compression,
+        distributed_training,
+        realtime_stream,
+        wide_rank_accuracy,
+    )
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_") as tmp:
+        r = counted_main(total, "distributed --quick", distributed_training, ["--quick"], ["reduced_recurrence"])
+        log(f"[parallel] distributed --quick: pp over {r['stages']} stage(s), T={r['T']}, max|pp - direct| "
+            f"{r['pp_err']:.3e}")
+        art = counted_main(total, "wide_rank_accuracy (3x512, --recover-epochs 0)", wide_rank_accuracy,
+                           ["--ckpt", DENSE_512, "--recover-epochs", "0", "--out",
+                            os.path.join(tmp, "wide.json"), "--plot", ""],
+                           ["lstm_recurrence", "reduced_recurrence"])
+        log(f"[parallel] wide_rank_accuracy on {card_line()}: full {art['full_ms']:.3f} ms, " + ", ".join(
+            f"r={row['rank']} RMSE x{row['rmse_ratio']:.4f} (fast x{row['rmse_fast_ratio']:.4f}) time "
+            f"x{row['timing_ratio']:.4f}" for row in art["rows"]))
+        r = counted_main(total, "conv_compression --quick", conv_compression, ["--quick", "--out", tmp],
+                         ["fused_dense_stack"])
+        log(f"[parallel] conv_compression: RMSE dense {r['rmse_dense_mm']:.3f} mm, reduced "
+            f"{r['rmse_reduced_mm']:.3f} mm, native {r['native_err']:.2e}")
+        r = counted_main(total, "realtime_stream --quick", realtime_stream, ["--quick"])
+        log(f"[parallel] realtime_stream: graph step {r['stream_us']:.1f} us/frame (host clock), err "
+            f"{r['stream_err']:.2e}; native {r['native_us']:.1f} us/frame, err {r['native_err']:.2e}")
+    forward, (model, x) = entry(device=dev)
+    cpu_forward, (cpu_model, cpu_x) = entry(device="cpu")
+    with exact_matmul(), torch.no_grad():
+        check_close("14c entry()'s forward on the card against the plain CPU forward", forward(model, x).cpu(),
+                    cpu_forward(cpu_model, cpu_x), ENTRY_TOL)
+
+
+def parallel_path(dev, data) -> dict:
+    """Phase 14: the parallel entry points at world size 1 (14a), fit_dp on
+    two ranks of the one card (14b), the distributed command, the three
+    examples and entry() (14c). Returns the launches of its main-path
+    calls."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    ref = world_one_path(dev, data, total)
+    two_rank_path(ref, total)
+    cache = os.environ.get("XDG_CACHE_HOME")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_parallel_cache_") as tmp:
+        os.environ["XDG_CACHE_HOME"] = tmp
+        try:
+            parallel_commands(dev, total)
+        finally:
+            if cache is None:
+                os.environ.pop("XDG_CACHE_HOME", None)
+            else:
+                os.environ["XDG_CACHE_HOME"] = cache
+    log(f"[parallel] phase 14 kernel launches of its main-path calls: {total}; phase 14 took "
+        f"{time.perf_counter() - t0:.1f} s on {card_line()}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs only "
@@ -3809,7 +4101,7 @@ def wall_clock():
 
 
 def smoke(args) -> int:
-    """Phases 1-13 (see the module docstring)."""
+    """Phases 1-14 (see the module docstring)."""
     log(card_line())  # the card's name and power limit, as nvidia-smi prints them
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}")
@@ -3863,6 +4155,9 @@ def smoke(args) -> int:
     for k, v in workflow_path(dev).items():
         launches[k] = launches.get(k, 0) + v
     lap("13 workflow commands")
+    for k, v in parallel_path(dev, data).items():
+        launches[k] = launches.get(k, 0) + v
+    lap("14 parallel")
 
     print(json.dumps({"kernels": kernel_entries(checks, launches)}))
     print(json.dumps({

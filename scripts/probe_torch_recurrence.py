@@ -85,7 +85,7 @@ def forced(xp, U, fast: bool, units: int, home: str):
 
     def f():
         ck._launch("lstm_recurrence", xp.device, xp.data_ptr(), packed.data_ptr(), None, None,
-                   out.data_ptr(), T, n, units, ck.WAVE_HOMES.index(home), int(fast))
+                   out.data_ptr(), None, T, n, units, ck.WAVE_HOMES.index(home), int(fast))
         return out
     return f
 

@@ -83,8 +83,8 @@ def forced(xp, l, fast: bool, cluster: int, home: str):
 
     def f():
         ck._launch("reduced_recurrence", xp.device, xp.data_ptr(), packed.data_ptr(),
-                   ranks_arr.ctypes.data, len(ranks), None, None, out.data_ptr(), T, n, cluster,
-                   warps, ck.RED_HOMES.index(home), int(fast))
+                   ranks_arr.ctypes.data, len(ranks), None, None, out.data_ptr(), None, T, n,
+                   cluster, warps, ck.RED_HOMES.index(home), int(fast))
         return out
     return plan, f
 

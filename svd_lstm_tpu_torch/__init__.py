@@ -26,7 +26,12 @@ parallel cells into one layer (``merge_parallel_cell_weights``). The JAX
 package's workflow scripts are modules of ``examples/`` and commands of
 ``python -m svd_lstm_tpu_torch`` (``train``, ``compress``, ``sweep``,
 ``rank-rmse``, ``timing``, ``freq``, ``batched``, ``seq-train``,
-``native-bench``), their figures in ``viz/plots.py``.
+``native-bench``, ``distributed``), their figures in ``viz/plots.py``.
+Multi-rank execution over ``torch.distributed`` is ``parallel/``: the
+data-parallel loops, the gate-column tensor-parallel step, sharded batched
+inference and the pipeline-parallel whole-run inference, SPMD (every rank
+calls the same function); ``entry.entry()`` gives the 4x40 forward step
+and its example arguments.
 
 The entry points run on the card unless asked for the CPU:
 ``load_params``, ``from_numpy_tree``, ``init_stacked_lstm`` and

@@ -37,9 +37,10 @@ The workflow commands, each a module of ``examples/`` with ``run`` and
     seq-train    — parallel -> sequential merge, then more training
                    (examples/sequentialize_train)
     native-bench — per-step latency of the native C++ runtime (examples/bench_native)
+    distributed  — dp training and pp inference over torch.distributed ranks
+                   (examples/distributed_training)
 
-Not ported yet: ``distributed`` (ROADMAP queue 1, item 8: parallel/) and
-``bench`` (item 3: the CUDA benchmark).
+Not ported yet: ``bench`` (ROADMAP queue 1, item 1: the CUDA benchmark).
 """
 
 import os
@@ -56,11 +57,11 @@ _WORKFLOW = {
     "batched": "batched_inference",
     "seq-train": "sequentialize_train",
     "native-bench": "bench_native",
+    "distributed": "distributed_training",
 }
 # the JAX package's commands still to port, and the ROADMAP item that holds each
 _NOT_PORTED = {
-    "distributed": "ROADMAP queue 1, item 8 (parallel/: the dp pipeline over torch.distributed)",
-    "bench": "ROADMAP queue 1, item 3 (the CUDA benchmark, a benchmark PR)",
+    "bench": "ROADMAP queue 1, item 1 (the CUDA benchmark, a benchmark PR)",
 }
 _COMMANDS = ("export", "stream", "trace", "tune", *_WORKFLOW)
 

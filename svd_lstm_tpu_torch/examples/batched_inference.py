@@ -2,9 +2,10 @@
 ``predict``.
 
 Counterpart of ``examples/batched_inference.py``, which shards the
-sequences over a dp mesh of devices. The port runs on one card, so the
-whole batch is one shard (B = ``--batch``); sharding over several cards
-waits for ``parallel/`` (ROADMAP queue 1, item 8). ``--precision fast``
+sequences over a dp mesh of devices. The command runs on one card, so the
+whole batch is one shard (B = ``--batch``); over several ranks the same
+split is ``parallel.train.make_batched_inference`` (and
+``make_batched_fast_inference``). ``--precision fast``
 runs the batched fast path (bf16 x-side products, K5 a layer on the card);
 ``exact`` and ``high`` run the plain scan. In exact mode the batch's output
 is compared with each sequence run alone through the plain scan, as the

@@ -42,10 +42,10 @@ _SIGNATURES = {
     "fused_dense_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
     # meta, L, P, E, x, out, T, d, lanes, home, bf16, stream
     "dense_stack_wave_launch": [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P],
-    # xp, P, ranks (int*), blocks, h0, c0, out, T, n, cluster, warps, home, bf16, stream
-    "reduced_recurrence_launch": [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # xp, P, h0, c0, out, T, n, units, home, bf16, stream
-    "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # xp, P, ranks (int*), blocks, h0, c0, out, c_out, T, n, cluster, warps, home, bf16, stream
+    "reduced_recurrence_launch": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # xp, P, h0, c0, out, c_out, T, n, units, home, bf16, stream
+    "lstm_recurrence_launch": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # n, units, home, bf16, per_sm (int*)
     "lstm_recurrence_per_sm": [_I, _I, _I, _I, _P],
     # meta, L, x, out, T, d, bf16, stream

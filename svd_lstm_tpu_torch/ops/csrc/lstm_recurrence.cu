@@ -521,8 +521,8 @@ dense_stack_wave(WaveArgs a, const typename WaveEntry<BF16>::E* __restrict__ P,
 // reduced_recurrence_pallas. Low-rank h-side recurrence of one layer,
 // batch 1, from the hoisted input projection:
 //   hb = h_{t-1}·B (R outputs), z_t = xp_t + hb·[I|C], the gate update;
-// h_t goes out unrounded (T, n). Merged: one B (n, r) and [I|C] (r, 4n),
-// hb shared by the four gates. Split: per gate B_g (n, r_g) and [I|C_g]
+// h_t goes out unrounded (T, n), and c_T into c_out where given. Merged:
+// one B (n, r) and [I|C] (r, 4n), hb shared by the four gates. Split: per gate B_g (n, r_g) and [I|C_g]
 // (r_g, n), gate g's columns reading only its own block of hb (R = Σ r_g).
 //
 // What bounds it: a step is n·R + R·4n multiply-adds (61 440 at n = 512,
@@ -604,7 +604,8 @@ template <bool BF16, bool SPLIT, int HOME, int CL>
 __global__ void __launch_bounds__(HOME == kRegs ? RED_REG_THREADS : MAX_THREADS)
 reduced_chain(const RedArgs a, const float* __restrict__ xp,
               const typename Mode<BF16>::W* __restrict__ P, const float* __restrict__ h0,
-              const float* __restrict__ c0, float* __restrict__ out, int T) {
+              const float* __restrict__ c0, float* __restrict__ out, float* __restrict__ c_out,
+              int T) {
   using WT = typename Mode<BF16>::W;
   constexpr int NB = SPLIT ? 4 : 1;
   namespace cg = cooperative_groups;
@@ -710,13 +711,15 @@ reduced_chain(const RedArgs a, const float* __restrict__ xp,
     }
     __syncwarp();  // hbw is this warp's partial again
   }
+  if (unit && lane < RED_UNITS && c_out != nullptr) c_out[j] = c;  // c_T, when asked for
 }
 
 // ---------------------------------------------------------------------------
 // K3. recurrence_chain — replaces svd_lstm_tpu/ops/pallas_lstm.py:
 // lstm_recurrence_pallas. Dense h-side recurrence of one layer, batch 1,
 // from the hoisted input projection: z_t = xp_t + h_{t-1}·U, the gate
-// update; h_t goes out unrounded (T, n).
+// update; h_t goes out unrounded (T, n), and c_T into c_out where given
+// (the pipeline's stages carry it from one chunk of time to the next).
 //
 // What bounds it: U is (n, 4n), 4 MB of f32 at n = 512 (2 MB bf16), and
 // every unit of h_t needs all of h_{t-1}, so each step is a grid-wide
@@ -789,8 +792,8 @@ __host__ __device__ __forceinline__ int rec_kp(int n) { return (n + 31) / 32 * 3
 template <bool BF16, int HOME>
 __global__ void __launch_bounds__(HOME == kRegs ? REC_REG_THREADS : MAX_THREADS)
 recurrence_chain(const float* __restrict__ xp, const typename WaveEntry<BF16>::E* __restrict__ P,
-                 const float* __restrict__ h0, const float* __restrict__ c0, float* out, int T,
-                 int n) {
+                 const float* __restrict__ h0, const float* __restrict__ c0, float* out,
+                 float* __restrict__ c_out, int T, int n) {
   using Ent = typename WaveEntry<BF16>::E;
   extern __shared__ float4 rec_smem[];
   const int J = blockDim.x >> 5;
@@ -884,6 +887,7 @@ recurrence_chain(const float* __restrict__ xp, const typename WaveEntry<BF16>::E
       out[(size_t)t * n + j] = ao * tanhf(c);
     }
   }
+  if (unit && lane == 0 && c_out != nullptr) c_out[j] = c;  // c_T, when asked for
 }
 
 template <typename WT>
@@ -1427,7 +1431,7 @@ size_t red_smem_bytes(const RedArgs& a, int CL, int home, bool bf16) {
 // card cannot hold is refused, never run another way.
 template <bool BF16, bool SPLIT, int HOME, int CL>
 int launch_reduced_chain(const RedArgs& a, const float* xp, const void* P_, const float* h0,
-                         const float* c0, float* out, int T, cudaStream_t s) {
+                         const float* c0, float* out, float* c_out, int T, cudaStream_t s) {
   using WT = typename Mode<BF16>::W;
   const auto kernel = reduced_chain<BF16, SPLIT, HOME, CL>;
   const size_t smem = red_smem_bytes(a, CL, HOME, BF16);
@@ -1453,7 +1457,8 @@ int launch_reduced_chain(const RedArgs& a, const float* xp, const void* P_, cons
     return (int)e;
   if (clusters < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   const WT* P = (const WT*)P_;
-  if ((e = cudaLaunchKernelEx(&cfg, kernel, a, xp, P, h0, c0, out, T)) != cudaSuccess) return (int)e;
+  if ((e = cudaLaunchKernelEx(&cfg, kernel, a, xp, P, h0, c0, out, c_out, T)) != cudaSuccess)
+    return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -1479,7 +1484,7 @@ int rec_occupancy(int n, int units, int* per_sm) {
 // cooperative launch.
 template <bool BF16, int HOME>
 int launch_chain(const float* xp, const void* P_, const float* h0, const float* c0, float* out,
-                 int T, int n, int units, cudaStream_t s) {
+                 float* c_out, int T, int n, int units, cudaStream_t s) {
   using Ent = typename WaveEntry<BF16>::E;
   int per_sm = 0, dev = 0, sms = 0;
   int err = rec_occupancy<BF16, HOME>(n, units, &per_sm);
@@ -1492,7 +1497,8 @@ int launch_chain(const float* xp, const void* P_, const float* h0, const float* 
   if (per_sm < 1 || (long long)ctas > (long long)per_sm * sms)
     return (int)cudaErrorCooperativeLaunchTooLarge;
   const Ent* P = (const Ent*)P_;
-  void* args[] = {(void*)&xp, (void*)&P, (void*)&h0, (void*)&c0, (void*)&out, (void*)&T, (void*)&n};
+  void* args[] = {(void*)&xp, (void*)&P,     (void*)&h0, (void*)&c0,
+                  (void*)&out, (void*)&c_out, (void*)&T,  (void*)&n};
   e = cudaLaunchCooperativeKernel((const void*)recurrence_chain<BF16, HOME>, dim3(ctas),
                                   dim3(32 * units), args, rec_smem_bytes(n, units, HOME, BF16), s);
   if (e != cudaSuccess) return (int)e;
@@ -1668,12 +1674,13 @@ int dense_stack_wave_launch(const int64_t* meta, int L, const void* P, int E, co
 
 // K2 (reduced_chain). P: the packed blocks of CL x warps warps, entries
 // each, float (bf16 == 0) or bf16 (fast mode) (ops/cuda_lstm.py:
-// pack_reduced_chain); h0, c0: (n) or null. ranks: 1 (merged) or 4 (split)
+// pack_reduced_chain); h0, c0: (n) or null; c_out: (n), the final c, or
+// null. ranks: 1 (merged) or 4 (split)
 // block ranks; cluster: CL; warps: warps a CTA; home: 0 registers, 1
 // staged (ops/cuda_lstm.py: reduced_plan), checked here, not chosen.
 int reduced_recurrence_launch(const void* xp, const void* P, const int* ranks, int blocks,
-                              const void* h0, const void* c0, void* out, int T, int n,
-                              int cluster, int warps, int home, int bf16, void* stream) {
+                              const void* h0, const void* c0, void* out, void* c_out, int T,
+                              int n, int cluster, int warps, int home, int bf16, void* stream) {
   if (T < 1 || n < 1 || P == nullptr || (blocks != 1 && blocks != 4) || warps < 1 ||
       warps > RED_MAX_WARPS || cluster < 1 || cluster > RED_MAX_CLUSTER ||
       (long long)cluster * warps * RED_UNITS < n || (home != kRegs && home != kStaged) ||
@@ -1697,10 +1704,10 @@ int reduced_recurrence_launch(const void* xp, const void* P, const int* ranks, i
   if (red_smem_bytes(a, cluster, home, bf16 != 0) > 232448) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const float *x = (const float*)xp, *h = (const float*)h0, *c = (const float*)c0;
-  float* o = (float*)out;
+  float *o = (float*)out, *co = (float*)c_out;
 #define RED_CASE(B_, S_, H_, CL_)                                                              \
   if ((bf16 != 0) == B_ && (blocks == 4) == S_ && home == H_ && cluster == CL_)                \
-    return launch_reduced_chain<B_, S_, H_, CL_>(a, x, P, h, c, o, T, s);
+    return launch_reduced_chain<B_, S_, H_, CL_>(a, x, P, h, c, o, co, T, s);
 #define RED_CLUSTERS(B_, S_, H_) \
   RED_CASE(B_, S_, H_, 1) RED_CASE(B_, S_, H_, 2) RED_CASE(B_, S_, H_, 4) RED_CASE(B_, S_, H_, 8) \
   RED_CASE(B_, S_, H_, 16)
@@ -1715,19 +1722,21 @@ int reduced_recurrence_launch(const void* xp, const void* P, const int* ranks, i
 
 // K3 (recurrence_chain). P: U packed unit-major, n·n entries, float4
 // (bf16 == 0) or four bf16 (fast mode) (ops/cuda_lstm.py:
-// pack_recurrence); h0, c0: (n) or null. units: J a CTA; home: 0
+// pack_recurrence); h0, c0: (n) or null; c_out: (n), the final c, or null. units: J a CTA; home: 0
 // registers, 1 staged, 2 the global copy (ops/cuda_lstm.py:
 // recurrence_plan), checked here, not chosen.
 int lstm_recurrence_launch(const void* xp, const void* P, const void* h0, const void* c0,
-                           void* out, int T, int n, int units, int home, int bf16, void* stream) {
+                           void* out, void* c_out, int T, int n, int units, int home, int bf16,
+                           void* stream) {
   if (T < 1 || P == nullptr || !rec_plan_ok(n, units, home, bf16 != 0))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)P) & (bf16 ? 7 : 15)) return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = (cudaStream_t)stream;
   const float *x = (const float*)xp, *h = (const float*)h0, *c = (const float*)c0;
-  float* o = (float*)out;
-#define CHAIN_CASE(B_, H_) \
-  if ((bf16 != 0) == B_ && home == H_) return launch_chain<B_, H_>(x, P, h, c, o, T, n, units, s);
+  float *o = (float*)out, *co = (float*)c_out;
+#define CHAIN_CASE(B_, H_)                \
+  if ((bf16 != 0) == B_ && home == H_) \
+    return launch_chain<B_, H_>(x, P, h, c, o, co, T, n, units, s);
   CHAIN_CASE(false, kRegs) CHAIN_CASE(false, kStaged) CHAIN_CASE(false, kGlobal)
   CHAIN_CASE(true, kRegs) CHAIN_CASE(true, kStaged) CHAIN_CASE(true, kGlobal)
 #undef CHAIN_CASE

@@ -140,6 +140,15 @@ def _check_T(name: str, T: int) -> None:
         raise ValueError(f"{name}: empty sequence")
 
 
+def _check_packed(name: str, P: torch.Tensor, size: int, fast: bool, device) -> None:
+    """Weights a caller packed once for many calls: the size and dtype this
+    call's plan and mode pack, on the call's card."""
+    dtype = torch.bfloat16 if fast else torch.float32
+    if P.dtype != dtype or P.numel() != size or P.device != device or not P.is_contiguous():
+        raise ValueError(f"{name}: packed weights {P.dtype} of {P.numel()} on {P.device}; this call "
+                         f"packs {dtype} of {size} on {device}")
+
+
 def _is_fast(dot_precision=None) -> bool:
     """Whether a call runs the bf16-operand variant (``dot_precision=
     "default"``). ``None`` and ``"highest"`` are exact; any other value
@@ -170,17 +179,24 @@ def reset_launch_counts() -> None:
 # K3: dense h-side recurrence
 # ---------------------------------------------------------------------------
 
+def _with_c(scanned, return_c: bool):
+    """A batch-1 ``scan_recurrence`` result as the wrappers return it: h_seq
+    (T, n), and with ``return_c`` the final c (n,) beside it."""
+    h_seq, (_, c) = scanned
+    return (h_seq[0], c[0]) if return_c else h_seq[0]
+
+
 @torch.no_grad()
-def lstm_recurrence_plain(xp, U, h0=None, c0=None, dot_precision=None) -> torch.Tensor:
-    """z_t = xp_t + h·U, gate update. xp (T, 4n) -> h_seq (T, n). Fast:
-    bf16(h)·bf16(U) in xp's dtype (float32, or float64 state for a float64
-    xp)."""
+def lstm_recurrence_plain(xp, U, h0=None, c0=None, dot_precision=None, return_c: bool = False):
+    """z_t = xp_t + h·U, gate update. xp (T, 4n) -> h_seq (T, n), and with
+    ``return_c`` the final c (n,) beside it. Fast: bf16(h)·bf16(U) in xp's
+    dtype (float32, or float64 state for a float64 xp)."""
     operand = operand_map(_is_fast(dot_precision))
     n = U.shape[0]
     U = operand(U)
     h0 = None if h0 is None else h0.reshape(1, n)
     c0 = None if c0 is None else c0.reshape(1, n)
-    return scan_recurrence(xp[None], lambda h: torch.matmul(operand(h), U), h0, c0)[0][0]
+    return _with_c(scan_recurrence(xp[None], lambda h: torch.matmul(operand(h), U), h0, c0), return_c)
 
 
 REC_UNITS = (4, 8, 16, 32)  # units a CTA (a warp each) that recurrence_plan tries, fewest first
@@ -263,10 +279,15 @@ def pack_recurrence(U: torch.Tensor, fast: bool) -> torch.Tensor:
 
 
 @torch.no_grad()
-def lstm_recurrence(xp, U, h0=None, c0=None, dot_precision=None) -> torch.Tensor:
+def lstm_recurrence(xp, U, h0=None, c0=None, dot_precision=None, return_c: bool = False,
+                    packed: torch.Tensor | None = None):
     """Dense h-side recurrence from the hoisted input projection (bias
-    included). xp (T, 4n), U (n, 4n), optional h0/c0 (n,) -> (T, n). On the
-    card one launch of the chain :func:`recurrence_plan` picks."""
+    included). xp (T, 4n), U (n, 4n), optional h0/c0 (n,) -> (T, n); with
+    ``return_c`` also the final c (n,), which the kernel then stores, so a
+    caller can carry (h, c) into the next stretch of time. On the card one
+    launch of the chain :func:`recurrence_plan` picks; ``packed``: U as
+    :func:`pack_recurrence` packs it for this mode, for a caller that runs
+    one U over many stretches (ignored on the CPU)."""
     fast = _is_fast(dot_precision)
     T, n = xp.shape[0], U.shape[0]
     _check_T("lstm_recurrence", T)
@@ -274,17 +295,22 @@ def lstm_recurrence(xp, U, h0=None, c0=None, dot_precision=None) -> torch.Tensor
     _check("U", U, (n, 4 * n))
     h0, c0 = _state("h0", h0, n), _state("c0", c0, n)
     if not _on_card(xp, U, *(s for s in (h0, c0) if s is not None)):
-        return lstm_recurrence_plain(xp, U, h0, c0, dot_precision)
+        return lstm_recurrence_plain(xp, U, h0, c0, dot_precision, return_c)
     plan = card_recurrence_plan(xp.device, n, fast)
-    P = pack_recurrence(U, fast)
+    if packed is None:
+        P = pack_recurrence(U, fast)
+    else:
+        _check_packed("lstm_recurrence", packed, 4 * n * n, fast, xp.device)
+        P = packed
     out = torch.empty((T, n), dtype=torch.float32, device=xp.device)
+    c_out = torch.empty((n,), dtype=torch.float32, device=xp.device) if return_c else None
     _launch(
         "lstm_recurrence", xp.device,
-        xp.data_ptr(), P.data_ptr(), _ptr(h0), _ptr(c0), out.data_ptr(), T, n, plan.units,
-        WAVE_HOMES.index(plan.home), int(fast),
+        xp.data_ptr(), P.data_ptr(), _ptr(h0), _ptr(c0), out.data_ptr(), _ptr(c_out), T, n,
+        plan.units, WAVE_HOMES.index(plan.home), int(fast),
     )
     _count("lstm_recurrence", fast)
-    return out
+    return (out, c_out) if return_c else out
 
 
 # ---------------------------------------------------------------------------
@@ -314,15 +340,17 @@ def _check_factors(side: str, Bs, Cs, rows: int, n: int) -> list:
 
 
 @torch.no_grad()
-def reduced_recurrence_plain(xp, uB, uC, h0=None, c0=None, dot_precision=None) -> torch.Tensor:
+def reduced_recurrence_plain(xp, uB, uC, h0=None, c0=None, dot_precision=None,
+                             return_c: bool = False):
     """z_t = xp_t + (h·B)·[I|C], merged (uB (n, r), uC (r, 4n−r)) or split
-    (4 per-gate pairs uB[g] (n, r_g), uC[g] (r_g, n−r_g)). -> (T, n). Fast:
-    h, B, h·B and [I|C] rounded to bf16 as the products' operands."""
+    (4 per-gate pairs uB[g] (n, r_g), uC[g] (r_g, n−r_g)). -> (T, n), and
+    with ``return_c`` the final c (n,) beside it. Fast: h, B, h·B and [I|C]
+    rounded to bf16 as the products' operands."""
     n = xp.shape[1] // 4
     rec = folded_projection(uB, uC, _is_fast(dot_precision))
     h0 = None if h0 is None else h0.reshape(1, n)
     c0 = None if c0 is None else c0.reshape(1, n)
-    return scan_recurrence(xp[None], rec, h0, c0)[0][0]
+    return _with_c(scan_recurrence(xp[None], rec, h0, c0), return_c)
 
 
 def _pack_reduced(uB, uC, n: int):
@@ -451,27 +479,50 @@ def pack_reduced_chain(uB, uC, n: int, warps_total: int, fast: bool) -> torch.Te
     return (P.to(torch.bfloat16) if fast else P).contiguous()
 
 
-def _launch_reduced(xp, uB, uC, h0, c0, fast: bool, plan: ReducedPlan) -> torch.Tensor:
-    """One launch of K2 as ``plan`` says, on checked card tensors."""
+def pack_reduced_recurrence(uB, uC, dot_precision=None) -> torch.Tensor:
+    """K2's weights packed (:func:`pack_reduced_chain`) for the plan of
+    these factors' card, for a caller that runs them over many stretches
+    of time (``reduced_recurrence(..., packed=)``). Card tensors only."""
+    fast = _is_fast(dot_precision)
+    n = (uB[0] if _is_split(uB) else uB).shape[0]
+    plan = card_reduced_plan(uC[0].device if _is_split(uC) else uC.device, n, reduced_ranks(uB), fast)
+    return pack_reduced_chain(uB, uC, n, plan.cluster * plan.warps, fast)
+
+
+def _launch_reduced(xp, uB, uC, h0, c0, fast: bool, plan: ReducedPlan, c_out=None,
+                    packed: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch of K2 as ``plan`` says, on checked card tensors; the final
+    c goes into ``c_out`` (n,) where given; ``packed``: the weights as the
+    plan packs them, packed by the caller."""
     T, n = xp.shape[0], xp.shape[1] // 4
     ranks = reduced_ranks(uB)
-    P = pack_reduced_chain(uB, uC, n, plan.cluster * plan.warps, fast)
+    W = plan.cluster * plan.warps
+    if packed is None:
+        P = pack_reduced_chain(uB, uC, n, W, fast)
+    else:
+        _check_packed("reduced_recurrence", packed, W * reduced_entries(ranks), fast, xp.device)
+        P = packed
     rank_arr = np.array(ranks, dtype=np.int32)
     out = torch.empty((T, n), dtype=torch.float32, device=xp.device)
     _launch(
         "reduced_recurrence", xp.device,
         xp.data_ptr(), P.data_ptr(), rank_arr.ctypes.data, len(ranks), _ptr(h0), _ptr(c0),
-        out.data_ptr(), T, n, plan.cluster, plan.warps, RED_HOMES.index(plan.home), int(fast),
+        out.data_ptr(), _ptr(c_out), T, n, plan.cluster, plan.warps, RED_HOMES.index(plan.home),
+        int(fast),
     )
     return out
 
 
 @torch.no_grad()
-def reduced_recurrence(xp, uB, uC, h0=None, c0=None, dot_precision=None) -> torch.Tensor:
+def reduced_recurrence(xp, uB, uC, h0=None, c0=None, dot_precision=None, return_c: bool = False,
+                       packed: torch.Tensor | None = None):
     """Low-rank h-side recurrence in the folded form (h·B)·[I|C].
     xp (T, 4n); merged uB (n, r), uC (r, 4n−r); split: 4 each of
-    uB[g] (n, r_g), uC[g] (r_g, n−r_g). Optional h0/c0 (n,). -> (T, n). On
-    the card one launch of the cluster :func:`reduced_plan` picks."""
+    uB[g] (n, r_g), uC[g] (r_g, n−r_g). Optional h0/c0 (n,). -> (T, n);
+    with ``return_c`` also the final c (n,), which the kernel then stores.
+    On the card one launch of the cluster :func:`reduced_plan` picks;
+    ``packed``: the weights from :func:`pack_reduced_recurrence` (ignored on
+    the CPU)."""
     fast = _is_fast(dot_precision)
     T, g4 = xp.shape
     n = g4 // 4
@@ -480,11 +531,12 @@ def reduced_recurrence(xp, uB, uC, h0=None, c0=None, dot_precision=None) -> torc
     factors = _check_factors("u", uB, uC, n, n)
     h0, c0 = _state("h0", h0, n), _state("c0", c0, n)
     if not _on_card(xp, *factors, *(s for s in (h0, c0) if s is not None)):
-        return reduced_recurrence_plain(xp, uB, uC, h0, c0, dot_precision)
+        return reduced_recurrence_plain(xp, uB, uC, h0, c0, dot_precision, return_c)
     plan = card_reduced_plan(xp.device, n, reduced_ranks(uB), fast)
-    out = _launch_reduced(xp, uB, uC, h0, c0, fast, plan)
+    c_out = torch.empty((n,), dtype=torch.float32, device=xp.device) if return_c else None
+    out = _launch_reduced(xp, uB, uC, h0, c0, fast, plan, c_out, packed)
     _count("reduced_recurrence", fast)
-    return out
+    return (out, c_out) if return_c else out
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,19 @@ from svd_lstm_tpu_torch.models.singular import singular_lstm_apply
 from svd_lstm_tpu_torch.utils.precision import train_matmul_scope
 
 
+@dataclasses.dataclass(frozen=True)
+class BatchShard:
+    """A data-parallel rank's part of every training batch
+    (``parallel.fit.fit_dp``): its ``rows`` of each minibatch, its ``rank``
+    folded into the batch's dropout generator, and ``reduce(params, loss)``,
+    run after the backward pass, which averages the gradients (in place)
+    and the loss over the ranks and returns the mean loss."""
+
+    rows: slice
+    rank: int
+    reduce: Callable[[list, torch.Tensor], torch.Tensor]
+
+
 @dataclasses.dataclass
 class TrainResult:
     params: Any                        # the trained model (a copy of the input)
@@ -59,12 +72,15 @@ def mse_last_step(model, x, y, apply_fn, rng=None) -> torch.Tensor:
     return torch.mean(torch.square(pred - y))
 
 
-def batch_generator(seed: int, epoch: int, batch: int, device) -> torch.Generator:
+def batch_generator(seed: int, epoch: int, batch: int, device, rank: int | None = None
+                    ) -> torch.Generator:
     """The dropout masks' generator of one batch: a ``torch.Generator`` on
     ``device`` seeded from (seed, epoch, batch) alone, so a batch's masks
     do not depend on what ran before it (the JAX ``fit`` folds the epoch
-    into its key and splits it once a batch)."""
-    state = np.random.SeedSequence([seed, epoch, batch]).generate_state(2, np.uint32)
+    into its key and splits it once a batch). ``rank`` folds a data-parallel
+    rank in (``parallel.fit.fit_dp``), so each rank's masks differ."""
+    entropy = [seed, epoch, batch] + ([] if rank is None else [rank])
+    state = np.random.SeedSequence(entropy).generate_state(2, np.uint32)
     return torch.Generator(device=device).manual_seed(int(state[0]) << 31 | int(state[1]) >> 1)
 
 
@@ -255,6 +271,7 @@ def fit(
     init_opt_state: dict | None = None,
     loss_fn: Callable | None = None,
     dropout_seed: int | None = None,
+    shard: BatchShard | None = None,
 ) -> TrainResult:
     """Train a copy of ``model`` on random windows of the (1, T, d) run, on
     the model's device (the windows move there once).
@@ -276,7 +293,10 @@ def fit(
     with the epoch and the batch's index it seeds that batch's generator on
     the model's device (:func:`batch_generator`), passed to ``apply_fn`` as
     ``rng`` (with ``loss_fn``, as its fifth argument). Validation never
-    drops."""
+    drops.
+
+    ``shard`` trains one data-parallel rank's part of each batch
+    (:class:`BatchShard`; ``parallel.fit.fit_dp`` passes it)."""
     check_train_config(cfg)
     model = copy.deepcopy(model)
     if cfg.auto_flags:
@@ -293,6 +313,7 @@ def fit(
     )
     if init_opt_state is not None:
         opt.load_state_dict(copy.deepcopy(init_opt_state))
+    params = [p for group in opt.param_groups for p in group["params"]]
     data_loss = mse_last_step if loss_fn is None else loss_fn
 
     if windows is not None:
@@ -316,6 +337,7 @@ def fit(
     X_dev = torch.as_tensor(X_mini, dtype=torch.float32, device=device)
     y_dev = torch.as_tensor(y_mini, dtype=torch.float32, device=device)
     val_fn = make_val_fn(exact_apply_fn, validation, device)
+    fold = {} if shard is None else {"rank": shard.rank}  # a dp rank's own dropout masks
 
     def epoch_step(epoch: int) -> float:
         perm = np.random.default_rng(cfg.seed + epoch).permutation(n)[:n_full]
@@ -324,15 +346,19 @@ def fit(
         with train_matmul_scope(cfg.matmul_precision):
             for i in range(0, n_full, cfg.batch_size):
                 sel = idx[i : i + cfg.batch_size]
+                if shard is not None:
+                    sel = sel[shard.rows]
                 if dropout_seed is None:
                     loss = data_loss(model, X_dev[sel], y_dev[sel], apply_fn)
                 else:
-                    rng = batch_generator(dropout_seed, epoch, i // cfg.batch_size, device)
+                    rng = batch_generator(dropout_seed, epoch, i // cfg.batch_size, device, **fold)
                     loss = data_loss(model, X_dev[sel], y_dev[sel], apply_fn, rng)
                 if loss_extra is not None:
                     loss = loss + loss_extra(model)
                 opt.zero_grad(set_to_none=True)
                 loss.backward()
+                if shard is not None:
+                    loss = shard.reduce(params, loss)
                 opt.step()
                 losses.append(loss.detach())
         return float(torch.stack(losses).mean())

@@ -145,8 +145,7 @@ def test_commands_refuse_what_they_cannot_do(setup, tmp_path, monkeypatch, capsy
         cli._stream([paths["dense"], "--input", str(short), "--output", str(tmp_path / "o.csv"),
                      "--device", "cpu"])
     # an unported command names the ROADMAP item that holds it; no command lists them all
-    for argv, said in ((["svd_lstm_tpu_torch", "distributed"], "item 8"),
-                       (["svd_lstm_tpu_torch", "bench"], "item 3"),
+    for argv, said in ((["svd_lstm_tpu_torch", "bench"], "item 1"),
                        (["svd_lstm_tpu_torch"], "commands: export, stream, trace, tune, train")):
         monkeypatch.setattr(sys, "argv", argv)
         with pytest.raises(SystemExit) as e:

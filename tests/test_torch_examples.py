@@ -238,7 +238,7 @@ def test_cli_lists_every_command_and_runs_one():
     assert "shard-vs-local err" in out.stdout
 
 
-@pytest.mark.parametrize("cmd,item", [("distributed", "item 8"), ("bench", "item 3")])
+@pytest.mark.parametrize("cmd,item", [("bench", "item 1")])
 def test_unported_commands_exit_2(cmd, item, monkeypatch, capsys):
     monkeypatch.setattr(sys, "argv", ["svd_lstm_tpu_torch", cmd])
     with pytest.raises(SystemExit) as e:

@@ -64,7 +64,7 @@ def _sigmoid(z):
     return np.float32(1) / (np.float32(1) + np.exp(-z))
 
 
-def emulate_chain(xp_ptr, P_ptr, h0_ptr, c0_ptr, out_ptr, T, n, units, home, bf16, *, rng,
+def emulate_chain(xp_ptr, P_ptr, h0_ptr, c0_ptr, out_ptr, c_out_ptr, T, n, units, home, bf16, *, rng,
                   mutation=None):
     """One lstm_recurrence_launch, all T steps, its CTAs shuffled every step
     (module docstring). ``home`` moves no number, so it is only checked."""
@@ -110,6 +110,8 @@ def emulate_chain(xp_ptr, P_ptr, h0_ptr, c0_ptr, out_ptr, T, n, units, home, bf1
             cval[j] = cj
             h = _sigmoid(z[:, 3]) * np.tanh(cj)
             out[t, np.minimum(j, n - 1)] = h  # "mask": a unit past n lands on unit n - 1
+    if c_out_ptr:
+        _view(c_out_ptr, n, np.float32)[:] = cval[:n]  # the owning lanes' c_T
     return 0
 
 
@@ -125,7 +127,8 @@ def _occupancy(n, fast):
     return per_sm
 
 
-def _run_emulated(args, fast, monkeypatch, sms=132, per_sm=None, mutation=None, seed=0):
+def _run_emulated(args, fast, monkeypatch, sms=132, per_sm=None, mutation=None, seed=0,
+                  return_c=False, packed=None):
     """lstm_recurrence on CPU tensors with the card's route taken: the plan
     for ``sms`` SMs, the launch emulated. Returns (h, plan, launches)."""
     rng = np.random.default_rng(seed)
@@ -143,7 +146,8 @@ def _run_emulated(args, fast, monkeypatch, sms=132, per_sm=None, mutation=None, 
     monkeypatch.setattr(ck, "card_recurrence_plan", lambda dev, n_, fast_: plan)
     monkeypatch.setattr(ck, "_launch", launch)
     monkeypatch.setattr(ck, "LAUNCHES", dict.fromkeys(ck.REPLACES, 0))
-    h = ck.lstm_recurrence(*args, dot_precision="default" if fast else None)
+    h = ck.lstm_recurrence(*args, dot_precision="default" if fast else None, return_c=return_c,
+                           packed=packed)
     return h, plan, launches
 
 
@@ -170,6 +174,33 @@ def test_emulated_chain_matches_plain(n, T, fast, state, monkeypatch):
     assert ck.LAUNCHES == {**dict.fromkeys(ck.REPLACES, 0),
                            "lstm_recurrence_fast" if fast else "lstm_recurrence": 1}
     assert got.shape == (T, n) and _within(got, args, fast)
+
+
+@pytest.mark.parametrize("n,T", [(30, 8), (136, 6)])
+def test_emulated_chain_returns_final_c(n, T, monkeypatch):
+    """With return_c the chain stores c_T, which the pipeline's stages
+    carry into the next chunk: the plain version's final c, within K3's
+    limit."""
+    args = tuple(torch.tensor(a) for a in _case(3, T, n))
+    (h, c), _, _ = _run_emulated(args, False, monkeypatch, return_c=True)
+    want_h, want_c = ck.lstm_recurrence_plain(*args, return_c=True)
+    assert c.shape == (n,) and h.shape == (T, n)
+    torch.testing.assert_close(h, want_h, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(c, want_c, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("fast", [False, True], ids=["exact", "fast"])
+def test_emulated_chain_takes_packed_weights(fast, monkeypatch):
+    """U packed once by the caller (the pipeline's chunks) gives the launch
+    the weights it packs itself; a packing of another width or mode
+    raises."""
+    args = tuple(torch.tensor(a) for a in _case(5, 6, 40))
+    want, _, _ = _run_emulated(args, fast, monkeypatch)
+    got, _, _ = _run_emulated(args, fast, monkeypatch, packed=ck.pack_recurrence(args[1], fast))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    for bad in (ck.pack_recurrence(args[1], not fast), ck.pack_recurrence(args[1][:, :4 * 39][:39], fast)):
+        with pytest.raises(ValueError, match="packed weights"):
+            _run_emulated(args, fast, monkeypatch, packed=bad)
 
 
 @pytest.mark.parametrize("mutation,n", [

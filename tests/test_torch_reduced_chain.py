@@ -78,7 +78,7 @@ def _sigmoid(z):
     return np.float32(1) / (np.float32(1) + np.exp(-z))
 
 
-def emulate_reduced(xp_ptr, P_ptr, ranks_ptr, blocks, h0_ptr, c0_ptr, out_ptr, T, n, cluster,
+def emulate_reduced(xp_ptr, P_ptr, ranks_ptr, blocks, h0_ptr, c0_ptr, out_ptr, c_out_ptr, T, n, cluster,
                     warps, home, bf16, *, rng, mutation=None):
     """One reduced_recurrence_launch, all T steps (module docstring). The
     weights' home moves no number, so it is only checked."""
@@ -169,6 +169,8 @@ def emulate_reduced(xp_ptr, P_ptr, ranks_ptr, blocks, h0_ptr, c0_ptr, out_ptr, T
                 push(t, cta)
             for cta in rng.permutation(cluster):
                 update(t, cta)
+    if c_out_ptr:
+        _view(c_out_ptr, n, np.float32)[:] = c[unit]  # lanes 0..7's c_T, in unit order
     return 0
 
 
@@ -181,10 +183,12 @@ def _plan(n, ranks, fast, cluster=None, home=None):
                           ck.reduced_smem_bytes(ranks, cluster, warps, home, fast), 0)
 
 
-def _run_emulated(args, fast, monkeypatch, plan=None, mutation=None, seed=0):
+def _run_emulated(args, fast, monkeypatch, plan=None, mutation=None, seed=0, return_c=False,
+                  packed=None):
     """reduced_recurrence on CPU tensors with the card's route taken: the
-    rule's plan on 132 SMs (or ``plan``), the launch emulated. Returns (h,
-    plan, launches)."""
+    rule's plan on 132 SMs (or ``plan``), the launch emulated; ``packed()``
+    (run with the route taken) packs the weights. Returns (h, plan,
+    launches)."""
     rng = np.random.default_rng(seed)
     xp, uB = args[:2]
     n = xp.shape[1] // 4
@@ -200,7 +204,8 @@ def _run_emulated(args, fast, monkeypatch, plan=None, mutation=None, seed=0):
     monkeypatch.setattr(ck, "card_reduced_plan", lambda dev, n_, ranks, fast_: plan)
     monkeypatch.setattr(ck, "_launch", launch)
     monkeypatch.setattr(ck, "LAUNCHES", dict.fromkeys(ck.REPLACES, 0))
-    h = ck.reduced_recurrence(*args, dot_precision="default" if fast else None)
+    h = ck.reduced_recurrence(*args, dot_precision="default" if fast else None, return_c=return_c,
+                              packed=None if packed is None else packed())
     return h, plan, launches
 
 
@@ -232,6 +237,34 @@ def test_emulated_chain_matches_plain(n, r, T, split, fast, state, monkeypatch):
     assert ck.LAUNCHES == {**dict.fromkeys(ck.REPLACES, 0),
                            "reduced_recurrence_fast" if fast else "reduced_recurrence": 1}
     assert got.shape == (T, n) and _within(got, args, fast)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["merged", "split"])
+def test_emulated_chain_returns_final_c(split, monkeypatch):
+    """With return_c the cluster stores c_T, which the pipeline's stages
+    carry into the next chunk: the plain version's final c, within K2's
+    limit."""
+    args = _case(3, 8, 30, split, 7)
+    (h, c), _, _ = _run_emulated(args, False, monkeypatch, return_c=True)
+    want_h, want_c = ck.reduced_recurrence_plain(*args, return_c=True)
+    assert c.shape == (30,) and h.shape == (8, 30)
+    torch.testing.assert_close(h, want_h, atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(c, want_c, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["merged", "split"])
+def test_emulated_chain_takes_packed_weights(split, monkeypatch):
+    """Factors packed once by the caller for the plan (the pipeline's
+    chunks, ``pack_reduced_recurrence``) give the launch the weights it
+    packs itself; a packing for another mode raises."""
+    args = _case(4, 8, 30, split, 7)
+    want, _, _ = _run_emulated(args, False, monkeypatch)
+    got, _, _ = _run_emulated(args, False, monkeypatch,
+                              packed=lambda: ck.pack_reduced_recurrence(*args[1:3]))
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="packed weights"):
+        _run_emulated(args, False, monkeypatch,
+                      packed=lambda: ck.pack_reduced_recurrence(*args[1:3], dot_precision="default"))
 
 
 @pytest.mark.parametrize("cluster,home", [(4, "registers"), (8, "staged"), (16, "registers")])
