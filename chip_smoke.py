@@ -200,7 +200,9 @@ Phases, each of which raises on failure (no phase is caught):
    ``wide_r24_progressive`` and of 4×30: the expected kernel
    (``recurrence_chain``, ``reduced_chain``, ``dense_stack_wave``) leads the
    breakdown, each batch-1 kernel's count in the trace equals its wrapper's
-   launch count, the rows add up to no more than ``device_ms`` (printed
+   launch count (the device trace can lose a kernel's event: a trace whose
+   counts disagree is logged and the call traced again, up to
+   ``TRACE_TRIES`` traces, one of which must agree), the rows add up to no more than ``device_ms`` (printed
    beside ``device_time_ms`` of the same call), and the ``trace`` command
    on ``wide_r24_progressive`` in a subprocess; (9c) each of those three
    calls' floor a step from ``bench/roofline.py`` against its measured time
@@ -220,8 +222,14 @@ Phases, each of which raises on failure (no phase is caught):
    or twice the plain version's distance from the same arithmetic in
    float64, whichever is larger (``fast_check``: a sum order that flips a
    bf16 rounding carries on), each timed beside its plain version, cuDNN's
-   bf16 LSTM and its bound at 989 TFLOP/s bf16 (K9f's and K6f's forward:
-   the x-side on ``gemm_bf16`` over bf16 copies of x and W (K9f), the chain
+   bf16 LSTM and its float32 time (what the bf16 call runs on the card
+   listed by the profiler) and its bound at 989 TFLOP/s bf16 (K7f's and
+   K8f's own kernels on ``mma.sync``: ``narrow_fwd_mma``, and
+   ``narrow_z``, ``narrow_bwd_mma``, ``narrow_wgrad`` in one call of the
+   backward, each part timed alone by the profiler beside its bound, the
+   plan, registers, spills and shared memory; one launch each way at T and
+   T/2; K9f's and K6f's forward: the x-side on ``gemm_bf16`` over bf16
+   copies of x and W (K9f), the chain
    on ``batched_chain`` with c stored, its product on ``mma.sync``; their
    backward: bf16 operand copies, ``gemm_bf16`` on ``wgmma`` for R, X and
    G, the dh chain's product on ``mma.sync``), then the kernels one K9f and
@@ -1326,7 +1334,11 @@ def double(tensors):
 
 
 def time_pair(name: str, shape: str, kernel, plain, *args, library_ms=None, **bounds) -> dict:
-    r = {"ms": device_time_ms(kernel, *args), "plain_ms": device_time_ms(plain, *args),
+    """The kernel's time (median of 5) beside its plain version's: ``plain``
+    a callable timed the same way, or a ``timed`` one already called on
+    these inputs (its check call's time, so a slow plain version runs once)."""
+    plain_ms = plain.ms[0] if hasattr(plain, "ms") else device_time_ms(plain, *args)
+    r = {"ms": device_time_ms(kernel, *args), "plain_ms": plain_ms,
          "library_ms": library_ms, **bounds, "shape": shape}
     extra = ""
     if bounds:
@@ -1680,7 +1692,8 @@ def compact_kernel_checks(dev, data, rng) -> dict:
 @torch.no_grad()
 def narrow_times(dev, data) -> dict:
     """K7's pair at run A's shapes, K8's at B = 128 (4x40), cuDNN's LSTM on
-    both: ms of each, in the package this process imported."""
+    both; K7f's and K8f's pair on the same inputs beside cuDNN's bf16 LSTM:
+    ms of each, in the package this process imported."""
     rng = np.random.default_rng(1)
     layers = [tuple(p.detach() for p in (l.W, l.U, l.b)) for l in TRAIN_RUNS[0].make(dev).layers]
     out = {}
@@ -1694,10 +1707,19 @@ def narrow_times(dev, data) -> dict:
         out[f"{tag} fwd ({shape})"] = device_time_ms(fwd, layers, x)
         out[f"{tag} bwd ({shape})"] = device_time_ms(bwd, layers, x, hs, cs, dh)
         out[f"cuDNN fwd ({shape})"], out[f"cuDNN bwd ({shape})"] = library_train(layers, x, dh)
+        out[f"{tag}f fwd ({shape})"] = device_time_ms(fwd, layers, x, True)
+        out[f"{tag}f bwd ({shape})"] = device_time_ms(bwd, layers, x, hs, cs, dh, True)
+        out[f"cuDNN bf16 fwd ({shape})"], out[f"cuDNN bf16 bwd ({shape})"] = library_train(
+            layers, x, dh, torch.bfloat16)
     return out
 
 
-NARROW_PARTS = {"narrow fwd": ("narrow_fwd",), "narrow bwd": ("narrow_bwd",)}
+# the narrow pair's kernels in this checkout and in earlier ones (K7f's and
+# K8f's own since their redesign: narrow_fwd_mma; narrow_z, narrow_bwd_mma,
+# narrow_wgrad, nb_sum_splits; the float32 backward's weight_grad and
+# sum_splits counted with it)
+NARROW_PARTS = {"narrow fwd": ("narrow_fwd",),
+                "narrow bwd": ("narrow_bwd", "narrow_z", "narrow_wgrad", "nb_", "weight_grad", "sum_splits")}
 # the wide pair's kernels in this checkout and in earlier ones (a
 # wide_fwd_step a step before the forward chain; K9f's and K6f's forward
 # chain batched_chain since the bf16 forward's redesign): the x-side GEMM
@@ -1866,8 +1888,9 @@ def inference_times(dev) -> dict:
 def tree_times(dev) -> dict:
     """``--time-tree DIR``: inference_times, narrow_times, wide_times and
     one train step (forward, backward, Adam) of runs A, B, E (narrow) and C,
-    D, F (wide) with the float32 kernels, and of C and D in the fused_kernel
-    regime (bf16 operands: K9f, K6f), on DIR's package: the step's span on
+    D, F (wide) with the float32 kernels, and of A, C and D in the
+    fused_kernel regime (bf16 operands: K7f, K9f, K6f) and E in bf16 (K8f),
+    on DIR's package: the step's span on
     the card, the host's time to issue it and the card's busy time in it,
     in all and in the pair's kernels (step_split)."""
     data = train_data()
@@ -1883,14 +1906,17 @@ def tree_times(dev) -> dict:
         name = f"run {run.name.split()[0]} step"
         out[name] = device_time_ms(step)
         out.update({f"{name}, {k}": v for k, v in step_split(step, parts).items()})
-    for run in (TRAIN_RUNS[2], TRAIN_RUNS[3]):
+    # the bf16 kernel regime: A, C, D in fused_kernel (K7f, K9f, K6f) and E's
+    # recovery at B = 128 (K8f, compact "auto")
+    for run, parts, compact in ((TRAIN_RUNS[0], NARROW_PARTS, False), (TRAIN_RUNS[2], WIDE_PARTS, False),
+                                (TRAIN_RUNS[3], WIDE_PARTS, False), (RECOVERY_RUNS[0], NARROW_PARTS, "auto")):
         x, y = first_batch(run, data, dev)
         base_apply, loss_extra, make_opt = at._train_apply_for(run.make(dev))
-        apply_fn = resolve_train_apply_fn(regime_cfg(run, "bfloat16", True, False), base_apply)[0]
+        apply_fn = resolve_train_apply_fn(regime_cfg(run, "bfloat16", True, compact), base_apply)[0]
         step = at._train_step(run.make(dev), apply_fn, loss_extra, make_opt, "bfloat16", x, y)
-        name = f"run {run.name.split()[0]} fused_kernel step"
+        name = f"run {run.name.split()[0]} {'bf16 kernel' if compact else 'fused_kernel'} step"
         out[name] = device_time_ms(step)
-        out.update({f"{name}, {k}": v for k, v in step_split(step, WIDE_PARTS).items()})
+        out.update({f"{name}, {k}": v for k, v in step_split(step, parts).items()})
     return out
 
 
@@ -2368,6 +2394,7 @@ SWEEP_CPU_REDUCTIONS = 64
 SWEEP_WIDE_REDUCTIONS = 16
 SWEEP_RTOL = 1e-3     # 9d: card vs CPU RMSE curve, relative
 LOOKUPS = 2000        # 9a: host lookups timed
+TRACE_TRIES = 3       # 9b: traces of a call, one of which must count every kernel its wrappers launched
 # each batch-1 wrapper's kernels, as the profiler names them
 KERNEL_NAMES = {"fused_dense_stack": ("dense_stack_wave", "fused_dense_stack_kernel"),
                 "lstm_recurrence": ("recurrence_chain",), "reduced_recurrence": ("reduced_chain",)}
@@ -2454,7 +2481,8 @@ def trace_path(dev, x, models: dict) -> None:
     """Phase 9b: bench.trace.summarize of one predict of the 3x512 dense,
     wide_r24_progressive and 4x30 dense models: the expected kernel leads
     the table, each batch-1 kernel's count in the trace equals its wrapper's
-    launch count, the rows add up to no more than device_ms; device_ms
+    launch count (in one of TRACE_TRIES traces of the call: the device trace
+    can lose an event), the rows add up to no more than device_ms; device_ms
     beside device_time_ms of the same call. Then the trace command on
     wide_r24_progressive in a subprocess."""
     from svd_lstm_tpu_torch.bench import trace
@@ -2467,18 +2495,23 @@ def trace_path(dev, x, models: dict) -> None:
             fn = lambda mm, xx: P.predict(mm, xx)  # noqa: E731
             fn(m, x)
             torch.cuda.synchronize()
-            before = dict(ck.LAUNCHES)
-            s = trace.summarize(fn, m, x, out_dir=os.path.join(tmp, name), top=0, warmup=0)
-            launched = {k: ck.LAUNCHES[k] - before[k] for k in KERNEL_NAMES}
+            for attempt in range(1, TRACE_TRIES + 1):
+                before = dict(ck.LAUNCHES)
+                s = trace.summarize(fn, m, x, out_dir=os.path.join(tmp, f"{name} {attempt}"), top=0, warmup=0)
+                launched = {k: ck.LAUNCHES[k] - before[k] for k in KERNEL_NAMES}
+                counted = {k: kernel_counts(s["ops"], names) for k, names in KERNEL_NAMES.items()}
+                if counted == launched:
+                    break
+                log(f"[trace] {name} predict, trace {attempt} of {TRACE_TRIES}: the trace counted "
+                    f"{counted}, the wrappers launched {launched}")
+            else:
+                fail(f"trace {name}: no trace of {TRACE_TRIES} counted the kernels the wrappers launched "
+                     f"(the last counted {counted}, launched {launched})")
             log(f"[trace] {name} predict: device_ms {s['device_ms']:.3f}, device_time_ms "
-                f"{device_time_ms(fn, m, x):.3f} (median of 5); launch counters {launched}\n"
+                f"{device_time_ms(fn, m, x):.3f} (median of 5); launch counters {launched}, trace {attempt}\n"
                 + trace.format_breakdown(s["ops"][:8], total_ms=s["device_ms"]))
             if not s["ops"] or not any(nm in s["ops"][0].name for nm in KERNEL_NAMES[lead]):
                 fail(f"trace {name}: {KERNEL_NAMES[lead]} does not lead the breakdown")
-            for k, names in KERNEL_NAMES.items():
-                if kernel_counts(s["ops"], names) != launched[k]:
-                    fail(f"trace {name}: {names} counted {kernel_counts(s['ops'], names)} times in the "
-                         f"trace, launched {launched[k]} times")
             total = sum(o.total_ms for o in s["ops"])
             if not total <= s["device_ms"] + 1e-6:  # 1 ns for the float sums of µs timestamps
                 fail(f"trace {name}: the rows add up to {total:.4f} ms, past device_ms {s['device_ms']:.4f}")
@@ -2613,6 +2646,82 @@ def bf16_variant(fn):
     return lambda *args: fn(*args, True)
 
 
+def kernel_resources(*names: str) -> dict:
+    """Registers, spilled bytes and static shared memory of each kernel of
+    the build whose mangled name holds one of ``names`` (ptxas -v in the
+    build's log; empty where the library was reused)."""
+    out, entry = {}, None
+    for line in _build.build()["log"].splitlines():
+        if "Compiling entry function" in line:
+            entry = next((nm for nm in names if nm in line), None)
+            tag = line.split("'")[1] if "'" in line else line
+        elif entry and "spill stores" in line:
+            out.setdefault(tag, {})["spilled B"] = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif entry and "Used" in line and "registers" in line:
+            r = out.setdefault(tag, {})
+            r["registers"] = int(line.split("Used")[1].split("registers")[0])
+            r["static smem B"] = int(line.split("bytes smem")[0].split(",")[-1]) if "smem" in line else 0
+    return out
+
+
+def cudnn_bf16_kernels(layers, x) -> str:
+    """What cuDNN's bf16 LSTM yardstick (library_train) runs on the card: the
+    kernels of one forward with autograd on, by name and count."""
+    from svd_lstm_tpu_torch.bench import trace
+
+    lstm = cudnn_lstm(layers, x.device, torch.bfloat16)
+    xb = x.detach().to(torch.bfloat16).requires_grad_(True)
+    with tempfile.TemporaryDirectory() as tmp, cudnn_exact(), torch.enable_grad():
+        stats = trace.op_breakdown(trace.capture_trace(lambda: lstm(xb), out_dir=tmp))
+    launches = sum(st.count for st in stats)
+    top = ", ".join(f"{st.name[:60]} x{st.count}" for st in stats[:4])
+    return f"{launches} device ops ({top})"
+
+
+def kernel_ms(fn, calls: int = 3) -> dict:
+    """The card's time in each kernel of one call of ``fn`` (ms: the mean
+    over the launches of it that torch.profiler's device trace of ``calls``
+    calls recorded, after a warm-up; the trace can drop some), and their
+    sum: the kernels alone, without the host's time to issue them that CUDA
+    events around the call would count."""
+    from svd_lstm_tpu_torch.bench import trace
+
+    with tempfile.TemporaryDirectory() as tmp:
+        stats = trace.op_breakdown(trace.capture_trace(lambda: [fn() for _ in range(calls)], out_dir=tmp))
+    out = {st.name.replace("(anonymous namespace)::", "").replace("void ", "").split("(")[0][:40]:
+           round(st.total_ms / st.count, 4) for st in stats}
+    out["sum"] = round(sum(out.values()), 4)
+    return out
+
+
+def narrow_bf16_parts(tag: str, layers, x, hs, cs, dh) -> None:
+    """K7f's or K8f's kernels by part on the card: the plan, the forward
+    alone, each kernel of the backward (narrow_z, the chain, the weight
+    gradients and their ordered sum, from one capture of whole calls), the
+    GEMMs beside their bounds; registers, spills and shared memory."""
+    T, B, d = x.shape
+    units = [U.shape[0] for _, U, _ in layers]
+    M, plan = T * B, ct.narrow_bf16_plan(units, d)
+    splits = ct.narrow_bf16_splits(units, d, M, ct.sm_count(x.device))
+    log(f"[parts] {tag}: {plan}, splits {splits}; shared memory fwd "
+        f"{ct.narrow_bf16_fwd_smem_bytes(units, d)} B, bwd chain "
+        f"{ct.narrow_bf16_bwd_smem_bytes(units, d)} B; "
+        f"{ct.narrow_bf16_fwd_layout(units, d)}, {ct.narrow_bf16_bwd_layout(units, d)}")
+    for name, r in kernel_resources("narrow_fwd_mma", "narrow_bwd_mma", "narrow_z", "narrow_wgrad").items():
+        log(f"[parts] {tag} kernel {name}: {r}")
+    log(f"[parts] {tag} fwd on the card (profiler): {kernel_ms(lambda: ct.narrow_bf16_fwd(layers, x, plan))}")
+    log(f"[parts] {tag} bwd on the card by kernel (profiler): "
+        f"{kernel_ms(lambda: ct.narrow_bf16_bwd(layers, x, hs, cs, dh, plan, splits))}")
+    macs = sum(M * (din + n) * 4 * n for din, n in zip([d] + units[:-1], units))
+    # narrow_z reads W, U, b, x and h and writes z; narrow_wgrad reads x, h
+    # and dz (z's size) and writes [dW; dU; db] (the weights' size)
+    zbytes = 4 * M * 4 * sum(units)
+    for name, moved in (("narrow_z", nbytes(layers, x, hs) + zbytes),
+                        ("narrow_wgrad", nbytes(layers, x, hs) + zbytes)):
+        r = roofline.bound(macs, moved, "bfloat16")
+        log(f"[parts] {tag} bwd {name}'s bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
 @torch.no_grad()
 def precision_kernel_checks(dev, data) -> dict:
     """Phase 10a: K7f at run A's shapes, K8f at B = 128 (4x40), K9f on run
@@ -2625,13 +2734,15 @@ def precision_kernel_checks(dev, data) -> dict:
     for tag, key, run in (("K7f", "fused_narrow_train", TRAIN_RUNS[0]),
                           ("K8f", "fused_narrow_train_compact", RECOVERY_RUNS[0])):
         fwd, bwd = getattr(ct, f"{key}_fwd"), getattr(ct, f"{key}_bwd")
-        fwd_p, bwd_p = getattr(ct, f"{key}_fwd_plain"), getattr(ct, f"{key}_bwd_plain")
+        fwd_p = timed(bf16_variant(getattr(ct, f"{key}_fwd_plain")))
+        bwd_p = timed(bf16_variant(getattr(ct, f"{key}_bwd_plain")))
+        fwd_p64, bwd_p64 = getattr(ct, f"{key}_fwd_plain"), getattr(ct, f"{key}_bwd_plain")
         x = first_batch(run, data, dev)[0].transpose(0, 1).contiguous()  # (T, B, d)
         T_, B_, d_ = x.shape
         dh = torch.tensor(rng.normal(size=(T_, B_, layers[-1][1].shape[0])), dtype=torch.float32,
                           device=dev)
-        hs_p, cs_p = fwd_p(layers, x, True)
-        hs64, cs64 = fwd_p(double(layers), x.double(), True)
+        hs_p, cs_p = fwd_p(layers, x)
+        hs64, cs64 = fwd_p64(double(layers), x.double(), True)
         hs, cs = fwd(layers, x, True)
         err = max(fast_check(f"{tag} fwd {k}{i}", a, r, r64)
                   for k, got, want, want64 in (("h", hs, hs_p, hs64), ("c", cs, cs_p, cs64))
@@ -2639,22 +2750,33 @@ def precision_kernel_checks(dev, data) -> dict:
         shape = f"4x40, B={B_}, T={T_}, d={d_}"
         macs = roofline.lstm_macs(T_, B_, [(W.shape[0], U.shape[0]) for W, U, _ in layers])
         lib_fwd, lib_bwd = library_train(layers, x, dh, torch.bfloat16)
+        f32_fwd, f32_bwd = library_train(layers, x, dh)
+        runs = f"; the bf16 forward runs {cudnn_bf16_kernels(layers, x)}" if tag == "K7f" else ""
+        log(f"[library] {tag}'s yardstick, cuDNN's LSTM at {shape}: bf16 fwd {lib_fwd:.3f} ms, bwd "
+            f"{lib_bwd:.3f} ms; float32 (TF32 off) fwd {f32_fwd:.3f}, bwd {f32_bwd:.3f}{runs}")
         results[f"{key}_fwd_fast"] = {
             "max_abs_err": err,
-            **time_pair(f"{tag} fwd", shape, bf16_variant(fwd), bf16_variant(fwd_p), layers, x,
+            **time_pair(f"{tag} fwd", shape, bf16_variant(fwd), fwd_p, layers, x,
                         library_ms=lib_fwd,
                         **roofline.bound(macs, nbytes(layers, x, hs, cs), "bfloat16")),
         }
         args = (layers, x, hs_p, cs_p, dh)
-        got, want = bwd(*args, True), bwd_p(*args, True)
-        want64 = bwd_p(double(layers), x.double(), double(hs_p), double(cs_p), dh.double(), True)
+        got, want = bwd(*args, True), bwd_p(*args)
+        want64 = bwd_p64(double(layers), x.double(), double(hs_p), double(cs_p), dh.double(), True)
         err = max(fast_check(f"{tag} bwd {k}{i}", a, r, r64)
                   for k, gs, ws, ws64 in zip(("dW", "dU", "db"), got[:3], want[:3], want64[:3])
                   for i, (a, r, r64) in enumerate(zip(gs, ws, ws64)))
         err = max(err, fast_check(f"{tag} bwd dx", got[3], want[3], want64[3]))
+        narrow_bf16_parts(tag, layers, x, hs_p, cs_p, dh)
+        launches_at_two_lengths(f"{tag} fwd", lambda steps: fwd(layers, x[:steps].contiguous(), True), T_,
+                                "narrow_bf16_fwd", "no copy", ["narrow_bf16_fwd"])
+        launches_at_two_lengths(
+            f"{tag} bwd", lambda steps: bwd(layers, x[:steps].contiguous(), [h[:steps].contiguous() for h in hs_p],
+                                            [c[:steps].contiguous() for c in cs_p], dh[:steps].contiguous(), True),
+            T_, "narrow_bf16_bwd", "no copy", ["narrow_bf16_bwd"])
         results[f"{key}_bwd_fast"] = {
             "max_abs_err": err,
-            **time_pair(f"{tag} bwd", shape, bf16_variant(bwd), bf16_variant(bwd_p), *args,
+            **time_pair(f"{tag} bwd", shape, bf16_variant(bwd), bwd_p, *args,
                         library_ms=lib_bwd,
                         **roofline.bound(3 * macs, nbytes(args, got), "bfloat16")),
         }
@@ -4177,7 +4299,7 @@ def kernel_entries(checks: dict, launches: dict) -> list:
         {
             "name": name,
             "route": "cuda",
-            "source": module.SOURCE,
+            "source": getattr(module, "SOURCES", {}).get(name, module.SOURCE),
             "replaces": module.REPLACES[name],
             "launches": launches[name],
             "max_abs_err": checks[name]["max_abs_err"],

@@ -52,15 +52,19 @@ _SIGNATURES = {
     "fused_reduced_stack_launch": [_P, _I, _P, _P, _I, _I, _I, _P],
     # meta, L, P, entries, x, out, T, d, cluster, warps, home, bf16, stream
     "reduced_stack_wave_launch": [_P, _I, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # meta, L, x, T, B, d, lanes, bf16, stream
-    "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P],
-    # meta, L, x, dh_last, dx, T, B, d, lanes, threads, bf16, stream
-    "fused_narrow_train_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # meta, L, x, T, B, d, lanes, stream
+    "fused_narrow_train_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
+    # meta, L, x, dh_last, dx, T, B, d, lanes, threads, stream
+    "fused_narrow_train_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # K8: as K7's
-    "fused_narrow_train_compact_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P],
-    "fused_narrow_train_compact_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # A, shift, dz, out, partial, M, p, G, splits, bf16, stream
-    "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "fused_narrow_train_compact_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _P],
+    "fused_narrow_train_compact_bwd_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # A, shift, dz, out, partial, M, p, G, splits, stream
+    "weight_grad_launch": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # K7f, K8f (narrow_bf16.cu). meta, L, x, T, B, d, warps, home, packed, stream
+    "narrow_bf16_fwd_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    # meta, L, x, dh_last, dx, grads, partial, zdz, T, B, d, warps, home, splits, packed, stream
+    "narrow_bf16_bwd_launch": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     # xz, Ui, h, c, T, B, stride, n, rows, units, staged, row_groups, stream
     "wide_fwd_chain_launch": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # meta (int64: see csrc wide_gemm_launch), stream
@@ -104,9 +108,13 @@ def _sources():
     return sorted(CSRC.glob("*.cu"))
 
 
+def _headers():
+    return sorted(CSRC.glob("*.cuh"))
+
+
 def _library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():  # an edited header rebuilds too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libsvdlstm_kernels_{h.hexdigest()[:16]}.so"

@@ -1,21 +1,18 @@
 // LSTM training kernels for Hopper (sm_90a), float32 on the CUDA cores; K9f's
 // and K6f's forward and backward (gemm_bf16, batched_chain, the bf16 dh
 // chain) and the batched fast-mode recurrence (K5), bf16 on the tensor cores.
+// The narrow pair's bf16 variant (K7f, K8f) has kernels of its own on the
+// tensor cores (narrow_bf16.cu: narrow_fwd_mma, narrow_z, narrow_bwd_mma,
+// narrow_wgrad); the narrow kernels here (narrow_fwd_wave, narrow_bwd_wave,
+// weight_grad) are float32 only.
 //
-// The narrow train kernels and weight_grad (narrow_fwd_wave,
-// narrow_bwd_wave, weight_grad) have a template flag BF16: their
-// bf16-operand variant (K7f, K8f), the arithmetic of the TPU kernels'
-// precision=DEFAULT dots. Each operand is rounded to bf16
-// (__float2bfloat16_rn, round to nearest even) where it enters a product:
-// the narrow kernels' weights when they are staged from W and U, the state
-// vectors and dz when they are stored into shared memory for the product;
-// the copies of the weights that a wrapper makes for a kernel
-// (ops/cuda_train.py: pack_gates) come rounded already, so a load from them
-// adds nothing to the inner loops. The product of two bf16 values is exact
-// in float32, so the sums, the cell state c, the bias, xp and the gate math
-// stay float32, and every output (h, c, dz, dx, the gradients) is float32
-// and unrounded; db sums dz unrounded, as the TPU kernels do. In these
-// kernels the products stay float32 FMAs, at about the float32 ones' speed.
+// The bf16-operand variants have the arithmetic of the TPU kernels'
+// precision=DEFAULT dots: each operand is rounded to bf16
+// (__float2bfloat16_rn, round to nearest even) where it enters a product,
+// the product of two bf16 values is exact in float32, and the sums, the cell
+// state c, the bias, xp and the gate math stay float32; every output (h, c,
+// dz, dx, the gradients) is float32 and unrounded, and db sums dz
+// unrounded, as the TPU kernels do.
 // K9f and K6f (pallas_train_wide.py:_wide_fwd / _wide_bwd,
 // pallas_train.py:_pallas_fwd_hc / _pallas_bwd, DEFAULT dots) run on the
 // tensor cores instead, with the same roundings: bf16 copies of the
@@ -104,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "lstm_cell.cuh"  // the gate arithmetic and the mma.sync / ldmatrix helpers
+
 #define MAX_LAYERS 8
 #define NARROW_ROWS 4
 #define WG_TP 64     // rows of a weight-gradient tile
@@ -113,8 +112,6 @@
 
 namespace {
 
-__device__ __forceinline__ float sigm(float v) { return 1.0f / (1.0f + expf(-v)); }
-
 // Element conversions, by the cuda_bf16.h intrinsics only (round to nearest
 // even, as torch's .bfloat16()).
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -123,48 +120,6 @@ template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
-}
-
-// An operand of a product: rounded to bf16 and back in the BF16 variants
-// (the product of two is then exact in float32), as it is otherwise.
-template <bool BF16> __device__ __forceinline__ float opnd(float v) {
-  if constexpr (BF16) {
-    return __bfloat162float(__float2bfloat16_rn(v));
-  } else {
-    return v;
-  }
-}
-template <bool BF16> __device__ __forceinline__ float4 opnd4(float4 v) {
-  return make_float4(opnd<BF16>(v.x), opnd<BF16>(v.y), opnd<BF16>(v.z), opnd<BF16>(v.w));
-}
-
-// Forward cell of one (row, unit) from its four gate pre-activations.
-__device__ __forceinline__ void gate_fwd(float zi, float zf, float zg, float zo, float c_prev,
-                                         float& h, float& c) {
-  const float i = sigm(zi);
-  const float f = sigm(zf);
-  const float g = tanhf(zg);
-  const float o = sigm(zo);
-  c = f * c_prev + i * g;
-  h = o * tanhf(c);
-}
-
-// Reverse of gate_fwd at one step (models/lstm.py: gate_update_bwd): from
-// the recomputed pre-activations and the saved cell states, with dh holding
-// every contribution into h_t, writes dz[4] and returns dc_prev.
-__device__ __forceinline__ float gate_bwd(float zi, float zf, float zg, float zo, float c_prev,
-                                          float c_t, float dh, float dc, float* dz) {
-  const float i = sigm(zi);
-  const float f = sigm(zf);
-  const float g = tanhf(zg);
-  const float o = sigm(zo);
-  const float tc = tanhf(c_t);
-  const float dct = dc + dh * o * (1.0f - tc * tc);
-  dz[0] = dct * g * i * (1.0f - i);
-  dz[1] = dct * c_prev * f * (1.0f - f);
-  dz[2] = dct * i * (1.0f - g * g);
-  dz[3] = dh * tc * o * (1.0f - o);
-  return dct * f;
 }
 
 // ---------------------------------------------------------------------------
@@ -270,7 +225,7 @@ template <int S> __device__ __forceinline__ int fwd_first_row(int l) {
   return S == 1 ? 0 : S == 2 ? 2 * l : S == 4 ? l : (l >> 1) & 3;
 }
 
-template <int S, bool kStaged, bool BF16>
+template <int S, bool kStaged>
 __global__ void __launch_bounds__(FWD_MAX_THREADS)
 narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int V) {
   extern __shared__ float4 fwd_smem[];
@@ -308,7 +263,7 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
         const int k = e / n, jj = e % n;
         const float* src = k < din ? ly.W + (size_t)k * 4 * n : ly.U + (size_t)(k - din) * 4 * n;
         fwd_smem[w_entries + e] =
-            opnd4<BF16>(make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]));
+            make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]);
       }
       w_entries += (din + n) * n;
     }
@@ -322,7 +277,7 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
     if (k >= 0 && k < d) {
       float r4[R];
 #pragma unroll
-      for (int r = 0; r < R; ++r) r4[r] = row0 + r < B ? opnd<BF16>(x[(size_t)(row0 + r) * d + k]) : 0.f;
+      for (int r = 0; r < R; ++r) r4[r] = row0 + r < B ? x[(size_t)(row0 + r) * d + k] : 0.f;
       v = make_float4(r4[0], r4[1], r4[2], r4[3]);
     }
     state[e] = v;
@@ -367,7 +322,7 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
     const int P = (s + 1) & 1, Q = s & 1;
     float xn = 0.f;
     if (stager && s + 1 < T && row0 + xr < B)
-      xn = opnd<BF16>(x[((size_t)(s + 1) * B + row0 + xr) * d + xk]);
+      xn = x[((size_t)(s + 1) * B + row0 + xr) * d + xk];
     const int t = s - li;
     if (unit && t >= 0 && t < T) {
       float v[16];
@@ -381,7 +336,7 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
         if constexpr (kStaged) {
           w = wp[kb * w_stride];
         } else {
-          w = __ldg(wp + kb * w_stride);  // the wrapper's copy, rounded in BF16
+          w = __ldg(wp + kb * w_stride);
         }
         const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
 #pragma unroll
@@ -401,7 +356,7 @@ narrow_fwd_wave(FwdArgs a, const float* __restrict__ x, int T, int B, int d, int
           gate_fwd(v[q * 4 + 0] + bias[0], v[q * 4 + 1] + bias[1], v[q * 4 + 2] + bias[2],
                    v[q * 4 + 3] + bias[3], c[q], hn, cn);
           c[q] = cn;
-          statef[(Q * V + h_off + j) * R + r] = opnd<BF16>(hn);
+          statef[(Q * V + h_off + j) * R + r] = hn;
           if (row0 + r < B) {
             const size_t o = ((size_t)t * B + row0 + r) * n + j;
             hout[o] = hn;
@@ -490,7 +445,7 @@ template <int S> __host__ __device__ constexpr int bwd_loads() {
   return S == 1 ? 5 : S == 2 ? 2 : 1;
 }
 
-template <int S, bool kStaged, bool BF16>
+template <int S, bool kStaged>
 __global__ void __launch_bounds__(BWD_MAX_THREADS)
 narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict__ dhl,
                 float* __restrict__ dx, int T, int B, int d, int V, int nsum) {
@@ -537,7 +492,7 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
         const int k = e / n, jj = e % n;
         const float* src = k < din ? ly.W + (size_t)k * 4 * n : ly.U + (size_t)(k - din) * 4 * n;
         bwd_smem[w_entries + k * ns + jj] =
-            opnd4<BF16>(make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]));
+            make_float4(src[jj], src[n + jj], src[2 * n + jj], src[3 * n + jj]);
       }
       w_entries += (din + n) * ns;
     }
@@ -595,7 +550,7 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
     if constexpr (kStaged) {
       return *p;
     } else {
-      return __ldg(p);  // the wrapper's copy, rounded in BF16
+      return __ldg(p);
     }
   };
 
@@ -650,7 +605,7 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
           }
         }
       }
-      buf[q] = opnd<BF16>(v);  // an operand of the z dot only
+      buf[q] = v;
     }
   };
   auto store_state = [&](int s, const float (&buf)[PF]) {
@@ -743,7 +698,7 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
           float gz[4];
           dc[q] = gate_bwd(v[q * 4 + 0] + bias[0], v[q * 4 + 1] + bias[1], v[q * 4 + 2] + bias[2],
                            v[q * 4 + 3] + bias[3], cp[q], ct[q], u[q] + dht[q], dc[q], gz);
-          dzs[(Q * R + r) * nsum + u_off + j] = opnd4<BF16>(make_float4(gz[0], gz[1], gz[2], gz[3]));
+          dzs[(Q * R + r) * nsum + u_off + j] = make_float4(gz[0], gz[1], gz[2], gz[3]);
           if (row < B) {
             float* out = dz_out + ((size_t)t * B + row) * 4 * n + j;
 #pragma unroll
@@ -817,10 +772,6 @@ narrow_bwd_wave(BwdArgs a, const float* __restrict__ x, const float* __restrict_
 // steps (PERF.md §6 gives each phase's time against its bound and against
 // cuBLAS on the same products).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
 // 4 bytes global -> shared, zero-filled where !pred (src is then not read)
 __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
@@ -838,33 +789,6 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// bf16 tensor-core helpers of K5 and of the bf16 dh chain (mma.sync m16n8k16)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// d += a (16 x 16, row) · b (16 x 8, col), bf16 operands, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two bf16 in one 32-bit word, lo at the lower address
-__device__ __forceinline__ uint32_t pack2(unsigned short lo, unsigned short hi) {
-  return (uint32_t)lo | ((uint32_t)hi << 16);
-}
-
-__device__ __forceinline__ unsigned short bf16_bits(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
 
 // ---------------------------------------------------------------------------
@@ -1345,7 +1269,7 @@ __global__ void __launch_bounds__(GB_THREADS, 1) gemm_bf16(const __grid_constant
 }
 
 // dst (rows_p, ld) = src (rows, cols) rounded to bf16 (to nearest even, as
-// opnd), zero past rows x cols: the operand copies of gemm_bf16 and the
+// torch's .bfloat16()), zero past rows x cols: the operand copies of gemm_bf16 and the
 // bf16 dh chain
 __global__ void bf16_copy(const float* __restrict__ src, __nv_bfloat16* __restrict__ dst, int rows,
                           int cols, int rows_p, int ld) {
@@ -2075,7 +1999,6 @@ batched_chain(const T* __restrict__ xp, const __nv_bfloat16* __restrict__ Ut, T*
 // order, and sum_splits adds the splits in order. A CTA owns a 64 x 64 tile
 // of out; a thread owns 4 x 4 entries (rows ty + 16p, columns tx + 16q).
 // ---------------------------------------------------------------------------
-template <bool BF16>
 __global__ void __launch_bounds__(WG_THREADS)
 weight_grad(const float* __restrict__ A, int shift, const float* __restrict__ dz,
             float* __restrict__ out, int M, int p, int G, int chunk) {
@@ -2103,7 +2026,7 @@ weight_grad(const float* __restrict__ A, int shift, const float* __restrict__ dz
         if (A == nullptr) {
           v = 1.f;
         } else if (m >= shift) {
-          v = opnd<BF16>(A[(size_t)(m - shift) * p + a]);
+          v = A[(size_t)(m - shift) * p + a];
         }
       }
       va[q] = v;
@@ -2113,7 +2036,7 @@ weight_grad(const float* __restrict__ A, int shift, const float* __restrict__ dz
       const int e = threadIdx.x + q * WG_THREADS;
       const int m = m0 + e / WG_TG, g = g0 + e % WG_TG;
       const float v = (m < m_end && g < G) ? dz[(size_t)m * G + g] : 0.f;
-      vd[q] = A != nullptr ? opnd<BF16>(v) : v;  // db: the unrounded sum of dz
+      vd[q] = v;
     }
   };
   load(m_begin);
@@ -2227,30 +2150,28 @@ int fwd_threads(int nsum, int d, int S) {
   return units > stagers ? units : stagers;
 }
 
-template <int S, bool kStaged, bool BF16>
+template <int S, bool kStaged>
 int launch_wave(const FwdArgs& a, const float* x, int T, int B, int d, int threads, size_t smem,
                 cudaStream_t stream) {
-  cudaError_t err = prepare_smem(narrow_fwd_wave<S, kStaged, BF16>, smem);
+  cudaError_t err = prepare_smem(narrow_fwd_wave<S, kStaged>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
-  narrow_fwd_wave<S, kStaged, BF16><<<grid, threads, smem, stream>>>(a, x, T, B, d,
-                                                                     fwd_state_entries(a, d));
+  narrow_fwd_wave<S, kStaged><<<grid, threads, smem, stream>>>(a, x, T, B, d, fwd_state_entries(a, d));
   return (int)cudaGetLastError();
 }
 
 // narrow_fwd_wave at S lanes a unit and the weights' home
-template <bool BF16>
 int switch_wave(int S, bool staged, const FwdArgs& a, const float* x, int T, int B, int d,
                 int threads, size_t smem, cudaStream_t s) {
   switch (S * 2 + (staged ? 1 : 0)) {
-    case 2: return launch_wave<1, false, BF16>(a, x, T, B, d, threads, smem, s);
-    case 3: return launch_wave<1, true, BF16>(a, x, T, B, d, threads, smem, s);
-    case 4: return launch_wave<2, false, BF16>(a, x, T, B, d, threads, smem, s);
-    case 5: return launch_wave<2, true, BF16>(a, x, T, B, d, threads, smem, s);
-    case 8: return launch_wave<4, false, BF16>(a, x, T, B, d, threads, smem, s);
-    case 9: return launch_wave<4, true, BF16>(a, x, T, B, d, threads, smem, s);
-    case 16: return launch_wave<8, false, BF16>(a, x, T, B, d, threads, smem, s);
-    default: return launch_wave<8, true, BF16>(a, x, T, B, d, threads, smem, s);
+    case 2: return launch_wave<1, false>(a, x, T, B, d, threads, smem, s);
+    case 3: return launch_wave<1, true>(a, x, T, B, d, threads, smem, s);
+    case 4: return launch_wave<2, false>(a, x, T, B, d, threads, smem, s);
+    case 5: return launch_wave<2, true>(a, x, T, B, d, threads, smem, s);
+    case 8: return launch_wave<4, false>(a, x, T, B, d, threads, smem, s);
+    case 9: return launch_wave<4, true>(a, x, T, B, d, threads, smem, s);
+    case 16: return launch_wave<8, false>(a, x, T, B, d, threads, smem, s);
+    default: return launch_wave<8, true>(a, x, T, B, d, threads, smem, s);
   }
 }
 
@@ -2291,7 +2212,7 @@ int switch_wave(int S, bool staged, const FwdArgs& a, const float* x, int T, int
 // K7 by a shape rule (ops/cuda_train.py: compact_fits).
 // ---------------------------------------------------------------------------
 int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
-                      int lanes, bool compact, int bf16, void* stream) {
+                      int lanes, bool compact, void* stream) {
   FwdArgs a;
   const int nsum = read_fwd_layers(meta, L, a);
   if (nsum < 1 || T < 1 || B < 1 || d < 1) return (int)cudaErrorInvalidValue;
@@ -2307,37 +2228,34 @@ int narrow_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, i
       sizeof(float4);
   const float* xs = (const float*)x;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? switch_wave<true>(S, staged, a, xs, T, B, d, threads, smem, s)
-              : switch_wave<false>(S, staged, a, xs, T, B, d, threads, smem, s);
+  return switch_wave(S, staged, a, xs, T, B, d, threads, smem, s);
 }
 
-template <int S, bool kStaged, bool BF16>
+template <int S, bool kStaged>
 int launch_bwd_wave(const BwdArgs& a, const float* x, const float* dhl, float* dx, int T, int B,
                     int d, int V, int nsum, int threads, size_t smem, cudaStream_t stream) {
   // the state vector's R·V floats over the loads each thread makes a step
   if (NARROW_ROWS * V > bwd_loads<S>() * threads) return (int)cudaErrorInvalidValue;
-  cudaError_t err = prepare_smem(narrow_bwd_wave<S, kStaged, BF16>, smem);
+  cudaError_t err = prepare_smem(narrow_bwd_wave<S, kStaged>, smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + NARROW_ROWS - 1) / NARROW_ROWS;
-  narrow_bwd_wave<S, kStaged, BF16><<<grid, threads, smem, stream>>>(a, x, dhl, dx, T, B, d, V,
-                                                                     nsum);
+  narrow_bwd_wave<S, kStaged><<<grid, threads, smem, stream>>>(a, x, dhl, dx, T, B, d, V, nsum);
   return (int)cudaGetLastError();
 }
 
 // narrow_bwd_wave at S lanes a unit and the weights' home (S = 1 only from
 // the global copy)
-template <bool BF16>
 int switch_bwd_wave(int S, bool staged, const BwdArgs& a, const float* x, const float* dh,
                     float* dx, int T, int B, int d, int V, int nsum, int threads, size_t smem,
                     cudaStream_t s) {
   switch (S * 2 + (staged ? 1 : 0)) {
-    case 2: return launch_bwd_wave<1, false, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
-    case 4: return launch_bwd_wave<2, false, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
-    case 5: return launch_bwd_wave<2, true, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
-    case 8: return launch_bwd_wave<4, false, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
-    case 9: return launch_bwd_wave<4, true, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
-    case 16: return launch_bwd_wave<8, false, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
-    default: return launch_bwd_wave<8, true, BF16>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 2: return launch_bwd_wave<1, false>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 4: return launch_bwd_wave<2, false>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 5: return launch_bwd_wave<2, true>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 8: return launch_bwd_wave<4, false>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 9: return launch_bwd_wave<4, true>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    case 16: return launch_bwd_wave<8, false>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
+    default: return launch_bwd_wave<8, true>(a, x, dh, dx, T, B, d, V, nsum, threads, smem, s);
   }
 }
 
@@ -2375,7 +2293,7 @@ int switch_bwd_wave(int S, bool staged, const BwdArgs& a, const float* x, const 
 // group for each of the d dx units within the block.
 // ---------------------------------------------------------------------------
 int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl, void* dx, int T,
-                      int B, int d, int lanes, int threads, int bf16, void* stream) {
+                      int B, int d, int lanes, int threads, void* stream) {
   BwdArgs a;
   const int nsum = read_bwd_layers(meta, L, a);
   if (nsum < 1 || T < 1 || B < 1 || d < 1) return (int)cudaErrorInvalidValue;
@@ -2395,8 +2313,7 @@ int narrow_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl
   const float* dh = (const float*)dhl;
   float* out = (float*)dx;
   cudaStream_t s = (cudaStream_t)stream;
-  return bf16 ? switch_bwd_wave<true>(S, staged, a, xs, dh, out, T, B, d, V, nsum, threads, smem, s)
-              : switch_bwd_wave<false>(S, staged, a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
+  return switch_bwd_wave(S, staged, a, xs, dh, out, T, B, d, V, nsum, threads, smem, s);
 }
 
 template <int BM, int BN, bool kAT, bool kBT>
@@ -2595,8 +2512,8 @@ extern "C" {
 // lanes: S, 1, 2, 4 or 8 (the wrapper's rule, ops/cuda_train.py:
 // narrow_fwd_lanes), checked here against the 1024-thread block.
 int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B, int d,
-                                  int lanes, int bf16, void* stream) {
-  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, false, bf16, stream);
+                                  int lanes, void* stream) {
+  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, false, stream);
 }
 
 // K7. meta: L rows of 9 int64 — din, n, W, U, b, P: the gate-interleaved
@@ -2605,37 +2522,35 @@ int fused_narrow_train_fwd_launch(const int64_t* meta, int L, const void* x, int
 // weight_grad. lanes and threads: the wrapper's rule (ops/cuda_train.py:
 // narrow_bwd_lanes, narrow_bwd_threads), checked here.
 int fused_narrow_train_bwd_launch(const int64_t* meta, int L, const void* x, const void* dhl,
-                                  void* dx, int T, int B, int d, int lanes, int threads, int bf16,
+                                  void* dx, int T, int B, int d, int lanes, int threads,
                                   void* stream) {
-  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, bf16, stream);
+  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, stream);
 }
 
 // K8, the forward: meta and lanes as K7's, P 0 (the weights are always
 // staged).
 int fused_narrow_train_compact_fwd_launch(const int64_t* meta, int L, const void* x, int T, int B,
-                                          int d, int lanes, int bf16, void* stream) {
-  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, true, bf16, stream);
+                                          int d, int lanes, void* stream) {
+  return narrow_fwd_launch(meta, L, x, T, B, d, lanes, true, stream);
 }
 
 // K8, the backward: as K7's (the same kernel).
 int fused_narrow_train_compact_bwd_launch(const int64_t* meta, int L, const void* x,
                                           const void* dhl, void* dx, int T, int B, int d,
-                                          int lanes, int threads, int bf16, void* stream) {
-  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, bf16, stream);
+                                          int lanes, int threads, void* stream) {
+  return narrow_bwd_launch(meta, L, x, dhl, dx, T, B, d, lanes, threads, stream);
 }
 
 // out (p, G) = Σ_m a_m ⊗ dz_m (see weight_grad); partial holds
-// splits·p·G floats when splits > 1 and may be null otherwise. bf16: the
-// operands rounded (not dz where A is null: db).
+// splits·p·G floats when splits > 1 and may be null otherwise.
 int weight_grad_launch(const void* A, int shift, const void* dz, void* out, void* partial, int M,
-                       int p, int G, int splits, int bf16, void* stream) {
+                       int p, int G, int splits, void* stream) {
   if (splits < 1 || (splits > 1 && partial == nullptr)) return (int)cudaErrorInvalidValue;
   const int chunk = ((M + splits - 1) / splits + WG_KM - 1) / WG_KM * WG_KM;
   const dim3 grid((G + WG_TG - 1) / WG_TG, (p + WG_TP - 1) / WG_TP, splits);
   float* dst = splits > 1 ? (float*)partial : (float*)out;
-  const auto kernel = bf16 ? weight_grad<true> : weight_grad<false>;
-  kernel<<<grid, WG_THREADS, 0, (cudaStream_t)stream>>>((const float*)A, shift, (const float*)dz,
-                                                        dst, M, p, G, chunk);
+  weight_grad<<<grid, WG_THREADS, 0, (cudaStream_t)stream>>>((const float*)A, shift, (const float*)dz,
+                                                             dst, M, p, G, chunk);
   if (splits > 1) {
     const int size = p * G;
     const int blocks = (size + 255) / 256 < 1024 ? (size + 255) / 256 : 1024;

@@ -43,10 +43,10 @@ K8f, K9f, K6f): each operand of an in-kernel product rounded to bf16
 (round to nearest even) where it enters the product, the products exact,
 the sums, the state c, the bias, xp and the gate math float32, every output
 float32 and unrounded; db is the unrounded sum of dz, as the JAX kernels
-take it. The narrow kernels round where an operand enters a product
-(``csrc/lstm_train.cu``, template flag ``BF16``), and the copies of the
-weights a wrapper makes for them (:func:`pack_gates`) are rounded once by
-the wrapper; K9f and K6f take bf16 copies of their operands (x and W by
+take it. K7f and K8f run kernels of their own on the tensor cores
+(``csrc/narrow_bf16.cu``: :func:`narrow_bf16_fwd`, :func:`narrow_bf16_bwd`,
+planned by :func:`narrow_bf16_plan`), which round each operand where it
+enters a product; K9f and K6f take bf16 copies of their operands (x and W by
 :func:`bf16_copy`, U as bf16(U)ᵀ for the forward chain, :func:`bf16_operands`
 for the backward; the forward chain stores each h_t's bf16 copy for the
 next step) and run on the tensor cores; the plain versions round with
@@ -67,12 +67,14 @@ fails; there is no fallback from the card to the plain version.
 ``LAUNCHES`` counts the launches of each kernel variant (``REPLACES``'
 keys: the wrapper's name, with ``_fast`` for its bf16-operand variant); a
 wrapper adds one where it launches its kernel. The kernels compute on the
-CUDA cores, but for K9f and K6f, forward and backward (``gemm_bf16`` on
-``wgmma``, the chains' products on ``mma.sync``).
+CUDA cores, but for the bf16-operand variants: K9f and K6f (``gemm_bf16``
+on ``wgmma``, the chains' products on ``mma.sync``) and K7f and K8f (every
+product on ``mma.sync``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import List, NamedTuple, Sequence, Tuple
 
@@ -105,6 +107,12 @@ REPLACES = {
 # the bf16-operand variants replace the same TPU kernels (whose dots are
 # DEFAULT, i.e. bf16-pass, on the TPU)
 REPLACES.update({f"{name}_fast": where for name, where in list(REPLACES.items())})
+# the source of each kernel variant: lstm_train.cu, but K7f's and K8f's own
+# tensor-core kernels
+SOURCES = dict.fromkeys(REPLACES, SOURCE)
+SOURCES.update(dict.fromkeys(
+    [f"fused_narrow_train{k}_{d}_fast" for k in ("", "_compact") for d in ("fwd", "bwd")],
+    "svd_lstm_tpu_torch/ops/csrc/narrow_bf16.cu"))
 LAUNCHES = dict.fromkeys(REPLACES, 0)  # launches of each kernel variant so far
 NARROW_MAX = 128      # largest layer width and input width of K7
 MAX_LAYERS = 8        # csrc MAX_LAYERS
@@ -296,27 +304,26 @@ def _splits(M: int, p: int, G: int) -> int:
     return max(1, min(math.ceil(M / 256), math.ceil(2 * _SM_COUNT / tiles)))
 
 
-def _weight_grad(A: torch.Tensor | None, shift: int, dz: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+def _weight_grad(A: torch.Tensor | None, shift: int, dz: torch.Tensor) -> torch.Tensor:
     """Σ_m a_m ⊗ dz_m over the rows of dz (M, G): a_m = A[m - shift] (zero
-    for m < shift), or 1 when A is None (then the result is (G,)). ``bf16``:
-    a_m and dz_m rounded, except for the sum of dz (A None)."""
+    for m < shift), or 1 when A is None (then the result is (G,))."""
     M, G = dz.shape
     p = 1 if A is None else A.shape[1]
     S = _splits(M, p, G)
     out = torch.empty((p, G), dtype=torch.float32, device=dz.device)
     partial = torch.empty((S, p, G), dtype=torch.float32, device=dz.device) if S > 1 else None
     _launch("weight_grad", dz.device, _ptr(A), shift, dz.data_ptr(), out.data_ptr(),
-            _ptr(partial), M, p, G, S, int(bf16))
+            _ptr(partial), M, p, G, S)
     return out[0] if A is None else out
 
 
-def _layer_weight_grads(inp, h, dz, bf16: bool = False):
-    """dW = Σ inpᵀ·dz, dU = Σ h_prevᵀ·dz, db = Σ dz for one layer."""
+def _layer_weight_grads(inp, h, dz):
+    """dW = Σ inpᵀ·dz, dU = Σ h_prevᵀ·dz, db = Σ dz for one layer (K7, K8)."""
     T, B, G = dz.shape
     dz2 = dz.view(T * B, G)
     return (
-        _weight_grad(inp.view(T * B, -1), 0, dz2, bf16),
-        _weight_grad(h.view(T * B, -1), B, dz2, bf16),
+        _weight_grad(inp.view(T * B, -1), 0, dz2),
+        _weight_grad(h.view(T * B, -1), B, dz2),
         _weight_grad(None, 0, dz2),
     )
 
@@ -461,8 +468,8 @@ def _check_compact(name: str, units: List[int], d: int) -> None:
 
 def _narrow_fwd(wrapper, plain, layers: Sequence[Layer], x: torch.Tensor, bf16: bool):
     """The checks and the launch of K7's (``fused_narrow_train_fwd``) or
-    K8's (``fused_narrow_train_compact_fwd``) forward; ``plain`` runs CPU
-    tensors."""
+    K8's (``fused_narrow_train_compact_fwd``) forward, K7f's or K8f's with
+    ``bf16`` (:func:`narrow_bf16_fwd`); ``plain`` runs CPU tensors."""
     name = wrapper.__name__
     resident = wrapper is fused_narrow_train_compact_fwd
     T, B, d = x.shape
@@ -473,20 +480,22 @@ def _narrow_fwd(wrapper, plain, layers: Sequence[Layer], x: torch.Tensor, bf16: 
         _check_compact(name, units, d)
     if not _card([x, *(w for l in layers for w in l)]):
         return plain(layers, x, bf16)
-    # K8 always stages its weights: a stack compact_fits admits fits staged
-    # (tests/test_torch_narrow_fwd.py)
-    staged = resident or narrow_fwd_smem_bytes(units, d, True) <= _SMEM_LIMIT
-    hs, cs = _launch_narrow_fwd(name, layers, x, narrow_fwd_lanes(units, d), staged, bf16)
+    if bf16:
+        hs, cs = narrow_bf16_fwd(layers, x, narrow_bf16_plan(units, d))
+    else:
+        # K8 always stages its weights: a stack compact_fits admits fits staged
+        # (tests/test_torch_narrow_fwd.py)
+        staged = resident or narrow_fwd_smem_bytes(units, d, True) <= _SMEM_LIMIT
+        hs, cs = _launch_narrow_fwd(name, layers, x, narrow_fwd_lanes(units, d), staged)
     _count(name, bf16)
     return hs, cs
 
 
 def _launch_narrow_fwd(name: str, layers: Sequence[Layer], x: torch.Tensor, lanes: int,
-                       staged: bool, bf16: bool = False):
-    """One launch of the narrow forward ``name`` (K7's or K8's launcher) on
-    checked card tensors, at ``lanes`` a unit, the weights staged in shared
-    memory (the bf16 variant rounds them as it stages them) or read from
-    :func:`pack_gates`' copy (rounded here for the bf16 variant)."""
+                       staged: bool):
+    """One launch of the float32 narrow forward ``name`` (K7's or K8's
+    launcher) on checked card tensors, at ``lanes`` a unit, the weights
+    staged in shared memory or read from :func:`pack_gates`' copy."""
     T, B, d = x.shape
     units = [U.shape[0] for _, U, _ in layers]
     if lanes not in (1, 2, 4, 8) or narrow_fwd_threads(units, d, lanes) > FWD_MAX_THREADS:
@@ -494,20 +503,20 @@ def _launch_narrow_fwd(name: str, layers: Sequence[Layer], x: torch.Tensor, lane
     _check_smem(name, narrow_fwd_smem_bytes(units, d, staged) // 4)
     hs = [torch.empty((T, B, n), dtype=torch.float32, device=x.device) for n in units]
     cs = [torch.empty_like(h) for h in hs]
-    op = operand_map(bf16)
-    packed = [None if staged else op(pack_gates(W, U)) for W, U, _ in layers]
+    packed = [None if staged else pack_gates(W, U) for W, U, _ in layers]
     meta = np.array(
         [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), h.data_ptr(),
           c.data_ptr(), _ptr(P) or 0] for (W, U, b), h, c, P in zip(layers, hs, cs, packed)],
         dtype=np.int64,
     )
-    _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d, lanes, int(bf16))
+    _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d, lanes)
     return hs, cs
 
 
 def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last, bf16: bool):
     """The checks and the launches of K7's or K8's backward (the reverse-time
-    kernel, then ``weight_grad`` per layer); ``plain`` runs CPU tensors."""
+    kernel, then ``weight_grad`` per layer), K7f's or K8f's with ``bf16``
+    (:func:`narrow_bf16_bwd`: one call); ``plain`` runs CPU tensors."""
     name = wrapper.__name__
     T, B, d = x.shape
     _check_T(name, T)
@@ -523,9 +532,14 @@ def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last, bf1
     _check("dh_last", dh_last, (T, B, units[-1]))
     if not _card([x, dh_last, *hs, *cs, *(w for l in layers for w in l)]):
         return plain(layers, x, hs, cs, dh_last, bf16)
+    if bf16:
+        grads = narrow_bf16_bwd(layers, x, hs, cs, dh_last, narrow_bf16_plan(units, d),
+                                narrow_bf16_splits(units, d, T * B, sm_count(x.device)))
+        _count(name, bf16)
+        return grads
     dx, dzs = _launch_narrow_bwd(name, layers, x, hs, cs, dh_last, narrow_bwd_lanes(units, d),
-                                 narrow_bwd_staged(units, d), bf16)
-    grads = [_layer_weight_grads(x if i == 0 else hs[i - 1], hs[i], dzs[i], bf16)
+                                 narrow_bwd_staged(units, d))
+    grads = [_layer_weight_grads(x if i == 0 else hs[i - 1], hs[i], dzs[i])
              for i in range(len(layers))]
     _count(name, bf16)
     dWs, dUs, dbs = (list(g) for g in zip(*grads))
@@ -533,11 +547,11 @@ def _narrow_bwd(wrapper, plain, layers: Sequence[Layer], x, hs, cs, dh_last, bf1
 
 
 def _launch_narrow_bwd(name: str, layers: Sequence[Layer], x, hs, cs, dh_last, lanes: int,
-                       staged: bool, bf16: bool = False):
-    """One launch of the narrow backward ``name`` (K7's or K8's launcher) on
-    checked card tensors, at ``lanes`` a unit, the weights staged in shared
-    memory or read from :func:`pack_gates`' copy (rounded here for the bf16
-    variant). Returns dx (T, B, d) and every layer's dz (T, B, 4n)."""
+                       staged: bool):
+    """One launch of the float32 narrow backward ``name`` (K7's or K8's
+    launcher) on checked card tensors, at ``lanes`` a unit, the weights
+    staged in shared memory or read from :func:`pack_gates`' copy. Returns
+    dx (T, B, d) and every layer's dz (T, B, 4n)."""
     T, B, d = x.shape
     units = [U.shape[0] for _, U, _ in layers]
     if not narrow_bwd_fits(units, d, lanes, staged):
@@ -546,8 +560,7 @@ def _launch_narrow_bwd(name: str, layers: Sequence[Layer], x, hs, cs, dh_last, l
     _check_smem(name, narrow_bwd_smem_bytes(units, d, staged) // 4)
     dx = torch.empty((T, B, d), dtype=torch.float32, device=x.device)
     dzs = [torch.empty((T, B, 4 * n), dtype=torch.float32, device=x.device) for n in units]
-    op = operand_map(bf16)
-    packed = [None if staged else op(pack_gates(W, U)) for W, U, _ in layers]
+    packed = [None if staged else pack_gates(W, U) for W, U, _ in layers]
     meta = np.array(
         [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), _ptr(P) or 0,
           h.data_ptr(), c.data_ptr(), dz.data_ptr()]
@@ -555,8 +568,227 @@ def _launch_narrow_bwd(name: str, layers: Sequence[Layer], x, hs, cs, dh_last, l
         dtype=np.int64,
     )
     _launch(name, x.device, meta.ctypes.data, len(layers), x.data_ptr(), dh_last.data_ptr(),
-            dx.data_ptr(), T, B, d, lanes, narrow_bwd_threads(units, d, lanes), int(bf16))
+            dx.data_ptr(), T, B, d, lanes, narrow_bwd_threads(units, d, lanes))
     return dx, dzs
+
+
+# ---------------------------------------------------------------------------
+# K7f and K8f: the narrow pair on the tensor cores (csrc narrow_bf16.cu)
+# ---------------------------------------------------------------------------
+
+NB_ROWS = 2            # csrc NB_ROWS: batch rows a CTA (mma m16n8k16's n = 8 holds them four times)
+NB_HOMES = ("registers", "global")  # csrc: home 0, 1
+NB_FRAG_BYTES = 512    # one fragment: a 16-byte load for each of 32 lanes
+NBF_REG_WARPS = 12     # csrc NBF_REG_THREADS / 32
+NBF_REG_KT = 6         # csrc NBF_REG_KT
+NBF_MEM_WARPS = 32     # csrc NBF_MEM_THREADS / 32
+NBF_IPW = 2            # csrc NBF_IPW
+NBF_XPT = 4            # csrc NBF_XPT
+NBB_REG_WARPS = 13     # csrc NBB_REG_THREADS / 32
+NBB_REG_KT = 20        # csrc NBB_REG_KT
+NBB_MEM_WARPS = 16     # csrc NBB_MEM_THREADS / 32
+NBB_IPW = 5            # csrc NBB_IPW
+NBG_TP, NBG_TG = 128, 64  # csrc NBG_TP, NBG_TG: a narrow_wgrad CTA's rows of [W; U] x columns
+NBG_KM = 32            # csrc NBG_KM
+NBG_MAX_SPLITS = 64
+
+
+class NarrowLayout(NamedTuple):
+    """One direction's work in csrc narrow_bf16.cu: ``items`` (forward: a
+    layer's groups of 8 units; backward: a layer's or dx's m-tiles of 16
+    rows), ``frags`` (512 bytes each: one item's (m-tile, k-tile) for the 32
+    lanes), the most k-tiles of 16 an item runs, and the bf16 row stride of
+    the shared vector (the forward's state [x | h_0 | ...], the backward's
+    dz [dz_0 | ...])."""
+
+    items: int
+    frags: int
+    ktmax: int
+    stride: int
+
+
+def _bf16_row_stride(total: int) -> int:
+    """csrc row_stride: at least ``total`` + 16 bf16 (a k-tile read past the
+    end), 16 bytes past a multiple of 128 bytes."""
+    return (total + 16 - 8 + 63) // 64 * 64 + 8
+
+
+def narrow_bf16_fwd_layout(units: Sequence[int], d: int) -> NarrowLayout:
+    """The forward's items, fragments, k-tiles and state stride (csrc
+    narrow_bf16_fwd_launch): layer i's K is its input's segment and its own,
+    each padded to 8, in k-tiles of 16; an item a pair of groups of 8 units,
+    four m-tiles."""
+    return _fwd_layout(tuple(units), d)
+
+
+@functools.lru_cache(maxsize=256)  # a train step asks for its stack's every call
+def _fwd_layout(units: Tuple[int, ...], d: int) -> NarrowLayout:
+    items = frags = ktmax = 0
+    din, state = d, _round_up(d, 8)
+    for n in units:
+        kt = -(-(_round_up(din, 8) + _round_up(n, 8)) // 16)
+        pairs = -(-n // 16)
+        items += pairs
+        frags += pairs * 4 * kt
+        ktmax = max(ktmax, kt)
+        state += _round_up(n, 8)
+        din = n
+    return NarrowLayout(items, frags, ktmax, _bf16_row_stride(state))
+
+
+def narrow_bf16_bwd_layout(units: Sequence[int], d: int) -> NarrowLayout:
+    """The backward chain's items, fragments, k-tiles and dz stride (csrc
+    narrow_bf16_bwd_launch): layer i's K is its dz segment (4n, padded to 8)
+    and the layer above's; dx's is layer 0's; m-tiles of 16 units (or of
+    dx's d)."""
+    return _bwd_layout(tuple(units), d)
+
+
+@functools.lru_cache(maxsize=256)
+def _bwd_layout(units: Tuple[int, ...], d: int) -> NarrowLayout:
+    segs = [_round_up(4 * n, 8) for n in units]
+    items = frags = ktmax = 0
+    for i, n in enumerate(units):
+        kt = -(-(segs[i] + (segs[i + 1] if i + 1 < len(units) else 0)) // 16)
+        mts = -(-n // 16)
+        items, frags, ktmax = items + mts, frags + mts * kt, max(ktmax, kt)
+    kt, mts = -(-segs[0] // 16), -(-d // 16)
+    items, frags, ktmax = items + mts, frags + mts * kt, max(ktmax, kt)
+    return NarrowLayout(items, frags, ktmax, _bf16_row_stride(sum(segs)))
+
+
+def narrow_bf16_fwd_smem_bytes(units: Sequence[int], d: int) -> int:
+    """Shared memory of narrow_fwd_mma: two parities of the bf16 state,
+    NB_ROWS rows."""
+    return 2 * NB_ROWS * narrow_bf16_fwd_layout(units, d).stride * 2
+
+
+def narrow_bf16_bwd_smem_bytes(units: Sequence[int], d: int) -> int:
+    """Shared memory of narrow_bwd_mma: two parities of the bf16 dz vector,
+    NB_ROWS rows."""
+    return 2 * NB_ROWS * narrow_bf16_bwd_layout(units, d).stride * 2
+
+
+class NarrowBf16Plan(NamedTuple):
+    """K7f's and K8f's launches (csrc narrow_bf16_fwd_launch and
+    narrow_bf16_bwd_launch check them): each direction's warps a CTA (one
+    CTA a block of NB_ROWS batch rows) and weight home (NB_HOMES)."""
+
+    fwd_warps: int
+    fwd_home: str
+    bwd_warps: int
+    bwd_home: str
+
+
+def narrow_bf16_plan(units: Sequence[int], d: int) -> NarrowBf16Plan:
+    """The warps and weight homes of K7f and K8f for a stack K7 admits: the
+    fragments in registers where every item has a warp of its own and few
+    k-tiles (forward: at most NBF_REG_WARPS pairs of groups and NBF_REG_KT
+    k-tiles a layer; backward: NBB_REG_WARPS m-tiles, NBB_REG_KT k-tiles), else as many
+    warps as items up to the global home's block, the fragments read from
+    a global copy (staged in shared memory they were no faster on the card,
+    PERF.md §6). The forward has at least enough warps to stage x_t
+    (NBF_XPT entries a thread)."""
+    return _plan(tuple(units), d)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(units: Tuple[int, ...], d: int) -> NarrowBf16Plan:
+    fl, bl = narrow_bf16_fwd_layout(units, d), narrow_bf16_bwd_layout(units, d)
+    x_warps = -(-NB_ROWS * d // (32 * NBF_XPT))
+    if fl.items <= NBF_REG_WARPS and fl.ktmax <= NBF_REG_KT:
+        fwd = (max(fl.items, x_warps), "registers")
+    else:
+        fwd = (min(NBF_MEM_WARPS, max(fl.items, x_warps)), "global")
+    if bl.items <= NBB_REG_WARPS and bl.ktmax <= NBB_REG_KT:
+        bwd = (bl.items, "registers")
+    else:
+        bwd = (min(NBB_MEM_WARPS, bl.items), "global")
+    return NarrowBf16Plan(*fwd, *bwd)
+
+
+def narrow_bf16_splits(units: Sequence[int], d: int, M: int, sm_count: int) -> int:
+    """Splits of narrow_wgrad's sum over the M = T·B rows: about eight of
+    its CTAs an SM, so enough loads are in flight to stream dz (the sum
+    reads its rows and little else), each split at least 128 rows, at most
+    NBG_MAX_SPLITS."""
+    tiles, din = 0, d
+    for n in units:
+        tiles += -(-4 * n // NBG_TG) * -(-(din + n) // NBG_TP)
+        din = n
+    return max(1, min(NBG_MAX_SPLITS, -(-M // 128), -(-8 * sm_count // tiles)))
+
+
+def narrow_bf16_grad_floats(units: Sequence[int], d: int) -> List[int]:
+    """Floats of each layer's [dW; dU; db] block ((din + n + 1) x 4n) in
+    narrow_wgrad's output."""
+    sizes, din = [], d
+    for n in units:
+        sizes.append((din + n + 1) * 4 * n)
+        din = n
+    return sizes
+
+
+def _frag_copy(frags: int, home: str, device) -> torch.Tensor | None:
+    """The global home's fragment copy, made by the launcher (nb_pack_*)."""
+    if home != "global":
+        return None
+    return torch.empty(frags * NB_FRAG_BYTES, dtype=torch.uint8, device=device)
+
+
+def narrow_bf16_fwd(layers: Sequence[Layer], x: torch.Tensor, plan: NarrowBf16Plan):
+    """K7f's and K8f's forward on checked card tensors: one launch of csrc
+    narrow_fwd_mma (after nb_pack_fwd for the global home) as ``plan``
+    says. Returns hs, cs (T, B, n) a layer."""
+    T, B, d = x.shape
+    units = [U.shape[0] for _, U, _ in layers]
+    _check_smem("narrow_fwd_mma", narrow_bf16_fwd_smem_bytes(units, d) // 4)
+    hs = [torch.empty((T, B, n), dtype=torch.float32, device=x.device) for n in units]
+    cs = [torch.empty_like(h) for h in hs]
+    packed = _frag_copy(narrow_bf16_fwd_layout(units, d).frags, plan.fwd_home, x.device)
+    meta = np.array(
+        [[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(), h.data_ptr(),
+          c.data_ptr()] for (W, U, b), h, c in zip(layers, hs, cs)],
+        dtype=np.int64,
+    )
+    _launch("narrow_bf16_fwd", x.device, meta.ctypes.data, len(layers), x.data_ptr(), T, B, d,
+            plan.fwd_warps, NB_HOMES.index(plan.fwd_home), _ptr(packed))
+    return hs, cs
+
+
+def narrow_bf16_bwd(layers: Sequence[Layer], x, hs, cs, dh_last, plan: NarrowBf16Plan,
+                    splits: int):
+    """K7f's and K8f's backward on checked card tensors: one call of csrc
+    narrow_bf16_bwd_launch, which launches narrow_z (z of every layer over
+    all T·B rows into one scratch buffer, dz over it later), the dh chain
+    narrow_bwd_mma (after nb_pack_bwd for the global home), narrow_wgrad
+    (dW, dU, db of every layer, split ``splits`` ways over the rows, into
+    one buffer of [dW; dU; db] blocks) and the ordered sum of the splits.
+    Returns (dWs, dUs, dbs, dx): views of that buffer, and dx."""
+    T, B, d = x.shape
+    units = [U.shape[0] for _, U, _ in layers]
+    _check_smem("narrow_bwd_mma", narrow_bf16_bwd_smem_bytes(units, d) // 4)
+    sizes = narrow_bf16_grad_floats(units, d)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    zdz = torch.empty(T * B * 4 * sum(units), **f32)
+    grads = torch.empty(sum(sizes), **f32)
+    partial = torch.empty(splits * sum(sizes), **f32) if splits > 1 else None
+    dx = torch.empty((T, B, d), **f32)
+    packed = _frag_copy(narrow_bf16_bwd_layout(units, d).frags, plan.bwd_home, x.device)
+    meta = np.array([[W.shape[0], U.shape[0], W.data_ptr(), U.data_ptr(), b.data_ptr(),
+                      h.data_ptr(), c.data_ptr()] for (W, U, b), h, c in zip(layers, hs, cs)],
+                    dtype=np.int64)
+    _launch("narrow_bf16_bwd", x.device, meta.ctypes.data, len(layers), x.data_ptr(),
+            dh_last.data_ptr(), dx.data_ptr(), grads.data_ptr(), _ptr(partial), zdz.data_ptr(), T, B,
+            d, plan.bwd_warps, NB_HOMES.index(plan.bwd_home), splits, _ptr(packed))
+    dWs, dUs, dbs, off, din = [], [], [], 0, d
+    for n, size in zip(units, sizes):
+        block = grads[off : off + size].view(din + n + 1, 4 * n)
+        dWs.append(block[:din])
+        dUs.append(block[din : din + n])
+        dbs.append(block[din + n])
+        off, din = off + size, n
+    return dWs, dUs, dbs, dx
 
 
 def fused_narrow_train_fwd(layers: Sequence[Layer], x: torch.Tensor, bf16: bool = False):

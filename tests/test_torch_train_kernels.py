@@ -649,11 +649,15 @@ def _double(tensors):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("units,d,B,T,compact", [
-    # run A's stack (S = 4, staged), K8f's route at B = 128, the global copy
-    # (4x100, 128+30 with d = 128), S = 8 staged, one layer, B % 4 != 0
+    # run A's stack and K8f's route at B = 128 (the weights in registers both
+    # ways), the global copy (4x100, 128+30 with d = 128, 8x128, 2x64; 8x17
+    # with d = 128, B < 8), three and one layers, B % 8 != 0, widths not a
+    # multiple of 16 (4x30, 2x15 with d = 15, 4x20), T < L
     ((40, 40, 40, 40), 16, 32, 20, False), ((40, 40, 40, 40), 16, 128, 12, True),
     ((100,) * 4, 16, 5, 6, False), ((128, 30), 128, 6, 10, False), ((8, 12, 5), 16, 8, 20, False),
     ((24,), 16, 7, 9, False), ((30, 30, 30, 30), 16, 130, 8, True),
+    ((64, 64), 16, 9, 7, False), ((17,) * 8, 128, 3, 5, False), ((15, 15), 15, 11, 6, False),
+    ((20, 20, 20, 20), 16, 1, 2, False), ((128,) * 8, 128, 4, 3, False),
 ])
 def test_cuda_fused_narrow_fast_matches_plain(cuda, units, d, B, T, compact, monkeypatch):
     fwd = ct.fused_narrow_train_compact_fwd if compact else ct.fused_narrow_train_fwd

@@ -433,8 +433,8 @@ def _fake_launch(name, device, *args):
             total = total + parts[s]
         _view(out, size, ctypes.c_float)[:] = total
     elif name == "weight_grad":  # db: the sum of dz over its rows
-        A, shift, dz, out, partial, M, p, G, splits, bf16 = args
-        assert A is None and p == 1 and bf16 == 0
+        A, shift, dz, out, partial, M, p, G, splits = args
+        assert A is None and p == 1
         _view(out, G, ctypes.c_float)[:] = _view(dz, M * G, ctypes.c_float).reshape(M, G).sum(0)
     else:
         raise AssertionError(f"unexpected launch {name}")
